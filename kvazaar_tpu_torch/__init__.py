@@ -1,11 +1,14 @@
-"""kvazaar_tpu_torch — the all-intra HEVC encode path in PyTorch + CUDA.
+"""kvazaar_tpu_torch — the fixed-grid HEVC encode paths in PyTorch + CUDA.
 
-A port of the fixed-grid all-intra slice of ``kvazaar_tpu`` (the JAX
-reference package, kept beside this one): intra mode search, the
-wavefront reconstruction (a hand-written CUDA kernel on the card,
+A port of the fixed-grid all-intra and low-delay P slices of
+``kvazaar_tpu`` (the JAX reference package, kept beside this one):
+intra mode search, motion search and compensation, the wavefront
+reconstruction (a hand-written CUDA kernel on the card,
 ``csrc/wavefront.cu``), deblocking and per-frame SSE run as tensor code
-on the encoder's device; CABAC and the NAL framing run on the host
-through the reference package's jax-free bitstream modules.
+on the encoder's device; CABAC and the NAL framing run on the host.
+The host modules (config, constants, bitstream writers, YUV I/O) are
+the port's own copies of the reference package's jax-free modules: the
+port imports nothing of ``kvazaar_tpu``.
 
 Every module keeps the name and place of its counterpart in
 ``kvazaar_tpu``.  The device is always an explicit argument
@@ -27,6 +30,4 @@ def require_cuda():
     return torch.device("cuda", 0)
 
 
-# The configuration object is shared with the JAX package, used as is
-# (kvazaar_tpu.config imports no jax).
-from kvazaar_tpu.config import Config  # noqa: E402,F401
+from kvazaar_tpu_torch.config import Config  # noqa: E402,F401

@@ -1,10 +1,12 @@
 """Public encoder API of the port (counterpart of kvazaar_tpu/api.py).
 
-Covers all-intra streams (``intra_period == 1``) on the fixed CU grid:
-``encode``/``flush`` per frame, and the pipelined ``encode_stream`` in
-which device compute of one batch overlaps the downloads and host CABAC
-of the previous ones.  Every other structure raises
-NotImplementedError: P/B frames, GOPs, rate control, ROI/AQ, field
+Covers all-intra streams (``intra_period == 1``) and low-delay IPPP
+streams with one reference (``intra_period == 0``: one IDR, then P
+frames; ``intra_period > 1``: an IDR every N frames) on the fixed CU
+grid: ``encode``/``flush`` per frame, and the pipelined
+``encode_stream`` in which device compute overlaps the downloads and
+host CABAC of earlier frames.  Every other structure raises
+NotImplementedError: B frames and GOPs, rate control, ROI/AQ, field
 pictures, selective encryption, variable CU trees, SAO.
 """
 
@@ -18,14 +20,15 @@ import time
 
 import numpy as np
 
-from kvazaar_tpu.checkpoint import Checkpointer
-from kvazaar_tpu.config import Config
-from kvazaar_tpu.constants import NAL_IDR_W_RADL, SLICE_I
+from kvazaar_tpu_torch.checkpoint import Checkpointer
+from kvazaar_tpu_torch.config import Config
+from kvazaar_tpu_torch.constants import NAL_IDR_W_RADL, NAL_TRAIL_R, \
+    SLICE_I, SLICE_P
 from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder, psnr
 
 
-# Frames per device program in encode_stream (the JAX package's
-# all-intra batch).
+# Frames per device program in encode_stream on all-intra streams (the
+# JAX package's batch); IPPP streams submit one frame at a time.
 BATCH = 8
 
 
@@ -46,18 +49,16 @@ def _unsupported_structure(cfg: Config) -> list:
     """Stream structures the port does not cover (the frame encoder
     rejects the coding tools it does not cover)."""
     out = []
-    if cfg.intra_period != 1:
-        out.append("P/B frames (intra_period != 1; use --period 1)")
     if cfg.gop_len > 1:
-        out.append("GOP structures")
+        out.append("GOP structures (B frames)")
     if cfg.bitrate > 0:
         out.append("rate control")
     return out
 
 
 class Encoder:
-    """Streaming all-intra encoder on ``device``: results =
-    encoder.encode(frame) (a list), encoder.flush() at the end, or
+    """Streaming encoder on ``device``: results = encoder.encode(frame)
+    (a list), encoder.flush() at the end, or
     encoder.encode_stream(frames) for the pipelined path."""
 
     def __init__(self, cfg: Config, device):
@@ -69,9 +70,16 @@ class Encoder:
         self._ckpt = Checkpointer()
         self._intra = IntraFrameEncoder(cfg, device)
         self._poc = 0
+        self._last_idr = 0
         self._wrote_headers = False
         self._irap_count = 0
         self.stats = {}
+
+    def _is_intra(self, poc: int) -> bool:
+        """--period semantics: 1 all-intra, N > 1 an IDR every N
+        frames, 0 only the first frame intra."""
+        period = self.cfg.intra_period
+        return poc == 0 or period == 1 or (period > 1 and poc % period == 0)
 
     def headers(self) -> bytes:
         return self._intra.headers()
@@ -81,7 +89,7 @@ class Encoder:
         SEI at stream start and (--vps-period N) before every Nth IRAP."""
         out = b""
         if self.cfg.aud:
-            from kvazaar_tpu.bitstream.headers import write_aud
+            from kvazaar_tpu_torch.bitstream.headers import write_aud
             out += write_aud(slice_type)
         reemit = False
         if slice_type == SLICE_I:
@@ -93,7 +101,7 @@ class Encoder:
         if not self._wrote_headers or reemit:
             out += self.headers()
             if self.cfg.info and not self._wrote_headers:
-                from kvazaar_tpu.bitstream.headers import \
+                from kvazaar_tpu_torch.bitstream.headers import \
                     write_version_sei
                 out += write_version_sei()
             self._wrote_headers = True
@@ -102,18 +110,26 @@ class Encoder:
     def encode(self, y: np.ndarray, cb=None, cr=None):
         """Encode one frame.  Returns a list with one (annexb_bytes,
         FrameInfo, recon) result (a list for API parity with the GOP
-        paths of the JAX package)."""
-        res = self._intra.encode_frame(y, cb, cr)
-        out = self._emit(res, self._poc, (y, cb, cr))
+        paths of the JAX package).  P frames reference the previous
+        frame; the POC restarts at every IDR (8.3.1)."""
+        is_intra = self._is_intra(self._poc)
+        if is_intra:
+            res = self._intra.encode_frame(y, cb, cr)
+            self._last_idr = self._poc
+        else:
+            rel = self._poc - self._last_idr
+            res = self._intra.encode_p_frame(y, cb, cr, poc=rel,
+                                             ref_poc=rel - 1)
+        out = self._emit(res, self._poc, (y, cb, cr), is_intra)
         self._poc += 1
         return [out]
 
     def flush(self):
-        """All-intra streams buffer nothing."""
+        """Low-delay streams buffer nothing."""
         return []
 
-    def _emit(self, res, poc, src):
-        chunks = self._au_prefix(SLICE_I)
+    def _emit(self, res, poc, src, is_intra=True):
+        chunks = self._au_prefix(SLICE_I if is_intra else SLICE_P)
         y, cb, cr = src
         h, w = y.shape
         rec_y = res.recon_y[:h, :w]
@@ -127,8 +143,10 @@ class Encoder:
             p_v = psnr(rec_cr, np.asarray(cr, np.int32),
                        self.cfg.input_bitdepth)
         info = FrameInfo(
-            poc=poc, qp=self.cfg.qp, nal_type=NAL_IDR_W_RADL,
-            slice_type=SLICE_I, bits=len(res.nals) * 8,
+            poc=poc, qp=self.cfg.qp,
+            nal_type=NAL_IDR_W_RADL if is_intra else NAL_TRAIL_R,
+            slice_type=SLICE_I if is_intra else SLICE_P,
+            bits=len(res.nals) * 8,
             psnr_y=psnr(rec_y, np.asarray(y, np.int32),
                         self.cfg.input_bitdepth),
             psnr_u=p_u, psnr_v=p_v)
@@ -137,7 +155,7 @@ class Encoder:
                               (rec_y, rec_cb, rec_cr), res.frame_data)
         return chunks + res.nals, info, (rec_y, rec_cb, rec_cr)
 
-    def _stream_info(self, res, poc, shape):
+    def _stream_info(self, res, poc, shape, is_intra=True):
         """FrameInfo from the device-computed SSEs (no pixel transfer)."""
         h, w = shape
         peak = (1 << self.cfg.input_bitdepth) - 1
@@ -147,8 +165,10 @@ class Encoder:
                     if sse > 0 else 999.99)
         sse = res.sse
         return FrameInfo(
-            poc=poc, qp=self.cfg.qp, nal_type=NAL_IDR_W_RADL,
-            slice_type=SLICE_I, bits=len(res.nals) * 8,
+            poc=poc, qp=self.cfg.qp,
+            nal_type=NAL_IDR_W_RADL if is_intra else NAL_TRAIL_R,
+            slice_type=SLICE_I if is_intra else SLICE_P,
+            bits=len(res.nals) * 8,
             psnr_y=p(sse[0], h * w),
             psnr_u=p(sse[1], h * w // 4), psnr_v=p(sse[2], h * w // 4))
 
@@ -162,12 +182,15 @@ class Encoder:
         recon is (None, None, None) unless need_recon or the config
         requires pixels (picture-hash SEI).
 
-        The main thread uploads and queues each batch of BATCH frames on
-        the device; one downloader thread copies finished
-        batches to the host (the copy waits for the device and releases
-        the GIL) and finalizer threads run CABAC, so device compute,
-        transfers and host serialization of different batches
-        overlap."""
+        The main thread uploads and queues each submission on the
+        device: batches of BATCH frames on all-intra streams, one frame
+        at a time on IPPP streams, where each P frame's program takes
+        the previous submission's device reconstruction as its
+        reference (the DPB is chained on the device, in submission
+        order).  One downloader thread copies finished submissions to
+        the host (the copy waits for the device and releases the GIL)
+        and finalizer threads run CABAC, so device compute, transfers
+        and host serialization of different frames overlap."""
         ife = self._intra
         want_pixels = need_recon or self.cfg.hash != "none"
         self.stats = {"submit_s": 0.0, "download_s": 0.0,
@@ -183,11 +206,15 @@ class Encoder:
                 item = dlq.get()
                 if item is None:
                     return
-                seq, handle, metas = item
+                seq, kind, handle, metas = item
                 t0 = time.monotonic()
                 try:
-                    finq.put((seq, ife.download_frames(
-                        handle, need_recon=want_pixels), metas))
+                    if kind == "i":
+                        dl = ife.download_frames(handle,
+                                                 need_recon=want_pixels)
+                    else:
+                        dl = ife.download_p(handle, need_recon=want_pixels)
+                    finq.put((seq, kind, dl, metas))
                 except BaseException as e:   # surface on main thread
                     outq.put((seq, None, metas, e))
                 with stats_lock:
@@ -198,10 +225,16 @@ class Encoder:
                 item = finq.get()
                 if item is None:
                     return
-                seq, dl, metas = item
+                seq, kind, dl, metas = item
                 try:
                     t1 = time.monotonic()
-                    res = ife.finalize_downloaded(dl)
+                    if kind == "i":
+                        res = ife.finalize_downloaded(dl)
+                    else:
+                        (_poc, rel, _shape), = metas
+                        res = [ife.finalize_p_downloaded(
+                            dl, poc=rel, ref_pocs=[rel - 1],
+                            need_recon=want_pixels)[0]]
                     with stats_lock:
                         self.stats["finalize_s"] += time.monotonic() - t1
                         self.stats["frames"] += len(metas)
@@ -219,9 +252,11 @@ class Encoder:
         reorder = {}
         inflight = 0
         batch = []
+        batch_n = BATCH if self.cfg.intra_period == 1 else 1
 
-        def emit(res, poc, shape):
-            chunks = self._au_prefix(SLICE_I)
+        def emit(res, poc, rel, shape):
+            is_intra = rel == 0
+            chunks = self._au_prefix(SLICE_I if is_intra else SLICE_P)
             h, w = shape
             rec = (None, None, None)
             if want_pixels and res.recon_y is not None:
@@ -230,7 +265,7 @@ class Encoder:
                        else res.recon_cb[:h // 2, :w // 2],
                        None if res.recon_cr is None
                        else res.recon_cr[:h // 2, :w // 2])
-            info = self._stream_info(res, poc, shape)
+            info = self._stream_info(res, poc, shape, is_intra)
             self._ckpt.mark_frame(info.poc, info.qp, info.nal_type,
                                   info.slice_type, info.bits, rec,
                                   res.frame_data)
@@ -246,7 +281,7 @@ class Encoder:
             seq_next += 1
             if err is not None:
                 raise err
-            return [emit(r, poc, shape) for r, (poc, shape) in
+            return [emit(r, poc, rel, shape) for r, (poc, rel, shape) in
                     zip(res, metas)]
 
         def submit_batch():
@@ -254,9 +289,21 @@ class Encoder:
             t0 = time.monotonic()
             metas = []
             for (y, _cb, _cr) in batch:
-                metas.append((self._poc, y.shape))
+                if self._is_intra(self._poc):
+                    self._last_idr = self._poc
+                metas.append((self._poc, self._poc - self._last_idr,
+                              y.shape))
                 self._poc += 1
-            dlq.put((seq_submit, ife.submit_frames(batch), metas))
+            rel = metas[0][1]
+            if rel > 0:
+                # ife._dpb: the previous submission's reconstruction.
+                handle = ife.submit_p(*batch[0], [(rel - 1, ife._dpb)])
+                ife._dpb = handle[4]
+                kind = "p"
+            else:
+                handle = ife.submit_frames(batch)
+                kind = "i"
+            dlq.put((seq_submit, kind, handle, metas))
             seq_submit += 1
             batch.clear()
             inflight += 1
@@ -266,7 +313,7 @@ class Encoder:
         try:
             for f in frames:
                 batch.append(f)
-                if len(batch) == BATCH:
+                if len(batch) == batch_n:
                     submit_batch()
                     if inflight > n_workers:
                         yield from finalize_batch()

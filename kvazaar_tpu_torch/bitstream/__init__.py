@@ -1,3 +1,4 @@
-"""Host bitstream layer of the port.  Headers, CABAC contexts and the
-Python serializer are shared with kvazaar_tpu.bitstream (jax-free);
-only the native serializer's build and binding live here."""
+"""Host bitstream layer of the port: bit I/O, CABAC, contexts, headers
+and the Python serializer (copies of kvazaar_tpu.bitstream's jax-free
+modules, imports rewritten), plus the native serializer's build and
+binding."""

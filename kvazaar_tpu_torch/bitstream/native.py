@@ -1,4 +1,5 @@
-"""The native CABAC slice-data serializer, built for the host it runs on.
+"""The native CABAC slice-data serializer (I and P slices), built for the
+host it runs on.
 
 The port binds the same C++ source as the JAX package
 (native/hevc_cabac.cpp, unchanged, with the ctypes signatures of
@@ -73,6 +74,13 @@ def get_lib():
         lib.ktpu_encode_slice_data.argtypes[:-4] + [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.ktpu_encode_slice_data_p.restype = ctypes.c_int64
+    lib.ktpu_encode_slice_data_p.argtypes = (
+        [ctypes.c_int] * 9 + [ctypes.c_void_p] * 14
+        + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_void_p])
     return lib
 
 
@@ -134,3 +142,39 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     return out[:n].tobytes(), [int(v) for v in sizes[:int(nss[0])]]
+
+
+def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
+                               nthreads: int = 1):
+    """P slice of one reference (no SAO, per-CTU QP, partitions or
+    explicit chroma modes): returns (bytes, per-substream byte sizes),
+    the sizes empty when wpp is off.  nthreads > 1 encodes the WPP
+    substreams on that many threads."""
+    depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
+    inter8 = np.ascontiguousarray(fd.inter8, np.uint8)
+    skip8 = np.ascontiguousarray(fd.skip8, np.uint8)
+    merge8 = np.ascontiguousarray(fd.merge8, np.int8)
+    mvp8 = np.ascontiguousarray(fd.mvp8, np.uint8)
+    mvd8 = np.ascontiguousarray(fd.mvd8, np.int32)
+    # B-slice fields, unread in a P slice.
+    dir8 = np.zeros_like(inter8)
+    mvp8_l1 = np.zeros_like(mvp8)
+    mvd8_l1 = np.zeros_like(mvd8)
+    cap = cy.nbytes * 2 + 65536
+    out = np.empty(cap, np.uint8)
+    sizes = np.zeros(params.height_in_ctus + 1, np.int64)
+    nss = np.zeros(1, np.int32)
+    n = get_lib().ktpu_encode_slice_data_p(
+        params.width, params.height, chroma, qp, 1 if wpp else 0,
+        1, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
+        depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
+        _ptr(ccb), _ptr(ccr), inter8.ctypes.data, skip8.ctypes.data,
+        merge8.ctypes.data, mvp8.ctypes.data, mvd8.ctypes.data,
+        dir8.ctypes.data, mvp8_l1.ctypes.data, mvd8_l1.ctypes.data,
+        out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
+        (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
+        None, None, 1, None, 1 if params.amp else 0, None, None)
+    if n < 0:
+        raise RuntimeError("native slice buffer overflow")
+    szs = [int(v) for v in sizes[:int(nss[0])]] if wpp else []
+    return out[:n].tobytes(), szs

@@ -2,23 +2,146 @@
 
 Usage:
     python -m kvazaar_tpu_torch -i in.yuv --input-res 832x480 \
-        -o out.hevc -q 22 --period 1 [--device cuda] [--frames N]
+        -o out.hevc -q 22 --period 0 [--device cuda] [--frames N]
 
-Takes the JAX package's argument parser and flag-to-config mapping
-(jax-free) plus ``--device``.  The structure follows the preset unless
-``--period``/``--gop`` say otherwise, as in the JAX CLI, so the port
-needs ``--period 1``; configs outside its all-intra fixed-grid slice
-raise NotImplementedError.
+Takes a copy of the JAX package's argument parser and its
+flag-to-config mapping, plus ``--device``.  The structure follows the
+preset unless ``--period``/``--gop`` say otherwise, as in the JAX CLI:
+``--period 1`` is all-intra, ``--period 0`` IPPP after one IDR and
+``--period N`` an IDR every N frames.  Configs outside the port's
+fixed-grid slices raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
-from kvazaar_tpu.cli import build_argparser as _base_argparser
-from kvazaar_tpu.config import Config, config_from_preset
-from kvazaar_tpu.io.yuv import read_frames_async, write_frame
+from kvazaar_tpu_torch.config import Config, config_from_preset
+from kvazaar_tpu_torch.io.yuv import read_frames_async, write_frame
+
+
+def _base_argparser() -> argparse.ArgumentParser:
+    """The JAX package's parser (kvazaar_tpu/cli.py build_argparser),
+    copied verbatim."""
+    ap = argparse.ArgumentParser(prog="kvazaar_tpu")
+    ap.add_argument("-i", "--input", required=True)
+    ap.add_argument("--input-res", required=True,
+                    help="WxH of the raw input")
+    ap.add_argument("-o", "--output", required=True)
+    ap.add_argument("-q", "--qp", type=int, default=22)
+    ap.add_argument("-n", "--frames", type=int, default=None)
+    ap.add_argument("--seek", type=int, default=0,
+                    help="skip the first N input frames "
+                         "(yuv_io_seek, src/yuv_io.c:256)")
+    ap.add_argument("--preset", default="ultrafast")
+    ap.add_argument("--input-bitdepth", type=int, default=None,
+                    help="bit depth of the input FILE (converted to "
+                         "the coding bit depth on read)")
+    ap.add_argument("--bitdepth", type=int, default=8,
+                    choices=[8, 10], help="coding bit depth")
+    ap.add_argument("--msb-first", action="store_true",
+                    help=">8-bit input is big-endian")
+    ap.add_argument("--input-format", default="P420",
+                    choices=["P400", "P420"])
+    ap.add_argument("--source-scan-type", default="progressive",
+                    choices=["progressive", "tff", "bff"],
+                    help="interlaced input: encode as field pictures")
+    ap.add_argument("--input-fps", default=None,
+                    help="framerate as float or num/denom")
+    ap.add_argument("-p", "--period", type=int, default=None,
+                    help="intra period: 1=all-intra, N=IDR every N, "
+                         "0=first frame only (default: the preset's "
+                         "structure, else all-intra)")
+    ap.add_argument("--gop", default=None,
+                    help="GOP structure: 0 (IPPP), 4/8 (B pyramid), "
+                         "or lp-g#d#t# low-delay (src/cfg.c:885); "
+                         "default: the preset's structure")
+    ap.add_argument("--bitrate", type=int, default=0,
+                    help="target bits/s (0 = fixed QP)")
+    ap.add_argument("--no-lcu-rc", action="store_true",
+                    help="disable per-CTU bit allocation under "
+                         "--bitrate (frame-level RC only)")
+    ap.add_argument("--roi", default=None,
+                    help="delta-QP ROI map file: 'W H' then W*H "
+                         "offsets on a CTU grid")
+    ap.add_argument("--aq", type=float, default=None,
+                    help="variance adaptive-quantization strength "
+                         "(0..3)")
+    ap.add_argument("--ref", type=int, default=None,
+                    help="reference frames per list")
+    ap.add_argument("--rd", type=int, default=None)
+    ap.add_argument("--tr-depth-intra", type=int, default=None,
+                    help="intra TU-split search depth (0/1)")
+    ap.add_argument("--me-range", type=int, default=None)
+    ap.add_argument("--subme", type=int, default=None,
+                    help="0 = integer-pel only, >0 = half+quarter")
+    ap.add_argument("--me", default=None,
+                    help="integer search algorithm name (informative: "
+                         "the dense exhaustive search covers every "
+                         "pattern search)")
+    ap.add_argument("--bipred", type=int, default=None,
+                    help="bi-prediction in B slices (0/1)")
+    ap.add_argument("--smp", action="store_true",
+                    help="enable 2NxN/Nx2N inter partitions")
+    ap.add_argument("--amp", action="store_true",
+                    help="enable asymmetric inter partitions "
+                         "(implies --smp; 32x32 CUs)")
+    ap.add_argument("--crypto", default=None, metavar="KEY",
+                    help="selective encryption: AES-CTR keystream over "
+                         "sign bins (hex key or passphrase)")
+    ap.add_argument("--tiles", default=None, metavar="WxH",
+                    help="uniform tile grid, e.g. 3x3; combines with "
+                         "WPP (one substream per CTU row per tile)")
+    ap.add_argument("--no-wpp", action="store_true")
+    ap.add_argument("--slices", default=None,
+                    choices=["wpp", "tiles"],
+                    help="wpp: each CTU row a dependent slice "
+                         "segment; tiles: independent slice per tile")
+    ap.add_argument("--sao", action="store_true", default=None)
+    ap.add_argument("--no-sao", dest="sao", action="store_false")
+    ap.add_argument("--rdoq", action="store_true", default=None)
+    ap.add_argument("--no-rdoq", dest="rdoq", action="store_false")
+    ap.add_argument("--signhide", action="store_true", default=None)
+    ap.add_argument("--no-signhide", dest="signhide",
+                    action="store_false")
+    ap.add_argument("--no-deblock", action="store_true")
+    ap.add_argument("--lossless", action="store_true")
+    ap.add_argument("--sar", default=None, metavar="W:H")
+    ap.add_argument("--aud", action="store_true")
+    ap.add_argument("--no-info", action="store_true")
+    ap.add_argument("--cqmfile", default=None,
+                    help="custom quant matrices (HM format)")
+    ap.add_argument("--scaling-list", default=None,
+                    choices=["off", "default", "custom"])
+    ap.add_argument("--hash", default="none",
+                    choices=["none", "md5", "checksum"],
+                    help="decoded-picture-hash SEI per frame")
+    ap.add_argument("--debug", default=None,
+                    help="write reconstruction YUV for comparison "
+                         "(reference --debug)")
+    ap.add_argument("--no-psnr", action="store_true")
+    ap.add_argument("--level", default=None,
+                    help="force/validate the signalled level, e.g. 4.1")
+    ap.add_argument("--high-tier", action="store_true",
+                    help="signal high tier (levels 4+)")
+    ap.add_argument("--threads", type=int, default=0,
+                    help="host CABAC pool size (0 = auto)")
+    ap.add_argument("--owf", type=int, default=0,
+                    help="frame pipeline depth (0 = auto)")
+    ap.add_argument("--stats", action="store_true",
+                    help="print per-stage timing at the end")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a JAX device-profiler trace (XPlane) "
+                         "under DIR for xprof/TensorBoard")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="set any config option by name (the string-"
+                         "keyed parser of the reference's "
+                         "kvz_config_parse, src/cfg.c:358); e.g. "
+                         "--set intra-max-cu=4 --set sao=1")
+    return ap
 
 
 def build_argparser():

@@ -1,22 +1,27 @@
-// Intra wavefront reconstruction for Hopper (sm_90a).
+// Intra/inter wavefront reconstruction for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of kvazaar_tpu/ops/wavefront_pallas.py:149
-// (_make_kernel, launched by wavefront_plane_pallas at :338) for intra
-// blocks: for every block of a fixed CU grid, in wavefront step order,
-// build the 4S+1 reference samples with 8.4.4.2.2 substitution, apply
-// the luma [1 2 1] filter, predict the coded mode (planar, DC, angular,
-// 8.4.4.2.4-6) with the luma DC/10/26 boundary fixups, then residual,
-// forward DCT, flat quantization (intra rounding 171/512), dequant,
-// inverse DCT and clip.  Outputs are the levels of every block (raster
-// block order) and the reconstructed plane.
+// (_make_kernel, launched by wavefront_plane_pallas at :338) in both its
+// variants.  For every block of a fixed CU grid, in wavefront step
+// order: an intra block builds the 4S+1 reference samples with 8.4.4.2.2
+// substitution, applies the luma [1 2 1] filter and predicts the coded
+// mode (planar, DC, angular, 8.4.4.2.4-6) with the luma DC/10/26
+// boundary fixups; an inter block (P frames, the `inter=True` variant)
+// takes its motion-compensated prediction instead.  Then residual,
+// forward DCT, flat quantization (rounding 171/512 intra, 85/512
+// inter), dequant, inverse DCT and clip.  Outputs are the levels of
+// every block (raster block order) and the reconstructed plane; inter
+// blocks feed later intra neighbours through that plane like any other.
 //
-// What bounds it on the card: latency, not bytes or operations.  A
-// 832x480 luma plane at S=16 is 224 dependent wavefront steps with at
-// most 13 blocks each, so there is little work per step, and only one
-// thread block per (frame, plane) item is busy: B x planes blocks out
-// of 132 SMs.
+// What bounds it on the card: the dependency chain, not bytes or
+// operations.  On paper it is bytes-bound (a few tens of MB per launch
+// at 3.35 TB/s is some microseconds), but a 832x480 luma plane at S=16
+// is 224 dependent wavefront steps with at most 13 blocks each, so there
+// is little work per step, and only one thread block per (frame, plane)
+// item is busy: B x planes of 132 SMs.  A P frame is one luma item and
+// two chroma items: 3 of 132 SMs.
 //
-// What this first design does about it: nothing yet; correctness first.
+// What this design does about it: nothing yet; correctness first.
 // Frames are batched per launch (one thread block per item, the items
 // run in parallel on separate SMs) and all slots of a step run
 // together inside the block.  The reconstructed output plane in global
@@ -54,11 +59,14 @@ struct Params {
   const int32_t* sched;   // (n_steps, n_slots, 2) [block id, flags];
                           // pad slots carry block id nblk
   const int32_t* dct;     // (S, S) integer DCT matrix
+  const uint8_t* inter;   // (bm, nblk) 1 = inter block, shared like
+                          // modes; null for the intra variant
+  const uint8_t* mc;      // (nb, h, w) MC prediction; null when intra
   uint8_t* rec;           // (nb, h, w) reconstruction = wavefront state
   int16_t* levels;        // (nb, nblk, S, S) quantized levels
   int bm, h, w, blocks_x, nblk, n_steps, n_slots;
   int luma, bitdepth;
-  int q_scale, q_bits, q_offset, dq_mult, dq_shift;
+  int q_scale, q_bits, q_offset, q_offset_inter, dq_mult, dq_shift;
 };
 
 __device__ __forceinline__ int round_shift(int x, int s) {
@@ -198,6 +206,9 @@ __global__ void __launch_bounds__(SPP_MAX * S * S)
   const int32_t* orig = p.orig + blockIdx.x * plane;
   uint8_t* rec = p.rec + blockIdx.x * plane;
   const int32_t* modes = p.modes + (size_t)(blockIdx.x % p.bm) * p.nblk;
+  const uint8_t* inter_of =
+      p.inter ? p.inter + (size_t)(blockIdx.x % p.bm) * p.nblk : nullptr;
+  const uint8_t* mc = p.mc ? p.mc + blockIdx.x * plane : nullptr;
   int16_t* levels = p.levels + (size_t)blockIdx.x * p.nblk * SS;
   const int mid = 1 << (p.bitdepth - 1);
   const int maxv = (1 << p.bitdepth) - 1;
@@ -224,14 +235,17 @@ __global__ void __launch_bounds__(SPP_MAX * S * S)
       const int x0 = active ? (bid % p.blocks_x) * S : 0;
       const int y0 = active ? (bid / p.blocks_x) * S : 0;
       const int mode = active ? modes[bid] : 0;
+      // Inter blocks skip the reference build and the intra prediction.
+      const bool inter = active && inter_of != nullptr && inter_of[bid];
+      const bool intra = active && !inter;
 
-      if (active)
+      if (intra)
         for (int i = t; i < R; i += SS)
           ref[i] = build_ref<S>(rec, p.w, x0, y0, flags, i, mid);
       __syncthreads();
 
       const bool smooth = p.luma && filter_flag<S>(mode);
-      if (active)
+      if (intra)
         for (int i = t; i < R; i += SS)
           flt[i] = (smooth && i > 0 && i < R - 1)
                        ? (ref[i - 1] + 2 * ref[i] + ref[i + 1] + 2) >> 2
@@ -240,8 +254,11 @@ __global__ void __launch_bounds__(SPP_MAX * S * S)
 
       int pred = 0;
       if (active) {
-        pred = predict<S, LOG2S>(flt, ref, mode, tx, ty, p.luma != 0, maxv);
-        a[t] = orig[(y0 + ty) * p.w + x0 + tx] - pred;
+        const int at = (y0 + ty) * p.w + x0 + tx;
+        pred = inter ? mc[at]
+                     : predict<S, LOG2S>(flt, ref, mode, tx, ty,
+                                         p.luma != 0, maxv);
+        a[t] = orig[at] - pred;
       }
       __syncthreads();
 
@@ -262,7 +279,8 @@ __global__ void __launch_bounds__(SPP_MAX * S * S)
         for (int m = 0; m < S; ++m) acc += s_dct[tx * S + m] * b[ty * S + m];
         const int c = round_shift(acc, LOG2S + 6);
         const int mag = c < 0 ? -c : c;
-        int lv = (mag * p.q_scale + p.q_offset) >> p.q_bits;
+        const int q_offset = inter ? p.q_offset_inter : p.q_offset;
+        int lv = (mag * p.q_scale + q_offset) >> p.q_bits;
         lv = lv > 32767 ? 32767 : lv;
         lv = c < 0 ? -lv : lv;
         levels[(size_t)bid * SS + t] = (int16_t)lv;
@@ -304,16 +322,20 @@ void launch(const Params& p, int nb, cudaStream_t stream) {
 
 }  // namespace
 
+// inter and mc are both null (intra variant) or both set (inter).
 extern "C" int ktt_wavefront_recon(
     const int32_t* orig, const int32_t* modes, const int32_t* sched,
-    const int32_t* dct, uint8_t* rec, int16_t* levels, int nb, int bm,
-    int h, int w, int blocks_x, int nblk, int n_steps, int n_slots, int s,
-    int luma, int bitdepth, int q_scale, int q_bits, int q_offset,
-    int dq_mult, int dq_shift, void* stream) {
-  Params p{orig,     modes,   sched,    dct,      rec,     levels,
-           bm,       h,       w,        blocks_x, nblk,    n_steps,
-           n_slots,  luma,    bitdepth, q_scale,  q_bits,  q_offset,
-           dq_mult,  dq_shift};
+    const int32_t* dct, const uint8_t* inter, const uint8_t* mc,
+    uint8_t* rec, int16_t* levels, int nb, int bm, int h, int w,
+    int blocks_x, int nblk, int n_steps, int n_slots, int s, int luma,
+    int bitdepth, int q_scale, int q_bits, int q_offset,
+    int q_offset_inter, int dq_mult, int dq_shift, void* stream) {
+  if ((inter == nullptr) != (mc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{orig,     modes,    sched,    dct,      inter,          mc,
+           rec,      levels,   bm,       h,        w,              blocks_x,
+           nblk,     n_steps,  n_slots,  luma,     bitdepth,       q_scale,
+           q_bits,   q_offset, q_offset_inter,     dq_mult,        dq_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (s) {
     case 4:

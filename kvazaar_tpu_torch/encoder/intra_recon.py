@@ -1,8 +1,11 @@
-"""Exact wavefront reconstruction of the fixed-grid intra planes.
+"""Exact wavefront reconstruction of the fixed-grid planes.
 
-Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra blocks
-without QP maps, scaling lists, RDOQ, transform skip or explicit chroma
-modes.  ``reconstruct_frames`` hands each plane kind to
+Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra and P
+frames without QP maps, scaling lists, RDOQ, transform skip or explicit
+chroma modes.  On P frames an inter block takes its motion-compensated
+prediction (computed for the whole frame beforehand: it has no
+wavefront dependency) and the inter quantizer rounding 85/512, and
+still feeds its intra neighbours' references through the wavefront.  ``reconstruct_frames`` hands each plane kind to
 ops.wavefront.wavefront_recon: on a CUDA tensor that is the
 hand-written kernel, on a CPU tensor the plain per-step loop below
 (``wavefront_recon_plain``), which is also what the kernel is checked
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kvazaar_tpu.encoder.geometry import IntraFramePlan
+from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.intra import predict_modes
 from kvazaar_tpu_torch.ops.quant import dequantize, quantize
@@ -66,10 +69,11 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
                        torch.full_like(refs, 1 << (bitdepth - 1)), refs)
 
 
-def _tu_roundtrip(orig, pred, s, qp, bitdepth):
-    """Flat intra TU roundtrip: (levels int16, reconstruction int32)."""
+def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True):
+    """Flat TU roundtrip: (levels int16, reconstruction int32).  intra:
+    bool, or a per-block bool tensor (N,)."""
     levels = quantize(forward_transform(orig - pred, s, bitdepth), qp, s,
-                      bitdepth, intra=True)
+                      bitdepth, intra=intra)
     dq = dequantize(levels, qp, s, bitdepth)
     rec = torch.clamp(pred + inverse_transform(dq, s, bitdepth), 0,
                       (1 << bitdepth) - 1)
@@ -77,7 +81,7 @@ def _tu_roundtrip(orig, pred, s, qp, bitdepth):
 
 
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
-                bitdepth, luma):
+                bitdepth, luma, inter_items=None, mc_flat=None):
     """One wavefront step for every slot of every item.  Returns the
     step's (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
     gidx, noref, sidx, bids = tables
@@ -88,13 +92,36 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
     orig = orig_flat[:, sidx[step]].reshape(nb * k, s, s)
     pred = predict_modes(refs.reshape(nb * k, -1), modes.reshape(-1), s,
                          luma=luma, bitdepth=bitdepth)
-    levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth)
+    intra = True
+    if inter_items is not None:
+        inter = inter_items[:, bids[step]].reshape(-1)    # (NB*slots,)
+        mc = mc_flat[:, sidx[step]].reshape(nb * k, s, s)
+        pred = torch.where(inter[:, None, None], mc, pred)
+        intra = ~inter
+    levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra)
     return levels.reshape(nb, k, s, s), rec.reshape(nb, k, s * s)
+
+
+def _items(a: torch.Tensor, nb: int, nblk: int) -> torch.Tensor:
+    """(Bm, By, Bx) per-block values -> (NB, N_blocks + 1) int32 rows,
+    item i taking row i % Bm, with a zero entry for pad slots."""
+    bm = a.shape[0]
+    ext = torch.cat([a.reshape(bm, nblk).to(torch.int32),
+                     a.new_zeros((bm, 1), dtype=torch.int32)], dim=1)
+    return ext[torch.arange(nb, device=a.device) % bm]
+
+
+def _flat(planes: torch.Tensor) -> torch.Tensor:
+    """(NB, H, W) -> (NB, H*W + 1) int32 with a trailing trash entry."""
+    nb = planes.shape[0]
+    return torch.cat([planes.reshape(nb, -1).to(torch.int32),
+                      planes.new_zeros((nb, 1), dtype=torch.int32)], dim=1)
 
 
 def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           plan: IntraFramePlan, s: int, luma: bool,
-                          qp: int, bitdepth: int = 8):
+                          qp: int, bitdepth: int = 8, is_inter=None,
+                          mc=None):
     """Plain PyTorch version of the wavefront kernel, on any device;
     same contract as ops.wavefront.wavefront_recon."""
     nb, h, w = orig.shape
@@ -102,20 +129,19 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     nblk = plan.blocks_y * plan.blocks_x
     tables = step_schedule(plan, luma, dev)
     sidx, bids = tables[2], tables[3]
-    bm = modes.shape[0]
-    modes_ext = torch.cat([modes.reshape(bm, nblk).to(torch.int32),
-                           modes.new_zeros((bm, 1), dtype=torch.int32)],
-                          dim=1)
-    modes_items = modes_ext[torch.arange(nb, device=dev) % bm]
-    orig_flat = torch.cat([orig.reshape(nb, h * w).to(torch.int32),
-                           orig.new_zeros((nb, 1), dtype=torch.int32)],
-                          dim=1)
+    modes_items = _items(modes, nb, nblk)
+    inter_items = mc_flat = None
+    if is_inter is not None:
+        inter_items = _items(is_inter, nb, nblk) != 0
+        mc_flat = _flat(mc)
+    orig_flat = _flat(orig)
     rec_flat = torch.zeros((nb, h * w + 1), dtype=torch.int32, device=dev)
     levels = torch.zeros((nb, nblk + 1, s, s), dtype=torch.int16,
                          device=dev)
     for step in range(plan.n_steps):
         lv, rec = _plane_pass(rec_flat, orig_flat, modes_items, tables,
-                              step, s, qp, bitdepth, luma)
+                              step, s, qp, bitdepth, luma, inter_items,
+                              mc_flat)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
     return (rec_flat[:, :h * w].reshape(nb, h, w).to(torch.uint8),
@@ -123,20 +149,26 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
 
 
 def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
-                       qp_c: int, bitdepth: int = 8):
+                       qp_c: int, bitdepth: int = 8, is_inter=None,
+                       mc_y=None, mc_cb=None, mc_cr=None):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
-    (B, By, Bx) int32.  Returns (recon_y, levels_y, recon_cb, levels_cb,
-    recon_cr, levels_cr): recon (B, H, W) uint8, levels (B, N_blocks,
-    S, S) int16 in raster block order."""
+    (B, By, Bx) int32.  P frames also pass is_inter (B, By, Bx) bool and
+    the motion-compensated prediction planes mc_y (B, H, W) (+ chroma).
+    Returns (recon_y, levels_y, recon_cb, levels_cb, recon_cr,
+    levels_cr): recon (B, H, W) uint8, levels (B, N_blocks, S, S) int16
+    in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
     s = plan.cu_size
     b = ys.shape[0]
-    rec_y, lv_y = wavefront_recon(ys, modes, plan, s, True, qp, bitdepth)
+    rec_y, lv_y = wavefront_recon(ys, modes, plan, s, True, qp, bitdepth,
+                                  is_inter, mc_y)
     if cbs is None:
         return rec_y, lv_y, None, None, None, None
-    # Cb and Cr share geometry, modes and QP: one 2B batch.
+    # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
+    mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
     rec_c, lv_c = wavefront_recon(torch.cat([cbs, crs]), modes, plan,
-                                  s // 2, False, qp_c, bitdepth)
+                                  s // 2, False, qp_c, bitdepth, is_inter,
+                                  mc_c)
     return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]

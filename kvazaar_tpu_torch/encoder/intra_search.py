@@ -15,8 +15,8 @@ import functools
 import numpy as np
 import torch
 
-from kvazaar_tpu.constants import INTRA_DC, INTRA_PLANAR
-from kvazaar_tpu.encoder.geometry import (IntraFramePlan, plan_flat_gather,
+from kvazaar_tpu_torch.constants import INTRA_DC, INTRA_PLANAR
+from kvazaar_tpu_torch.encoder.geometry import (IntraFramePlan, plan_flat_gather,
                                           plan_flat_noref)
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.exactmm import einsum_exact

@@ -28,11 +28,16 @@ def quant_params(qp: int, log2_size: int, bitdepth: int):
 
 
 def quantize(coeff: torch.Tensor, qp: int, size: int, bitdepth: int = 8,
-             intra: bool = True) -> torch.Tensor:
+             intra=True) -> torch.Tensor:
     """Scalar quantization with the 171/512 (intra) or 85/512 (inter)
-    rounding offset.  int32-safe: |coeff| fits int16."""
+    rounding offset.  ``intra`` is a bool, or a bool tensor over the
+    leading (block) axes of coeff for mixed P-frame batches.  int32-safe:
+    |coeff| fits int16."""
     scale, qbits, _, _ = quant_params(qp, size.bit_length() - 1, bitdepth)
-    offset = (171 if intra else 85) << (qbits - 9)
+    if isinstance(intra, bool):
+        offset = (171 if intra else 85) << (qbits - 9)
+    else:
+        offset = torch.where(intra, 171, 85)[..., None, None] << (qbits - 9)
     c = coeff.to(torch.int32)
     level = torch.clamp((torch.abs(c) * scale + offset) >> qbits, 0, 32767)
     return torch.where(c < 0, -level, level)

@@ -1,15 +1,17 @@
 """Wrapper of the CUDA wavefront reconstruction kernel (csrc/wavefront.cu).
 
-``wavefront_recon`` reconstructs one plane kind over a batch of items:
-for a CUDA tensor it launches the hand-written kernel (or raises); for a
-CPU tensor it runs the kernel's plain PyTorch version, the per-step
-loop of encoder/intra_recon.py.  There is no fallback from the card to
-the plain version.
+``wavefront_recon`` reconstructs one plane kind over a batch of items,
+all-intra or, given an inter mask and MC planes, as a P frame: for a
+CUDA tensor it launches the hand-written kernel (or raises); for a CPU
+tensor it runs the kernel's plain PyTorch version, the per-step loop of
+encoder/intra_recon.py.  There is no fallback from the card to the
+plain version.
 
 The kernel is compiled with ``nvcc`` for sm_90a into a shared library
 with a plain C interface at first use (``build/kernels/`` under the
 repository root, keyed by the source's hash) and loaded with ctypes.
-``LAUNCHES`` counts the kernel launches of this process.
+``LAUNCHES`` counts the kernel launches of this process, intra and
+inter variants apart.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from kvazaar_tpu.encoder.geometry import IntraFramePlan
+from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.quant import quant_params
 from kvazaar_tpu_torch.ops.transform import dct_matrix_np
 
-# Kernel launches made by wavefront_recon (only there, after a launch).
-LAUNCHES = 0
+# Kernel launches made by wavefront_recon (only there, after a launch),
+# per variant.
+LAUNCHES = {"intra": 0, "inter": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -93,7 +96,7 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     fn = lib.ktt_wavefront_recon
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
                    + [ctypes.c_void_p])
     return lib
 
@@ -128,27 +131,35 @@ def _device_tables(plan: IntraFramePlan, s: int, device: torch.device):
 
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                     plan: IntraFramePlan, s: int, luma: bool, qp: int,
-                    bitdepth: int = 8):
+                    bitdepth: int = 8, is_inter=None, mc=None):
     """Reconstruct a batch of planes of one kind.
 
     orig: (NB, H, W) uint8 or int32 coded-size planes (H, W = the
     plan's luma size, or half of it for chroma); modes: (Bm, By, Bx)
     int32 with NB % Bm == 0 — item i uses modes[i % Bm] (Cb and Cr go
-    as one 2B batch sharing the luma modes).  Returns (rec (NB, H, W)
-    uint8, levels (NB, By*Bx, S, S) int16 in raster block order)."""
+    as one 2B batch sharing the luma modes).  P frames add is_inter
+    (Bm, By, Bx) bool, shared like modes, and mc (NB, H, W) integer MC
+    prediction planes in [0, 255]: inter blocks take mc and the inter
+    rounding.  Returns (rec (NB, H, W) uint8, levels (NB, By*Bx, S, S)
+    int16 in raster block order)."""
     if orig.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         return wavefront_recon_plain(orig, modes, plan, s, luma, qp,
-                                     bitdepth)
+                                     bitdepth, is_inter, mc)
     if orig.device.type != "cuda":
         raise ValueError(f"wavefront_recon: unsupported device "
                          f"{orig.device}")
-    nb, h, w = _check(orig, modes, plan, s, luma, bitdepth)
+    nb, h, w = _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc)
     lib = _library()
     dev = orig.device
     orig = orig.to(torch.int32).contiguous()
     modes = modes.to(torch.int32).contiguous()
+    inter_ptr = mc_ptr = None
+    if is_inter is not None:
+        is_inter = is_inter.to(torch.uint8).contiguous()
+        mc = mc.to(torch.uint8).contiguous()
+        inter_ptr, mc_ptr = is_inter.data_ptr(), mc.data_ptr()
     sched, dct = _device_tables(plan, s, dev)
     nblk = plan.blocks_y * plan.blocks_x
     rec = torch.empty((nb, h, w), dtype=torch.uint8, device=dev)
@@ -159,20 +170,19 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ktt_wavefront_recon(
             orig.data_ptr(), modes.data_ptr(), sched.data_ptr(),
-            dct.data_ptr(), rec.data_ptr(), levels.data_ptr(),
-            nb, modes.shape[0], h, w, plan.blocks_x, nblk, plan.n_steps,
-            plan.n_slots, s, int(luma), bitdepth, scale, qbits,
-            171 << (qbits - 9), inv_scale << (qp // 6), inv_shift - 4,
-            stream)
+            dct.data_ptr(), inter_ptr, mc_ptr, rec.data_ptr(),
+            levels.data_ptr(), nb, modes.shape[0], h, w, plan.blocks_x,
+            nblk, plan.n_steps, plan.n_slots, s, int(luma), bitdepth,
+            scale, qbits, 171 << (qbits - 9), 85 << (qbits - 9),
+            inv_scale << (qp // 6), inv_shift - 4, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES["intra" if is_inter is None else "inter"] += 1
     return rec, levels
 
 
-def _check(orig, modes, plan, s, luma, bitdepth):
+def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
     """Validate what the kernel takes; returns (NB, H, W)."""
     if bitdepth != 8:
         raise ValueError("wavefront kernel: 8-bit only")
@@ -196,4 +206,15 @@ def _check(orig, modes, plan, s, luma, bitdepth):
             or nb % modes.shape[0] != 0):
         raise ValueError("wavefront kernel: modes must be (Bm, By, Bx) "
                          "with NB a multiple of Bm")
+    if (is_inter is None) != (mc is None):
+        raise ValueError("wavefront kernel: is_inter and mc go together")
+    if is_inter is not None:
+        if (is_inter.device != orig.device or is_inter.dtype != torch.bool
+                or is_inter.shape != modes.shape):
+            raise ValueError("wavefront kernel: is_inter must be bool "
+                             "with the shape of modes on the device of "
+                             "orig")
+        if mc.device != orig.device or mc.shape != orig.shape:
+            raise ValueError("wavefront kernel: mc must have the shape "
+                             "of orig on its device")
     return nb, h, w

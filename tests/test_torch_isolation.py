@@ -1,13 +1,17 @@
 """The port stands apart from JAX and holds the JAX package's constants.
 
-- importing and running kvazaar_tpu_torch never imports jax (checked in
-  a fresh interpreter);
-- every table the port copies equals the JAX package's array;
+- importing and running kvazaar_tpu_torch (all-intra and IPPP) never
+  imports jax or any kvazaar_tpu module (checked in a fresh
+  interpreter), and no source of the port or chip_smoke.py imports
+  kvazaar_tpu (checked on the syntax tree);
+- every table and constant the port copies equals the JAX package's;
 - the kernel module imports on a machine without nvcc, and asking it to
   build the kernel there raises a clear error (no fallback).
 """
 
+import ast
 import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -23,19 +27,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_JAX = r"""
 import sys
 import numpy as np
-import kvazaar_tpu_torch
-from kvazaar_tpu.config import Config
+from kvazaar_tpu_torch import Config
 from kvazaar_tpu_torch.api import Encoder
 rng = np.random.default_rng(0)
 frames = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
            rng.integers(0, 256, (16, 24), dtype=np.uint8),
            rng.integers(0, 256, (16, 24), dtype=np.uint8))
-          for _ in range(2)]
-cfg = Config(width=48, height=32, qp=27, intra_max_cu=16, intra_min_cu=16,
-             intra_period=1)
-out = list(Encoder(cfg, device="cpu").encode_stream(frames))
-assert len(out) == 2 and all(len(c) > 0 for c, _, _ in out)
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+          for _ in range(3)]
+for period in (1, 0):
+    cfg = Config(width=48, height=32, qp=27, intra_max_cu=16,
+                 intra_min_cu=16, intra_period=period)
+    out = list(Encoder(cfg, device="cpu").encode_stream(frames))
+    assert len(out) == 3 and all(len(c) > 0 for c, _, _ in out)
+    assert [o[1].slice_type for o in out] == ([2] * 3 if period
+                                              else [2, 1, 1])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
 print("NO_JAX_OK")
 """
@@ -48,6 +55,55 @@ def test_port_runs_without_importing_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "kvazaar_tpu_torch")
+    for root, _dirs, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_no_kvazaar_tpu():
+    """Syntax-tree check of every import in the port and chip_smoke.py:
+    only kvazaar_tpu_torch, never kvazaar_tpu or jax."""
+    bad = []
+    n_files = 0
+    for path in _port_sources():
+        n_files += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("kvazaar_tpu", "jax"):
+                    bad.append(f"{os.path.relpath(path, REPO)}:"
+                               f"{node.lineno} {name}")
+    assert n_files > 20
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "constants", "ops.scan", "ops.inter", "bitstream.contexts",
+    "bitstream.headers", "bitstream.syntax", "encoder.inter_cands"])
+def test_copied_constants_equal_jax(module):
+    """Every upper-case constant of a copied module equals the JAX
+    package's constant of the same name."""
+    port = importlib.import_module("kvazaar_tpu_torch." + module)
+    ref = importlib.import_module("kvazaar_tpu." + module)
+    names = [n for n in dir(port) if n.lstrip("_").isupper()
+             and not n.startswith("__") and hasattr(ref, n)]
+    assert names
+    for n in names:
+        np.testing.assert_equal(getattr(port, n), getattr(ref, n),
+                                err_msg=f"{module}.{n}")
 
 
 def test_copied_tables_equal_jax_arrays():
@@ -112,12 +168,16 @@ def test_copied_helpers_equal_jax():
         [f.name for f in dataclasses.fields(JaxFrameInfo)]
     assert [f.name for f in dataclasses.fields(fe.FrameResult)] == \
         [f.name for f in dataclasses.fields(jfe.FrameResult)]
+    from kvazaar_tpu.bitstream.headers import \
+        write_version_sei as jax_version_sei
+    from kvazaar_tpu_torch.bitstream.headers import write_version_sei
+    assert write_version_sei() == jax_version_sei()
 
 
 def test_kernel_module_without_nvcc(tmp_path, monkeypatch):
     """Import works anywhere; building needs nvcc and says so; a tensor
     on neither CPU nor CUDA is refused rather than computed."""
-    from kvazaar_tpu.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
     from kvazaar_tpu_torch.ops import wavefront
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -127,7 +187,7 @@ def test_kernel_module_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         wavefront.build()
     plan = make_intra_plan(32, 32, 16, chroma=False)
-    before = wavefront.LAUNCHES
+    before = dict(wavefront.LAUNCHES)
     with pytest.raises(ValueError, match="unsupported device"):
         wavefront.wavefront_recon(
             torch.zeros((1, 32, 32), dtype=torch.int32, device="meta"),

@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 
 from kvazaar_tpu.bitstream.decoder import decode_stream
-from kvazaar_tpu.config import Config
+from kvazaar_tpu.config import Config as JaxConfig
 from kvazaar_tpu.encoder.frame_encoder import \
     IntraFrameEncoder as JaxIntraFrameEncoder
+from kvazaar_tpu_torch import Config
 from kvazaar_tpu_torch.api import Encoder
 from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
 
@@ -43,8 +44,8 @@ def _clip(n, w, h, seed):
     return frames
 
 
-def _cfg(w, h, cu, qp):
-    return Config(width=w, height=h, qp=qp, intra_max_cu=cu,
+def _cfg(w, h, cu, qp, config=Config):
+    return config(width=w, height=h, qp=qp, intra_max_cu=cu,
                   intra_min_cu=cu, intra_period=1, deblock=True, wpp=True)
 
 
@@ -54,7 +55,7 @@ def _encoded(name):
     shared by the tests of one case."""
     w, h, cu, qp = CASES[name]
     frames = _clip(2, w, h, seed=cu)
-    jax_enc = JaxIntraFrameEncoder(_cfg(w, h, cu, qp))
+    jax_enc = JaxIntraFrameEncoder(_cfg(w, h, cu, qp, JaxConfig))
     port = IntraFrameEncoder(_cfg(w, h, cu, qp), device="cpu")
     return (frames, jax_enc, jax_enc.encode_frames(frames), port,
             port.encode_frames(frames))
@@ -117,10 +118,19 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_structures_raise():
-    cfg = _cfg(64, 48, 16, 22)
-    cfg.intra_period = 0
-    with pytest.raises(NotImplementedError, match="P/B"):
-        Encoder(cfg, device="cpu")
+    """IPPP with one reference is ported; B-frame GOPs, more references,
+    SMP, TMVP and rate control still raise."""
+    for change, match in ((dict(gop_len=8), "GOP"),
+                          (dict(ref_frames=2), "reference"),
+                          (dict(smp=True), "SMP"),
+                          (dict(tmvp=True), "TMVP"),
+                          (dict(bitrate=100000), "rate control")):
+        cfg = _cfg(64, 48, 16, 22)
+        cfg.intra_period = 0
+        for k, v in change.items():
+            setattr(cfg, k, v)
+        with pytest.raises(NotImplementedError, match=match):
+            Encoder(cfg, device="cpu")
 
 
 def test_cli_writes_the_api_stream(tmp_path):

@@ -3,9 +3,10 @@
 On the JAX side both the lax.scan path (``wfp.DISABLE``) and the
 interpreted Pallas kernel (``wfp.INTERPRET``) run, exactly as
 tests/test_wavefront_pallas.py drives them, on the same cases: cu 8/16,
-QP 22/32/37, with and without chroma, B=2.  Levels and reconstruction
-must be equal (tolerance 0).  The CUDA kernel itself is compared with
-the same plain path on the card by chip_smoke.py.
+QP 22/32/37, with and without chroma, B=2, intra frames and P frames
+(random inter maps and MC planes: the kernel's inter variant).  Levels
+and reconstruction must be equal (tolerance 0).  The CUDA kernel itself
+is compared with the same plain path on the card by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -35,33 +36,41 @@ def _sources(rng, b, w, h, chroma=True):
     return ys, cbs, crs
 
 
-def _jax_both(plan, ys, cbs, crs, modes, qp):
+def _jax_both(plan, ys, cbs, crs, modes, qp, inter=None):
     """(interpreted Pallas kernel, lax.scan) outputs of the JAX
-    package."""
+    package.  inter: None, or (is_inter, mc_y, mc_cb, mc_cr)."""
     def j(a):
         return None if a is None else jnp.asarray(a)
 
     args = (j(ys), j(cbs), j(crs), j(modes), plan, qp, chroma_qp(qp), 8)
+    kw = {}
+    if inter is not None:
+        kw = dict(zip(("is_inter", "mc_y", "mc_cb", "mc_cr"),
+                      (j(a) for a in inter)))
     wfp.INTERPRET = True
     try:
-        kernel = jax_reconstruct_frames(*args)
+        kernel = jax_reconstruct_frames(*args, **kw)
     finally:
         wfp.INTERPRET = False
     wfp.DISABLE = True
     try:
-        scan = jax_reconstruct_frames(*args)
+        scan = jax_reconstruct_frames(*args, **kw)
     finally:
         wfp.DISABLE = False
     return kernel, scan
 
 
-def _check(plan, ys, cbs, crs, modes, qp):
+def _check(plan, ys, cbs, crs, modes, qp, inter=None):
     def t(a):
         return None if a is None else torch.from_numpy(a)
 
+    kw = {}
+    if inter is not None:
+        kw = dict(zip(("is_inter", "mc_y", "mc_cb", "mc_cr"),
+                      (t(a) for a in inter)))
     got = reconstruct_frames(t(ys), t(cbs), t(crs), t(modes), plan, qp,
-                             chroma_qp(qp))
-    for want, path in zip(_jax_both(plan, ys, cbs, crs, modes, qp),
+                             chroma_qp(qp), **kw)
+    for want, path in zip(_jax_both(plan, ys, cbs, crs, modes, qp, inter),
                           ("pallas-interpret", "scan")):
         for g, w, n in zip(got, want, NAMES):
             assert (g is None) == (w is None), n
@@ -82,6 +91,26 @@ def test_recon_matches_jax(cu, w, h, qp):
     modes = rng.integers(0, 35, (2, plan.blocks_y,
                                  plan.blocks_x)).astype(np.int32)
     _check(plan, ys, cbs, crs, modes, qp)
+
+
+@pytest.mark.parametrize("cu,w,h,qp", [
+    (8, 24, 16, 30),
+    (16, 48, 32, 22),
+])
+def test_inter_recon_matches_jax(cu, w, h, qp):
+    """P frames: inter blocks (p = 0.5) take the MC prediction and the
+    inter rounding and feed their intra neighbours' references."""
+    rng = np.random.default_rng(cu * 1000 + qp)
+    plan = make_intra_plan(w, h, cu, chroma=True)
+    ys, cbs, crs = _sources(rng, 2, w, h)
+    shape = (2, plan.blocks_y, plan.blocks_x)
+    modes = rng.integers(0, 35, shape).astype(np.int32)
+    is_inter = rng.random(shape) < 0.5
+    # MC planes near the source, so that inter residuals stay small and
+    # both rounding offsets matter.
+    mc_y, mc_cb, mc_cr = (np.clip(p + rng.integers(-6, 7, p.shape), 0, 255)
+                          .astype(np.int32) for p in (ys, cbs, crs))
+    _check(plan, ys, cbs, crs, modes, qp, (is_inter, mc_y, mc_cb, mc_cr))
 
 
 def test_recon_luma_only_matches_jax():
