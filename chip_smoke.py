@@ -18,11 +18,16 @@ Any failed phase raises, so the script exits nonzero:
 4. inter variant vs its plain version at the P path's shapes (luma S=16
    over 1 frame, Cb+Cr S=8 over 2 planes; and cu 8), with the inter
    map, modes and MC planes of a real P frame and with random ones;
-5. all-intra: encode a seeded video-like clip on the card, timed after
+5. the joint launch (luma and Cb, Cr of a batch in one launch, as the
+   encoder calls it) vs the plain version at the all-intra and the P
+   path's shapes, timed against the luma launch alone; and a
+   compare-only check of 1920x1088 and 3840x2160 frames at cu 16 and
+   cu 8, both variants, random inputs, with the launch's shared memory;
+6. all-intra: encode a seeded video-like clip on the card, timed after
    one warm-up batch, with the kernel's launch counts read around the
    run; a per-stage split of one batch; the first 2 frames again on the
    CPU (plain path), whose bytes must equal the card's;
-6. IPPP: encode a 46-frame clip with continuous motion on the card,
+7. IPPP: encode a 46-frame clip with continuous motion on the card,
    timed over the last 40 frames after 6 warm-up frames, with the
    launch counts read around the run; a per-stage split of one P frame;
    the first 3 frames (IDR + 2 P) again on the CPU, byte-identical.
@@ -45,6 +50,7 @@ import numpy as np
 
 W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
+BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, the closest listed peak for the
 # kernel's int32 multiply-adds.
@@ -114,19 +120,38 @@ def ippp_config(width, height, cu=16):
     return cfg
 
 
-def bound_ms(args, outs, s):
+def bound_ms(tensors, work):
     """Least time the card could take for one wavefront launch: each
-    input read once (as the kernel reads it: int32 samples and modes,
-    uint8 inter mask and MC planes) and each output written once over
-    HBM bandwidth,
-    against the transform's multiply-adds (4 stages of S, 2 operations
-    each, per sample, plus about 20 for prediction and quantization)
-    over the int32/float32 peak.  Returns (ms, "bytes"|"operations")."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
-    ops = args[0].numel() * (8 * s + 20)
+    input read once (as the kernel reads it) and each output written
+    once over HBM bandwidth, against the transform's multiply-adds over
+    the int32/float32 peak.  work: (samples, S) per plane kind, each
+    sample costing 4 stages of S multiply-adds, 2 operations each, plus
+    about 20 for prediction and quantization.  Returns (ms,
+    "bytes"|"operations")."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ops = sum(n * (8 * s + 20) for n, s in work)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(torch, got, want):
+    """Largest |difference| over matching tensors of two tuples."""
+    torch.cuda.synchronize()
+    return max((g.int() - w.int()).abs().max().item()
+               for g, w in zip(got, want) if g is not None)
+
+
+def time_row(torch, row, args, kw, plan):
+    """Adds the kernel's and the plain version's times at these inputs
+    to row."""
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
+    row["ms"] = cuda_ms(torch, lambda: wavefront_recon(*args, **kw), 20)
+    row["n_steps"] = plan.n_steps
+    row["ms_per_step"] = row["ms"] / plan.n_steps
+    row["plain_ms"] = cuda_ms(
+        torch, lambda: wavefront_recon_plain(*args, **kw), 2)
 
 
 def compare_kernel(torch, frames, dev):
@@ -139,12 +164,9 @@ def compare_kernel(torch, frames, dev):
     from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
 
-    def max_err(args):
-        rec, lv = wavefront_recon(*args)
-        prec, plv = wavefront_recon_plain(*args)
-        torch.cuda.synchronize()
-        return max((rec.int() - prec.int()).abs().max().item(),
-                   (lv.int() - plv.int()).abs().max().item())
+    def err_of(args):
+        return max_err(torch, wavefront_recon(*args),
+                       wavefront_recon_plain(*args))
 
     ys = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
     cs = torch.from_numpy(np.stack([f[1] for f in frames]
@@ -161,21 +183,30 @@ def compare_kernel(torch, frames, dev):
         for orig, s, luma, qp in ((ys, cu, True, QP),
                                   (cs, cu // 2, False, ife.qp_c)):
             args = (orig.to(torch.int32), modes, plan, s, luma, qp)
-            err = max(max_err(args),
-                      max_err((args[0], random_modes) + args[2:]))
-            ms = cuda_ms(torch, lambda: wavefront_recon(*args), 20)
-            plain_ms = cuda_ms(torch, lambda: wavefront_recon_plain(*args),
-                               2)
-            b_ms, b_by = bound_ms((args[0], modes),
-                                  wavefront_recon(*args), s)
+            err = max(err_of(args),
+                      err_of((args[0], random_modes) + args[2:]))
             row = dict(cu=cu, s=s, luma=luma, items=orig.shape[0],
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+                       max_abs_err=err)
+            time_row(torch, row, args, {}, plan)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                (args[0], modes, *wavefront_recon(*args)),
+                [(args[0].numel(), s)])
             log("kernel vs plain:", json.dumps(row))
             if err != 0:
                 raise RuntimeError(f"kernel != plain at {row}")
             rows.append(row)
     return rows
+
+
+def p_frame_inputs(torch, frames, cu, dev):
+    """The encoder, source planes, modes, inter map and MC planes of a
+    real P frame: frame 1 searched against frame 0's deblocked recon."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    ife = IntraFrameEncoder(ippp_config(W, H, cu), device=dev)
+    ife.submit_frames([frames[0]])       # DPB: frame 0, deblocked
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[1]]))
+    modes, inter_map, _mv, mcs = ife._p_predict(ys[0], ife._dpb)
+    return ife, (ys, cbs, crs), modes, inter_map, mcs
 
 
 def compare_kernel_inter(torch, frames, dev):
@@ -185,25 +216,18 @@ def compare_kernel_inter(torch, frames, dev):
     frame (frame 1 searched against frame 0's deblocked recon; timed)
     and with random ones (inter with p = 0.5, uniform modes and MC
     samples)."""
-    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
     from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
 
-    def max_err(args):
-        rec, lv = wavefront_recon(*args)
-        prec, plv = wavefront_recon_plain(*args)
-        torch.cuda.synchronize()
-        return max((rec.int() - prec.int()).abs().max().item(),
-                   (lv.int() - plv.int()).abs().max().item())
+    def err_of(args):
+        return max_err(torch, wavefront_recon(*args),
+                       wavefront_recon_plain(*args))
 
     rng = np.random.default_rng(2)
     rows = []
     for cu in (16, 8):
-        ife = IntraFrameEncoder(ippp_config(W, H, cu), device=dev)
-        ife.submit_frames([frames[0]])       # DPB: frame 0, deblocked
-        ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[1]]))
-        modes, inter_map, _mv, (mc_y, mc_cb, mc_cr) = ife._p_predict(
-            ys[0], ife._dpb)
+        ife, (ys, cbs, crs), modes, inter_map, (mc_y, mc_cb, mc_cr) = \
+            p_frame_inputs(torch, frames, cu, dev)
         plan = ife.plan
 
         def rand(shape, hi, dtype=np.int32):
@@ -220,21 +244,113 @@ def compare_kernel_inter(torch, frames, dev):
                     inter_map[None], mc.to(torch.uint8))
             rnd = (orig, rnd_modes[None], plan, s, luma, qp, 8,
                    rnd_inter[None], rand(tuple(mc.shape), 256, np.uint8))
-            err = max(max_err(args), max_err(rnd))
-            ms = cuda_ms(torch, lambda: wavefront_recon(*args), 20)
-            plain_ms = cuda_ms(torch, lambda: wavefront_recon_plain(*args),
-                               2)
-            b_ms, b_by = bound_ms(
-                (orig, modes, inter_map.to(torch.uint8), args[-1]),
-                wavefront_recon(*args), s)
+            err = max(err_of(args), err_of(rnd))
             row = dict(cu=cu, s=s, luma=luma, items=orig.shape[0],
                        inter_share=inter_map.float().mean().item(),
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+                       max_abs_err=err)
+            time_row(torch, row, args, {}, plan)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                (orig, modes, inter_map.to(torch.uint8), args[-1],
+                 *wavefront_recon(*args)), [(orig.numel(), s)])
             log("inter kernel vs plain:", json.dumps(row))
             if err != 0:
                 raise RuntimeError(f"inter kernel != plain at {row}")
             rows.append(row)
+    return rows
+
+
+def joint_launch(torch, frames, clip46, dev):
+    """Phase 5: luma + Cb + Cr in one launch (wavefront_recon_planes, as
+    reconstruct_frames calls it) == the plain version per plane kind, and
+    its time against the luma launch alone, at the all-intra path's
+    shapes (8 frames) and the P path's (1 frame, real inputs); then
+    compare-only 1920x1088 and 3840x2160 frames at cu 16 and cu 8, both
+    variants, random inputs.  Returns the rows of the two main-path
+    shapes."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         chroma_qp)
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import (launch_layout,
+                                                 wavefront_recon,
+                                                 wavefront_recon_planes)
+
+    def check(planes, modes, plan, qp_c, inter=None):
+        """max abs error of the joint launch against the plain per-step
+        version, run per plane kind on the same card tensors."""
+        kw = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+        got = wavefront_recon_planes(*planes, modes, plan, QP, qp_c, **kw)
+        want = []
+        for orig, mc, s, luma, qp in (
+                (planes[0], kw.get("mc_y"), plan.cu_size, True, QP),
+                (planes[1], kw.get("mc_cb"), plan.cu_size // 2, False, qp_c),
+                (planes[2], kw.get("mc_cr"), plan.cu_size // 2, False,
+                 qp_c)):
+            want += wavefront_recon_plain(orig, modes, plan, s, luma, qp, 8,
+                                          kw.get("is_inter"), mc)
+        return max_err(torch, got, want), kw
+
+    def row_of(name, planes, modes, plan, qp_c, inter=None):
+        err, kw = check(planes, modes, plan, qp_c, inter)
+        def run():
+            return wavefront_recon_planes(*planes, modes, plan, QP, qp_c,
+                                          **kw)
+
+        joint = cuda_ms(torch, run, 20)
+        luma_kw = ({} if inter is None
+                   else dict(is_inter=kw["is_inter"], mc=kw["mc_y"]))
+        luma = cuda_ms(torch, lambda: wavefront_recon(
+            planes[0], modes, plan, plan.cu_size, True, QP, **luma_kw), 20)
+        tensors = (*planes, modes, *kw.values(), *run())
+        row = dict(shape=name, items=planes[0].shape[0], max_abs_err=err,
+                   ms=joint, luma_alone_ms=luma, ratio=joint / luma,
+                   n_steps=plan.n_steps, ms_per_step=joint / plan.n_steps)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            tensors, [(planes[0].numel(), plan.cu_size),
+                      (2 * planes[1].numel(), plan.cu_size // 2)])
+        log("joint launch vs plain:", json.dumps(row))
+        if err != 0:
+            raise RuntimeError(f"joint launch != plain at {row}")
+        return row
+
+    ife = IntraFrameEncoder(headline_config(W, H), device=dev)
+    planes = ife._upload(ife.host_pack_sources(frames))
+    modes = torch.stack([search_frame_modes(y, ife.plan, ife.lambda_satd)[0]
+                         for y in planes[0]])
+    rows = [row_of("intra 8 frames", planes, modes, ife.plan, ife.qp_c)]
+    ife, (ys, cbs, crs), modes, inter_map, mcs = p_frame_inputs(
+        torch, clip46, 16, dev)
+    rows.append(row_of("inter 1 P frame", (ys, cbs, crs), modes[None],
+                       ife.plan, ife.qp_c,
+                       (inter_map[None], *(m[None] for m in mcs))))
+
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    rng = np.random.default_rng(3)
+    for (big_w, big_h), cu in ((wh, cu) for wh in BIG for cu in (16, 8)):
+        plan = make_intra_plan(big_w, big_h, cu, chroma=True)
+
+        def rand(shape, hi, dtype=np.uint8):
+            return torch.from_numpy(rng.integers(0, hi, shape,
+                                                 dtype=dtype)).to(dev)
+
+        planes = (rand((1, big_h, big_w), 256),
+                  rand((1, big_h // 2, big_w // 2), 256),
+                  rand((1, big_h // 2, big_w // 2), 256))
+        modes = rand((1, plan.blocks_y, plan.blocks_x), 35, np.int32)
+        inter = (rand(tuple(modes.shape), 2) != 0,
+                 *(rand(tuple(p.shape), 256) for p in planes))
+        errs = [check(planes, modes, plan, chroma_qp(QP))[0],
+                check(planes, modes, plan, chroma_qp(QP), inter)[0]]
+        ring, threads, smem = launch_layout(plan, cu, big_w)
+        log(f"{big_w}x{big_h} joint launch vs plain:", json.dumps(
+            dict(cu=cu, blocks=plan.blocks_y * plan.blocks_x,
+                 n_steps=plan.n_steps, n_slots=plan.n_slots, ring=ring,
+                 threads=threads, smem_bytes=smem,
+                 max_abs_err_intra=errs[0], max_abs_err_inter=errs[1])))
+        if max(errs) != 0:
+            raise RuntimeError(f"joint launch != plain at {big_w}x{big_h} "
+                               f"cu {cu}")
     return rows
 
 
@@ -424,6 +540,7 @@ def main() -> int:
     rows = compare_kernel(torch, frames, dev)
     clip46 = synth_clip_natural(IPPP_WARM + IPPP_TIMED, W, H, seed=0)
     inter_rows = compare_kernel_inter(torch, clip46, dev)
+    joint_rows = joint_launch(torch, frames, clip46, dev)
 
     cfg = headline_config(W, H)
     enc = Encoder(cfg, device="cuda")
@@ -466,25 +583,24 @@ def main() -> int:
 
     inter_launches = run_ippp(torch, wavefront, clip46, dev)
 
-    def record(name, replaces, n, rs):
-        main_rows = [r for r in rs if r["cu"] == 16]
-        # Luma and chroma launches of one main-path submission.
+    def record(name, replaces, n, joint, rs):
+        """The main path's joint launch (luma + Cb + Cr at cu 16); the
+        error over every shape of the variant."""
         return {"name": name, "route": "cuda",
                 "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
                 "replaces": replaces, "launches": n,
-                "max_abs_err": max(r["max_abs_err"] for r in rs),
-                "ms": sum(r["ms"] for r in main_rows),
-                "plain_ms": sum(r["plain_ms"] for r in main_rows),
-                "bound_ms": sum(r["bound_ms"] for r in main_rows),
-                "bound_by": main_rows[0]["bound_by"],
-                "library_ms": None}
+                "max_abs_err": max(r["max_abs_err"] for r in (*rs, joint)),
+                "ms": joint["ms"],
+                "plain_ms": sum(r["plain_ms"] for r in rs if r["cu"] == 16),
+                "bound_ms": joint["bound_ms"],
+                "bound_by": joint["bound_by"], "library_ms": None}
 
     log(json.dumps({"kernels": [
         record("wavefront_recon", "kvazaar_tpu/ops/wavefront_pallas.py:149",
-               launches, rows),
+               launches, joint_rows[0], rows),
         record("wavefront_recon_inter",
                "kvazaar_tpu/ops/wavefront_pallas.py:283", inter_launches,
-               inter_rows)]}))
+               joint_rows[1], inter_rows)]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

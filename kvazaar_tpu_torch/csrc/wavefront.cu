@@ -10,35 +10,100 @@
 // takes its motion-compensated prediction instead.  Then residual,
 // forward DCT, flat quantization (rounding 171/512 intra, 85/512
 // inter), dequant, inverse DCT and clip.  Outputs are the levels of
-// every block (raster block order) and the reconstructed plane; inter
-// blocks feed later intra neighbours through that plane like any other.
+// every block (raster block order) and the reconstructed planes; inter
+// blocks feed later intra neighbours through the edge state like any
+// other block.
 //
-// What bounds it on the card: the dependency chain, not bytes or
-// operations.  On paper it is bytes-bound (a few tens of MB per launch
-// at 3.35 TB/s is some microseconds), but a 832x480 luma plane at S=16
-// is 224 dependent wavefront steps with at most 13 blocks each, so there
-// is little work per step, and only one thread block per (frame, plane)
-// item is busy: B x planes of 132 SMs.  A P frame is one luma item and
-// two chroma items: 3 of 132 SMs.
+// What bounds it on the card: neither bytes nor operations but the
+// latency of one wavefront step.  A 832x480 luma plane at S=16 is 224
+// dependent steps of at most 13 blocks; each plane of a frame is one
+// thread block on one SM (a P frame fills 3 of 132 SMs), and a step is
+// one dependent chain per block: reference build, prediction, four
+// transform stages, quantization, reconstruction, then the barrier that
+// makes the step's samples visible to the next.  The bytes (some tens of
+// MB per launch) would take microseconds.  Measured on an H100: the
+// step time follows the length of one warp's chain, not the SM's issue
+// rate (splitting a step's blocks over a 2-CTA cluster did not shorten
+// it, nor did moving the transforms to the tensor cores, whose int/fp
+// conversions lengthen the chain).
 //
-// What this design does about it: nothing yet; correctness first.
-// Frames are batched per launch (one thread block per item, the items
-// run in parallel on separate SMs) and all slots of a step run
-// together inside the block.  The reconstructed output plane in global
-// memory is the only wavefront state: neighbour references are read
-// straight from it after the __syncthreads() that ends each step (the
-// TPU needed edge buffers because a scatter into a whole frame was
-// costly there).
+// What this design does about it:
+// - One pass per step.  A slot group runs one block: a whole warp at
+//   S=16 and S=8 (so blocks of different modes never share a warp), 8
+//   lanes at S=4.  Stages inside a group synchronise with __syncwarp;
+//   the step ends with the one __syncthreads that publishes its
+//   reconstruction.  A step with more blocks than groups loops the
+//   groups without a block barrier.
+// - Wavefront state in shared memory: the bottom row (hrow) and right
+//   column (vcol) of every block of the last K block rows, the TPU
+//   kernel's hrow/vcol edge buffers, as a uint8 ring indexed by block
+//   row modulo K.  The wrapper derives K from the schedule (the smallest
+//   depth at which no block overwrites an edge before its last reader's
+//   step).  Reference builds read only this ring; the reconstructed
+//   plane in global memory is written and never read.
+// - Step-independent inputs off the chain: the schedule, modes, inter
+//   flags and availability are packed into one word per block, in step
+//   order, once per launch (a global table of the thread block's own);
+//   each group loads the word of its block two steps ahead into a
+//   register and copies the source and MC samples of its next step's
+//   block into a shared double buffer (cp.async) while the current step
+//   runs.  Shared memory thus holds the step offsets, the edge ring, the
+//   coefficient tables and the groups' buffers: it grows with the
+//   plane's width and height, not with its area (layout_of below).
+// - A short chain per step: substitution from a bit mask of available
+//   regions, angular prediction from an extended main reference built
+//   once per block (no branch per sample), divisions by the grid width
+//   and ring depth as multiply-highs, and each 1-D transform split over
+//   the lanes of a row by its even-odd symmetry (the partial butterfly
+//   of the HEVC reference encoders), with per-lane coefficient tables.
+// - Luma and chroma of a batch are one launch: the first CTAs run the
+//   luma plane at S, the rest Cb and Cr at S/2, each on its own SM, so a
+//   P frame's chroma runs beside its luma instead of after it.
 //
-// Plain C interface (ktt_wavefront_recon); the PyTorch wrapper in
-// kvazaar_tpu_torch/ops/wavefront.py allocates the outputs, checks the
+// Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
+// PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
+// schedule tables and the ring depth, allocates the outputs, checks the
 // inputs and loads this library with ctypes.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+// One plane kind of a launch: nb items (frames) of (h, w) samples at
+// block size s.  orig and mc hold uint8 or int32 samples (orig_bytes,
+// mc_bytes); mc is null for the intra variant.
+struct KttPlane {
+  const void* orig;
+  const void* mc;
+  uint8_t* rec;      // (nb, h, w)
+  int16_t* levels;   // (nb, nblk, s, s)
+  int nb, s, h, w, luma, orig_bytes, mc_bytes;
+  int q_scale, q_bits, q_offset, q_offset_inter, dq_mult, dq_shift;
+};
+
 namespace {
+
+constexpr int kMid = 128, kMaxV = 255;  // 8-bit samples
+
+// HEVC transform matrix for nTbS = 16 (8.6.4.2); the S-point matrix is
+// rows k * (16 / S), columns 0..S-1.
+__constant__ int kT16[16][16] = {
+    {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
+    {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90},
+    {89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89},
+    {87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87},
+    {83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83},
+    {80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80},
+    {75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75},
+    {70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70},
+    {64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64},
+    {57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57},
+    {50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50},
+    {43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43},
+    {36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36},
+    {25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25},
+    {18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18},
+    {9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9}};
 
 // H.265 Table 8-4 (index mode - 2) and Table 8-5 (index mode - 11).
 __constant__ int kAngle[33] = {
@@ -48,26 +113,94 @@ __constant__ int kInvAngle[15] = {
     -4096, -1638, -910, -630, -482, -390, -315, -256,
     -315, -390, -482, -630, -910, -1638, -4096};
 
-// Availability flag bits of the schedule (wavefront_pallas._schedule_np).
-constexpr int kFlagL = 1, kFlagA = 2, kFlagAR = 4, kFlagBL = 8,
-              kFlagAL = 16;
+// Packed per-block word: block id, availability mask, coded mode, inter
+// flag.  Bit r of the mask is set when reference region r is available,
+// in the substitution scan order of 8.4.4.2.2: 0 below-left, 1 left, 2
+// above-left corner, 3 above, 4 above-right.  The wrapper's blk_info
+// holds the step-order position in the low kAvailShift bits.
+constexpr int kAvailShift = 20, kModeShift = 25, kInterBit = 31;
+constexpr uint32_t kPosMask = (1u << kAvailShift) - 1;
+constexpr int kMaxBlocks = 1 << kAvailShift;
 
 struct Params {
-  const int32_t* orig;    // (nb, h, w) source samples
-  const int32_t* modes;   // (bm, nblk) intra mode per block; item i uses
-                          // row i % bm (Cb and Cr share the luma modes)
-  const int32_t* sched;   // (n_steps, n_slots, 2) [block id, flags];
-                          // pad slots carry block id nblk
-  const int32_t* dct;     // (S, S) integer DCT matrix
-  const uint8_t* inter;   // (bm, nblk) 1 = inter block, shared like
-                          // modes; null for the intra variant
-  const uint8_t* mc;      // (nb, h, w) MC prediction; null when intra
-  uint8_t* rec;           // (nb, h, w) reconstruction = wavefront state
-  int16_t* levels;        // (nb, nblk, S, S) quantized levels
-  int bm, h, w, blocks_x, nblk, n_steps, n_slots;
-  int luma, bitdepth;
-  int q_scale, q_bits, q_offset, q_offset_inter, dq_mult, dq_shift;
+  KttPlane plane[3];
+  int item_end[3];          // cumulative item counts of the planes
+  int n_planes;
+  const uint32_t* blk_info;  // (nblk) step-order position | mask << 20
+  const int32_t* step_start; // (n_steps + 1) first position of each step
+  const int32_t* modes;      // (bm, nblk); item i uses row i % bm
+  const uint8_t* inter;      // (bm, nblk) bool, shared like modes; null
+                             // for the intra variant
+  uint32_t* entries;         // (items, nblk) packed words in step order,
+                             // written by the kernel
+  int bm, blocks_x, nblk, n_steps, n_slots;
+  int ring, ring_w;          // ring depth K and row stride (luma width)
+  int off_ring, off_coef, off_groups;  // shared memory offsets (bytes);
+                                       // the step offsets start at 0
 };
+
+// Words of one slot group's shared memory, a multiple of 4: a double
+// buffer of the source and MC samples of the group's block (S x S each,
+// int32 or uint8), the reference and filtered reference vectors (4S+1,
+// padded to 4S+2), the extended main reference of the angular modes
+// (indices -S..2S+1) and two S x (S+1) transform buffers.
+template <int S>
+__host__ __device__ constexpr int group_words() {
+  return (4 * S * S + 2 * (4 * S + 2) + (3 * S + 2) + 2 * S * (S + 1) + 3) /
+         4 * 4;
+}
+
+// Reference vector regions in scan order (see kAvailShift) and their
+// first and last index.
+template <int S>
+__device__ __forceinline__ int ref_region(int i) {
+  return i < S ? 0 : (i < 2 * S ? 1 : (i == 2 * S ? 2 : (i <= 3 * S ? 3
+                                                                     : 4)));
+}
+
+template <int S>
+__device__ __forceinline__ int region_first(int r) {
+  return r <= 2 ? r * S : (r - 1) * S + 1;
+}
+
+template <int S>
+__device__ __forceinline__ int region_last(int r) {
+  return r <= 1 ? (r + 1) * S - 1 : r * S;
+}
+
+// Asynchronous global -> shared copy of B bytes (cp.async).
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(B)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n / d for n, d >= 0 with n d < 2^32 (block ids by the grid width, block
+// rows by the ring depth; ktt_wavefront_recon checks the bound) as a
+// multiply-high by m = ceil(2^32 / d), m from reciprocal(d).
+__device__ __forceinline__ uint32_t reciprocal(int d) {
+  return d == 1 ? 0u : (uint32_t)((0x100000000ull + d - 1) / d);
+}
+
+__device__ __forceinline__ int div_by(int n, int d, uint32_t m) {
+  return d == 1 ? n : (int)__umulhi((uint32_t)n, m);
+}
 
 __device__ __forceinline__ int round_shift(int x, int s) {
   return (x + (1 << (s - 1))) >> s;
@@ -77,52 +210,97 @@ __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// Reference vector region of index i: 0 below-left, 1 left, 2 corner,
-// 3 above, 4 above-right (the spec's substitution scan order).
+// Lanes of a slot group.  A group of L lanes runs one block: lane
+// (y, q) = (lane % S, lane / S) owns row y and, of each 1-D transform,
+// vector y and part q of P = L / S parts.  S=16 and S=8 take a whole
+// warp (so the blocks of a warp never diverge on their modes), S=4 a
+// quarter.  A part is O = S / P samples of the row: the M = O / 2
+// columns q*M.. and their mirrors S-1-(q*M..), the pairs that the
+// even-odd transform couples.
 template <int S>
-__device__ __forceinline__ int ref_region(int i) {
-  return i < S ? 0 : (i < 2 * S ? 1 : (i == 2 * S ? 2 : (i <= 3 * S ? 3
-                                                                     : 4)));
+struct Shape {
+  static constexpr int L = S == 4 ? 8 : 32;
+  static constexpr int P = L / S;
+  static constexpr int O = S / P;
+  static constexpr int M = O / 2;
+  static constexpr int LOG2 = S == 16 ? 4 : (S == 8 ? 3 : 2);
+};
+
+// Column of a lane's sample i (i < M: q*M + i; then the mirrors).
+template <int S>
+__device__ __forceinline__ int owned_col(int q, int i) {
+  constexpr int M = Shape<S>::M;
+  return i < M ? q * M + i : S - 1 - (q * M + i - M);
 }
 
-// Sample i of the reference vector, read from the reconstructed plane:
-// ref[i] = p[-1][2S-1-i] (i < 2S), ref[2S] = p[-1][-1],
-// ref[2S+1+x] = p[x][-1].
+// Shared-memory coefficient tables of one lane part q (ints):
+// forward, (O, S/2): row i = C[k_i][0..S/2) for the part's outputs k_i
+// = 2 ((q >> 1) O + i) + (q & 1), all even or all odd; inverse, (M, S):
+// row i = C[0..S)[q*M + i].  C[k][n] = kT16[k * 16 / S][n].
 template <int S>
-__device__ __forceinline__ int read_ref(const uint8_t* plane, int w,
-                                        int x0, int y0, int i) {
-  int dx, dy;
-  if (i < 2 * S) {
-    dx = -1;
-    dy = 2 * S - 1 - i;
-  } else if (i == 2 * S) {
-    dx = -1;
-    dy = -1;
-  } else {
-    dx = i - 2 * S - 1;
-    dy = -1;
+__device__ __forceinline__ int fwd_out(int q, int i) {
+  return 2 * ((q >> 1) * Shape<S>::O + i) + (q & 1);
+}
+
+template <int S>
+__device__ void fill_coefs(int* coef) {
+  using Sh = Shape<S>;
+  constexpr int NF = Sh::P * Sh::O * (S / 2), NI = Sh::P * Sh::M * S;
+  for (int t = threadIdx.x; t < NF; t += blockDim.x) {
+    const int q = t / (Sh::O * (S / 2)), i = t / (S / 2) % Sh::O;
+    coef[t] = kT16[fwd_out<S>(q, i) * (16 / S)][t % (S / 2)];
   }
-  return plane[(y0 + dy) * w + (x0 + dx)];
+  for (int t = threadIdx.x; t < NI; t += blockDim.x) {
+    const int q = t / (Sh::M * S), i = t / S % Sh::M;
+    coef[NF + t] = kT16[(t % S) * (16 / S)][q * Sh::M + i];
+  }
 }
 
-// 8.4.4.2.2 substitution at region granularity (availability is whole
-// region on a uniform CU grid): an unavailable region takes the last
-// sample of the nearest available region before it, or, with none
-// before, the first sample of the first available region after it;
-// with no region available every sample is mid-grey.
+// Forward part: out[i] = sum_n C[k_i][n] v[n] over the full vector v,
+// as C[k_i][n] (v[n] +- v[S-1-n]) for n < S/2: even rows are symmetric,
+// odd rows antisymmetric (sgn = -1 for the odd parts).
 template <int S>
-__device__ int build_ref(const uint8_t* plane, int w, int x0, int y0,
-                         int flags, int i, int mid) {
-  const int bit[5] = {kFlagBL, kFlagL, kFlagAL, kFlagA, kFlagAR};
-  const int first[5] = {0, S, 2 * S, 2 * S + 1, 3 * S + 1};
-  const int last[5] = {S - 1, 2 * S - 1, 2 * S, 3 * S, 4 * S};
-  const int region = ref_region<S>(i);
-  if (flags & bit[region]) return read_ref<S>(plane, w, x0, y0, i);
-  for (int r = region - 1; r >= 0; --r)
-    if (flags & bit[r]) return read_ref<S>(plane, w, x0, y0, last[r]);
-  for (int r = region + 1; r < 5; ++r)
-    if (flags & bit[r]) return read_ref<S>(plane, w, x0, y0, first[r]);
-  return mid;
+__device__ __forceinline__ void fwd_part(const int* v, const int* cf,
+                                         int sgn, int* out) {
+  constexpr int H = S / 2;
+  int w[H];
+#pragma unroll
+  for (int n = 0; n < H; ++n) w[n] = v[n] + sgn * v[S - 1 - n];
+#pragma unroll
+  for (int i = 0; i < Shape<S>::O; ++i) {
+    int acc = 0;
+    if constexpr (H >= 4) {
+#pragma unroll
+      for (int n = 0; n < H; n += 4) {
+        const int4 c = *reinterpret_cast<const int4*>(cf + i * H + n);
+        acc += c.x * w[n] + c.y * w[n + 1] + c.z * w[n + 2] + c.w * w[n + 3];
+      }
+    } else {
+      const int2 c = *reinterpret_cast<const int2*>(cf + i * H);
+      acc = c.x * w[0] + c.y * w[1];
+    }
+    out[i] = acc;
+  }
+}
+
+// Inverse part: for the part's columns n_i = q*M + i, x[n_i] = ev + od
+// (lo[i]) and x[S-1-n_i] = ev - od (hi[i]), where ev and od sum C[k][n_i]
+// v[k] over the even and the odd k.
+template <int S>
+__device__ __forceinline__ void inv_part(const int* v, const int* ci,
+                                         int* lo, int* hi) {
+#pragma unroll
+  for (int i = 0; i < Shape<S>::M; ++i) {
+    int ev = 0, od = 0;
+#pragma unroll
+    for (int k = 0; k < S; k += 4) {
+      const int4 c = *reinterpret_cast<const int4*>(ci + i * S + k);
+      ev += c.x * v[k] + c.z * v[k + 2];
+      od += c.y * v[k + 1] + c.w * v[k + 3];
+    }
+    lo[i] = ev + od;
+    hi[i] = ev - od;
+  }
 }
 
 // 8.4.4.2.3 filterFlag for luma (ops/intra.py _filter_flag).
@@ -135,220 +313,540 @@ __device__ __forceinline__ bool filter_flag(int mode) {
   return dist > (S == 8 ? 7 : (S == 16 ? 1 : 0));
 }
 
-// Prediction of sample (x, y) for `mode`.  p: the reference vector the
-// mode reads (smoothed where filterFlag holds); u: unfiltered refs for
-// the luma boundary fixups.
-template <int S, int LOG2S>
-__device__ int predict(const int* p, const int* u, int mode, int x, int y,
-                       bool fixups, int maxv) {
-#define LEFT(arr, yy) (arr)[2 * S - 1 - (yy)]
-#define TOP(arr, xx) (arr)[2 * S + 1 + (xx)]
-  if (mode == 0) {
-    return ((S - 1 - x) * LEFT(p, y) + (x + 1) * TOP(p, S) +
-            (S - 1 - y) * TOP(p, x) + (y + 1) * LEFT(p, S) + S) >>
-           (LOG2S + 1);
+// Copies the S x S samples of a block (origin off, row stride w) of a
+// uint8 or int32 plane into dst (rows of S samples), with the L lanes of
+// a group.
+template <int S>
+__device__ __forceinline__ void stage_block(void* dst, const void* plane,
+                                            int bytes, size_t off, int w,
+                                            int lane) {
+  constexpr int L = Shape<S>::L;
+  if (bytes == 4) {
+    constexpr int CPR = S / 4;  // 16-byte chunks per row
+    for (int c = lane; c < S * CPR; c += L) {
+      const int r = c / CPR, k = c % CPR;
+      cp_async<16>(static_cast<int32_t*>(dst) + r * S + 4 * k,
+                   static_cast<const int32_t*>(plane) + off +
+                       (size_t)r * w + 4 * k);
+    }
+  } else {
+    for (int r = lane; r < S; r += L)
+      cp_async<S>(static_cast<uint8_t*>(dst) + r * S,
+                  static_cast<const uint8_t*>(plane) + off + (size_t)r * w);
   }
-  if (mode == 1) {
-    int sum = S;
-    for (int k = 0; k < S; ++k) sum += TOP(p, k) + LEFT(p, k);
-    const int dc = sum >> (LOG2S + 1);
-    if (!fixups) return dc;
-    if (x == 0 && y == 0) return (LEFT(u, 0) + 2 * dc + TOP(u, 0) + 2) >> 2;
-    if (y == 0) return (TOP(u, x) + 3 * dc + 2) >> 2;
-    if (x == 0) return (LEFT(u, y) + 3 * dc + 2) >> 2;
-    return dc;
-  }
-  const int corner = u[2 * S];
-  if (fixups && mode == 10 && y == 0)
-    return clamp_int(LEFT(u, 0) + ((TOP(u, x) - corner) >> 1), 0, maxv);
-  if (fixups && mode == 26 && x == 0)
-    return clamp_int(TOP(u, 0) + ((LEFT(u, y) - corner) >> 1), 0, maxv);
-  const int angle = kAngle[mode - 2];
-  const bool vertical = mode >= 18;
-  const int t = vertical ? y + 1 : x + 1;
-  const int idx = (t * angle) >> 5;
-  const int fact = (t * angle) & 31;
-  const int base = (vertical ? x : y) + idx + 1;
-  // Extended main reference array (8.4.4.2.6): k >= 0 reads the main
-  // side, k < 0 projects onto the other side through invAngle.
-  auto ext = [&](int k) -> int {
-    if (k >= 0) return vertical ? TOP(p, k - 1) : LEFT(p, k - 1);
-    const int j = -1 + ((k * kInvAngle[mode - 11] + 128) >> 8);
-    return vertical ? LEFT(p, j) : TOP(p, j);
-  };
-  int acc = (32 - fact) * ext(base);
-  if (fact) acc += fact * ext(base + 1);
-  return (acc + 16) >> 5;
-#undef LEFT
-#undef TOP
 }
 
-// One thread block per (frame, plane) item; SS = S*S threads per slot,
-// `spp` slots of a step at a time.  Thread t of a slot owns sample
-// (t / S, t % S) of the block and entry (t / S, t % S) of every
-// transform stage.
-template <int S, int LOG2S, int SPP_MAX>
-__global__ void __launch_bounds__(SPP_MAX * S * S)
-    wavefront_kernel(Params p) {
-  constexpr int SS = S * S;
-  constexpr int R = 4 * S + 1;
-  __shared__ int s_dct[SS];
-  __shared__ int s_ref[SPP_MAX][R];
-  __shared__ int s_flt[SPP_MAX][R];
-  __shared__ int s_a[SPP_MAX][SS];
-  __shared__ int s_b[SPP_MAX][SS];
+// Sample (y, x) of a staged block of uint8 or int32 samples.
+template <int S>
+__device__ __forceinline__ int staged(const int* buf, int bytes, int y,
+                                      int x) {
+  return bytes == 1 ? reinterpret_cast<const uint8_t*>(buf)[y * S + x]
+                    : buf[y * S + x];
+}
 
-  const int spp = blockDim.x / SS;
-  const int g = threadIdx.x / SS;
-  const int t = threadIdx.x % SS;
-  const int ty = t / S, tx = t % S;
-  const size_t plane = (size_t)p.h * p.w;
-  const int32_t* orig = p.orig + blockIdx.x * plane;
-  uint8_t* rec = p.rec + blockIdx.x * plane;
-  const int32_t* modes = p.modes + (size_t)(blockIdx.x % p.bm) * p.nblk;
-  const uint8_t* inter_of =
-      p.inter ? p.inter + (size_t)(blockIdx.x % p.bm) * p.nblk : nullptr;
-  const uint8_t* mc = p.mc ? p.mc + blockIdx.x * plane : nullptr;
-  int16_t* levels = p.levels + (size_t)blockIdx.x * p.nblk * SS;
-  const int mid = 1 << (p.bitdepth - 1);
-  const int maxv = (1 << p.bitdepth) - 1;
-  const int shift1 = LOG2S + p.bitdepth - 9;
-  const int ishift2 = 20 - p.bitdepth;
-  int* ref = s_ref[g];
-  int* flt = s_flt[g];
-  int* a = s_a[g];
-  int* b = s_b[g];
+// One plane item (one frame of one plane kind) in thread block order.
+template <int S>
+__device__ void run_plane(const Params& p, const KttPlane& pl, int item,
+                          unsigned char* smem) {
+  using Sh = Shape<S>;
+  constexpr int L = Sh::L, O = Sh::O, M = Sh::M, LOG2S = Sh::LOG2;
+  constexpr int R = 4 * S + 1, RP = 4 * S + 2, SP = S + 1;
+  // Groups past the last slot find no block in any step and only join
+  // the step barriers.
+  const int groups = min((int)blockDim.x / L, p.n_slots);
+  const int g = threadIdx.x / L;
+  const int lane = threadIdx.x % L, y = lane % S, q = lane / S;
+  const unsigned mask =
+      L == 32 ? 0xffffffffu
+              : ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
 
-  for (int i = threadIdx.x; i < SS; i += blockDim.x) s_dct[i] = p.dct[i];
-  __syncthreads();
+  const uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
+  const int* steps = reinterpret_cast<const int*>(smem);
+  uint8_t* hrow = smem + p.off_ring;
+  uint8_t* vcol = hrow + p.ring * p.ring_w;
+  const int* coef = reinterpret_cast<const int*>(smem + p.off_coef);
+  const int* cf = coef + q * O * (S / 2);
+  const int* ci = coef + Sh::P * O * (S / 2) + q * M * S;
+  int* stage = reinterpret_cast<int*>(smem + p.off_groups) +
+               g * group_words<S>();
+  int* ref = stage + 4 * S * S;
+  int* flt = ref + RP;
+  int* mref = flt + RP;  // mref[S + k], k = -S..2S+1
+  int* buf_a = mref + 3 * S + 2;
+  int* buf_b = buf_a + S * SP;
 
-  for (int step = 0; step < p.n_steps; ++step) {
-    for (int base = 0; base < p.n_slots; base += spp) {
-      const int slot = base + g;
-      int bid = p.nblk, flags = 0;
-      if (slot < p.n_slots) {
-        bid = p.sched[(step * p.n_slots + slot) * 2];
-        flags = p.sched[(step * p.n_slots + slot) * 2 + 1];
+  const size_t plane = (size_t)pl.h * pl.w;
+  const void* orig = static_cast<const uint8_t*>(pl.orig) +
+                     item * plane * pl.orig_bytes;
+  const void* mc = pl.mc ? static_cast<const uint8_t*>(pl.mc) +
+                               item * plane * pl.mc_bytes
+                         : nullptr;
+  uint8_t* rec = pl.rec + item * plane;
+  int16_t* levels = pl.levels + (size_t)item * p.nblk * S * S;
+  const int w = pl.w, ring = p.ring, ring_w = p.ring_w;
+  const bool luma = pl.luma != 0;
+  const int shift1 = LOG2S - 1;  // LOG2S + bitdepth - 9
+  const int sgn = 1 - 2 * (q & 1);
+  const uint32_t m_bx = reciprocal(p.blocks_x), m_ring = reciprocal(ring);
+
+  // Starts the copies of the source (and, for an inter block, the MC)
+  // samples of the block of packed word e into buffer buf; the caller
+  // commits them as one group.
+  auto prefetch = [&](uint32_t e, int buf) {
+    const int bid = e & kPosMask;
+    const int by = div_by(bid, p.blocks_x, m_bx);
+    const size_t off = ((size_t)by * w + bid - by * p.blocks_x) * S;
+    int* dst = stage + buf * 2 * S * S;
+    stage_block<S>(dst, orig, pl.orig_bytes, off, w, lane);
+    if (mc != nullptr && ((e >> kInterBit) & 1))
+      stage_block<S>(dst + S * S, mc, pl.mc_bytes, off, w, lane);
+  };
+
+  auto process = [&](uint32_t e, const int* src) {
+    const int bid = e & kPosMask;
+    const unsigned avail = (e >> kAvailShift) & 31;
+    const int mode = (e >> kModeShift) & 63;
+    const bool inter = (e >> kInterBit) & 1;
+    const int by = div_by(bid, p.blocks_x, m_bx), bx = bid - by * p.blocks_x;
+    const int x0 = bx * S, y0 = by * S;
+    const int rc = by - div_by(by, ring, m_ring) * ring;
+
+    int pred[O];
+    if (inter) {
+#pragma unroll
+      for (int i = 0; i < O; ++i)
+        pred[i] = staged<S>(src + S * S, pl.mc_bytes, y, owned_col<S>(q, i));
+    } else {
+      const int ra = rc == 0 ? ring - 1 : rc - 1;
+      const int rb = rc + 1 == ring ? 0 : rc + 1;
+      // Sample i of the reference vector from the edge ring.
+      auto read_ref = [&](int i) -> int {
+        if (i < 2 * S) {
+          const int dy = 2 * S - 1 - i;
+          return vcol[(dy < S ? rc : rb) * ring_w + (bx - 1) * S +
+                      (dy & (S - 1))];
+        }
+        return hrow[ra * ring_w + x0 + i - 2 * S - 1];
+      };
+      // 8.4.4.2.2 substitution at region granularity (availability is
+      // whole region on a uniform CU grid): an unavailable region takes
+      // the last sample of the nearest available region before it, or,
+      // with none before, the first sample of the first available
+      // region after it; with none available every sample is mid-grey.
+      for (int i = lane; i < R; i += L) {
+        const int r = ref_region<S>(i);
+        int src_i = i;
+        if (!((avail >> r) & 1)) {
+          const unsigned below = avail & ((1u << r) - 1);
+          const unsigned above = avail & (31u << (r + 1)) & 31u;
+          src_i = below ? region_last<S>(31 - __clz(below))
+                        : (above ? region_first<S>(__ffs(above) - 1) : -1);
+        }
+        ref[i] = src_i < 0 ? kMid : read_ref(src_i);
       }
-      // Pad slots (and groups past the last slot) only join barriers.
-      const bool active = bid < p.nblk;
-      const int x0 = active ? (bid % p.blocks_x) * S : 0;
-      const int y0 = active ? (bid / p.blocks_x) * S : 0;
-      const int mode = active ? modes[bid] : 0;
-      // Inter blocks skip the reference build and the intra prediction.
-      const bool inter = active && inter_of != nullptr && inter_of[bid];
-      const bool intra = active && !inter;
-
-      if (intra)
-        for (int i = t; i < R; i += SS)
-          ref[i] = build_ref<S>(rec, p.w, x0, y0, flags, i, mid);
-      __syncthreads();
-
-      const bool smooth = p.luma && filter_flag<S>(mode);
-      if (intra)
-        for (int i = t; i < R; i += SS)
-          flt[i] = (smooth && i > 0 && i < R - 1)
+      __syncwarp(mask);
+      const int* pp = ref;
+      if (luma && filter_flag<S>(mode)) {
+        for (int i = lane; i < R; i += L)
+          flt[i] = (i > 0 && i < R - 1)
                        ? (ref[i - 1] + 2 * ref[i] + ref[i + 1] + 2) >> 2
                        : ref[i];
-      __syncthreads();
-
-      int pred = 0;
-      if (active) {
-        const int at = (y0 + ty) * p.w + x0 + tx;
-        pred = inter ? mc[at]
-                     : predict<S, LOG2S>(flt, ref, mode, tx, ty,
-                                         p.luma != 0, maxv);
-        a[t] = orig[at] - pred;
+        __syncwarp(mask);
+        pp = flt;
       }
-      __syncthreads();
-
-      // Forward stage 1 (columns): E[k][m] = sum_n T[k][n] X[n][m].
-      if (active) {
-        int acc = 0;
+#define LEFT(arr, yy) (arr)[2 * S - 1 - (yy)]
+#define TOP(arr, xx) (arr)[2 * S + 1 + (xx)]
+      if (mode == 0) {  // planar (8.4.4.2.5)
+        const int left = LEFT(pp, y), top_r = TOP(pp, S), left_b = LEFT(pp, S);
 #pragma unroll
-        for (int n = 0; n < S; ++n) acc += s_dct[ty * S + n] * a[n * S + tx];
-        b[t] = round_shift(acc, shift1);
-      }
-      __syncthreads();
-
-      // Forward stage 2 (rows): C[k][l] = sum_m T[l][m] E[k][m]; then
-      // flat quantization and dequantization.
-      if (active) {
-        int acc = 0;
+        for (int i = 0; i < O; ++i) {
+          const int x = owned_col<S>(q, i);
+          pred[i] = ((S - 1 - x) * left + (x + 1) * top_r +
+                     (S - 1 - y) * TOP(pp, x) + (y + 1) * left_b + S) >>
+                    (LOG2S + 1);
+        }
+      } else if (mode == 1) {  // DC, with the luma boundary fixups
+        int sum = S;
 #pragma unroll
-        for (int m = 0; m < S; ++m) acc += s_dct[tx * S + m] * b[ty * S + m];
-        const int c = round_shift(acc, LOG2S + 6);
-        const int mag = c < 0 ? -c : c;
-        const int q_offset = inter ? p.q_offset_inter : p.q_offset;
-        int lv = (mag * p.q_scale + q_offset) >> p.q_bits;
-        lv = lv > 32767 ? 32767 : lv;
-        lv = c < 0 ? -lv : lv;
-        levels[(size_t)bid * SS + t] = (int16_t)lv;
-        a[t] = clamp_int(
-            (lv * p.dq_mult + (1 << (p.dq_shift - 1))) >> p.dq_shift,
-            -32768, 32767);
-      }
-      __syncthreads();
-
-      // Inverse stage 1: E[n][m] = sum_k T[k][n] D[k][m], clipped.
-      if (active) {
-        int acc = 0;
+        for (int k = 0; k < S; ++k) sum += TOP(pp, k) + LEFT(pp, k);
+        const int dc = sum >> (LOG2S + 1);
 #pragma unroll
-        for (int k = 0; k < S; ++k) acc += s_dct[k * S + ty] * a[k * S + tx];
-        b[t] = clamp_int(round_shift(acc, 7), -32768, 32767);
-      }
-      __syncthreads();
-
-      // Inverse stage 2: r[n][l] = sum_m T[m][l] E[n][m]; reconstruct.
-      if (active) {
-        int acc = 0;
+        for (int i = 0; i < O; ++i) {
+          const int x = owned_col<S>(q, i);
+          int v = dc;
+          if (luma && y == 0)
+            v = x == 0 ? (LEFT(ref, 0) + 2 * dc + TOP(ref, 0) + 2) >> 2
+                       : (TOP(ref, x) + 3 * dc + 2) >> 2;
+          else if (luma && x == 0)
+            v = (LEFT(ref, y) + 3 * dc + 2) >> 2;
+          pred[i] = v;
+        }
+      } else {  // angular (8.4.4.2.6)
+        const int angle = kAngle[mode - 2];
+        const bool vertical = mode >= 18;
+        const int side = vertical ? 1 : -1;
+        // Extended main reference mref[S + k]: k >= 0 the main side
+        // (top row for vertical modes, left column for horizontal ones,
+        // k = 0 the corner); k < 0 projected from the other side through
+        // invAngle.  Entries no sample reads stay 0.
+        const int k_min = angle < 0 ? (S * angle) >> 5 : 0;
+        for (int k = lane - S; k <= 2 * S + 1; k += L) {
+          int v = 0;
+          if (k >= 0) {
+            const int at = 2 * S + side * k;
+            if (at >= 0 && at <= 4 * S) v = pp[at];
+          } else if (k >= k_min) {
+            v = pp[2 * S - side * ((k * kInvAngle[mode - 11] + 128) >> 8)];
+          }
+          mref[S + k] = v;
+        }
+        __syncwarp(mask);
+        const int corner = ref[2 * S];
 #pragma unroll
-        for (int m = 0; m < S; ++m) acc += s_dct[m * S + tx] * b[ty * S + m];
-        const int r = clamp_int(round_shift(acc, ishift2), -32768, 32767);
-        rec[(y0 + ty) * p.w + x0 + tx] = (uint8_t)clamp_int(pred + r, 0, maxv);
+        for (int i = 0; i < O; ++i) {
+          const int x = owned_col<S>(q, i);
+          const int ta = (vertical ? y + 1 : x + 1) * angle;
+          const int at = S + (vertical ? x : y) + (ta >> 5) + 1;
+          const int f = ta & 31;
+          int v = ((32 - f) * mref[at] + f * mref[at + 1] + 16) >> 5;
+          if (luma && mode == 10 && y == 0)
+            v = clamp_int(LEFT(ref, 0) + ((TOP(ref, x) - corner) >> 1), 0,
+                          kMaxV);
+          if (luma && mode == 26 && x == 0)
+            v = clamp_int(TOP(ref, 0) + ((LEFT(ref, y) - corner) >> 1), 0,
+                          kMaxV);
+          pred[i] = v;
+        }
       }
-      // Ends the pass: this step's samples are visible to the next.
-      __syncthreads();
+#undef LEFT
+#undef TOP
     }
+
+    int v[S], out[O];
+    // Residual; forward stage 1 (columns): E[k][m] = sum_n T[k][n]
+    // X[n][m], lane (m, q) computing the part's k.
+#pragma unroll
+    for (int i = 0; i < O; ++i)
+      buf_a[y * SP + owned_col<S>(q, i)] =
+          staged<S>(src, pl.orig_bytes, y, owned_col<S>(q, i)) - pred[i];
+    __syncwarp(mask);
+#pragma unroll
+    for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
+    fwd_part<S>(v, cf, sgn, out);
+#pragma unroll
+    for (int i = 0; i < O; ++i)
+      buf_b[fwd_out<S>(q, i) * SP + y] = round_shift(out[i], shift1);
+    // Forward stage 2 (rows): C[k][l] = sum_m T[l][m] E[k][m], lane
+    // (k, q); flat quantization and dequantization.
+    __syncwarp(mask);
+#pragma unroll
+    for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
+    fwd_part<S>(v, cf, sgn, out);
+    const int q_offset = inter ? pl.q_offset_inter : pl.q_offset;
+    int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const int l = fwd_out<S>(q, i);
+      const int c = round_shift(out[i], LOG2S + 6);
+      const int mag = c < 0 ? -c : c;
+      int lv = (mag * pl.q_scale + q_offset) >> pl.q_bits;
+      lv = lv > 32767 ? 32767 : lv;
+      lv = c < 0 ? -lv : lv;
+      lv_row[l] = (int16_t)lv;
+      buf_a[y * SP + l] = clamp_int(
+          (lv * pl.dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+          -32768, 32767);
+    }
+    // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
+    // clipped, lane (m, q) computing n = q*M.. and their mirrors.
+    __syncwarp(mask);
+    int lo[M], hi[M];
+#pragma unroll
+    for (int k = 0; k < S; ++k) v[k] = buf_a[k * SP + y];
+    inv_part<S>(v, ci, lo, hi);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      buf_b[(q * M + i) * SP + y] =
+          clamp_int(round_shift(lo[i], 7), -32768, 32767);
+      buf_b[(S - 1 - q * M - i) * SP + y] =
+          clamp_int(round_shift(hi[i], 7), -32768, 32767);
+    }
+    // Inverse stage 2 (rows): r[n][l] = sum_m T[m][l] E[n][m], lane
+    // (n, q) computing its own columns; reconstruct.
+    __syncwarp(mask);
+#pragma unroll
+    for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
+    inv_part<S>(v, ci, lo, hi);
+    int px[O];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      px[i] = clamp_int(pred[i] + clamp_int(round_shift(lo[i], 12), -32768,
+                                            32767), 0, kMaxV);
+      px[M + i] = clamp_int(
+          pred[M + i] + clamp_int(round_shift(hi[i], 12), -32768, 32767), 0,
+          kMaxV);
+    }
+    uint8_t* rec_row = rec + (size_t)(y0 + y) * w + x0;
+    uint8_t* edge_row = hrow + rc * ring_w + x0;
+    const int a = q * M, b = S - q * M - M;  // the two column runs
+    if constexpr (M % 4 == 0) {
+#pragma unroll
+      for (int t = 0; t < M; t += 4) {
+        const uint32_t wa = px[t] | px[t + 1] << 8 | px[t + 2] << 16 |
+                            px[t + 3] << 24;
+        const uint32_t wb = px[2 * M - 1 - t] | px[2 * M - 2 - t] << 8 |
+                            px[2 * M - 3 - t] << 16 | px[2 * M - 4 - t] << 24;
+        *reinterpret_cast<uint32_t*>(rec_row + a + t) = wa;
+        *reinterpret_cast<uint32_t*>(rec_row + b + t) = wb;
+        if (y == S - 1) {
+          *reinterpret_cast<uint32_t*>(edge_row + a + t) = wa;
+          *reinterpret_cast<uint32_t*>(edge_row + b + t) = wb;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < M; ++t) {
+        rec_row[a + t] = px[t];
+        rec_row[b + t] = px[2 * M - 1 - t];
+        if (y == S - 1) {
+          edge_row[a + t] = px[t];
+          edge_row[b + t] = px[2 * M - 1 - t];
+        }
+      }
+    }
+    // Column S-1 is lane part 0's first mirrored sample.
+    if (q == 0) vcol[rc * ring_w + x0 + y] = px[M];
+  };
+
+  // Thread-block-wide step loop.  Each group's first block of step t + 1
+  // is copied into the other half of its double buffer while step t
+  // runs (one copy group committed per step, empty when there is no
+  // block, so that waiting for all but the newest group finds the
+  // current block's copies done), and the packed word of its first
+  // block of step t + 2 is loaded; a step with more blocks than groups
+  // loads and copies the rest in turn.
+  const bool active = g < groups;
+  // Packed word of group g's first block of step t, 0 for none.
+  auto first_of = [&](int t) -> uint32_t {
+    return active && t < p.n_steps && g < steps[t + 1] - steps[t]
+               ? entries[steps[t] + g]
+               : 0u;
+  };
+  uint32_t cur = first_of(0), nxt = first_of(1);
+  if (active && g < steps[1] - steps[0]) prefetch(cur, 0);
+  cp_async_commit();
+  for (int step = 0; step < p.n_steps; ++step) {
+    const int start = steps[step], n = steps[step + 1] - start;
+    const int buf = step & 1;
+    const uint32_t after = first_of(step + 2);
+    if (active) {
+      if (step + 1 < p.n_steps && g < steps[step + 2] - steps[step + 1])
+        prefetch(nxt, buf ^ 1);
+      cp_async_commit();
+      for (int slot = g; slot < n; slot += groups) {
+        uint32_t e = cur;
+        if (slot == g) {
+          cp_async_wait<1>();
+        } else {
+          e = entries[start + slot];
+          prefetch(e, buf);
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
+        __syncwarp(mask);
+        process(e, stage + buf * 2 * S * S);
+      }
+    }
+    cur = nxt;
+    nxt = after;
+    // Ends the step: its edges are visible to the next.
+    __syncthreads();
   }
+  cp_async_wait<0>();
 }
 
-template <int S, int LOG2S>
-void launch(const Params& p, int nb, cudaStream_t stream) {
-  constexpr int kSppMax = 1024 / (S * S);
-  const int spp = p.n_slots < kSppMax ? p.n_slots : kSppMax;
-  wavefront_kernel<S, LOG2S, kSppMax><<<nb, spp * S * S, 0, stream>>>(p);
+// Thread block bound of the kernel of CU size cu: 16 groups of 32 lanes
+// at cu 16 (128 registers a thread), 32 groups at cu 8 (whose S=8 and
+// S=4 paths need fewer registers).
+__host__ __device__ constexpr int max_threads(int cu) {
+  return cu == 16 ? 512 : 1024;
+}
+
+// Ints of the coefficient tables of block size S (fill_coefs).
+template <int S>
+constexpr int coef_words() {
+  return Shape<S>::P * Shape<S>::O * (S / 2) + Shape<S>::P * Shape<S>::M * S;
+}
+
+constexpr long long align16(long long n) { return (n + 15) / 16 * 16; }
+
+// Launch layout of the kernel of CU size CU: threads (a group of lanes
+// per slot of the widest step, up to max_threads, whole warps) and
+// dynamic shared memory in 16-byte aligned parts, in bytes: the step
+// offsets (int32) at 0, the edge ring (hrow and vcol, ring rows of ring_w
+// bytes each), the coefficient tables of block size CU (the larger
+// table) and the slot groups' buffers of whichever block size needs
+// more.  bytes is -1 past INT_MAX.
+struct Layout {
+  int threads, off_ring, off_coef, off_groups, bytes;
+};
+
+template <int CU>
+Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
+  constexpr int L = Shape<CU>::L, LC = Shape<CU / 2>::L;
+  Layout l{};
+  const int groups =
+      n_slots < max_threads(CU) / L ? n_slots : max_threads(CU) / L;
+  l.threads = (groups * L + 31) / 32 * 32;
+  const int g_lo = n_slots < l.threads / LC ? n_slots : l.threads / LC;
+  const long long buffers =
+      4LL * (groups * group_words<CU>() > g_lo * group_words<CU / 2>()
+                 ? groups * group_words<CU>()
+                 : g_lo * group_words<CU / 2>());
+  const long long off_ring = align16(4LL * (n_steps + 1));
+  const long long off_coef = off_ring + align16(2LL * ring * ring_w);
+  const long long off_groups = off_coef + 4 * coef_words<CU>();
+  const long long bytes = off_groups + buffers;
+  if (bytes > 0x7fffffffLL) {
+    l.bytes = -1;
+    return l;
+  }
+  l.off_ring = (int)off_ring;
+  l.off_coef = (int)off_coef;
+  l.off_groups = (int)off_groups;
+  l.bytes = (int)bytes;
+  return l;
+}
+
+Layout layout_for(int s_max, int n_steps, int n_slots, int ring,
+                  int ring_w) {
+  return s_max == 16 ? layout_of<16>(n_steps, n_slots, ring, ring_w)
+                     : layout_of<8>(n_steps, n_slots, ring, ring_w);
+}
+
+// Kernel of the plans of CU size CU: planes of block size CU (luma) and
+// CU / 2 (chroma).
+template <int CU>
+__global__ void __launch_bounds__(max_threads(CU))
+    wavefront_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int k = 0;
+  while (k + 1 < p.n_planes && (int)blockIdx.x >= p.item_end[k]) ++k;
+  const int item = blockIdx.x - (k ? p.item_end[k - 1] : 0);
+  const KttPlane& pl = p.plane[k];
+
+  // Pack the schedule, modes and inter flags of this item once, in step
+  // order, into this thread block's rows of the entries table.
+  uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
+  int* steps = reinterpret_cast<int*>(smem);
+  const int row = item % p.bm;
+  const int32_t* modes = p.modes + (size_t)row * p.nblk;
+  const uint8_t* inter = p.inter ? p.inter + (size_t)row * p.nblk : nullptr;
+  for (int b = threadIdx.x; b < p.nblk; b += blockDim.x) {
+    const uint32_t info = p.blk_info[b];
+    uint32_t e = (uint32_t)b | (info & ~kPosMask) |
+                 ((uint32_t)(modes[b] & 63) << kModeShift);
+    if (inter != nullptr && inter[b]) e |= 1u << kInterBit;
+    entries[info & kPosMask] = e;
+  }
+  for (int i = threadIdx.x; i <= p.n_steps; i += blockDim.x)
+    steps[i] = p.step_start[i];
+  int* coef = reinterpret_cast<int*>(smem + p.off_coef);
+  if (pl.s == CU)
+    fill_coefs<CU>(coef);
+  else
+    fill_coefs<CU / 2>(coef);
+  __syncthreads();
+
+  if (pl.s == CU)
+    run_plane<CU>(p, pl, item, smem);
+  else
+    run_plane<CU / 2>(p, pl, item, smem);
 }
 
 }  // namespace
 
-// inter and mc are both null (intra variant) or both set (inter).
-extern "C" int ktt_wavefront_recon(
-    const int32_t* orig, const int32_t* modes, const int32_t* sched,
-    const int32_t* dct, const uint8_t* inter, const uint8_t* mc,
-    uint8_t* rec, int16_t* levels, int nb, int bm, int h, int w,
-    int blocks_x, int nblk, int n_steps, int n_slots, int s, int luma,
-    int bitdepth, int q_scale, int q_bits, int q_offset,
-    int q_offset_inter, int dq_mult, int dq_shift, void* stream) {
-  if ((inter == nullptr) != (mc == nullptr))
+// Threads and dynamic shared memory (bytes) of a launch whose largest
+// block size is s_max (16, 8 or 4), on a plan of n_steps steps of at most
+// n_slots blocks with an edge ring of `ring` rows of ring_w samples.
+// Returns a cudaError_t.
+extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
+                                    int ring, int ring_w, int* threads,
+                                    int* smem_bytes) {
+  if ((s_max != 4 && s_max != 8 && s_max != 16) || n_steps < 1 ||
+      n_slots < 1 || ring < 1 || ring_w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{orig,     modes,    sched,    dct,      inter,          mc,
-           rec,      levels,   bm,       h,        w,              blocks_x,
-           nblk,     n_steps,  n_slots,  luma,     bitdepth,       q_scale,
-           q_bits,   q_offset, q_offset_inter,     dq_mult,        dq_shift};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 4:
-      launch<4, 2>(p, nb, st);
-      break;
-    case 8:
-      launch<8, 3>(p, nb, st);
-      break;
-    case 16:
-      launch<16, 4>(p, nb, st);
-      break;
-    default:
+  const Layout l = layout_for(s_max, n_steps, n_slots, ring, ring_w);
+  *threads = l.threads;
+  *smem_bytes = l.bytes;
+  return l.bytes < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+// Launch over n_planes plane kinds (1..3): one thread block per item,
+// the planes' items in order.  Block sizes: the largest s is 16 (the
+// others 16 or 8) or at most 8 (the others 8 or 4).  inter and every
+// plane's mc are all null (intra variant) or all set (inter).  entries
+// is scratch of (items, nblk) uint32 on the device.  ring is the edge
+// ring's depth and ring_w the width of the widest plane.  Returns a
+// cudaError_t; a layout the device cannot give is refused by
+// cudaFuncSetAttribute.
+extern "C" int ktt_wavefront_recon(
+    const KttPlane* planes, int n_planes, const uint32_t* blk_info,
+    const int32_t* step_start, const int32_t* modes, const uint8_t* inter,
+    uint32_t* entries, int bm, int blocks_x, int nblk, int n_steps,
+    int n_slots, int ring, int ring_w, void* stream) {
+  if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
+      blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
+      bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  int items = 0, s_max = 0;
+  for (int i = 0; i < n_planes; ++i) {
+    const KttPlane& pl = planes[i];
+    if ((pl.s != 4 && pl.s != 8 && pl.s != 16) ||
+        (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w)
       return static_cast<int>(cudaErrorInvalidValue);
+    s_max = pl.s > s_max ? pl.s : s_max;
+    p.plane[i] = pl;
+    items += pl.nb;
+    p.item_end[i] = items;
   }
+  const int cu = s_max == 16 ? 16 : 8;
+  for (int i = 0; i < n_planes; ++i)
+    if (planes[i].s != cu && planes[i].s != cu / 2)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const Layout l = layout_for(s_max, n_steps, n_slots, ring, ring_w);
+  if (l.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (items == 0) return 0;
+  p.n_planes = n_planes;
+  p.blk_info = blk_info;
+  p.step_start = step_start;
+  p.modes = modes;
+  p.inter = inter;
+  p.entries = entries;
+  p.bm = bm;
+  p.blocks_x = blocks_x;
+  p.nblk = nblk;
+  p.n_steps = n_steps;
+  p.n_slots = n_slots;
+  p.ring = ring;
+  p.ring_w = ring_w;
+  p.off_ring = l.off_ring;
+  p.off_coef = l.off_coef;
+  p.off_groups = l.off_groups;
+  const auto kernel = cu == 16 ? wavefront_kernel<16> : wavefront_kernel<8>;
+  if (l.bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<items, l.threads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory a thread block of this device may opt in to (bytes).
+extern "C" int ktt_wavefront_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }

@@ -5,11 +5,13 @@ frames without QP maps, scaling lists, RDOQ, transform skip or explicit
 chroma modes.  On P frames an inter block takes its motion-compensated
 prediction (computed for the whole frame beforehand: it has no
 wavefront dependency) and the inter quantizer rounding 85/512, and
-still feeds its intra neighbours' references through the wavefront.  ``reconstruct_frames`` hands each plane kind to
-ops.wavefront.wavefront_recon: on a CUDA tensor that is the
-hand-written kernel, on a CPU tensor the plain per-step loop below
-(``wavefront_recon_plain``), which is also what the kernel is checked
-against on the card.
+still feeds its intra neighbours' references through the wavefront.
+``reconstruct_frames`` hands all planes to
+ops.wavefront.wavefront_recon_planes: on CUDA tensors that is one
+launch of the hand-written kernel for luma and chroma together, on CPU
+tensors the plain per-step loop below (``wavefront_recon_plain``) once
+per plane kind, which is also what the kernel is checked against on the
+card.
 
 The plain loop keeps the reconstructed plane itself as the wavefront
 state.  Each step gathers every slot's 4S+1 reference samples through
@@ -159,16 +161,6 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
     Returns (recon_y, levels_y, recon_cb, levels_cb, recon_cr,
     levels_cr): recon (B, H, W) uint8, levels (B, N_blocks, S, S) int16
     in raster block order."""
-    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
-    s = plan.cu_size
-    b = ys.shape[0]
-    rec_y, lv_y = wavefront_recon(ys, modes, plan, s, True, qp, bitdepth,
-                                  is_inter, mc_y)
-    if cbs is None:
-        return rec_y, lv_y, None, None, None, None
-    # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
-    mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
-    rec_c, lv_c = wavefront_recon(torch.cat([cbs, crs]), modes, plan,
-                                  s // 2, False, qp_c, bitdepth, is_inter,
-                                  mc_c)
-    return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
+    return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
+                                  bitdepth, is_inter, mc_y, mc_cb, mc_cr)

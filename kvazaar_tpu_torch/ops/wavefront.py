@@ -1,17 +1,22 @@
 """Wrapper of the CUDA wavefront reconstruction kernel (csrc/wavefront.cu).
 
-``wavefront_recon`` reconstructs one plane kind over a batch of items,
-all-intra or, given an inter mask and MC planes, as a P frame: for a
-CUDA tensor it launches the hand-written kernel (or raises); for a CPU
-tensor it runs the kernel's plain PyTorch version, the per-step loop of
-encoder/intra_recon.py.  There is no fallback from the card to the
-plain version.
+``wavefront_recon_planes`` reconstructs the luma and chroma planes of a
+batch of frames, all-intra or, given an inter mask and MC planes, as P
+frames; ``wavefront_recon`` reconstructs one plane kind.  For CUDA
+tensors both launch the hand-written kernel once (or raise); for CPU
+tensors they run the kernel's plain PyTorch version, the per-step loop
+of encoder/intra_recon.py, once per plane kind.  There is no fallback
+from the card to the plain version.
 
 The kernel is compiled with ``nvcc`` for sm_90a into a shared library
 with a plain C interface at first use (``build/kernels/`` under the
 repository root, keyed by the source's hash) and loaded with ctypes.
-``LAUNCHES`` counts the kernel launches of this process, intra and
-inter variants apart.
+Its per-plan tables (the schedule packed per block, the step offsets
+and the depth of the shared-memory edge ring) are derived here, once per
+plan and device; the launch's threads and shared memory come from the
+library (``ktt_wavefront_layout``), and a plan that needs more shared
+memory than the device gives raises here.  ``LAUNCHES`` counts the
+kernel launches of this process, intra and inter variants apart.
 """
 
 from __future__ import annotations
@@ -31,10 +36,9 @@ import torch
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.quant import quant_params
-from kvazaar_tpu_torch.ops.transform import dct_matrix_np
 
-# Kernel launches made by wavefront_recon (only there, after a launch),
-# per variant.
+# Kernel launches made by this module (only here, after a launch), per
+# variant.
 LAUNCHES = {"intra": 0, "inter": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
@@ -42,8 +46,24 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _SIZES = (4, 8, 16)
+# blk_info holds a block's step-order position in its low _POS_BITS bits
+# and its availability mask above them (kAvailShift in the kernel).
+_POS_BITS = 20
 
 _F_L, _F_A, _F_AR, _F_BL, _F_AL = 1, 2, 4, 8, 16
+# Neighbour offsets (dx, dy) of the availability flags, in plan.avail's
+# order: left, above, above-right, below-left, above-left.
+_NEIGHBOURS = ((-1, 0), (0, -1), (1, -1), (-1, 1), (-1, -1))
+
+
+class _Plane(ctypes.Structure):
+    """KttPlane of csrc/wavefront.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("orig", "mc", "rec",
+                                                 "levels")]
+                + [(n, ctypes.c_int) for n in (
+                    "nb", "s", "h", "w", "luma", "orig_bytes", "mc_bytes",
+                    "q_scale", "q_bits", "q_offset", "q_offset_inter",
+                    "dq_mult", "dq_shift")])
 
 
 def _nvcc() -> str:
@@ -96,9 +116,28 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     fn = lib.ktt_wavefront_recon
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
+    fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
+    lib.ktt_wavefront_layout.restype = ctypes.c_int
+    lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 5
+                                         + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.ktt_wavefront_smem_optin.restype = ctypes.c_int
+    lib.ktt_wavefront_smem_optin.argtypes = [ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device_index: int) -> int:
+    """Shared memory (bytes) a thread block may opt in to on a device."""
+    out = ctypes.c_int(0)
+    err = _library().ktt_wavefront_smem_optin(device_index,
+                                              ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"wavefront kernel: cannot read the device's "
+                           f"shared memory limit: CUDA error {err}")
+    return out.value
 
 
 def schedule_np(plan: IntraFramePlan) -> np.ndarray:
@@ -122,11 +161,88 @@ def schedule_np(plan: IntraFramePlan) -> np.ndarray:
     return sched
 
 
+# plan.avail's columns (left, above, above-right, below-left, above-left)
+# in the substitution scan order of the kernel's availability mask:
+# below-left, left, above-left, above, above-right.
+_SCAN_ORDER = (3, 0, 4, 1, 2)
+
+
+def step_tables(plan: IntraFramePlan):
+    """The kernel's schedule without pad slots: (blk_info (N_blocks,)
+    int32 = position of the block in step order | availability mask in
+    scan order << _POS_BITS, step_start (n_steps + 1,) int32 = first
+    position of each step)."""
+    order = plan.block_of_slot[plan.block_of_slot >= 0]   # step order
+    avail = plan.avail.reshape(-1, 5)
+    mask = sum(avail[:, j].astype(np.int32) << bit
+               for bit, j in enumerate(_SCAN_ORDER))
+    blk_info = np.zeros(len(order), np.int32)
+    blk_info[order] = np.arange(len(order)) | (mask[order] << _POS_BITS)
+    counts = (plan.block_of_slot >= 0).sum(axis=1)
+    step_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return blk_info, step_start
+
+
+def _last_reader_step(plan: IntraFramePlan) -> np.ndarray:
+    """(By, Bx) step of the last block that reads each block's edges
+    (its bottom row and right column) as a reference, -1 for none."""
+    step = plan.step_of_block
+    by_n, bx_n = step.shape
+    last = np.full((by_n, bx_n), -1, np.int64)
+    for i, (dx, dy) in enumerate(_NEIGHBOURS):
+        ry, rx = np.nonzero(plan.avail[:, :, i])
+        np.maximum.at(last, (ry + dy, rx + dx), step[ry, rx])
+    return last
+
+
+def ring_depth(plan: IntraFramePlan) -> int:
+    """Depth K of the kernel's edge ring: block (bx, by) keeps its edges
+    in ring row by % K.  The smallest K for which no block writes a ring
+    entry from the step at which another block's edges were written there
+    up to the step of their last reader (a write in the reader's own step
+    would race with the read)."""
+    w = plan.step_of_block.astype(np.int64)
+    last = _last_reader_step(plan)
+    by_n = w.shape[0]
+    for k in range(1, by_n):
+        clash = False
+        for d in range(k, by_n, k):
+            for a, b in ((w[d:], slice(None, by_n - d)),
+                         (w[:by_n - d], slice(d, None))):
+                # a: writer rows; b: the rows d apart whose edges live.
+                if np.any((last[b] >= 0) & (w[b] <= a) & (a <= last[b])):
+                    clash = True
+                    break
+            if clash:
+                break
+        if not clash:
+            return k
+    return max(by_n, 1)
+
+
 @plan_cached
-def _device_tables(plan: IntraFramePlan, s: int, device: torch.device):
-    """Schedule and DCT matrix uploaded once per (plan, size, device)."""
-    return (torch.from_numpy(schedule_np(plan)).to(device),
-            torch.from_numpy(dct_matrix_np(s)).to(device))
+def launch_layout(plan: IntraFramePlan, s_max: int, width: int):
+    """(ring depth, threads, dynamic shared memory in bytes) of a launch
+    whose largest block size is s_max on a plan whose widest plane is
+    ``width`` samples, the layout as the kernel's library computes it."""
+    ring = ring_depth(plan)
+    threads, nbytes = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().ktt_wavefront_layout(
+        s_max, plan.n_steps, plan.n_slots, ring, width,
+        ctypes.byref(threads), ctypes.byref(nbytes))
+    if err != 0:
+        raise ValueError(f"wavefront kernel: no launch layout for the plan "
+                         f"(CUDA error {err})")
+    return ring, threads.value, nbytes.value
+
+
+@plan_cached
+def _plan_tables(plan: IntraFramePlan, device: torch.device):
+    """Per-block schedule words and step offsets on the device, once per
+    (plan, device)."""
+    blk_info, step_start = step_tables(plan)
+    return (torch.from_numpy(blk_info).to(device),
+            torch.from_numpy(step_start).to(device))
 
 
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
@@ -136,12 +252,11 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
 
     orig: (NB, H, W) uint8 or int32 coded-size planes (H, W = the
     plan's luma size, or half of it for chroma); modes: (Bm, By, Bx)
-    int32 with NB % Bm == 0 — item i uses modes[i % Bm] (Cb and Cr go
-    as one 2B batch sharing the luma modes).  P frames add is_inter
-    (Bm, By, Bx) bool, shared like modes, and mc (NB, H, W) integer MC
-    prediction planes in [0, 255]: inter blocks take mc and the inter
-    rounding.  Returns (rec (NB, H, W) uint8, levels (NB, By*Bx, S, S)
-    int16 in raster block order)."""
+    int32 with NB % Bm == 0 — item i uses modes[i % Bm].  P frames add
+    is_inter (Bm, By, Bx) bool, shared like modes, and mc (NB, H, W)
+    uint8 or int32 MC prediction planes in [0, 255]: inter blocks take
+    mc and the inter rounding.  Returns (rec (NB, H, W) uint8, levels
+    (NB, By*Bx, S, S) int16 in raster block order)."""
     if orig.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
@@ -150,36 +265,105 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
     if orig.device.type != "cuda":
         raise ValueError(f"wavefront_recon: unsupported device "
                          f"{orig.device}")
-    nb, h, w = _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc)
+    _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc)
+    return _launch([(orig, mc, s, luma, qp)], modes, plan, is_inter)
+
+
+def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
+                           qp: int, qp_c: int, bitdepth: int = 8,
+                           is_inter=None, mc_y=None, mc_cb=None,
+                           mc_cr=None):
+    """Reconstruct the luma and (where cbs is given) chroma planes of a
+    batch of frames in one launch.
+
+    ys (B, H, W), cbs/crs (B, H/2, W/2) or None, uint8 or int32; modes
+    (Bm, By, Bx) int32, shared by the three planes.  P frames add
+    is_inter (Bm, By, Bx) bool and the MC planes mc_y/mc_cb/mc_cr of
+    the shapes of ys/cbs/crs.  Returns (rec_y, lv_y, rec_cb, lv_cb,
+    rec_cr, lv_cr), the chroma entries None without chroma."""
+    s = plan.cu_size
+    if ys.device.type == "cpu":
+        from kvazaar_tpu_torch.encoder.intra_recon import \
+            wavefront_recon_plain
+        rec_y, lv_y = wavefront_recon_plain(ys, modes, plan, s, True, qp,
+                                            bitdepth, is_inter, mc_y)
+        if cbs is None:
+            return rec_y, lv_y, None, None, None, None
+        # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
+        b = ys.shape[0]
+        mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
+        rec_c, lv_c = wavefront_recon_plain(torch.cat([cbs, crs]), modes,
+                                            plan, s // 2, False, qp_c,
+                                            bitdepth, is_inter, mc_c)
+        return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
+    if ys.device.type != "cuda":
+        raise ValueError(f"wavefront_recon_planes: unsupported device "
+                         f"{ys.device}")
+    planes = [(ys, mc_y, s, True, qp)]
+    if cbs is not None:
+        planes += [(cbs, mc_cb, s // 2, False, qp_c),
+                   (crs, mc_cr, s // 2, False, qp_c)]
+    for orig, mc, ps, luma, _ in planes:
+        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc)
+    out = _launch(planes, modes, plan, is_inter)
+    if cbs is None:
+        return (*out, None, None, None, None)
+    return out
+
+
+def _launch(planes, modes, plan: IntraFramePlan, is_inter):
+    """One kernel launch over checked (orig, mc, s, luma, qp) plane
+    kinds; returns (rec, levels) per kind, flattened."""
     lib = _library()
-    dev = orig.device
-    orig = orig.to(torch.int32).contiguous()
-    modes = modes.to(torch.int32).contiguous()
-    inter_ptr = mc_ptr = None
-    if is_inter is not None:
-        is_inter = is_inter.to(torch.uint8).contiguous()
-        mc = mc.to(torch.uint8).contiguous()
-        inter_ptr, mc_ptr = is_inter.data_ptr(), mc.data_ptr()
-    sched, dct = _device_tables(plan, s, dev)
+    dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
-    rec = torch.empty((nb, h, w), dtype=torch.uint8, device=dev)
-    levels = torch.empty((nb, nblk, s, s), dtype=torch.int16, device=dev)
-    scale, qbits, inv_scale, inv_shift = quant_params(
-        qp, s.bit_length() - 1, bitdepth)
+    width = planes[0][0].shape[2]
+    ring, _, nbytes = launch_layout(plan, max(p[2] for p in planes), width)
+    limit = _smem_optin(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+    if nbytes > limit:
+        raise ValueError(f"wavefront kernel: the plan needs {nbytes} bytes "
+                         f"of shared memory, the device gives {limit}")
+    blk_info, step_start = _plan_tables(plan, dev)
+    modes = modes.contiguous()
+    if is_inter is not None:
+        is_inter = is_inter.contiguous()
+    structs = (_Plane * len(planes))()
+    outs = []
+    # The kernel packs each item's schedule words here.
+    entries = torch.empty(sum(p[0].shape[0] for p in planes) * nblk,
+                          dtype=torch.int32, device=dev)
+    for st, (orig, mc, s, luma, qp) in zip(structs, planes):
+        nb, h, w = orig.shape
+        rec = torch.empty((nb, h, w), dtype=torch.uint8, device=dev)
+        levels = torch.empty((nb, nblk, s, s), dtype=torch.int16,
+                             device=dev)
+        scale, qbits, inv_scale, inv_shift = quant_params(
+            qp, s.bit_length() - 1, 8)
+        st.orig, st.rec, st.levels = (orig.data_ptr(), rec.data_ptr(),
+                                      levels.data_ptr())
+        st.mc = None if mc is None else mc.data_ptr()
+        st.nb, st.s, st.h, st.w, st.luma = nb, s, h, w, int(luma)
+        st.orig_bytes = orig.element_size()
+        st.mc_bytes = 0 if mc is None else mc.element_size()
+        st.q_scale, st.q_bits = scale, qbits
+        st.q_offset, st.q_offset_inter = 171 << (qbits - 9), 85 << (qbits
+                                                                    - 9)
+        st.dq_mult, st.dq_shift = inv_scale << (qp // 6), inv_shift - 4
+        outs += [rec, levels]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ktt_wavefront_recon(
-            orig.data_ptr(), modes.data_ptr(), sched.data_ptr(),
-            dct.data_ptr(), inter_ptr, mc_ptr, rec.data_ptr(),
-            levels.data_ptr(), nb, modes.shape[0], h, w, plan.blocks_x,
-            nblk, plan.n_steps, plan.n_slots, s, int(luma), bitdepth,
-            scale, qbits, 171 << (qbits - 9), 85 << (qbits - 9),
-            inv_scale << (qp // 6), inv_shift - 4, stream)
+            structs, len(planes), blk_info.data_ptr(),
+            step_start.data_ptr(), modes.data_ptr(),
+            None if is_inter is None else is_inter.data_ptr(),
+            entries.data_ptr(), modes.shape[0], plan.blocks_x, nblk,
+            plan.n_steps, plan.n_slots, ring, width, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["intra" if is_inter is None else "inter"] += 1
-    return rec, levels
+    return tuple(outs)
 
 
 def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
@@ -190,6 +374,11 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
                                 else plan.cu_size // 2):
         raise ValueError(f"wavefront kernel: block size {s} does not fit "
                          f"the plan (cu {plan.cu_size}, luma={luma})")
+    nblk = plan.blocks_y * plan.blocks_x
+    if nblk > 1 << _POS_BITS or nblk * plan.blocks_x >= 1 << 32:
+        raise ValueError(f"wavefront kernel: a plane of {plan.blocks_x}x"
+                         f"{plan.blocks_y} blocks is too large (at most "
+                         f"2^{_POS_BITS} blocks, blocks x columns < 2^32)")
     if orig.dtype not in (torch.uint8, torch.int32) or orig.dim() != 3:
         raise ValueError("wavefront kernel: orig must be (NB, H, W) "
                          "uint8 or int32")
@@ -214,7 +403,13 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
             raise ValueError("wavefront kernel: is_inter must be bool "
                              "with the shape of modes on the device of "
                              "orig")
-        if mc.device != orig.device or mc.shape != orig.shape:
-            raise ValueError("wavefront kernel: mc must have the shape "
-                             "of orig on its device")
+        if (mc.device != orig.device or mc.shape != orig.shape
+                or mc.dtype not in (torch.uint8, torch.int32)):
+            raise ValueError("wavefront kernel: mc must be uint8 or int32 "
+                             "with the shape of orig on its device")
+    # Sample rows are read as 4- and 16-byte words.
+    if any(not t.is_contiguous() or t.data_ptr() % 16
+           for t in (orig, mc) if t is not None):
+        raise ValueError("wavefront kernel: orig and mc must be "
+                         "contiguous and 16-byte aligned")
     return nb, h, w

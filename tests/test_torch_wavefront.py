@@ -6,8 +6,15 @@ tests/test_wavefront_pallas.py drives them, on the same cases: cu 8/16,
 QP 22/32/37, with and without chroma, B=2, intra frames and P frames
 (random inter maps and MC planes: the kernel's inter variant).  Levels
 and reconstruction must be equal (tolerance 0).  The CUDA kernel itself
-is compared with the same plain path on the card by chip_smoke.py.
+is compared with the same plain path on the card by chip_smoke.py; here
+its host-side tables are checked: the edge ring depth against a
+brute-force replay of the schedule, the packed schedule, the plane
+sizes the wrapper takes, and the transform matrix in its source.
 """
+
+import re
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +26,10 @@ from kvazaar_tpu.encoder.geometry import make_intra_plan
 from kvazaar_tpu.encoder.intra_recon import \
     reconstruct_frames as jax_reconstruct_frames
 from kvazaar_tpu_torch.encoder.frame_encoder import chroma_qp
-from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
+from kvazaar_tpu_torch.encoder.intra_recon import (reconstruct_frames,
+                                                   wavefront_recon_plain)
 from kvazaar_tpu_torch.ops import wavefront
+from kvazaar_tpu_torch.ops.transform import dct_matrix_np
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
@@ -146,3 +155,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         wavefront.wavefront_recon(orig.to("meta"), modes, plan, 16, True,
                                   22)
+
+
+@pytest.mark.parametrize("inter", [False, True])
+def test_planes_entry_matches_plain_per_kind(inter):
+    """wavefront_recon_planes on CPU tensors == wavefront_recon_plain run
+    on each plane alone (Cb and Cr apart, sharing the luma modes)."""
+    rng = np.random.default_rng(11 + inter)
+    plan = make_intra_plan(32, 32, 8, chroma=True)
+    ys, cbs, crs = (torch.from_numpy(a) for a in _sources(rng, 2, 32, 32))
+    shape = (2, plan.blocks_y, plan.blocks_x)
+    modes = torch.from_numpy(rng.integers(0, 35, shape).astype(np.int32))
+    kinds = [(ys, 8, True, 27), (cbs, 4, False, chroma_qp(27)),
+             (crs, 4, False, chroma_qp(27))]
+    is_inter = mcs = None
+    if inter:
+        is_inter = torch.from_numpy(rng.random(shape) < 0.5)
+        mcs = [torch.from_numpy(rng.integers(0, 256, tuple(p.shape))
+                                .astype(np.uint8)) for p, *_ in kinds]
+    got = wavefront.wavefront_recon_planes(
+        ys, cbs, crs, modes, plan, 27, chroma_qp(27), 8, is_inter,
+        *(mcs or (None,) * 3))
+    for i, (orig, s, luma, qp) in enumerate(kinds):
+        want = wavefront_recon_plain(orig, modes, plan, s, luma, qp, 8,
+                                     is_inter, mcs and mcs[i])
+        for g, w in zip(got[2 * i:2 * i + 2], want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def _ring_holds(plan, k):
+    """Replay the schedule on a ring of k block rows: every reference
+    read must find its neighbour's edges, written in an earlier step and
+    not written over in the reader's step."""
+    owner = {}
+    for step in plan.block_of_slot:
+        blocks = [divmod(int(b), plan.blocks_x) for b in step if b >= 0]
+        writes = {}
+        for by, bx in blocks:
+            writes.setdefault((by % k, bx), []).append((by, bx))
+        for by, bx in blocks:
+            for i, (dx, dy) in enumerate(((-1, 0), (0, -1), (1, -1),
+                                          (-1, 1), (-1, -1))):
+                if not plan.avail[by, bx, i]:
+                    continue
+                loc = ((by + dy) % k, bx + dx)
+                if owner.get(loc) != (by + dy, bx + dx) or loc in writes:
+                    return False
+        for loc, ws in writes.items():
+            owner[loc] = ws[0] if len(ws) == 1 else None
+    return True
+
+
+@pytest.mark.parametrize("w,h,cu,tiles", [
+    (832, 480, 16, (1, 1)),
+    (832, 480, 8, (1, 1)),
+    (832, 480, 16, (2, 2)),
+    (256, 192, 8, (3, 2)),
+    (96, 64, 8, (1, 1)),
+])
+def test_ring_depth_matches_brute_force(w, h, cu, tiles):
+    plan = make_intra_plan(w, h, cu, chroma=False, tiles=tiles)
+    k = wavefront.ring_depth(plan)
+    assert _ring_holds(plan, k)
+    assert k == 1 or not _ring_holds(plan, k - 1)
+    if tiles == (1, 1) and w == 832:
+        assert k == 3
+
+
+def test_step_tables_follow_the_schedule():
+    """blk_info / step_start list exactly the schedule's blocks, in step
+    order, with their availability in the scan order below-left, left,
+    above-left, above, above-right (the schedule's flag bits L=1, A=2,
+    AR=4, BL=8, AL=16)."""
+    plan = make_intra_plan(96, 64, 8, chroma=True, tiles=(2, 1))
+    sched = wavefront.schedule_np(plan)
+    blk_info, step_start = wavefront.step_tables(plan)
+    bits = wavefront._POS_BITS
+    pos, mask = blk_info & ((1 << bits) - 1), blk_info >> bits
+    for st in range(plan.n_steps):
+        real = sched[st][sched[st, :, 0] < len(blk_info)]
+        np.testing.assert_array_equal(
+            np.sort(pos[real[:, 0]]), np.arange(step_start[st],
+                                                step_start[st + 1]))
+        scan = sum(((real[:, 1] >> b) & 1) << r
+                   for r, b in enumerate((3, 0, 4, 1, 2)))
+        np.testing.assert_array_equal(mask[real[:, 0]], scan)
+    assert step_start[-1] == len(blk_info) == plan.blocks_x * plan.blocks_y
+
+
+@pytest.mark.parametrize("cu", [16, 8])
+def test_large_planes_are_taken(cu):
+    """The kernel keeps K block rows of edges in shared memory, so its
+    shared memory grows with a plane's width and height, not its area:
+    at 1920x1088 the ring stays 3 rows deep.  The wrapper takes 3840x2160
+    (129600 blocks at cu 8) and refuses only planes whose block ids the
+    packed schedule words cannot hold.  The layout's bytes themselves are
+    the library's, checked on the card by chip_smoke.py up to 3840x2160."""
+    plan = make_intra_plan(1920, 1088, cu, chroma=False)
+    assert wavefront.ring_depth(plan) == 3
+    uhd = SimpleNamespace(cu_size=cu, blocks_y=2160 // cu,
+                          blocks_x=3840 // cu)
+    orig = torch.zeros((1, 2160, 3840), dtype=torch.uint8)
+    modes = torch.zeros((1, uhd.blocks_y, uhd.blocks_x), dtype=torch.int32)
+    assert wavefront._check(orig, modes, uhd, cu, True, 8) == (1, 2160, 3840)
+    huge = SimpleNamespace(cu_size=cu, blocks_y=1025, blocks_x=1024)
+    with pytest.raises(ValueError, match="too large"):
+        wavefront._check(orig, modes, huge, cu, True, 8)
+
+
+def test_kernel_transform_matrix():
+    """kT16 in csrc/wavefront.cu is the HEVC matrix; its subsampled rows
+    are the 8- and 4-point matrices, with the even/odd symmetry the
+    butterflies rely on."""
+    src = (Path(wavefront.__file__).resolve().parent.parent / "csrc"
+           / "wavefront.cu").read_text()
+    body = re.search(r"kT16\[16\]\[16\] = \{(.*?)\};", src, re.S).group(1)
+    t16 = np.array([int(v) for v in re.findall(r"-?\d+", body)]
+                   ).reshape(16, 16)
+    for s in (16, 8, 4):
+        t = t16[::16 // s, :s]
+        np.testing.assert_array_equal(t, dct_matrix_np(s))
+        np.testing.assert_array_equal(t[0::2], t[0::2, ::-1])
+        np.testing.assert_array_equal(t[1::2], -t[1::2, ::-1])
