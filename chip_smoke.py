@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives kvazaar_tpu_torch's two paths through the public
+Drives kvazaar_tpu_torch's three paths through the public
 ``Encoder.encode_stream`` on the card: all-intra 832x480 4:2:0, QP 22,
-fixed 16x16 CUs, rd 1, deblocking on, WPP on; and low-delay IPPP of the
+fixed 16x16 CUs, rd 1, deblocking on, WPP on; low-delay IPPP of the
 same configuration (one IDR, then P frames against the previous
-deblocked frame, +-16 px full search with quarter-pel refinement).
+deblocked frame, +-16 px full search with quarter-pel refinement); and
+all-intra with variable CU trees (intra CUs 8..32).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -30,7 +31,16 @@ Any failed phase raises, so the script exits nonzero:
 7. IPPP: encode a 46-frame clip with continuous motion on the card,
    timed over the last 40 frames after 6 warm-up frames, with the
    launch counts read around the run; a per-stage split of one P frame;
-   the first 3 frames (IDR + 2 P) again on the CPU, byte-identical.
+   the first 3 frames (IDR + 2 P) again on the CPU, byte-identical;
+8. all-intra variable CU trees (the ``medium`` preset's intra CUs
+   8..32, rd 1, without its RDOQ and SAO): encode frames of the 8-frame
+   clip on the card, timed after one warm-up frame, with the launch
+   counts read around the run (this path runs no hand kernel: its
+   var-tree wavefront is plain PyTorch); each timed frame's wavefront
+   depth, their CU-size histogram and per-stage split, with the device
+   kernels and ATen ops of one frame's reconstruction; the first 2
+   frames again on the CPU, byte-identical; one frame at intra 8..64,
+   rd 2, on the card and the CPU, byte-identical.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -50,6 +60,7 @@ import numpy as np
 
 W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
+VAR_TIMED = 4                         # phase 8: frames after 1 warm-up
 BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, the closest listed peak for the
@@ -118,6 +129,14 @@ def ippp_config(width, height, cu=16):
     cfg = headline_config(width, height, cu)
     cfg.intra_period = 0
     return cfg
+
+
+def var_config(width, height, **kw):
+    """The medium preset's all-intra tree without RDOQ and SAO: intra
+    CUs 8..32, rd 1, deblocking, WPP."""
+    from kvazaar_tpu_torch.config import config_from_preset
+    return config_from_preset("medium", width=width, height=height, qp=QP,
+                              intra_period=1, rdoq=False, sao=False, **kw)
 
 
 def bound_ms(tensors, work):
@@ -511,6 +530,143 @@ def run_ippp(torch, wavefront, frames, dev):
     return launches["inter"]
 
 
+def count_launches(torch, fn):
+    """(device kernels and copies, ATen ops dispatched) of one call of
+    fn; the first is None when the profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = sum(e.count for e in prof.key_averages()
+              if e.device_type.name == "CUDA")
+    return (dev or None), Count.n
+
+
+def var_stage_split(torch, ife, frames):
+    """Per-stage times of var-tree frames, each stage timed once per
+    frame by the host clock between synchronizes (the device stages are
+    host-bound, so this is also their device span), averaged over the
+    frames; each frame's wavefront depth, the CU-size histogram over
+    the frames, and the device kernels and ATen ops of the first
+    frame's reconstruction."""
+    from kvazaar_tpu_torch.encoder.quadtree import reconstruct_frame_var
+    from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
+
+    totals, depths, cus = {}, [], {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        totals[name] = totals.get(name, 0.0) + 1000 * (time.perf_counter()
+                                                       - t0)
+        return r
+
+    for i, frame in enumerate(frames):
+        planes = timed("upload_ms", lambda: tuple(
+            a[0] for a in ife._upload(ife.host_pack_sources([frame]))))
+        found = timed("search_ms", lambda: ife.var_search(planes[0]))
+        size8, sched_size8, mode_maps, vp = timed(
+            "tree_and_plan_ms", lambda: ife.var_tree_plan(*found))
+        timed("build_var_plan_ms", lambda: build_var_plan(
+            sched_size8, mode_maps, ife.coded_w, ife.coded_h, True))
+        sched = timed("sched_upload_ms", lambda: ife.var_sched_arrays(
+            vp, planes, sched_size8))
+
+        def recon():
+            return reconstruct_frame_var(sched, QP, ife.qp_c, ife.coded_w,
+                                         ife.coded_h, True)
+
+        recs, levels = timed("var_recon_ms", recon)
+        recs = timed("deblock_ms", lambda: ife.var_deblock(sched, recs))
+        host = timed("d2h_ms", lambda: (
+            [r.cpu().numpy() for r in recs],
+            [lv.cpu().numpy() for lv in levels]))
+        timed("cabac_ms", lambda: ife._serialize_i(ife.var_frame_data(
+            size8, sched_size8, mode_maps, host[1]), *host[0]))
+        depths.append(vp.n_steps_real)
+        sizes, cells = np.unique(size8, return_counts=True)
+        for sz, c in zip(sizes, cells):
+            cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
+        if i == 0:
+            first = count_launches(torch, recon)
+    out = {k: v / len(frames) for k, v in totals.items()}
+    out["frame_ms"] = sum(v for k, v in out.items()
+                          if k != "build_var_plan_ms")
+    (out["recon_device_kernels_and_copies"],
+     out["recon_aten_ops"]) = first
+    return out, depths, cus
+
+
+def run_var(torch, wavefront, frames, dev):
+    """Phase 8: all-intra variable CU trees through Encoder.encode_stream
+    on the card (frames[0] warms up, the next VAR_TIMED are timed); the
+    CPU plain path's bytes; one intra 8..64 rd 2 frame."""
+    from kvazaar_tpu_torch.api import Encoder
+    enc = Encoder(var_config(W, H), device=dev)
+    clip = frames[:1 + VAR_TIMED]
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    results = []
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(clip):
+        results.append(res)
+        if len(results) == 1:
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES)
+    if len(results) != len(clip):
+        raise RuntimeError(f"{len(results)} results for {len(clip)} frames")
+    bits = [r[1].bits for r in results[1:]]
+    psnr_y = [r[1].psnr_y for r in results[1:]]
+    if not all(b > 0 for b in bits) or not all(
+            math.isfinite(p) and 30.0 < p < 99.0 for p in psnr_y):
+        raise RuntimeError(f"implausible var-tree output: bits {bits} "
+                           f"PSNR-Y {psnr_y}")
+    split, n_steps_real, cus = var_stage_split(torch, enc._intra,
+                                               clip[1:])
+    summary = dict(frames=len(clip), timed=VAR_TIMED, fps=VAR_TIMED / dt,
+                   bits_per_frame=sum(bits) / len(bits),
+                   psnr_y=sum(psnr_y) / len(psnr_y),
+                   n_steps_real=n_steps_real, cus_by_size=cus,
+                   kernel_launches=launches)
+    log("var-tree encode_stream:", json.dumps(summary))
+    log("var-tree stage split (ms per frame, the timed frames):",
+        json.dumps(split))
+
+    t0 = time.perf_counter()
+    cpu = Encoder(var_config(W, H), device="cpu")
+    host = [r[0] for r in cpu.encode_stream(clip[:2])]
+    if host != [r[0] for r in results[:2]]:
+        raise RuntimeError("var tree: card and CPU streams differ")
+    log(f"CPU plain path: first 2 var-tree frames byte-identical to the "
+        f"card ({time.perf_counter() - t0:.3f} s on the CPU)")
+    rd2 = var_config(W, H, intra_max_cu=64, rd=2)
+    t0 = time.perf_counter()
+    card = Encoder(rd2, device=dev).encode(*frames[0])[0][0]
+    t_card = time.perf_counter() - t0
+    if Encoder(rd2, device="cpu").encode(*frames[0])[0][0] != card:
+        raise RuntimeError("var tree 8..64 rd 2: card and CPU differ")
+    log(f"intra 8..64 rd 2: card ({t_card:.3f} s, {len(card) * 8} bits) "
+        "and CPU streams byte-identical")
+    enc._intra.close()
+    cpu._intra.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -582,6 +738,7 @@ def main() -> int:
     cpu._intra.close()
 
     inter_launches = run_ippp(torch, wavefront, clip46, dev)
+    run_var(torch, wavefront, frames, dev)
 
     def record(name, replaces, n, joint, rs):
         """The main path's joint launch (luma + Cb + Cr at cu 16); the

@@ -1,13 +1,16 @@
 """Public encoder API of the port (counterpart of kvazaar_tpu/api.py).
 
-Covers all-intra streams (``intra_period == 1``) and low-delay IPPP
-streams with one reference (``intra_period == 0``: one IDR, then P
-frames; ``intra_period > 1``: an IDR every N frames) on the fixed CU
-grid: ``encode``/``flush`` per frame, and the pipelined
-``encode_stream`` in which device compute overlaps the downloads and
-host CABAC of earlier frames.  Every other structure raises
-NotImplementedError: B frames and GOPs, rate control, ROI/AQ, field
-pictures, selective encryption, variable CU trees, SAO.
+Covers all-intra streams (``intra_period == 1``) on the fixed CU grid
+or with variable CU trees, and low-delay IPPP streams with one
+reference (``intra_period == 0``: one IDR, then P frames;
+``intra_period > 1``: an IDR every N frames) on the fixed CU grid:
+``encode``/``flush`` per frame, and ``encode_stream``, pipelined on the
+fixed grid (device compute overlaps the downloads and host CABAC of
+earlier frames) and per frame with variable trees (each frame's tree is
+planned on the host between its search and its reconstruction).  Every
+other structure raises NotImplementedError: B frames and GOPs, rate
+control, ROI/AQ, field pictures, selective encryption, variable P/B
+trees, SAO.
 """
 
 from __future__ import annotations
@@ -173,8 +176,9 @@ class Encoder:
             psnr_u=p(sse[1], h * w // 4), psnr_v=p(sse[2], h * w // 4))
 
     def can_pipeline(self) -> bool:
-        """Every config the port accepts takes the pipelined path."""
-        return True
+        """The fixed grid takes the pipelined path; variable trees plan
+        each frame on the host and take the per-frame path."""
+        return not self._intra.var
 
     def encode_stream(self, frames, need_recon: bool = False):
         """Pipelined streaming encode over an iterable of (y, cb, cr)
@@ -190,7 +194,13 @@ class Encoder:
         order).  One downloader thread copies finished submissions to
         the host (the copy waits for the device and releases the GIL)
         and finalizer threads run CABAC, so device compute, transfers
-        and host serialization of different frames overlap."""
+        and host serialization of different frames overlap.  Variable
+        trees loop ``encode`` (and ``flush``) instead."""
+        if not self.can_pipeline():
+            for f in frames:
+                yield from self.encode(*f)
+            yield from self.flush()
+            return
         ife = self._intra
         want_pixels = need_recon or self.cfg.hash != "none"
         self.stats = {"submit_s": 0.0, "download_s": 0.0,

@@ -1,14 +1,15 @@
 """Frame encoder: device search + wavefront recon + host CABAC.
 
-Counterpart of the fixed-grid part of
-kvazaar_tpu/encoder/frame_encoder.py (IntraFrameEncoder at cu 8/16, with
-PFrameMixin's single-reference P frames): the device program (intra
-mode search; for P frames motion search, the intra/inter decision and
-motion compensation; wavefront reconstruction, deblocking, per-frame
-SSE) is plain tensor code on the encoder's device, with the
-reconstruction's inner loop in the CUDA kernel on a card; the host
-decides merge/AMVP signalling, serializes slice data with the native
-CABAC (WPP substreams) and frames the NAL units.
+Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
+(IntraFrameEncoder at cu 8/16, with PFrameMixin's single-reference P
+frames) and for all-intra variable CU trees (``encode_frame_var``: CUs
+8..32 or 8..64, rd 0-2).  The device program (intra mode search; for P
+frames motion search, the intra/inter decision and motion compensation;
+wavefront reconstruction, deblocking, per-frame SSE) is plain tensor
+code on the encoder's device, with the fixed grid's reconstruction in
+the CUDA kernel on a card; the host picks a variable tree and plans its
+wavefront, decides merge/AMVP signalling, serializes slice data with
+the native CABAC (WPP substreams) and frames the NAL units.
 
 Transfers are dense: int16 levels, uint8 modes and recon, the inter map
 and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
@@ -41,11 +42,16 @@ from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.bitstream import native
 from kvazaar_tpu_torch.encoder.inter_cands import (amvp_candidates,
                                                    merge_candidates)
-from kvazaar_tpu_torch.encoder.inter_search import (_f32, mc_planes,
+from kvazaar_tpu_torch.encoder.inter_search import (mc_planes,
                                                     search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
                                                    reconstruct_frames)
-from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+from kvazaar_tpu_torch.encoder.intra_search import _f32, search_frame_modes
+from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
+                                                choose_tree,
+                                                reconstruct_frame_var,
+                                                search_quadtree)
+from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
 
 
@@ -80,24 +86,35 @@ class FrameResult:
     sse: tuple = None        # (sse_y, sse_cb, sse_cr) device-computed
 
 
+def var_tree(cfg: Config) -> bool:
+    """Variable intra CU trees (intra_min_cu < intra_max_cu)."""
+    return cfg.intra_min_cu < cfg.intra_max_cu
+
+
 def unsupported(cfg: Config) -> list:
     """Names of the config features the port does not cover yet."""
     out = []
-    if cfg.intra_min_cu != cfg.intra_max_cu:
-        out.append("variable CU trees")
-    if cfg.intra_max_cu not in (8, 16):
-        out.append(f"CU size {cfg.intra_max_cu} (8 and 16 are ported)")
+    if var_tree(cfg):
+        if cfg.intra_period != 1:
+            out.append("variable P/B CU trees (variable trees are "
+                       "ported for all-intra streams)")
+    elif cfg.intra_max_cu not in (8, 16):
+        out.append(f"fixed CU size {cfg.intra_max_cu} (8 and 16 are "
+                   "ported; 32 and 64 inside a variable tree)")
     if cfg.input_bitdepth != 8:
         out.append("bit depths other than 8")
-    if cfg.rd >= 2:
-        out.append("--rd >= 2")
+    if cfg.rd >= 3:
+        out.append("--rd 3 (chroma-mode RDO)")
+    elif cfg.rd == 2 and not var_tree(cfg):
+        out.append("--rd 2 on the fixed CU grid")
     for name, on in (("SAO", cfg.sao), ("RDOQ", cfg.rdoq),
                      ("sign hiding", cfg.signhide),
                      ("transform skip", cfg.transform_skip),
                      ("lossless", cfg.lossless),
                      ("implicit RDPCM", cfg.implicit_rdpcm),
                      ("scaling lists", cfg.scaling_list != "off"),
-                     ("intra TU split", cfg.tr_depth_intra > 0),
+                     ("intra TU split (--tr-depth-intra)",
+                      cfg.tr_depth_intra > 0),
                      ("tiles", (cfg.tiles_x, cfg.tiles_y) != (1, 1)),
                      ("slices", cfg.slices != "none"),
                      ("mesh sharding", cfg.mesh_tiles > 1),
@@ -360,9 +377,9 @@ class PFrameMixin:
 
 
 class IntraFrameEncoder(PFrameMixin):
-    """Encodes I frames (batched) and single-reference P frames of one
-    fixed geometry/config on ``device`` (the name follows the JAX
-    package's class)."""
+    """Encodes I frames (batched on the fixed grid, one at a time with
+    variable CU trees) and single-reference P frames of one geometry /
+    config on ``device`` (the name follows the JAX package's class)."""
 
     def __init__(self, cfg: Config, device):
         cfg.validate()
@@ -373,12 +390,16 @@ class IntraFrameEncoder(PFrameMixin):
         self.cfg = cfg
         self.device = torch.device(device)
         self.chroma = cfg.chroma_format == 420
-        self.cu = cfg.intra_max_cu
+        self.var = var_tree(cfg)
+        # The working grid: a variable tree schedules its own per-size
+        # plans and reconstructs 64x64 CUs as 32x32 TBs, so it pads to
+        # 32 at most; the fixed grid's plan is the CU grid.
+        self.cu = min(cfg.intra_max_cu, 32)
         self.bitdepth = cfg.input_bitdepth
         self.coded_w = -(-cfg.width // self.cu) * self.cu
         self.coded_h = -(-cfg.height // self.cu) * self.cu
-        self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
-                                    self.chroma, tiles=(1, 1))
+        self.plan = None if self.var else make_intra_plan(
+            self.coded_w, self.coded_h, self.cu, self.chroma, tiles=(1, 1))
         self.params = StreamParams(
             width=self.coded_w, height=self.coded_h,
             bitdepth=self.bitdepth,
@@ -494,7 +515,11 @@ class IntraFrameEncoder(PFrameMixin):
         """Upload a batch of I frames and queue its device program
         (asynchronous on a card); pair with download_frames +
         finalize_downloaded.  The batch's last reconstruction becomes
-        the DPB."""
+        the DPB.  Fixed grid only: a variable tree is planned on the
+        host between the search and the reconstruction."""
+        if self.var:
+            raise NotImplementedError("variable CU trees encode one frame "
+                                      "at a time (encode_frame)")
         ys, cbs, crs = self._upload(self.host_pack_sources(frames))
         out = self._encode_from_planes(ys, cbs, crs)
         self._dpb = tuple(None if r is None else r[-1] for r in out[2])
@@ -549,6 +574,12 @@ class IntraFrameEncoder(PFrameMixin):
             fd.coeff_cr[:] = blocks_to_plane(lv_cr, self.plan, s // 2,
                                              self.coded_w // 2,
                                              self.coded_h // 2)
+        return self._serialize_i(fd, rec_y, rec_cb, rec_cr)
+
+    def _serialize_i(self, fd, rec_y, rec_cb, rec_cr) -> FrameResult:
+        """IDR slice NAL of one I frame's FrameData: native CABAC (WPP
+        substreams) where the library builds, else the Python
+        serializer; then the slice header and the picture hash SEI."""
         # Slice data first (entry-point offsets go into the header).
         sizes = []
         if native.available():
@@ -585,8 +616,150 @@ class IntraFrameEncoder(PFrameMixin):
                            recon_cr=rec_cr, frame_data=fd,
                            bits=len(nal) * 8)
 
+    # ---- Variable-CU quadtree path (encoder/quadtree.py) ----
+
+    def var_search(self, yp: torch.Tensor):
+        """Device search at every candidate CU size of the (H, W) int32
+        source luma: (costs, modes) dicts size -> grids, on the
+        device."""
+        cfg = self.cfg
+        return search_quadtree(
+            yp, self.coded_w, self.coded_h, self.lambda_satd, self.bitdepth,
+            cfg.intra_min_cu, cfg.intra_max_cu, cfg.rd >= 1,
+            rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp))
+
+    def var_tree_plan(self, costs, modes):
+        """Host stage: the tree argmin and its wavefront plan.  Returns
+        (size8 (H/8, W/8) true CU sizes, sched_size8 (64 CUs as four
+        32 entries), mode_maps size -> (H/s, W/s) numpy modes, VarPlan).
+        """
+        costs = {k: v.cpu().numpy() for k, v in costs.items()}
+        mode_maps = {k: v.cpu().numpy() for k, v in modes.items()}
+        size8 = choose_tree(costs, self.coded_w, self.coded_h,
+                            qp_to_lambda(self.cfg.qp), percu_bits=0.0,
+                            split_bits=SPLIT_FLAG_BINS)
+        # 64x64 CUs reconstruct as four same-mode 32x32 TBs (forced TU
+        # split, 7.3.8.8): schedule them as 32-blocks carrying the 64
+        # CU's mode; depth8 and serialization keep the true tree.
+        sched_size8 = np.minimum(size8, 32).astype(size8.dtype)
+        if 64 in mode_maps and (size8 == 64).any():
+            m32 = mode_maps[32].copy()
+            up = np.kron(mode_maps[64], np.ones((2, 2), m32.dtype))
+            mask32 = size8[::4, ::4] == 64
+            region = m32[:up.shape[0], :up.shape[1]]
+            m32[:up.shape[0], :up.shape[1]] = np.where(
+                mask32[:up.shape[0], :up.shape[1]], up, region)
+            mode_maps = dict(mode_maps)
+            mode_maps[32] = m32
+        vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
+                            self.coded_h, self.chroma)
+        return size8, sched_size8, mode_maps, vp
+
+    def var_sched_arrays(self, vp, planes, sched_size8) -> dict:
+        """The schedule reconstruct_frame_var reads, on the device: per
+        class its compact slot tensors over the plan's real steps (the
+        slot counts stay on the host), the source planes and the
+        deblocking bS maps."""
+        n = max(vp.n_steps_real, 1)
+        dev = self.device
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        sched = {"luma": {}, "chroma": {}, "counts": {}, "n_real": n}
+        kinds = [("luma", vp.luma)] + ([("chroma", vp.chroma)]
+                                       if self.chroma else [])
+        for kind, classes in kinds:
+            for s, cs in classes.items():
+                counts = cs.valid[:n].sum(axis=1)
+                # reconstruct_frame_var runs a step's first counts[t]
+                # slots: the plan fills each step's slots from 0.
+                if not np.array_equal(cs.valid[:n], np.arange(
+                        cs.valid.shape[1])[None] < counts[:, None]):
+                    raise RuntimeError("var plan: slots not packed")
+                sched["counts"][(kind, s)] = counts
+                sched[kind][s] = {
+                    "x0": up(cs.x0[:n]), "y0": up(cs.y0[:n]),
+                    "avail": up(cs.avail[:n]),
+                    "corner_h": up(cs.corner_h[:n]),
+                    "modes": up(cs.modes[:n])}
+        sched["plane_y"], sched["plane_cb"], sched["plane_cr"] = planes
+        # Deblocking bS on the 8x8 cell grid: intra edges (bS 2) exactly
+        # at CU/TU boundaries (a 64 CU's forced 32x32 TUs are TU
+        # boundaries, 8.7.2; sched_size8 caps at 32).
+        c = np.minimum((sched_size8 // 8).astype(np.int32), 4)
+        x8 = np.arange(sched_size8.shape[1])[None, :]
+        y8 = np.arange(sched_size8.shape[0])[:, None]
+        sched["bs_v"] = up(np.where(x8 % c == 0, 2, 0).astype(np.int32))
+        sched["bs_h"] = up(np.where(y8 % c == 0, 2, 0).astype(np.int32))
+        return sched
+
+    def var_recon(self, sched):
+        """Device reconstruction + deblocking of a planned tree: returns
+        (recon uint8 (y, cb, cr), levels int16 (y, cb, cr)) planes."""
+        recs, levels = reconstruct_frame_var(
+            sched, self.cfg.qp, self.qp_c, self.coded_w, self.coded_h,
+            self.chroma, self.bitdepth)
+        return self.var_deblock(sched, recs), levels
+
+    def var_deblock(self, sched, recs):
+        ry, rcb, rcr = recs
+        if self.cfg.deblock:
+            ry, rcb, rcr = deblock_frame(ry, rcb, rcr, self.cfg.qp, 8,
+                                         self.bitdepth, bs_v=sched["bs_v"],
+                                         bs_h=sched["bs_h"])
+        return tuple(None if r is None else r.to(torch.uint8)
+                     for r in (ry, rcb, rcr))
+
+    def var_frame_data(self, size8, sched_size8, mode_maps,
+                       levels) -> FrameData:
+        """Host assembly: depth/mode grids + the coefficient planes
+        (levels: numpy (y, cb, cr) pixel-layout planes)."""
+        fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
+        # depth = 6 - log2(size): 64->0, 32->1, 16->2, 8->3.
+        fd.depth8[:] = (6 - np.round(np.log2(size8)).astype(np.int32)
+                        ).astype(np.uint8)
+        size4 = np.kron(sched_size8, np.ones((2, 2), np.uint8))
+        mode4 = np.zeros_like(size4, np.uint8)
+        for s, grid in mode_maps.items():
+            if s > 32:
+                continue        # 64 modes ride the patched 32 grid
+            up = np.kron(grid.astype(np.uint8),
+                         np.ones((s // 4, s // 4), np.uint8))
+            mode4 = np.where(size4 == s, up[:size4.shape[0],
+                                            :size4.shape[1]], mode4)
+        fd.mode4[:] = mode4
+        fd.coeff_y[:] = levels[0]
+        if self.chroma:
+            fd.coeff_cb[:] = levels[1]
+            fd.coeff_cr[:] = levels[2]
+        return fd
+
+    def encode_frame_var(self, y, cb=None, cr=None) -> FrameResult:
+        """Quadtree all-intra encode: device search at every size, host
+        tree argmin and wavefront plan, device reconstruction and
+        deblocking, host CABAC."""
+        planes = tuple(None if a is None else a[0] for a in self._upload(
+            self.host_pack_sources([(y, cb, cr)])))
+        size8, sched_size8, mode_maps, vp = self.var_tree_plan(
+            *self.var_search(planes[0]))
+        recs, levels = self.var_recon(self.var_sched_arrays(vp, planes,
+                                                            sched_size8))
+        self._dpb = recs
+
+        def host(t):
+            return None if t is None else t.cpu().numpy()
+
+        rec_np = [host(r) for r in recs]
+        fd = self.var_frame_data(size8, sched_size8, mode_maps,
+                                 [host(lv) for lv in levels])
+        return self._serialize_i(fd, *rec_np)
+
     def encode_frames(self, frames) -> list[FrameResult]:
-        """Encode a batch of frames through one batched device program."""
+        """Encode a batch of frames through one batched device program
+        (a variable tree: one frame at a time)."""
+        if self.var:
+            return [self.encode_frame_var(*f) for f in frames]
         return self.finalize_downloaded(
             self.download_frames(self.submit_frames(frames)))
 

@@ -16,15 +16,9 @@ import torch
 
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
-from kvazaar_tpu_torch.encoder.intra_search import satd8_batch
+from kvazaar_tpu_torch.encoder.intra_search import _f32, satd8_batch
 from kvazaar_tpu_torch.ops.inter import (device_table, mc_chroma, mc_luma,
                                          refine_qpel_dense, sad_surfaces)
-
-
-def _f32(x: float) -> float:
-    """A Python float rounded to float32, as JAX's weak typing rounds a
-    Python scalar that multiplies a float32 array."""
-    return float(np.float32(x))
 
 
 def _mv_bits_est(dv: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,18 @@
 """Batched intra mode decision — all blocks, all 35 modes at once.
 
-Counterpart of kvazaar_tpu/encoder/intra_search.py for --rd 0/1: every
-mode of every block is predicted from *original* neighbour pixels
-(open loop, so the search has no sequential dependency), Hadamard-SATD
-costed, then (rd 1) re-ranked with MPM-aware signalling bits implied by
-the pass-1 neighbour decisions.  The wavefront reconstruction then
-honours the exact spec dependencies.
+Counterpart of kvazaar_tpu/encoder/intra_search.py for --rd 0/1/2 (not
+the rd 3 chroma-mode search): every mode of every block is predicted
+from *original* neighbour pixels (open loop, so the search has no
+sequential dependency), Hadamard-SATD costed, then (rd 1) re-ranked
+with MPM-aware signalling bits implied by the pass-1 neighbour
+decisions, or (rd 2) the top four re-ranked by a true transform +
+quantization roundtrip and the modelled coefficient rate.  The
+wavefront reconstruction then honours the exact spec dependencies.
+
+Float32 costs are formed as the JAX package forms them on its CPU
+backend, where XLA contracts an elementwise ``a + l * b`` into one
+fused multiply-add: ``_fma_f32`` computes it in float64 (the float32
+product is exact there) and rounds once.
 """
 
 from __future__ import annotations
@@ -19,8 +26,25 @@ from kvazaar_tpu_torch.constants import INTRA_DC, INTRA_PLANAR
 from kvazaar_tpu_torch.encoder.geometry import (IntraFramePlan, plan_flat_gather,
                                           plan_flat_noref)
 from kvazaar_tpu_torch.encoder import plan_cached
-from kvazaar_tpu_torch.ops.exactmm import einsum_exact
-from kvazaar_tpu_torch.ops.intra import predict_all_modes
+from kvazaar_tpu_torch.ops.exactmm import matmul_exact
+from kvazaar_tpu_torch.ops.intra import predict_all_modes, predict_modes
+from kvazaar_tpu_torch.ops.quant import dequantize, quantize
+from kvazaar_tpu_torch.ops.rate import tb_rate_bits
+from kvazaar_tpu_torch.ops.transform import (forward_transform,
+                                             inverse_transform)
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, as JAX rounds a weak-typed
+    scalar against a float32 array."""
+    return float(np.float32(x))
+
+
+def _fma_f32(a: torch.Tensor, lam: float, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a + lam * b`` with one rounding (a fused multiply-add):
+    the float32 operands' product is exact in float64."""
+    return (a.to(torch.float64)
+            + _f32(lam) * b.to(torch.float64)).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,7 +52,7 @@ def _hadamard(n: int, device: torch.device) -> torch.Tensor:
     h = np.array([[1]], dtype=np.int32)
     while h.shape[0] < n:
         h = np.block([[h, h], [h, -h]])
-    return torch.from_numpy(h).to(device)
+    return torch.from_numpy(h).to(device, torch.float64)
 
 
 def satd8_batch(diff: torch.Tensor) -> torch.Tensor:
@@ -38,15 +62,13 @@ def satd8_batch(diff: torch.Tensor) -> torch.Tensor:
     s = diff.shape[-1]
     if s == 4:
         h = _hadamard(4, diff.device)
-        t1 = einsum_exact("ij,...jk->...ik", h, diff)
-        t = einsum_exact("lk,...ik->...il", h, t1)
+        t = matmul_exact(matmul_exact(h, diff), h.mT)
         return (torch.sum(torch.abs(t), dim=(-2, -1),
                           dtype=torch.int32) + 1) >> 1
     h = _hadamard(8, diff.device)
     d = diff.reshape(*diff.shape[:-2], s // 8, 8, s // 8, 8)
     d = torch.swapaxes(d, -3, -2)            # (..., s/8, s/8, 8, 8)
-    t1 = einsum_exact("ij,...jk->...ik", h, d)
-    t = einsum_exact("lk,...ik->...il", h, t1)
+    t = matmul_exact(matmul_exact(h, d), h.mT)
     per_tile = (torch.sum(torch.abs(t), dim=(-2, -1),
                           dtype=torch.int32) + 2) >> 2
     return torch.sum(per_tile, dim=(-2, -1), dtype=torch.int32)
@@ -107,41 +129,140 @@ def _gather_maps(plan: IntraFramePlan, device: torch.device):
             torch.from_numpy(plan_flat_noref(plan, True)).to(device))
 
 
+def _ssd_f32(err: torch.Tensor) -> torch.Tensor:
+    """float32 sum of squares over the last two axes, summed in int64:
+    equal to JAX's float32 sum while the total stays below 2^24 (every
+    partial sum is then exact in any order)."""
+    e = err.to(torch.int64)
+    return torch.sum(e * e, dim=(-2, -1)).to(torch.float32)
+
+
+def _roundtrip_levels(resid, s, qp, bitdepth):
+    """Intra flat-quant roundtrip of (N, S, S) residuals: (levels, ssd
+    float32 (N,))."""
+    levels = quantize(forward_transform(resid, s, bitdepth), qp, s,
+                      bitdepth, intra=True)
+    rrec = inverse_transform(dequantize(levels, qp, s, bitdepth), s,
+                             bitdepth)
+    return levels, _ssd_f32(rrec - resid)
+
+
+def _open_loop_refs(frame: torch.Tensor, plan: IntraFramePlan,
+                    bitdepth: int) -> torch.Tensor:
+    """(N, 4S+1) luma reference vectors from the source frame."""
+    flat_ext = torch.cat([frame.reshape(-1), frame.new_zeros(1)])
+    gidx, noref = _gather_maps(plan, frame.device)
+    return torch.where(noref[:, None],
+                       torch.full_like(gidx, 1 << (bitdepth - 1),
+                                       dtype=torch.int32),
+                       flat_ext[gidx])
+
+
+def _blocks(frame: torch.Tensor, plan: IntraFramePlan) -> torch.Tensor:
+    """(H, W) -> (N, S, S) raster blocks."""
+    s = plan.cu_size
+    by, bx = plan.blocks_y, plan.blocks_x
+    return frame.reshape(by, s, bx, s).permute(0, 2, 1, 3).reshape(
+        by * bx, s, s)
+
+
+def _rd_rerank(preds, orig, satd, modes1, lambda_satd, s, qp, lam_rd,
+               bitdepth, k: int = 4):
+    """--rd 2 stage: re-rank each block's top-K candidates by SATD +
+    lambda * mode bits with the true roundtrip cost SSD + lam_rd *
+    (modelled TB rate + mode bits).
+
+    preds: (N, 35, S, S); orig: (N, 1, S, S); satd: (N, 35).  Returns
+    ((By, Bx) modes, (By, Bx) float32 rd costs)."""
+    n = preds.shape[0]
+    by_bx = modes1.shape
+    bits = mode_bits_table(modes1, s).reshape(n, 35)
+    cost1 = _fma_f32(satd.to(torch.float32), lambda_satd, bits)
+    # jax.lax.top_k breaks ties toward the lower index: a stable sort.
+    topk = torch.sort(cost1, dim=-1, stable=True).indices[:, :k]
+    cand = torch.take_along_dim(preds, topk[..., None, None], dim=1)
+    resid = (orig - cand).reshape(n * k, s, s)
+    levels, ssd = _roundtrip_levels(resid, s, qp, bitdepth)
+    rate = tb_rate_bits(levels).reshape(n, k)
+    mbits = torch.take_along_dim(bits, topk, dim=1)
+    cost = _fma_f32(ssd.reshape(n, k), lam_rd, rate + mbits)
+    sel = torch.argmin(cost, dim=-1)
+    modes = torch.take_along_dim(topk, sel[:, None], dim=1)[:, 0]
+    best = torch.min(cost, dim=-1).values
+    return (modes.to(torch.int32).reshape(by_bx),
+            best.reshape(by_bx))
+
+
 def search_frame_modes(frame: torch.Tensor, plan: IntraFramePlan,
                        lambda_satd: float, bitdepth: int = 8,
-                       two_pass: bool = True, rdo: bool = False):
+                       two_pass: bool = True, return_satd: bool = False,
+                       rdo: bool = False, qp: int = 30,
+                       lam_rd: float | None = None):
     """frame: (H, W) integer coded-size luma.  Returns ((By, Bx) int32
-    modes, (By, Bx) float32 winning costs).
+    modes, (By, Bx) float32 winning costs), plus the (By, Bx, 35) int32
+    SATDs when return_satd (they feed the 64x64 CU level).
 
     two_pass: re-rank with MPM-aware signalling bits (--rd >= 1; rd 0 is
-    the pure-SATD argmin).  rdo (--rd >= 2) is not ported."""
-    if rdo:
-        raise NotImplementedError("--rd >= 2 mode search is not ported")
+    the pure-SATD argmin).  rdo (--rd 2): re-rank the top four by the
+    roundtrip RD cost at ``qp`` with ``lam_rd`` (default lambda_satd
+    squared)."""
     s = plan.cu_size
     by, bx = plan.blocks_y, plan.blocks_x
     n = by * bx
     frame = frame.to(torch.int32)
-    flat_ext = torch.cat([frame.reshape(-1),
-                          frame.new_zeros(1)])
-    gidx, noref = _gather_maps(plan, frame.device)
-    refs = torch.where(noref[:, None],
-                       torch.full_like(gidx, 1 << (bitdepth - 1),
-                                       dtype=torch.int32),
-                       flat_ext[gidx])
+    refs = _open_loop_refs(frame, plan, bitdepth)
     preds = predict_all_modes(refs, s, luma=True,
                               bitdepth=bitdepth)         # (N,35,S,S)
-    orig = frame.reshape(by, s, bx, s).permute(0, 2, 1, 3)
-    orig = orig.reshape(n, 1, s, s)
+    orig = _blocks(frame, plan).reshape(n, 1, s, s)
     satd = satd8_batch(preds - orig)                     # (N, 35)
 
     modes1 = torch.argmin(satd, dim=-1).to(torch.int32).reshape(by, bx)
+    extra = (satd.reshape(by, bx, 35),) if return_satd else ()
+    if rdo:
+        if lam_rd is None:
+            lam_rd = lambda_satd * lambda_satd
+        return _rd_rerank(preds, orig, satd, modes1, lambda_satd, s, qp,
+                          lam_rd, bitdepth) + extra
     if not two_pass:
         best1 = torch.min(satd, dim=-1).values.to(torch.float32)
-        return modes1, best1.reshape(by, bx)
+        return (modes1, best1.reshape(by, bx)) + extra
     bits = mode_bits_table(modes1, s).reshape(n, 35)
-    # float32 exactly as JAX forms it: the weak-typed Python lambda is
-    # rounded to float32 first, then the product, then the sum.
-    cost = satd.to(torch.float32) + bits * float(np.float32(lambda_satd))
+    cost = _fma_f32(satd.to(torch.float32), lambda_satd, bits)
     modes = torch.argmin(cost, dim=-1).to(torch.int32).reshape(by, bx)
     best = torch.min(cost, dim=-1).values.reshape(by, bx)
-    return modes, best
+    return (modes, best) + extra
+
+
+def rd_cost_given_modes(frame: torch.Tensor, plan: IntraFramePlan,
+                        modes: torch.Tensor, qp: int, lam_rd: float,
+                        bitdepth: int = 8) -> torch.Tensor:
+    """(By, Bx) float32 roundtrip RD cost (SSD + lam_rd * coefficient
+    rate) of coding each block with the GIVEN mode (open-loop refs)."""
+    s = plan.cu_size
+    frame = frame.to(torch.int32)
+    pred = predict_modes(_open_loop_refs(frame, plan, bitdepth),
+                         modes.reshape(-1), s, luma=True,
+                         bitdepth=bitdepth)
+    levels, ssd = _roundtrip_levels(_blocks(frame, plan) - pred, s, qp,
+                                    bitdepth)
+    return _fma_f32(ssd, lam_rd, tb_rate_bits(levels)).reshape(
+        plan.blocks_y, plan.blocks_x)
+
+
+def modes64_from_satd32(satd32: torch.Tensor, lambda_satd: float,
+                        two_pass: bool = True):
+    """Best single-mode 64x64 CU from the four 32x32 TBs' per-mode
+    SATDs (a 64 intra CU is four same-mode 32x32 TBs, 7.3.8.8).
+
+    satd32: (By, Bx, 35).  Returns ((By//2, Bx//2) int32 modes, float32
+    cost grid); partial CTUs are left out."""
+    by, bx = satd32.shape[0] // 2, satd32.shape[1] // 2
+    s4 = (satd32[0::2, 0::2][:by, :bx] + satd32[0::2, 1::2][:by, :bx]
+          + satd32[1::2, 0::2][:by, :bx]
+          + satd32[1::2, 1::2][:by, :bx]).to(torch.float32)
+    modes1 = torch.argmin(s4, dim=-1).to(torch.int32)
+    if not two_pass:
+        return modes1, torch.min(s4, dim=-1).values
+    cost = _fma_f32(s4, lambda_satd, mode_bits_table(modes1, 64))
+    return (torch.argmin(cost, dim=-1).to(torch.int32),
+            torch.min(cost, dim=-1).values)

@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from kvazaar_tpu_torch.ops.exactmm import einsum_exact
+from kvazaar_tpu_torch.ops.exactmm import matmul_exact
 
 # H.265 Table 8-4/8-5.
 INTRA_PRED_ANGLE = np.array(
@@ -123,9 +123,10 @@ def mode_weights_np(n: int, luma: bool):
 
 @functools.lru_cache(maxsize=16)
 def _weights(n: int, luma: bool, device: torch.device):
-    """(W int32 (35, N*N, 2R), shifts int32 (35,)) on ``device``."""
+    """(W (35, N*N, 2R), shifts int32 (35,)) on ``device``; W in float64,
+    the dtype matmul_exact contracts in, so no call converts it."""
     w, shifts = mode_weights_np(n, luma)
-    return (torch.from_numpy(w).to(device),
+    return (torch.from_numpy(w).to(device, torch.float64),
             torch.from_numpy(shifts).to(device))
 
 
@@ -150,7 +151,8 @@ def predict_all_modes(refs: torch.Tensor, n: int, luma: bool = True,
     """refs: (B, 4N+1) int32 substituted reference vectors (unfiltered).
     Returns (B, 35, N, N) int32 predictions of every mode."""
     w, shifts = _weights(n, luma, refs.device)
-    raw = einsum_exact("mpr,br->bmp", w, _refs2(refs, n, luma))
+    raw = matmul_exact(_refs2(refs, n, luma),
+                       w.reshape(35 * n * n, -1).mT).reshape(-1, 35, n * n)
     pred = (raw + (1 << (shifts - 1))[None, :, None]) \
         >> shifts[None, :, None]
     pred = pred.reshape(pred.shape[0], 35, n, n)
@@ -206,7 +208,7 @@ def predict_modes(refs: torch.Tensor, modes: torch.Tensor, n: int,
     w, shifts = _weights(n, luma, refs.device)
     modes = modes.to(torch.int64)
     ssel = shifts[modes]                                 # (B,)
-    raw = einsum_exact("bpr,br->bp", w[modes], _refs2(refs, n, luma))
+    raw = matmul_exact(w[modes], _refs2(refs, n, luma)[..., None])[..., 0]
     pred = (raw + (1 << (ssel - 1))[:, None]) >> ssel[:, None]
     pred = pred.reshape(pred.shape[0], n, n)
     if not luma or n >= 32:

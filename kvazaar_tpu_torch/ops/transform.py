@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from kvazaar_tpu_torch.ops.exactmm import einsum_exact
+from kvazaar_tpu_torch.ops.exactmm import matmul_exact
 
 # Odd-row magnitude constants per transform size (H.265 8.6.4.2 tables).
 _ODD_MAGS = {
@@ -61,7 +61,8 @@ def _clip16(x):
 
 @functools.lru_cache(maxsize=None)
 def _matrix(size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(dct_matrix_np(size)).to(device)
+    """The DCT table on ``device`` in float64 (matmul_exact's dtype)."""
+    return torch.from_numpy(dct_matrix_np(size)).to(device, torch.float64)
 
 
 def forward_transform(resid: torch.Tensor, size: int,
@@ -71,9 +72,8 @@ def forward_transform(resid: torch.Tensor, size: int,
     shift1 = log2N + bd - 9 and shift2 = log2N + 6."""
     log2n = size.bit_length() - 1
     t = _matrix(size, resid.device)
-    e = _round_shift(einsum_exact("kn,...nm->...km", t, resid),
-                     log2n + bitdepth - 9)
-    return _round_shift(einsum_exact("lm,...km->...kl", t, e), log2n + 6)
+    e = _round_shift(matmul_exact(t, resid), log2n + bitdepth - 9)
+    return _round_shift(matmul_exact(e, t.mT), log2n + 6)
 
 
 def inverse_transform(coeff: torch.Tensor, size: int,
@@ -81,7 +81,5 @@ def inverse_transform(coeff: torch.Tensor, size: int,
     """Inverse 2D DCT; both stages clipped to int16 (shift1 = 7,
     shift2 = 20 - bitdepth)."""
     t = _matrix(size, coeff.device)
-    e = _clip16(_round_shift(einsum_exact("kn,...km->...nm", t, coeff),
-                             7))
-    return _clip16(_round_shift(einsum_exact("ml,...nm->...nl", t, e),
-                                20 - bitdepth))
+    e = _clip16(_round_shift(matmul_exact(t.mT, coeff), 7))
+    return _clip16(_round_shift(matmul_exact(e, t), 20 - bitdepth))

@@ -1,7 +1,8 @@
 """The port stands apart from JAX and holds the JAX package's constants.
 
-- importing and running kvazaar_tpu_torch (all-intra and IPPP) never
-  imports jax or any kvazaar_tpu module (checked in a fresh
+- importing and running kvazaar_tpu_torch (all-intra on the fixed grid
+  and with a variable CU tree, and IPPP) never imports jax or any
+  kvazaar_tpu module (checked in a fresh
   interpreter), and no source of the port or chip_smoke.py imports
   kvazaar_tpu (checked on the syntax tree);
 - every table and constant the port copies equals the JAX package's;
@@ -34,9 +35,9 @@ frames = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
            rng.integers(0, 256, (16, 24), dtype=np.uint8),
            rng.integers(0, 256, (16, 24), dtype=np.uint8))
           for _ in range(3)]
-for period in (1, 0):
+for period, min_cu in ((1, 16), (0, 16), (1, 8)):
     cfg = Config(width=48, height=32, qp=27, intra_max_cu=16,
-                 intra_min_cu=16, intra_period=period)
+                 intra_min_cu=min_cu, intra_period=period)
     out = list(Encoder(cfg, device="cpu").encode_stream(frames))
     assert len(out) == 3 and all(len(c) > 0 for c, _, _ in out)
     assert [o[1].slice_type for o in out] == ([2] * 3 if period
@@ -91,8 +92,9 @@ def test_port_sources_import_no_kvazaar_tpu():
 
 
 @pytest.mark.parametrize("module", [
-    "constants", "ops.scan", "ops.inter", "bitstream.contexts",
-    "bitstream.headers", "bitstream.syntax", "encoder.inter_cands"])
+    "constants", "ops.scan", "ops.inter", "ops.rate", "bitstream.contexts",
+    "bitstream.headers", "bitstream.syntax", "encoder.inter_cands",
+    "encoder.quadtree", "encoder.var_schedule"])
 def test_copied_constants_equal_jax(module):
     """Every upper-case constant of a copied module equals the JAX
     package's constant of the same name."""

@@ -25,7 +25,7 @@ from kvazaar_tpu_torch.ops import deblock as tdeblock
 from kvazaar_tpu_torch.ops import intra as tintra
 from kvazaar_tpu_torch.ops import quant as tquant
 from kvazaar_tpu_torch.ops import transform as ttransform
-from kvazaar_tpu_torch.ops.exactmm import einsum_exact
+from kvazaar_tpu_torch.ops.exactmm import matmul_exact
 from test_oracle_independence import (spec_intra_predict,
                                       spec_inverse_transform)
 from test_spec_models import np_deblock_luma_vertical, np_dequant
@@ -48,7 +48,7 @@ def test_einsum_exact_is_exact_beyond_float32():
     rng = np.random.default_rng(0)
     t = rng.integers(-90, 91, (32, 32))
     x = rng.integers(-32768, 32768, (3, 32, 32))
-    got = einsum_exact("lm,bkm->bkl", _t(t), _t(x))
+    got = matmul_exact(_t(x), _t(t).mT)
     want = np.einsum("lm,bkm->bkl", t, x)
     assert np.abs(want).max() > 2 ** 24
     _eq(got, want)
@@ -83,8 +83,8 @@ def test_quant_dequant_match_jax(qp):
         _eq(dq[0], np_dequant(levels[0], qp, size), size)
 
 
-@pytest.mark.parametrize("n,luma", [(8, True), (16, True), (4, False),
-                                    (8, False)])
+@pytest.mark.parametrize("n,luma", [(8, True), (16, True), (32, True),
+                                    (4, False), (8, False)])
 def test_intra_prediction_matches_jax(n, luma):
     rng = np.random.default_rng(n + 100 * luma)
     refs = rng.integers(0, 256, (3, 4 * n + 1)).astype(np.int32)

@@ -15,14 +15,13 @@ import functools
 import numpy as np
 import pytest
 
-from kvazaar_tpu.bitstream.decoder import decode_stream
 from kvazaar_tpu.config import Config as JaxConfig
 from kvazaar_tpu.encoder.frame_encoder import \
     IntraFrameEncoder as JaxIntraFrameEncoder
 from kvazaar_tpu_torch import Config
 from kvazaar_tpu_torch.api import Encoder
 from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
-from test_torch_slice import _clip
+from test_torch_slice import _clip, oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
@@ -101,7 +100,7 @@ def test_ippp_matches_jax(name):
         assert si.psnr_y == pytest.approx(fi.psnr_y, abs=1e-9)
 
     if name == "cu8":        # one decode bounds the runtime
-        dec = decode_stream(port.headers() + b"".join(r.nals for r in got),
+        dec = oracle_decode(port.headers() + b"".join(r.nals for r in got),
                             port.params)
         assert len(dec) == len(got)
         for ((dy, dcb, dcr), _fd), r in zip(dec, got):

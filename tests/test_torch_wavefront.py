@@ -30,6 +30,7 @@ from kvazaar_tpu_torch.encoder.intra_recon import (reconstruct_frames,
                                                    wavefront_recon_plain)
 from kvazaar_tpu_torch.ops import wavefront
 from kvazaar_tpu_torch.ops.transform import dct_matrix_np
+from test_torch_slice import _jit_whole
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
@@ -45,6 +46,13 @@ def _sources(rng, b, w, h, chroma=True):
     return ys, cbs, crs
 
 
+# JAX reconstruct_frames jitted whole, one wrapper per backend gate
+# (the gate is read while tracing): one compile per case instead of one
+# per primitive call.
+_JAX_KERNEL = _jit_whole(jax_reconstruct_frames)
+_JAX_SCAN = _jit_whole(jax_reconstruct_frames)
+
+
 def _jax_both(plan, ys, cbs, crs, modes, qp, inter=None):
     """(interpreted Pallas kernel, lax.scan) outputs of the JAX
     package.  inter: None, or (is_inter, mc_y, mc_cb, mc_cr)."""
@@ -58,12 +66,12 @@ def _jax_both(plan, ys, cbs, crs, modes, qp, inter=None):
                       (j(a) for a in inter)))
     wfp.INTERPRET = True
     try:
-        kernel = jax_reconstruct_frames(*args, **kw)
+        kernel = _JAX_KERNEL(*args, **kw)
     finally:
         wfp.INTERPRET = False
     wfp.DISABLE = True
     try:
-        scan = jax_reconstruct_frames(*args, **kw)
+        scan = _JAX_SCAN(*args, **kw)
     finally:
         wfp.DISABLE = False
     return kernel, scan
