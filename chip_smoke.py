@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives kvazaar_tpu_torch's three paths through the public
+Drives kvazaar_tpu_torch's paths through the public
 ``Encoder.encode_stream`` on the card: all-intra 832x480 4:2:0, QP 22,
 fixed 16x16 CUs, rd 1, deblocking on, WPP on; low-delay IPPP of the
 same configuration (one IDR, then P frames against the previous
-deblocked frame, +-16 px full search with quarter-pel refinement); and
-all-intra with variable CU trees (intra CUs 8..32).
+deblocked frame, +-16 px full search with quarter-pel refinement);
+all-intra with variable CU trees (intra CUs 8..32); and the
+``superfast``, ``medium`` and ``slower`` presets at --period 1 (SAO;
+RDOQ; sign hiding).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -40,7 +42,17 @@ Any failed phase raises, so the script exits nonzero:
    depth, their CU-size histogram and per-stage split, with the device
    kernels and ATen ops of one frame's reconstruction; the first 2
    frames again on the CPU, byte-identical; one frame at intra 8..64,
-   rd 2, on the card and the CPU, byte-identical.
+   rd 2, on the card and the CPU, byte-identical;
+9. every preset's all-intra operating point: the ``superfast`` preset
+   (fixed 16x16 grid, rd 0, SAO) timed as phase 6 (line ``superfast
+   encode_stream:``, stage split with ``sao_ms``, 2 frames card == CPU
+   bytes); the ``medium`` preset (intra 8..32, rd 1, RDOQ, SAO), 1
+   warm-up and 2 timed frames (line ``medium encode_stream:``, var
+   stage split with ``sao_ms``, 1 frame card == CPU bytes); one frame
+   of ``slower`` (8..64, rd 2, RDOQ, sign hiding, SAO) card == CPU
+   bytes; and RDOQ, sign hiding (S = 4..32, every scan index) and the
+   SAO statistics, decision and filter (one 832x480 deblocked frame) on
+   the card against the same functions on the CPU, max abs error 0.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -61,6 +73,7 @@ import numpy as np
 W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
 VAR_TIMED = 4                         # phase 8: frames after 1 warm-up
+MEDIUM_TIMED = 2                      # phase 9: frames after 1 warm-up
 BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, the closest listed peak for the
@@ -390,7 +403,8 @@ def stage_split(torch, ife, frames):
 
     def search():
         box["modes"] = torch.stack([
-            search_frame_modes(y, ife.plan, ife.lambda_satd, 8, True)[0]
+            search_frame_modes(y, ife.plan, ife.lambda_satd, 8,
+                               ife.cfg.rd >= 1)[0]
             for y in ys])
 
     def recon():
@@ -399,10 +413,17 @@ def stage_split(torch, ife, frames):
 
     def deblock():
         r = box["rec"]
-        box["dbk"] = deblock_frame(r[0], r[2], r[4], QP, ife.cu)
+        box["dbk"] = tuple(t.to(torch.uint8) for t in deblock_frame(
+            r[0], r[2], r[4], QP, ife.cu))
 
-    for name, fn in (("search", search), ("recon_kernel", recon),
-                     ("deblock", deblock)):
+    def sao():
+        ife._sao_stage((ys, cbs, crs), box["dbk"])
+
+    stages = [("search", search), ("recon_kernel", recon),
+              ("deblock", deblock)]
+    if ife.cfg.sao:
+        stages.append(("sao", sao))
+    for name, fn in stages:
         fn()                                            # warm
         out[name + "_ms"] = cuda_ms(torch, fn, 3)
     handle = ife.submit_frames(frames)
@@ -561,9 +582,12 @@ def var_stage_split(torch, ife, frames):
     host-bound, so this is also their device span), averaged over the
     frames; each frame's wavefront depth, the CU-size histogram over
     the frames, and the device kernels and ATen ops of the first
-    frame's reconstruction."""
+    frame's reconstruction.  The stages are encode_frame_var's, with
+    the config's RDOQ, sign hiding and SAO."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
     from kvazaar_tpu_torch.encoder.quadtree import reconstruct_frame_var
     from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
+    cfg = ife.cfg
 
     totals, depths, cus = {}, [], {}
 
@@ -588,16 +612,27 @@ def var_stage_split(torch, ife, frames):
             vp, planes, sched_size8))
 
         def recon():
-            return reconstruct_frame_var(sched, QP, ife.qp_c, ife.coded_w,
-                                         ife.coded_h, True)
+            return reconstruct_frame_var(
+                sched, QP, ife.qp_c, ife.coded_w, ife.coded_h, True,
+                signhide=cfg.signhide, rdoq=cfg.rdoq,
+                lam=qp_to_lambda(cfg.qp))
 
         recs, levels = timed("var_recon_ms", recon)
         recs = timed("deblock_ms", lambda: ife.var_deblock(sched, recs))
+        sao = None
+        if cfg.sao:
+            recs, sao = timed("sao_ms", lambda: ife.var_sao(planes, recs))
         host = timed("d2h_ms", lambda: (
             [r.cpu().numpy() for r in recs],
-            [lv.cpu().numpy() for lv in levels]))
-        timed("cabac_ms", lambda: ife._serialize_i(ife.var_frame_data(
-            size8, sched_size8, mode_maps, host[1]), *host[0]))
+            [lv.cpu().numpy() for lv in levels],
+            None if sao is None else sao.cpu().numpy()))
+
+        def cabac():
+            fd = ife.var_frame_data(size8, sched_size8, mode_maps, host[1])
+            _set_sao(fd, host[2])
+            return ife._serialize_i(fd, *host[0])
+
+        timed("cabac_ms", cabac)
         depths.append(vp.n_steps_real)
         sizes, cells = np.unique(size8, return_counts=True)
         for sz, c in zip(sizes, cells):
@@ -665,6 +700,172 @@ def run_var(torch, wavefront, frames, dev):
         "and CPU streams byte-identical")
     enc._intra.close()
     cpu._intra.close()
+
+
+def preset_config(name, width, height):
+    """A preset's all-intra operating point (--preset name --period 1)."""
+    from kvazaar_tpu_torch.config import config_from_preset
+    return config_from_preset(name, width=width, height=height, qp=QP,
+                              intra_period=1)
+
+
+def check_output(results, what):
+    bits = [r[1].bits for r in results]
+    psnr_y = [r[1].psnr_y for r in results]
+    if not all(b > 0 for b in bits) or not all(
+            math.isfinite(p) and 30.0 < p < 99.0 for p in psnr_y):
+        raise RuntimeError(f"implausible {what} output: bits {bits} "
+                           f"PSNR-Y {psnr_y}")
+    return sum(bits) / len(bits), sum(psnr_y) / len(psnr_y)
+
+
+def run_superfast(torch, wavefront, frames, dev):
+    """Phase 9a: the superfast preset (fixed grid, SAO) through
+    Encoder.encode_stream, timed as phase 6; the CPU plain path's
+    bytes."""
+    from kvazaar_tpu_torch.api import Encoder
+    enc = Encoder(preset_config("superfast", W, H), device=dev)
+    if not (enc._intra.params.sao_enabled and enc.can_pipeline()):
+        raise RuntimeError("superfast: expected the pipelined SAO path")
+    warm = [r[0] for r in enc.encode_stream(frames[:BATCH])]
+    torch.cuda.synchronize()
+    clip = frames * TIMED_BATCHES
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(clip))
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES)
+    if launches["intra"] == 0:
+        raise RuntimeError("superfast never launched the kernel")
+    if len(results) != len(clip):
+        raise RuntimeError(f"{len(results)} results for {len(clip)} frames")
+    bits, psnr_y = check_output(results, "superfast")
+    log("superfast encode_stream:", json.dumps(dict(
+        frames=len(clip), batch=BATCH, fps=len(clip) / dt,
+        bits_per_frame=bits, psnr_y=psnr_y, kernel_launches=launches,
+        stage_wall_s=enc.stats)))
+    split = stage_split(torch, enc._intra, frames[:BATCH])
+    log("superfast stage split (ms/frame, one batch of 8):",
+        json.dumps(split))
+    cpu = Encoder(preset_config("superfast", W, H), device="cpu")
+    if [r[0] for r in cpu.encode_stream(frames[:2])] != warm[:2]:
+        raise RuntimeError("superfast: card and CPU streams differ")
+    log("CPU plain path: first 2 superfast frames byte-identical to the "
+        "card")
+    enc._intra.close()
+    cpu._intra.close()
+
+
+def run_medium_slower(torch, wavefront, frames, dev):
+    """Phase 9b/c: the medium preset (variable trees, RDOQ, SAO) through
+    Encoder.encode_stream, 1 warm-up and MEDIUM_TIMED timed frames, its
+    var stage split and 1 frame on the CPU; one slower frame on both."""
+    from kvazaar_tpu_torch.api import Encoder
+    cfg = preset_config("medium", W, H)
+    if not (cfg.rdoq and cfg.sao):
+        raise RuntimeError("medium: expected RDOQ and SAO")
+    enc = Encoder(cfg, device=dev)
+    clip = frames[:1 + MEDIUM_TIMED]
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    results = []
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(clip):
+        results.append(res)
+        if len(results) == 1:
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES)
+    if len(results) != len(clip):
+        raise RuntimeError(f"{len(results)} results for {len(clip)} frames")
+    bits, psnr_y = check_output(results[1:], "medium")
+    split, n_steps_real, cus = var_stage_split(torch, enc._intra, clip[1:])
+    log("medium encode_stream:", json.dumps(dict(
+        frames=len(clip), timed=MEDIUM_TIMED, fps=MEDIUM_TIMED / dt,
+        bits_per_frame=bits, psnr_y=psnr_y, n_steps_real=n_steps_real,
+        cus_by_size=cus, kernel_launches=launches)))
+    log("medium stage split (ms per frame, the timed frames):",
+        json.dumps(split))
+    t0 = time.perf_counter()
+    if Encoder(cfg, device="cpu").encode(*clip[0])[0][0] != results[0][0]:
+        raise RuntimeError("medium: card and CPU streams differ")
+    log(f"CPU plain path: first medium frame byte-identical to the card "
+        f"({time.perf_counter() - t0:.3f} s on the CPU)")
+    slower = preset_config("slower", W, H)
+    t0 = time.perf_counter()
+    card = Encoder(slower, device=dev).encode(*frames[0])[0][0]
+    t_card = time.perf_counter() - t0
+    if Encoder(slower, device="cpu").encode(*frames[0])[0][0] != card:
+        raise RuntimeError("slower: card and CPU streams differ")
+    log(f"slower (8..64, rd 2, RDOQ, sign hiding, SAO): card ({t_card:.3f} "
+        f"s, {len(card) * 8} bits) and CPU streams byte-identical")
+    enc._intra.close()
+
+
+def compare_ops(torch, frames, dev):
+    """Phase 9d: RDOQ, sign hiding and the SAO stages on the card ==
+    the same functions on the CPU (max abs error 0)."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         qp_to_lambda)
+    from kvazaar_tpu_torch.ops.quant import quantize_rdoq, sign_hide
+    from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
+                                           sao_decide_frame_device,
+                                           sao_stats)
+
+    def err(got, want):
+        got = [got] if isinstance(got, torch.Tensor) else list(got)
+        want = [want] if isinstance(want, torch.Tensor) else list(want)
+        return max((g.cpu().long() - w.long()).abs().max().item()
+                   for g, w in zip(got, want))
+
+    lam = qp_to_lambda(QP)
+    rng = np.random.default_rng(4)
+    row = {}
+    for s in (4, 8, 16, 32):
+        n = 65536 // (s * s)
+        mag = np.exp(rng.uniform(0, np.log(32767), (n, s, s)))
+        c = torch.from_numpy((mag * rng.choice([-1, 1], (n, s, s))
+                              ).astype(np.int32))
+        c[torch.from_numpy(rng.random((n, s, s)) < 0.6)] //= 64
+        lv = quantize_rdoq(c, QP, s, 8, True, lam)
+        row[f"rdoq_{s}"] = err(quantize_rdoq(c.to(dev), QP, s, 8, True,
+                                             lam), lv)
+        for sel in range(3):
+            ss = torch.full((n,), sel, dtype=torch.int32)
+            row[f"sign_hide_{s}_scan{sel}"] = err(
+                sign_hide(lv.to(dev), ss.to(dev)), sign_hide(lv, ss))
+
+    ife = IntraFrameEncoder(headline_config(W, H), device=dev)
+    srcs = ife._upload(ife.host_pack_sources([frames[0]]))
+    recs = ife.submit_frames([frames[0]])[1][2]           # deblocked
+    kinds = ((64, srcs[0], recs[0]), (32, srcs[1], recs[1]),
+             (32, srcs[2], recs[2]))
+    stats = [sao_stats(o, r, ctu) for ctu, o, r in kinds]
+    stats_cpu = [sao_stats(o.cpu(), r.cpu(), ctu) for ctu, o, r in kinds]
+    row["sao_stats"] = max(err(a, b) for a, b in zip(stats, stats_cpu))
+    # The decision and the filter from the same (card) statistics, at
+    # the frame QP's lambda and at a small one that buys more offsets.
+    host = [tuple(t.cpu() for t in st) for st in stats]
+    types = {}
+    for name, lam_k in (("qp", lam), ("small", 0.25)):
+        p = sao_decide_frame_device(stats[0], (stats[1], stats[2]), lam_k)
+        p_cpu = sao_decide_frame_device(host[0], (host[1], host[2]), lam_k)
+        row[f"sao_decide_{name}"] = err(p.values(), p_cpu.values())
+        types[name] = np.unique(p_cpu["type"].numpy(),
+                                return_counts=True)[1].tolist()
+        filt = []
+        for (ctu, _o, r), j, b in zip(kinds, (0, 1, 1), (0, 1, 2)):
+            def filtered(q, rec):
+                return apply_sao_plane(rec, q["type"][..., j],
+                                       q["eo"][..., j], q["bp"][..., b],
+                                       q["off"][..., b, :], ctu)
+            filt.append(err(filtered(p, r), filtered(p_cpu, r.cpu())))
+        row[f"apply_sao_plane_{name}"] = max(filt)
+    log("RDOQ / sign hiding / SAO card vs CPU (max abs error):",
+        json.dumps(dict(row, sao_type_counts=types)))
+    if max(row.values()) != 0:
+        raise RuntimeError(f"card != CPU: {row}")
 
 
 def main() -> int:
@@ -739,6 +940,9 @@ def main() -> int:
 
     inter_launches = run_ippp(torch, wavefront, clip46, dev)
     run_var(torch, wavefront, frames, dev)
+    run_superfast(torch, wavefront, frames, dev)
+    run_medium_slower(torch, wavefront, frames, dev)
+    compare_ops(torch, frames, dev)
 
     def record(name, replaces, n, joint, rs):
         """The main path's joint launch (luma + Cb + Cr at cu 16); the

@@ -1,16 +1,17 @@
 """Public encoder API of the port (counterpart of kvazaar_tpu/api.py).
 
 Covers all-intra streams (``intra_period == 1``) on the fixed CU grid
-or with variable CU trees, and low-delay IPPP streams with one
-reference (``intra_period == 0``: one IDR, then P frames;
-``intra_period > 1``: an IDR every N frames) on the fixed CU grid:
-``encode``/``flush`` per frame, and ``encode_stream``, pipelined on the
-fixed grid (device compute overlaps the downloads and host CABAC of
-earlier frames) and per frame with variable trees (each frame's tree is
-planned on the host between its search and its reconstruction).  Every
-other structure raises NotImplementedError: B frames and GOPs, rate
-control, ROI/AQ, field pictures, selective encryption, variable P/B
-trees, SAO.
+(with SAO) or with variable CU trees (with RDOQ, sign hiding and SAO),
+so every preset's all-intra operating point, and low-delay IPPP
+streams with one reference (``intra_period == 0``: one IDR, then P
+frames; ``intra_period > 1``: an IDR every N frames) on the fixed CU
+grid: ``encode``/``flush`` per frame, and ``encode_stream``, pipelined
+on the fixed grid (device compute overlaps the downloads and host CABAC
+of earlier frames) and per frame with variable trees (each frame's tree
+is planned on the host between its search and its reconstruction).
+Every other structure raises NotImplementedError: B frames and GOPs,
+rate control, ROI/AQ, field pictures, selective encryption, variable
+P/B trees, SAO on P frames, RDOQ and sign hiding on the fixed grid.
 """
 
 from __future__ import annotations

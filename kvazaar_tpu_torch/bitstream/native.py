@@ -109,18 +109,35 @@ def _ptr(a):
     return None if a is None else a.ctypes.data
 
 
+def _sao_blob(params, fd):
+    """FrameData's SAO fields in the native per-CTU 20-byte layout
+    (merge, type x2, eo x2, band position x3, offsets x12), or None
+    when SAO is off."""
+    if not params.sao_enabled:
+        return None
+    cy, cx = fd.sao_merge.shape
+    blob = np.zeros((cy * cx, 20), np.int8)
+    blob[:, 0] = fd.sao_merge.reshape(-1)
+    blob[:, 1:3] = fd.sao_type.reshape(-1, 2)
+    blob[:, 3:5] = fd.sao_eo.reshape(-1, 2)
+    blob[:, 5:8] = fd.sao_bp.reshape(-1, 3)
+    blob[:, 8:20] = fd.sao_off.reshape(-1, 12)
+    return blob
+
+
 def encode_slice_data_native(params, fd, qp: int) -> bytes:
-    """CABAC slice data + final alignment of an I slice without SAO,
-    per-CTU QP or explicit chroma modes."""
+    """CABAC slice data + final alignment of an I slice without per-CTU
+    QP or explicit chroma modes."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
     cap = cy.nbytes * 2 + 65536
     out = np.empty(cap, np.uint8)
+    sao = _sao_blob(params, fd)
     n = get_lib().ktpu_encode_slice_data(
         params.width, params.height, chroma, qp,
         params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap,
-        1 if params.sign_hiding else 0, None, None, None)
+        1 if params.sign_hiding else 0, _ptr(sao), None, None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     return out[:n].tobytes()
@@ -133,12 +150,14 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
     out = np.empty(cap, np.uint8)
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
     nss = np.zeros(1, np.int32)
+    sao = _sao_blob(params, fd)
     n = get_lib().ktpu_encode_slice_data_wpp(
         params.width, params.height, chroma, qp,
         params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap, sizes.ctypes.data,
-        nss.ctypes.data, 1 if params.sign_hiding else 0, None, None, None)
+        nss.ctypes.data, 1 if params.sign_hiding else 0, _ptr(sao), None,
+        None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     return out[:n].tobytes(), [int(v) for v in sizes[:int(nss[0])]]
@@ -146,9 +165,9 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
 
 def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
                                nthreads: int = 1):
-    """P slice of one reference (no SAO, per-CTU QP, partitions or
-    explicit chroma modes): returns (bytes, per-substream byte sizes),
-    the sizes empty when wpp is off.  nthreads > 1 encodes the WPP
+    """P slice of one reference (no per-CTU QP, partitions or explicit
+    chroma modes): returns (bytes, per-substream byte sizes), the sizes
+    empty when wpp is off.  nthreads > 1 encodes the WPP
     substreams on that many threads."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
     inter8 = np.ascontiguousarray(fd.inter8, np.uint8)
@@ -164,6 +183,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
     out = np.empty(cap, np.uint8)
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
     nss = np.zeros(1, np.int32)
+    sao = _sao_blob(params, fd)
     n = get_lib().ktpu_encode_slice_data_p(
         params.width, params.height, chroma, qp, 1 if wpp else 0,
         1, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
@@ -173,7 +193,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
         dir8.ctypes.data, mvp8_l1.ctypes.data, mvd8_l1.ctypes.data,
         out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
         (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
-        None, None, 1, None, 1 if params.amp else 0, None, None)
+        _ptr(sao), None, 1, None, 1 if params.amp else 0, None, None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     szs = [int(v) for v in sizes[:int(nss[0])]] if wpp else []

@@ -3,13 +3,19 @@
 Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
 (IntraFrameEncoder at cu 8/16, with PFrameMixin's single-reference P
 frames) and for all-intra variable CU trees (``encode_frame_var``: CUs
-8..32 or 8..64, rd 0-2).  The device program (intra mode search; for P
-frames motion search, the intra/inter decision and motion compensation;
-wavefront reconstruction, deblocking, per-frame SSE) is plain tensor
-code on the encoder's device, with the fixed grid's reconstruction in
-the CUDA kernel on a card; the host picks a variable tree and plans its
+8..32 or 8..64, rd 0-2, RDOQ and sign hiding).  The device program
+(intra mode search; for P frames motion search, the intra/inter
+decision and motion compensation; wavefront reconstruction, deblocking,
+per-frame SSE; on all-intra streams SAO) is plain tensor code on the
+encoder's device, with the fixed grid's reconstruction in the CUDA
+kernel on a card; the host picks a variable tree and plans its
 wavefront, decides merge/AMVP signalling, serializes slice data with
 the native CABAC (WPP substreams) and frames the NAL units.
+
+SAO runs on the device right after deblocking (statistics, decision and
+filter, ``_sao_stage``); only the packed per-CTU parameters come back.
+The per-frame SSEs are taken before SAO, as the JAX package takes them
+on its pipelined path.
 
 Transfers are dense: int16 levels, uint8 modes and recon, the inter map
 and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
@@ -53,6 +59,8 @@ from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
                                                 search_quadtree)
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
+from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
+                                       sao_decide_frame_device, sao_stats)
 
 
 def chroma_qp(qp: int) -> int:
@@ -107,8 +115,13 @@ def unsupported(cfg: Config) -> list:
         out.append("--rd 3 (chroma-mode RDO)")
     elif cfg.rd == 2 and not var_tree(cfg):
         out.append("--rd 2 on the fixed CU grid")
-    for name, on in (("SAO", cfg.sao), ("RDOQ", cfg.rdoq),
-                     ("sign hiding", cfg.signhide),
+    # RDOQ and sign hiding are ported inside variable trees (the JAX
+    # package sends them past its fixed-grid kernel to an XLA scan).
+    fixed_grid = not var_tree(cfg)
+    for name, on in (("RDOQ on the fixed CU grid", cfg.rdoq and fixed_grid),
+                     ("sign hiding on the fixed CU grid",
+                      cfg.signhide and fixed_grid),
+                     ("SAO on P frames", cfg.sao and cfg.intra_period != 1),
                      ("transform skip", cfg.transform_skip),
                      ("lossless", cfg.lossless),
                      ("implicit RDPCM", cfg.implicit_rdpcm),
@@ -406,8 +419,9 @@ class IntraFrameEncoder(PFrameMixin):
             chroma_format_idc=1 if self.chroma else 0,
             qp=cfg.qp,
             deblock_enabled=cfg.deblock,
-            sao_enabled=False,
+            sao_enabled=cfg.sao,
             source_scan_type=cfg.source_scan_type,
+            sign_hiding=cfg.signhide and not cfg.lossless,
             wpp=cfg.wpp,
             conf_win=(0, self.coded_w - cfg.width, 0,
                       self.coded_h - cfg.height),
@@ -450,7 +464,39 @@ class IntraFrameEncoder(PFrameMixin):
                                      self.cfg.qp, self.qp_c, self.bitdepth)
         recs, sses = self._deblock_sse((ys, cbs, crs),
                                        (rec_y, rec_cb, rec_cr))
-        return modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses
+        sao = None
+        if self.cfg.sao:
+            recs, sao = self._sao_stage((ys, cbs, crs), recs)
+        return modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao
+
+    def _sao_stage(self, srcs, recs):
+        """SAO of a (B, H, W) batch on the device: per-CTU statistics of
+        the deblocked reconstruction against the source, the decision
+        (each CTU's own choice, then the merge wavefront) and the
+        filter, at the frame QP's lambda.  Returns (the filtered recon
+        uint8 (y, cb, cr), the packed parameters int32 (B, Cy, Cx, 20):
+        merge, type (luma, chroma), edge class (luma, chroma), band
+        position (y, cb, cr), offsets (y, cb, cr) x 4)."""
+        ys, cbs, crs = srcs
+        ry, rcb, rcr = recs
+        bd = self.bitdepth
+        stats_c = None
+        if cbs is not None:
+            stats_c = (sao_stats(cbs, rcb, 32, bd),
+                       sao_stats(crs, rcr, 32, bd))
+        p = sao_decide_frame_device(sao_stats(ys, ry, 64, bd), stats_c,
+                                    qp_to_lambda(self.cfg.qp))
+        t, eo, bp, off = p["type"], p["eo"], p["bp"], p["off"]
+        ry = apply_sao_plane(ry, t[..., 0], eo[..., 0], bp[..., 0],
+                             off[..., 0, :], 64, bd)
+        if cbs is not None:
+            rcb = apply_sao_plane(rcb, t[..., 1], eo[..., 1], bp[..., 1],
+                                  off[..., 1, :], 32, bd)
+            rcr = apply_sao_plane(rcr, t[..., 1], eo[..., 1], bp[..., 2],
+                                  off[..., 2, :], 32, bd)
+        packed = torch.cat([p["merge"][..., None], t, eo, bp,
+                            off.flatten(-2)], dim=-1)
+        return (ry, rcb, rcr), packed
 
     def _deblock_sse(self, srcs, recs, bs=None):
         """Deblock a (B, H, W) batch of reconstructions (bs: the (bs_v,
@@ -528,7 +574,7 @@ class IntraFrameEncoder(PFrameMixin):
     def download_frames(self, handle, need_recon: bool = True):
         """The device->host copies of a submitted batch (one per
         tensor); safe to call from a worker thread."""
-        nframes, (modes, levels, recs, sses) = handle
+        nframes, (modes, levels, recs, sses, sao) = handle
 
         def host(t):
             return None if t is None else t.cpu().numpy()
@@ -536,13 +582,13 @@ class IntraFrameEncoder(PFrameMixin):
         want_pixels = need_recon or self.cfg.hash != "none"
         return (nframes, host(modes), [host(lv) for lv in levels],
                 [host(r) for r in recs] if want_pixels
-                else [None, None, None], host(sses))
+                else [None, None, None], host(sses), host(sao))
 
     def finalize_downloaded(self, downloaded) -> list[FrameResult]:
         """Host CABAC + NAL framing of a downloaded batch, one frame per
         pool task (the native CABAC releases the GIL)."""
         nframes, modes, (lv_y, lv_cb, lv_cr), (rec_y, rec_cb, rec_cr), \
-            sses = downloaded
+            sses, sao = downloaded
         if self._host_pool is None:
             self._host_pool = cf.ThreadPoolExecutor(
                 max_workers=self.cfg.threads or 8)
@@ -553,14 +599,14 @@ class IntraFrameEncoder(PFrameMixin):
         futs = [self._host_pool.submit(
             self._host_finalize, modes[i], lv_y[i], pick(lv_cb, i),
             pick(lv_cr, i), pick(rec_y, i), pick(rec_cb, i),
-            pick(rec_cr, i)) for i in range(nframes)]
+            pick(rec_cr, i), pick(sao, i)) for i in range(nframes)]
         out = [f.result() for f in futs]
         for i, r in enumerate(out):
             r.sse = tuple(float(v) for v in sses[i])
         return out
 
     def _host_finalize(self, modes, lv_y, lv_cb, lv_cr, rec_y, rec_cb,
-                       rec_cr) -> FrameResult:
+                       rec_cr, sao=None) -> FrameResult:
         s = self.cu
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
         fd.depth8[:] = 6 - int(math.log2(s))
@@ -574,6 +620,7 @@ class IntraFrameEncoder(PFrameMixin):
             fd.coeff_cr[:] = blocks_to_plane(lv_cr, self.plan, s // 2,
                                              self.coded_w // 2,
                                              self.coded_h // 2)
+        _set_sao(fd, sao)
         return self._serialize_i(fd, rec_y, rec_cb, rec_cr)
 
     def _serialize_i(self, fd, rec_y, rec_cb, rec_cr) -> FrameResult:
@@ -697,9 +744,11 @@ class IntraFrameEncoder(PFrameMixin):
     def var_recon(self, sched):
         """Device reconstruction + deblocking of a planned tree: returns
         (recon uint8 (y, cb, cr), levels int16 (y, cb, cr)) planes."""
+        cfg = self.cfg
         recs, levels = reconstruct_frame_var(
-            sched, self.cfg.qp, self.qp_c, self.coded_w, self.coded_h,
-            self.chroma, self.bitdepth)
+            sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
+            self.chroma, self.bitdepth, signhide=cfg.signhide,
+            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp))
         return self.var_deblock(sched, recs), levels
 
     def var_deblock(self, sched, recs):
@@ -710,6 +759,17 @@ class IntraFrameEncoder(PFrameMixin):
                                          bs_h=sched["bs_h"])
         return tuple(None if r is None else r.to(torch.uint8)
                      for r in (ry, rcb, rcr))
+
+    def var_sao(self, planes, recs):
+        """SAO of one frame (see ``_sao_stage``): planes / recs are the
+        (H, W) source and deblocked planes; returns (filtered recon,
+        packed parameters (Cy, Cx, 20))."""
+        def one(t):
+            return None if t is None else t[None]
+
+        recs, packed = self._sao_stage(tuple(one(p) for p in planes),
+                                       tuple(one(r) for r in recs))
+        return tuple(None if r is None else r[0] for r in recs), packed[0]
 
     def var_frame_data(self, size8, sched_size8, mode_maps,
                        levels) -> FrameData:
@@ -745,6 +805,9 @@ class IntraFrameEncoder(PFrameMixin):
             *self.var_search(planes[0]))
         recs, levels = self.var_recon(self.var_sched_arrays(vp, planes,
                                                             sched_size8))
+        sao = None
+        if self.cfg.sao:
+            recs, sao = self.var_sao(planes, recs)
         self._dpb = recs
 
         def host(t):
@@ -753,6 +816,7 @@ class IntraFrameEncoder(PFrameMixin):
         rec_np = [host(r) for r in recs]
         fd = self.var_frame_data(size8, sched_size8, mode_maps,
                                  [host(lv) for lv in levels])
+        _set_sao(fd, host(sao))
         return self._serialize_i(fd, *rec_np)
 
     def encode_frames(self, frames) -> list[FrameResult]:
@@ -772,6 +836,18 @@ class IntraFrameEncoder(PFrameMixin):
         if self._host_pool is not None:
             self._host_pool.shutdown()
             self._host_pool = None
+
+
+def _set_sao(fd: FrameData, packed) -> None:
+    """Fill FrameData's SAO fields from one frame's packed (Cy, Cx, 20)
+    parameters (see ``_sao_stage``); None leaves SAO off."""
+    if packed is None:
+        return
+    fd.sao_merge[:] = packed[..., 0]
+    fd.sao_type[:] = packed[..., 1:3]
+    fd.sao_eo[:] = packed[..., 3:5]
+    fd.sao_bp[:] = packed[..., 5:8]
+    fd.sao_off[:] = packed[..., 8:20].reshape(fd.sao_off.shape)
 
 
 def psnr(a: np.ndarray, b: np.ndarray, bitdepth: int = 8) -> float:

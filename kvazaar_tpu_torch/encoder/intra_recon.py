@@ -2,7 +2,9 @@
 
 Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra and P
 frames without QP maps, scaling lists, RDOQ, transform skip or explicit
-chroma modes.  On P frames an inter block takes its motion-compensated
+chroma modes (the TU roundtrip ``_tu_roundtrip`` also takes RDOQ and
+sign hiding, which the variable-tree reconstruction uses).  On P frames
+an inter block takes its motion-compensated
 prediction (computed for the whole frame beforehand: it has no
 wavefront dependency) and the inter quantizer rounding 85/512, and
 still feeds its intra neighbours' references through the wavefront.
@@ -29,7 +31,8 @@ import torch
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.intra import predict_modes
-from kvazaar_tpu_torch.ops.quant import dequantize, quantize
+from kvazaar_tpu_torch.ops.quant import (dequantize, quantize,
+                                         quantize_rdoq, sign_hide)
 from kvazaar_tpu_torch.ops.transform import (forward_transform,
                                              inverse_transform)
 
@@ -71,15 +74,33 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
                        torch.full_like(refs, 1 << (bitdepth - 1)), refs)
 
 
-def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True):
+def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
+                  rdoq=False, lam=0.0):
     """Flat TU roundtrip: (levels int16, reconstruction int32).  intra:
-    bool, or a per-block bool tensor (N,)."""
-    levels = quantize(forward_transform(orig - pred, s, bitdepth), qp, s,
-                      bitdepth, intra=intra)
+    bool, or a per-block bool tensor (N,); scan_sel: the (N,) scanIdx
+    of each block when sign hiding is on, else None; rdoq: RDOQ at
+    lambda lam instead of the scalar quantizer."""
+    coeff = forward_transform(orig - pred, s, bitdepth)
+    if rdoq:
+        levels = quantize_rdoq(coeff, qp, s, bitdepth, intra=intra, lam=lam)
+    else:
+        levels = quantize(coeff, qp, s, bitdepth, intra=intra)
+    if scan_sel is not None:
+        levels = sign_hide(levels, scan_sel)
     dq = dequantize(levels, qp, s, bitdepth)
     rec = torch.clamp(pred + inverse_transform(dq, s, bitdepth), 0,
                       (1 << bitdepth) - 1)
     return levels.to(torch.int16), rec
+
+
+def _scan_sel(modes: torch.Tensor, s: int, luma: bool) -> torch.Tensor:
+    """scanIdx per intra block (7.4.9.11): mode-dependent only for 4x4
+    and 8x8 luma TBs and 4x4 chroma TBs, diagonal otherwise."""
+    if (luma and s > 8) or (not luma and s > 4):
+        return torch.zeros_like(modes, dtype=torch.int32)
+    return torch.where((modes >= 6) & (modes <= 14), 2,
+                       torch.where((modes >= 22) & (modes <= 30), 1, 0)
+                       ).to(torch.int32)
 
 
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,

@@ -28,23 +28,10 @@ from kvazaar_tpu_torch.encoder.geometry import (IntraFramePlan, plan_flat_gather
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.ops.exactmm import matmul_exact
 from kvazaar_tpu_torch.ops.intra import predict_all_modes, predict_modes
-from kvazaar_tpu_torch.ops.quant import dequantize, quantize
+from kvazaar_tpu_torch.ops.quant import _f32, _fma_f32, dequantize, quantize
 from kvazaar_tpu_torch.ops.rate import tb_rate_bits
 from kvazaar_tpu_torch.ops.transform import (forward_transform,
                                              inverse_transform)
-
-
-def _f32(x: float) -> float:
-    """A Python float rounded to float32, as JAX rounds a weak-typed
-    scalar against a float32 array."""
-    return float(np.float32(x))
-
-
-def _fma_f32(a: torch.Tensor, lam: float, b: torch.Tensor) -> torch.Tensor:
-    """float32 ``a + lam * b`` with one rounding (a fused multiply-add):
-    the float32 operands' product is exact in float64."""
-    return (a.to(torch.float64)
-            + _f32(lam) * b.to(torch.float64)).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,8 @@ plans the tree's wavefront on the host, and ``reconstruct_frame_var``
 runs it on the encoder's device as plain tensor code: one step at a
 time, each CU-size class of the step gathering its reference samples
 from flat edge buffers, predicting its coded mode, running the TU
-roundtrip and writing back its bottom row and right column.
+roundtrip (with RDOQ and sign hiding when the config sets them) and
+writing back its bottom row and right column.
 
 Edge state as in the JAX package: every reference sample of any CU sits
 on a row y % 8 == 7 (a CU bottom row, the h buffer) or a column
@@ -25,7 +26,7 @@ classes and slots it holds, so padded schedule slots cost nothing.
 
 Left out (they raise in the frame encoder): the TU-split costs of
 --tr-depth-intra, the P/B trees and their direct inter pass, scaling
-lists, RDOQ and sign hiding.
+lists.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
-from kvazaar_tpu_torch.encoder.intra_recon import _tu_roundtrip
+from kvazaar_tpu_torch.encoder.intra_recon import _scan_sel, _tu_roundtrip
 from kvazaar_tpu_torch.encoder.intra_search import (_f32,
                                                     modes64_from_satd32,
                                                     rd_cost_given_modes,
@@ -272,30 +273,36 @@ def _edge_positions(s: int, dev) -> torch.Tensor:
         [(s - 1) * s + np.arange(s), np.arange(s) * s + s - 1])).to(dev)
 
 
-def _class_pass(d, t, n, s, bitdepth, luma):
+def _class_pass(d, t, n, s, bitdepth, luma, signhide=False, rdoq=False,
+                lam=0.0):
     """One wavefront step of one CU-size class: its first n slots (the
     plan fills a step's slots from 0).  Writes the slots' edges into the
     class's edge buffer and returns (levels (n*comps, S, S) int16, rec
     (n*comps, S*S) int32)."""
     comps = d["ref"].shape[2]
     refs = d["ebuf"][d["ref"][t, :n]].reshape(n * comps, -1)
-    pred = predict_modes(refs, d["modes"][t, :n * comps], s, luma=luma,
-                         bitdepth=bitdepth)
-    levels, rec = _tu_roundtrip(d["origs"][t, :n].reshape(n * comps, s, s),
-                                pred, s, d["qp"], bitdepth)
+    modes = d["modes"][t, :n * comps]
+    pred = predict_modes(refs, modes, s, luma=luma, bitdepth=bitdepth)
+    levels, rec = _tu_roundtrip(
+        d["origs"][t, :n].reshape(n * comps, s, s), pred, s, d["qp"],
+        bitdepth, scan_sel=_scan_sel(modes, s, luma) if signhide else None,
+        rdoq=rdoq, lam=lam)
     rec = rec.reshape(n * comps, s * s)
     d["ebuf"][d["wr"][t, :n].reshape(-1)] = rec[:, d["edge"]].reshape(-1)
     return levels, rec
 
 
 def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
-                          height: int, chroma: bool, bitdepth: int = 8):
+                          height: int, chroma: bool, bitdepth: int = 8,
+                          signhide: bool = False, rdoq: bool = False,
+                          lam: float = 0.0):
     """sched: the frame's schedule on the device (see the frame
     encoder's ``var_sched_arrays``): 'luma' / 'chroma': size -> {x0,
     y0, avail, corner_h, modes} (T, K[, R]) over the real steps,
     'counts': (kind, size) -> the host's (T,) numpy slot counts,
     'n_real': T, and the source planes 'plane_y', 'plane_cb', 'plane_cr'
-    (int32).
+    (int32).  signhide / rdoq: sign-data hiding and RDOQ at lambda lam
+    (the same lambda for luma and chroma, as the JAX package passes).
 
     Returns (rec_y, rec_cb, rec_cr) int32 planes and their levels
     (lv_y, lv_cb, lv_cr) int16 planes (pixel layout); chroma entries are
@@ -335,7 +342,8 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
             n = int(counts[t])
             if n == 0:
                 continue
-            lv, rec = _class_pass(d, t, n, s, bitdepth, luma)
+            lv, rec = _class_pass(d, t, n, s, bitdepth, luma, signhide,
+                                  rdoq, lam)
             out = d["out"][t, :n].reshape(-1)
             rec_out[out] = rec.reshape(-1)
             lv_out[out] = lv.reshape(-1)

@@ -1,7 +1,8 @@
 """The port stands apart from JAX and holds the JAX package's constants.
 
 - importing and running kvazaar_tpu_torch (all-intra on the fixed grid
-  and with a variable CU tree, and IPPP) never imports jax or any
+  and with a variable CU tree, IPPP, and the superfast and medium
+  presets' all-intra points with SAO and RDOQ) never imports jax or any
   kvazaar_tpu module (checked in a fresh
   interpreter), and no source of the port or chip_smoke.py imports
   kvazaar_tpu (checked on the syntax tree);
@@ -30,6 +31,7 @@ import sys
 import numpy as np
 from kvazaar_tpu_torch import Config
 from kvazaar_tpu_torch.api import Encoder
+from kvazaar_tpu_torch.config import config_from_preset
 rng = np.random.default_rng(0)
 frames = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
            rng.integers(0, 256, (16, 24), dtype=np.uint8),
@@ -42,6 +44,12 @@ for period, min_cu in ((1, 16), (0, 16), (1, 8)):
     assert len(out) == 3 and all(len(c) > 0 for c, _, _ in out)
     assert [o[1].slice_type for o in out] == ([2] * 3 if period
                                               else [2, 1, 1])
+for preset in ("superfast", "medium"):
+    cfg = config_from_preset(preset, width=48, height=32, qp=27,
+                             intra_period=1)
+    assert cfg.sao
+    out = list(Encoder(cfg, device="cpu").encode_stream(frames))
+    assert len(out) == 3 and all(len(c) > 0 for c, _, _ in out)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
@@ -92,7 +100,8 @@ def test_port_sources_import_no_kvazaar_tpu():
 
 
 @pytest.mark.parametrize("module", [
-    "constants", "ops.scan", "ops.inter", "ops.rate", "bitstream.contexts",
+    "constants", "ops.scan", "ops.inter", "ops.rate", "ops.quant",
+    "ops.sao", "bitstream.contexts",
     "bitstream.headers", "bitstream.syntax", "encoder.inter_cands",
     "encoder.quadtree", "encoder.var_schedule"])
 def test_copied_constants_equal_jax(module):

@@ -13,14 +13,16 @@ backend, jitted) on the same seeded frames, every comparison exact
   JAX package's constant QP map) on the same schedule;
 - the slice NAL bytes of ``encode_frame_var`` at 96x64 QP27 intra
   8..32 with deblocking on and off, 64x64 intra 16..32, 192x128 QP32
-  intra 8..64 on content that picks 64x64 CUs, and 96x64 at rd 2, and
-  the JAX oracle decoder turning each port stream into the port's
-  recon;
+  intra 8..64 on content that picks 64x64 CUs, 96x64 at rd 2, and the
+  all-intra ``medium`` (8..32, RDOQ, SAO) and ``slower`` (8..64, rd 2,
+  RDOQ, sign hiding, SAO) presets at 96x96 QP22, and the JAX oracle
+  decoder turning each port stream into the port's recon (post-SAO);
 - ``Encoder.encode_stream`` == ``encode`` and the CLI on a var config;
   rd 3 and --tr-depth-intra still raise.
 
 Each JAX reference encoder is built and run once per case (cached), so
-each config compiles once.
+each config compiles once; the SAO cases share one compiled JAX SAO
+program with test_torch_sao.py (``share_sao_program``).
 """
 
 import functools
@@ -32,16 +34,19 @@ import pytest
 import torch
 
 from kvazaar_tpu.config import Config as JaxConfig
+from kvazaar_tpu.config import config_from_preset as jax_preset
 from kvazaar_tpu.encoder import frame_encoder as jfe
 from kvazaar_tpu.encoder import quadtree as jqt
 from kvazaar_tpu.encoder.var_schedule import build_var_plan as jax_build
 from kvazaar_tpu.ops import rate as jrate
 from kvazaar_tpu_torch import Config
 from kvazaar_tpu_torch.api import Encoder
+from kvazaar_tpu_torch.config import config_from_preset
 from kvazaar_tpu_torch.encoder import quadtree as tqt
 from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
 from kvazaar_tpu_torch.ops import rate as trate
 from test_quadtree import _mixed_frame, _smooth_plus_noise
+from test_torch_sao import share_sao_program
 from test_torch_slice import oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
@@ -59,6 +64,13 @@ CASES = {
              dict(qp=32, intra_min_cu=8, intra_max_cu=64)),
     "8-32-rd2": (96, 64, lambda: _mixed_frame(96, 64),
                  dict(qp=27, intra_min_cu=8, intra_max_cu=32, rd=2)),
+    # Whole presets at --period 1, at the shape of the shared JAX SAO
+    # program (test_torch_sao.W, H).
+    "medium": (96, 96, lambda: _mixed_frame(96, 96, seed=5),
+               dict(preset="medium", qp=22)),
+    "slower": (96, 96, lambda: tuple(
+        np.ascontiguousarray(p[:p.shape[0], :p.shape[1] * 3 // 4])
+        for p in _smooth_plus_noise(128, 96)), dict(preset="slower", qp=22)),
 }
 
 
@@ -77,6 +89,16 @@ def _kw(name):
     return dict(width=w, height=h, intra_period=1, wpp=True, **fields)
 
 
+def _configs(name):
+    """(JAX config, port config) of a case, from its preset if it names
+    one."""
+    kw = _kw(name)
+    preset = kw.pop("preset", None)
+    if preset is None:
+        return JaxConfig(**kw), Config(**kw)
+    return jax_preset(preset, **kw), config_from_preset(preset, **kw)
+
+
 # Cases whose JAX encoder reuses another case's compiled program, which
 # is the same program: deblocking does not enter the search, nor --rd
 # the reconstruction.
@@ -88,7 +110,10 @@ def _encoded(name):
     """(frame, JAX encoder, JAX result, port encoder, port result) of
     one case, shared by its tests."""
     frame = CASES[name][2]()
-    jax_enc = jfe.IntraFrameEncoder(JaxConfig(**_kw(name)))
+    jax_cfg, port_cfg = _configs(name)
+    jax_enc = jfe.IntraFrameEncoder(jax_cfg)
+    if jax_cfg.sao:
+        share_sao_program(jax_enc)
     if name in _SHARED:
         base_name, program = _SHARED[name]
         base = _encoded(base_name)[1]
@@ -97,7 +122,7 @@ def _encoded(name):
             jax_enc._qt_search_spec = base._qt_search_spec
         else:
             jax_enc._var_recon_fn = base._var_recon_fn
-    port = IntraFrameEncoder(Config(**_kw(name)), device="cpu")
+    port = IntraFrameEncoder(port_cfg, device="cpu")
     return (frame, jax_enc, jax_enc.encode_frame(*frame), port,
             port.encode_frame(*frame))
 
@@ -186,22 +211,19 @@ def test_choose_tree_and_plan_match_jax(name):
                 _eq(getattr(cs, f), getattr(rs, f), f"{kind} {s} {f}")
 
 
-@pytest.mark.parametrize("name", ["8-32-nodbk", "8-32"])
+@pytest.mark.parametrize("name", ["8-32-nodbk", "8-32", "medium"])
 def test_reconstruct_frame_var_matches_jax(name):
     """The plain var-tree wavefront on the port's schedule == the JAX
     encoder's compiled recon program on its schedule of the same plan:
-    reconstruction and levels with tolerance 0; with deblocking on, the
-    port's scalar-QP deblock with the var bS maps == the JAX program's
-    deblock with a constant QP map."""
+    reconstruction and levels with tolerance 0 (``medium``: with RDOQ);
+    with deblocking on, the port's scalar-QP deblock with the var bS
+    maps == the JAX program's deblock with a constant QP map."""
     frame, jax_enc, _want, port, _got = _encoded(name)
     planes = _port_planes(port, frame)
     size8, sched_size8, mode_maps, vp = port.var_tree_plan(
         *port.var_search(planes[0]))
     sched = port.var_sched_arrays(vp, planes, sched_size8)
-    recs, levels = tqt.reconstruct_frame_var(
-        sched, port.cfg.qp, port.qp_c, port.coded_w, port.coded_h, True)
-    if port.cfg.deblock:
-        recs = port.var_deblock(sched, recs)
+    recs, levels = port.var_recon(sched)
     yp, cbp, crp = (p.numpy() for p in planes)
     jsched, _shapes = jax_enc._var_sched_arrays(vp, yp, cbp, crp,
                                                 sched_size8)

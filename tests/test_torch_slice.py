@@ -9,7 +9,7 @@ reconstruction.  One case also runs the public Encoder.encode_stream.
 
 ``oracle_decode`` (shared by the port's stream tests) runs the JAX
 oracle decoder with its tensor stages (reconstruction, motion
-compensation, boundary strengths, deblocking) each jitted whole: the
+compensation, boundary strengths, deblocking, SAO) each jitted whole: the
 same integer functions, compiled once per shape instead of one XLA
 compile per primitive call, which made the decode of three 64x48 P
 frames take about 22 s.
@@ -101,6 +101,7 @@ def _jit_whole(fn):
 _ORACLE_STAGES = (("kvazaar_tpu.ops.deblock", "deblock_frame"),
                   ("kvazaar_tpu.encoder.inter_search", "mc_planes"),
                   ("kvazaar_tpu.encoder.frame_encoder", "compute_bs_maps"),
+                  ("kvazaar_tpu.ops.sao", "apply_sao_plane"),
                   ("kvazaar_tpu.bitstream.decoder", "_decode_recon_impl"))
 _JITTED = {}
 
@@ -192,7 +193,7 @@ def test_encode_stream_matches_frame_encoder(name):
 
 
 @pytest.mark.parametrize("change", [
-    dict(intra_max_cu=32, intra_min_cu=32), dict(sao=True),
+    dict(intra_max_cu=32, intra_min_cu=32), dict(sao=True, intra_period=0),
     dict(intra_min_cu=8, intra_period=0), dict(rdoq=True), dict(rd=2)])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
