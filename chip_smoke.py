@@ -7,9 +7,11 @@ Drives kvazaar_tpu_torch's paths through the public
 fixed 16x16 CUs, rd 1, deblocking on, WPP on; low-delay IPPP of the
 same configuration (one IDR, then P frames against the previous
 deblocked frame, +-16 px full search with quarter-pel refinement);
-all-intra with variable CU trees (intra CUs 8..32); and the
-``superfast``, ``medium`` and ``slower`` presets at --period 1 (SAO;
-RDOQ; sign hiding).
+all-intra with variable CU trees (intra CUs 8..32); the ``superfast``,
+``medium`` and ``slower`` presets at --period 1 (SAO; RDOQ; sign
+hiding); and the low-delay default operating points (the ``ultrafast``
+preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
+the kernel at luma S=32).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -52,7 +54,22 @@ Any failed phase raises, so the script exits nonzero:
    of ``slower`` (8..64, rd 2, RDOQ, sign hiding, SAO) card == CPU
    bytes; and RDOQ, sign hiding (S = 4..32, every scan index) and the
    SAO statistics, decision and filter (one 832x480 deblocked frame) on
-   the card against the same functions on the CPU, max abs error 0.
+   the card against the same functions on the CPU, max abs error 0;
+10. the low-delay default operating points: the kernel at cu 32 (luma
+   S=32 and Cb+Cr S=16 in the joint launch) == plain, intra over 8
+   frames and inter over a real and a random P frame, timed, with the
+   launch layout, and 1920x1088 compare-only; three timed cells through
+   Encoder.encode_stream (lines ``ultrafast encode_stream:``,
+   ``default-config encode_stream:``, ``veryfast encode_stream:``):
+   the ultrafast preset (low-delay GOP lp-g4d4t1, a QP per position;
+   one warm pass over an 8-frame clip, then 8 timed P frames), Config()
+   (fixed cu 32 IPPP, pipelined; 6 warm and 40 timed frames of the
+   46-frame clip; its launch counts are the cu 32 rows') and the
+   veryfast preset (SAO on the I frame), each with a stage split of one
+   P frame against 2 references; and card == CPU bytes and recon at
+   416x240 for ultrafast, superfast, veryfast, faster and fast at their
+   defaults, Config() and 3 references at cu 16 (IDR + 5 P frames; fast
+   IDR + 2 P).
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -186,8 +203,9 @@ def time_row(torch, row, args, kw, plan):
         torch, lambda: wavefront_recon_plain(*args, **kw), 2)
 
 
-def compare_kernel(torch, frames, dev):
-    """Phase 3: kernel == plain on the card; returns per-shape rows.
+def compare_kernel(torch, frames, dev, cus=(16, 8)):
+    """Phase 3 (cu 16 and 8) and 10 (cu 32): kernel == plain on the
+    card; returns per-shape rows.
 
     Each shape runs with the searched modes (timed) and with uniform
     random modes, which reach every one of the 35 modes."""
@@ -205,7 +223,7 @@ def compare_kernel(torch, frames, dev):
                                    + [f[2] for f in frames])).to(dev)
     rng = np.random.default_rng(1)
     rows = []
-    for cu in (16, 8):
+    for cu in cus:
         ife = IntraFrameEncoder(headline_config(W, H, cu), device=dev)
         plan = ife.plan
         modes = torch.stack([search_frame_modes(y, plan, ife.lambda_satd)[0]
@@ -237,12 +255,13 @@ def p_frame_inputs(torch, frames, cu, dev):
     ife = IntraFrameEncoder(ippp_config(W, H, cu), device=dev)
     ife.submit_frames([frames[0]])       # DPB: frame 0, deblocked
     ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[1]]))
-    modes, inter_map, _mv, mcs = ife._p_predict(ys[0], ife._dpb)
+    modes, inter_map, _ref, _mv, mcs = ife._p_predict(ys[0], [ife._dpb])
     return ife, (ys, cbs, crs), modes, inter_map, mcs
 
 
-def compare_kernel_inter(torch, frames, dev):
-    """Phase 4: the inter variant == plain on the card; returns rows.
+def compare_kernel_inter(torch, frames, dev, cus=(16, 8)):
+    """Phase 4 (cu 16 and 8) and 10 (cu 32): the inter variant == plain
+    on the card; returns rows.
 
     Each shape runs with the inter map, modes and MC planes of a real P
     frame (frame 1 searched against frame 0's deblocked recon; timed)
@@ -257,7 +276,7 @@ def compare_kernel_inter(torch, frames, dev):
 
     rng = np.random.default_rng(2)
     rows = []
-    for cu in (16, 8):
+    for cu in cus:
         ife, (ys, cbs, crs), modes, inter_map, (mc_y, mc_cb, mc_cr) = \
             p_frame_inputs(torch, frames, cu, dev)
         plan = ife.plan
@@ -291,14 +310,16 @@ def compare_kernel_inter(torch, frames, dev):
     return rows
 
 
-def joint_launch(torch, frames, clip46, dev):
-    """Phase 5: luma + Cb + Cr in one launch (wavefront_recon_planes, as
-    reconstruct_frames calls it) == the plain version per plane kind, and
-    its time against the luma launch alone, at the all-intra path's
-    shapes (8 frames) and the P path's (1 frame, real inputs); then
-    compare-only 1920x1088 and 3840x2160 frames at cu 16 and cu 8, both
-    variants, random inputs.  Returns the rows of the two main-path
-    shapes."""
+def joint_launch(torch, frames, clip46, dev, cu=16, big=BIG,
+                 big_cus=(16, 8)):
+    """Phase 5 (cu 16) and 10 (cu 32): luma + Cb + Cr in one launch
+    (wavefront_recon_planes, as reconstruct_frames calls it) == the plain
+    version per plane kind, and its time against the luma launch alone,
+    with the launch's ring depth, threads and shared memory, at the
+    all-intra path's shapes (8 frames) and the P path's (1 frame, real
+    inputs); then compare-only frames of the sizes ``big`` at the CU
+    sizes ``big_cus``, both variants, random inputs.  Returns the rows of
+    the two main-path shapes."""
     from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
                                                          chroma_qp)
     from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
@@ -335,9 +356,13 @@ def joint_launch(torch, frames, clip46, dev):
         luma = cuda_ms(torch, lambda: wavefront_recon(
             planes[0], modes, plan, plan.cu_size, True, QP, **luma_kw), 20)
         tensors = (*planes, modes, *kw.values(), *run())
-        row = dict(shape=name, items=planes[0].shape[0], max_abs_err=err,
-                   ms=joint, luma_alone_ms=luma, ratio=joint / luma,
-                   n_steps=plan.n_steps, ms_per_step=joint / plan.n_steps)
+        ring, threads, smem = launch_layout(plan, plan.cu_size,
+                                            planes[0].shape[2])
+        row = dict(shape=name, cu=plan.cu_size, items=planes[0].shape[0],
+                   max_abs_err=err, ms=joint, luma_alone_ms=luma,
+                   ratio=joint / luma, n_steps=plan.n_steps,
+                   ms_per_step=joint / plan.n_steps, ring=ring,
+                   threads=threads, smem_bytes=smem)
         row["bound_ms"], row["bound_by"] = bound_ms(
             tensors, [(planes[0].numel(), plan.cu_size),
                       (2 * planes[1].numel(), plan.cu_size // 2)])
@@ -346,20 +371,20 @@ def joint_launch(torch, frames, clip46, dev):
             raise RuntimeError(f"joint launch != plain at {row}")
         return row
 
-    ife = IntraFrameEncoder(headline_config(W, H), device=dev)
+    ife = IntraFrameEncoder(headline_config(W, H, cu), device=dev)
     planes = ife._upload(ife.host_pack_sources(frames))
     modes = torch.stack([search_frame_modes(y, ife.plan, ife.lambda_satd)[0]
                          for y in planes[0]])
     rows = [row_of("intra 8 frames", planes, modes, ife.plan, ife.qp_c)]
     ife, (ys, cbs, crs), modes, inter_map, mcs = p_frame_inputs(
-        torch, clip46, 16, dev)
+        torch, clip46, cu, dev)
     rows.append(row_of("inter 1 P frame", (ys, cbs, crs), modes[None],
                        ife.plan, ife.qp_c,
                        (inter_map[None], *(m[None] for m in mcs))))
 
     from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
     rng = np.random.default_rng(3)
-    for (big_w, big_h), cu in ((wh, cu) for wh in BIG for cu in (16, 8)):
+    for (big_w, big_h), cu in ((wh, c) for wh in big for c in big_cus):
         plan = make_intra_plan(big_w, big_h, cu, chroma=True)
 
         def rand(shape, hi, dtype=np.uint8):
@@ -453,7 +478,7 @@ def p_stage_split(torch, ife, frames):
     ref = ife._dpb
     ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[1]]))
     yp, plan, s, r = ys[0], ife.plan, ife.cu, ife.cfg.me_range
-    modes, inter_map, mv, mcs = ife._p_predict(yp, ref)
+    modes, inter_map, _ref_sel, mv, mcs = ife._p_predict(yp, [ref])
     mv_int, _ = search_inter_frame(yp, ref[0], plan, ife.lambda_me, r,
                                    subpel=False)
     x0s, y0s = _block_origins(plan, yp.device)
@@ -495,7 +520,7 @@ def p_stage_split(torch, ife, frames):
     dl = ife.download_p(handle, need_recon=True)
     out["d2h_ms"] = 1000 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    ife.finalize_p_downloaded(dl, poc=1, ref_pocs=[0])
+    ife.finalize_p_downloaded(dl, poc=1, ref_pocs=[0], multi=False)
     out["cabac_ms"] = 1000 * (time.perf_counter() - t0)
     return out
 
@@ -868,6 +893,185 @@ def compare_ops(torch, frames, dev):
         raise RuntimeError(f"card != CPU: {row}")
 
 
+def ld_p_split(torch, cfg, frames, dev, nref=2):
+    """Per-stage times of one P frame of a low-delay config against nref
+    references (frame nref against the deblocked recons of frames
+    nref-1 .. 0, the fast preset's count at nref=2): device stages by
+    CUDA events (the inter search once per reference), the host stages
+    (the downloads, the decode-order merge/AMVP loop of the
+    multi-reference stream shape, the whole finalize with CABAC) by
+    wall clock, all in ms."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         compute_bs_maps)
+    from kvazaar_tpu_torch.encoder.inter_search import search_inter_frame
+    from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.deblock import deblock_frame
+
+    ife = IntraFrameEncoder(cfg, device=dev)
+    ife.submit_frames([frames[0]])
+    refs = [ife._dpb]
+    for k in range(1, nref):
+        refs.insert(0, ife.submit_p(*frames[k], [(k - 1, refs[0])])[5])
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[nref]]))
+    yp, plan = ys[0], ife.plan
+    modes, inter_map, ref_sel, mv, mcs = ife._p_predict(yp, refs)
+    box = {}
+
+    def recon():
+        box["rec"] = reconstruct_frames(
+            ys, cbs, crs, modes[None], plan, ife.cfg.qp, ife.qp_c,
+            is_inter=inter_map[None], mc_y=mcs[0][None],
+            mc_cb=mcs[1][None], mc_cr=mcs[2][None])
+
+    def deblock():
+        rec = box["rec"]
+        cbf = (rec[1][0] != 0).flatten(1).any(dim=1).reshape(
+            plan.blocks_y, plan.blocks_x)
+        bs_v, bs_h = compute_bs_maps(inter_map, cbf, mv, ref=ref_sel)
+        deblock_frame(rec[0], rec[2], rec[4], ife.cfg.qp, ife.cu,
+                      bs_v=bs_v, bs_h=bs_h)
+
+    stages = [("intra_search", lambda: search_frame_modes(
+        yp, plan, ife.lambda_satd, 8, ife.cfg.rd >= 1))]
+    for i, ref in enumerate(refs):
+        stages.append((f"inter_search_ref{i}", lambda ref=ref:
+                       search_inter_frame(yp, ref[0], plan, ife.lambda_me,
+                                          ife.cfg.me_range,
+                                          subpel=ife.cfg.me_subpel)))
+    stages += [("search_decide_mc", lambda: ife._p_predict(yp, refs)),
+               ("recon_kernel", recon), ("deblock", deblock)]
+    out = {"nref": nref, "cu": ife.cu,
+           "inter_share": inter_map.float().mean().item(),
+           "ref1_share": (ref_sel > 0).float().mean().item()}
+    for name, fn in stages:
+        fn()                                            # warm
+        out[name + "_ms"] = cuda_ms(torch, fn, 3)
+    ref_pocs = list(range(nref - 1, -1, -1))
+    handle = ife.submit_p(*frames[nref], list(zip(ref_pocs, refs)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dl = ife.download_p(handle, need_recon=True)
+    out["d2h_ms"] = 1000 * (time.perf_counter() - t0)
+    (_lv, _modes, inter_h, ref_h, mv_h, _sses), _rec, _recs = dl
+    t0 = time.perf_counter()
+    ife._merge_amvp_multi(inter_h, ref_h, mv_h, nref, nref, ref_pocs)
+    out["merge_amvp_multi_ms"] = 1000 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ife.finalize_p_downloaded(dl, poc=nref, ref_pocs=ref_pocs)
+    out["finalize_ms"] = 1000 * (time.perf_counter() - t0)
+    ife.close()
+    return out
+
+
+def timed_stream(torch, wavefront, name, cfg, frames, warm, dev):
+    """Encodes frames through Encoder.encode_stream on the card and
+    times the results after the first ``warm`` (the clock starts when
+    the warm-th result arrives); the launch counts are read around the
+    whole run.  Returns (results, summary)."""
+    from kvazaar_tpu_torch.api import Encoder
+    enc = Encoder(cfg, device=dev)
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    results = []
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(frames):
+        results.append(res)
+        if len(results) == warm:
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES)
+    if len(results) != len(frames):
+        raise RuntimeError(f"{name}: {len(results)} results for "
+                           f"{len(frames)} frames")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"{name} did not launch both kernel variants: "
+                           f"{launches}")
+    kinds = [r[1].slice_type for r in results]
+    if kinds[0] != 2 or any(k != 1 for k in kinds[1:]):
+        raise RuntimeError(f"{name}: expected IDR + P frames, got {kinds}")
+    bits, psnr_y = check_output(results[warm:], name)
+    summary = dict(frames=len(frames), timed=len(frames) - warm,
+                   fps=(len(frames) - warm) / dt, bits_per_frame=bits,
+                   psnr_y=psnr_y, pipelined=enc.can_pipeline(),
+                   qps=sorted({r[1].qp for r in results}),
+                   kernel_launches=launches, stage_wall_s=enc.stats)
+    log(f"{name} encode_stream:", json.dumps(summary))
+    enc.close()
+    return results, summary
+
+
+def run_low_delay(torch, wavefront, clip46, dev):
+    """Phase 10: the low-delay default operating points.  The wavefront
+    kernel at cu 32 (luma S=32, Cb+Cr S=16) == plain, intra and inter,
+    at 832x480 and 1920x1088; the ultrafast preset (the CLI's default),
+    Config() (fixed cu 32 IPPP, pipelined) and the veryfast preset (SAO
+    on the I frames) timed through Encoder.encode_stream, each with a
+    stage split of one P frame against 2 references; and card == CPU
+    bytes and recon for the seven low-delay configs at 416x240.
+    Returns (cu 32 rows: intra, inter, joint; launches of the Config()
+    run)."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    frames = clip46[:FRAMES]
+    rows = compare_kernel(torch, frames, dev, cus=(32,))
+    inter_rows = compare_kernel_inter(torch, clip46, dev, cus=(32,))
+    joint_rows = joint_launch(torch, frames, clip46, dev, cu=32,
+                              big=BIG[:1], big_cus=(32,))
+
+    clip8 = synth_clip_natural(8, W, H, seed=4)
+    cells = (
+        ("ultrafast", config_from_preset("ultrafast", width=W, height=H,
+                                         qp=QP), clip8 * 2, len(clip8)),
+        ("default-config", Config(width=W, height=H, qp=QP), clip46,
+         IPPP_WARM),
+        ("veryfast", config_from_preset("veryfast", width=W, height=H,
+                                        qp=QP), clip8 * 2, len(clip8)))
+    launches32 = None
+    for name, cfg, clip, warm in cells:
+        _results, summary = timed_stream(torch, wavefront, name, cfg, clip,
+                                         warm, dev)
+        if name == "default-config":
+            if not summary["pipelined"]:
+                raise RuntimeError("Config(): expected the pipelined path")
+            launches32 = summary["kernel_launches"]
+        log(f"{name} stage split (ms, one P frame, 2 references):",
+            json.dumps(ld_p_split(torch, cfg, clip8, dev)))
+
+    w, h = 416, 240
+    small = synth_clip_natural(6, w, h, seed=0)
+    checks = [(p, config_from_preset(p, width=w, height=h, qp=QP))
+              for p in ("ultrafast", "superfast", "veryfast", "faster",
+                        "fast")]
+    checks += [("Config()", Config(width=w, height=h, qp=QP)),
+               ("ref3-cu16", Config(width=w, height=h, qp=QP,
+                                    intra_period=0, ref_frames=3,
+                                    intra_min_cu=16, intra_max_cu=16))]
+    for name, cfg in checks:
+        clip = small[:3] if name == "fast" else small
+        t0 = time.perf_counter()
+        enc_card = Encoder(cfg, device=dev)
+        card = [r for f in clip for r in enc_card.encode(*f)]
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc_cpu = Encoder(cfg, device="cpu")
+        host = [r for f in clip for r in enc_cpu.encode(*f)]
+        t_cpu = time.perf_counter() - t0
+        for i, (c, hst) in enumerate(zip(card, host)):
+            same_rec = all(np.array_equal(a, b) for a, b in zip(c[2], hst[2]))
+            if c[0] != hst[0] or not same_rec or c[1].qp != hst[1].qp:
+                raise RuntimeError(f"{name}: card and CPU differ at frame "
+                                   f"{i}")
+        log(f"{name} {w}x{h}: card == CPU bytes and recon over "
+            f"{len(clip)} frames (QPs {[r[1].qp for r in card]}; card "
+            f"{t_card:.3f} s, CPU {t_cpu:.3f} s)")
+        enc_card.close()
+        enc_cpu.close()
+    return rows, inter_rows, joint_rows, launches32
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -943,16 +1147,19 @@ def main() -> int:
     run_superfast(torch, wavefront, frames, dev)
     run_medium_slower(torch, wavefront, frames, dev)
     compare_ops(torch, frames, dev)
+    rows32, inter_rows32, joint32, launches32 = run_low_delay(
+        torch, wavefront, clip46, dev)
 
     def record(name, replaces, n, joint, rs):
-        """The main path's joint launch (luma + Cb + Cr at cu 16); the
-        error over every shape of the variant."""
+        """The main path's joint launch (luma + Cb + Cr at the row's CU
+        size); the error over every shape of the variant."""
         return {"name": name, "route": "cuda",
                 "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
                 "replaces": replaces, "launches": n,
                 "max_abs_err": max(r["max_abs_err"] for r in (*rs, joint)),
                 "ms": joint["ms"],
-                "plain_ms": sum(r["plain_ms"] for r in rs if r["cu"] == 16),
+                "plain_ms": sum(r["plain_ms"] for r in rs
+                                if r["cu"] == joint["cu"]),
                 "bound_ms": joint["bound_ms"],
                 "bound_by": joint["bound_by"], "library_ms": None}
 
@@ -961,7 +1168,13 @@ def main() -> int:
                launches, joint_rows[0], rows),
         record("wavefront_recon_inter",
                "kvazaar_tpu/ops/wavefront_pallas.py:283", inter_launches,
-               joint_rows[1], inter_rows)]}))
+               joint_rows[1], inter_rows),
+        record("wavefront_recon_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149",
+               launches32["intra"], joint32[0], rows32),
+        record("wavefront_recon_inter_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283",
+               launches32["inter"], joint32[1], inter_rows32)]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,20 @@
 
 Covers all-intra streams (``intra_period == 1``) on the fixed CU grid
 (with SAO) or with variable CU trees (with RDOQ, sign hiding and SAO),
-so every preset's all-intra operating point, and low-delay IPPP
-streams with one reference (``intra_period == 0``: one IDR, then P
-frames; ``intra_period > 1``: an IDR every N frames) on the fixed CU
-grid: ``encode``/``flush`` per frame, and ``encode_stream``, pipelined
-on the fixed grid (device compute overlaps the downloads and host CABAC
-of earlier frames) and per frame with variable trees (each frame's tree
-is planned on the host between its search and its reconstruction).
+so every preset's all-intra operating point, and low-delay streams
+(``intra_period == 0``: one IDR, then P frames; ``intra_period > 1``:
+an IDR every N frames) whose P frames run on the fixed CU grid: plain
+IPPP with one reference, and the multi-reference stream shape of
+low-delay GOP structures (``lp_gop``, with a QP offset per position)
+and ``ref_frames > 1``, after fixed-grid or variable-tree I frames,
+with SAO on the I frames.  So the low-delay presets ultrafast..fast
+encode at their defaults, as does ``Config()``.  ``encode``/``flush``
+run per frame; ``encode_stream`` is pipelined on all-intra fixed-grid
+streams and plain IPPP without SAO (device compute overlaps the
+downloads and host CABAC of earlier frames) and per frame otherwise.
 Every other structure raises NotImplementedError: B frames and GOPs,
-rate control, ROI/AQ, field pictures, selective encryption, variable
-P/B trees, SAO on P frames, RDOQ and sign hiding on the fixed grid.
+rate control, ROI/AQ, field pictures, selective encryption, TMVP,
+variable P/B trees, RDOQ and sign hiding on the fixed grid.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ import time
 import numpy as np
 
 from kvazaar_tpu_torch.checkpoint import Checkpointer
-from kvazaar_tpu_torch.config import Config
+from kvazaar_tpu_torch.config import Config, lp_gop_table
 from kvazaar_tpu_torch.constants import NAL_IDR_W_RADL, NAL_TRAIL_R, \
     SLICE_I, SLICE_P
-from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder, psnr
+from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                    psnr, var_inter)
 
 
 # Frames per device program in encode_stream on all-intra streams (the
@@ -72,7 +77,18 @@ class Encoder:
             raise NotImplementedError(
                 "kvazaar_tpu_torch does not cover: " + ", ".join(missing))
         self._ckpt = Checkpointer()
+        self._device = device
         self._intra = IntraFrameEncoder(cfg, device)
+        # One frame encoder per QP (QP is fixed in an encoder's tables);
+        # the low-delay GOP positions' QP offsets pick theirs.
+        self._encoders = {cfg.qp: self._intra}
+        # Low-delay GOP structures and --ref N code the multi-reference
+        # stream shape, with a POC-keyed DPB of device planes (relative
+        # POC -> (y, cb, cr)).
+        self._multi = cfg.lp_gop is not None or cfg.ref_frames > 1
+        self._lp_table = (None if cfg.lp_gop is None
+                          else lp_gop_table(*cfg.lp_gop, cfg.ref_frames))
+        self._dpb_ld = {}
         self._poc = 0
         self._last_idr = 0
         self._wrote_headers = False
@@ -84,6 +100,22 @@ class Encoder:
         frames, 0 only the first frame intra."""
         period = self.cfg.intra_period
         return poc == 0 or period == 1 or (period > 1 and poc % period == 0)
+
+    def _encoder_for_qp(self, qp: int) -> IntraFrameEncoder:
+        """The frame encoder of QP qp, made at first use.  The stream
+        has one PPS: every encoder's slices code their QP against the
+        base config's."""
+        if qp not in self._encoders:
+            enc = IntraFrameEncoder(dataclasses.replace(self.cfg, qp=qp),
+                                    self._device)
+            enc.params.qp = self.cfg.qp
+            self._encoders[qp] = enc
+        return self._encoders[qp]
+
+    def close(self) -> None:
+        """Stop the frame encoders' host pools."""
+        for enc in self._encoders.values():
+            enc.close()
 
     def headers(self) -> bytes:
         return self._intra.headers()
@@ -114,25 +146,73 @@ class Encoder:
     def encode(self, y: np.ndarray, cb=None, cr=None):
         """Encode one frame.  Returns a list with one (annexb_bytes,
         FrameInfo, recon) result (a list for API parity with the GOP
-        paths of the JAX package).  P frames reference the previous
-        frame; the POC restarts at every IDR (8.3.1)."""
+        paths of the JAX package).  Plain IPPP P frames reference the
+        previous frame, multi-reference ones the structure's references;
+        the POC restarts at every IDR (8.3.1)."""
         is_intra = self._is_intra(self._poc)
+        enc = self._intra
         if is_intra:
-            res = self._intra.encode_frame(y, cb, cr)
+            res = enc.encode_frame(y, cb, cr)
             self._last_idr = self._poc
+            if self._multi:
+                self._dpb_ld = {0: enc._dpb}
+        elif self._multi:
+            res, enc = self._encode_p_multi(y, cb, cr,
+                                            self._poc - self._last_idr)
         else:
             rel = self._poc - self._last_idr
-            res = self._intra.encode_p_frame(y, cb, cr, poc=rel,
-                                             ref_poc=rel - 1)
-        out = self._emit(res, self._poc, (y, cb, cr), is_intra)
+            res = enc.encode_p_frame(y, cb, cr, poc=rel, ref_poc=rel - 1)
+        out = self._emit(res, self._poc, (y, cb, cr), is_intra,
+                         qp=enc.cfg.qp)
         self._poc += 1
         return [out]
+
+    def _lp_pattern(self, rel_poc: int) -> dict:
+        """Structure entry of the low-delay frame at relative POC
+        rel_poc >= 1: reference POC deltas and QP offset."""
+        if self._lp_table is not None:
+            return self._lp_table[(rel_poc - 1) % len(self._lp_table)]
+        return dict(poc_offset=rel_poc, layer=1, qp_offset=0,
+                    ref_neg=list(range(1, self.cfg.ref_frames + 1)))
+
+    def _encode_p_multi(self, y, cb, cr, rel: int):
+        """One P frame of the multi-reference stream shape: the active
+        references (the structure's deltas present in the DPB, at most
+        ref_frames of them), the retained pictures that a frame within
+        one structure period still needs, the position's QP, and the
+        DPB pruned to those pictures.  Returns (FrameResult, the frame
+        encoder that coded it)."""
+        pat = self._lp_pattern(rel)
+        deltas = []
+        for d in pat["ref_neg"]:
+            if d <= rel and (rel - d) in self._dpb_ld and d not in deltas:
+                deltas.append(d)
+        deltas = deltas[:self.cfg.ref_frames] or [1]
+        used = [rel - d for d in deltas]
+        needed = set()
+        horizon = (len(self._lp_table) if self._lp_table
+                   else self.cfg.ref_frames)
+        for f in range(rel + 1, rel + horizon + 1):
+            for d in self._lp_pattern(f)["ref_neg"]:
+                needed.add(f - d)
+        retained = sorted(rel - p for p in self._dpb_ld
+                          if p not in used and p in needed)
+        refs = [(rel - d, self._dpb_ld[rel - d]) for d in deltas]
+        enc = self._intra
+        if pat["qp_offset"]:
+            enc = self._encoder_for_qp(self.cfg.qp + pat["qp_offset"])
+        res, recs = enc.encode_p_frame_multi(y, cb, cr, poc=rel, refs=refs,
+                                             retained=retained)
+        self._dpb_ld[rel] = recs
+        self._dpb_ld = {p: v for p, v in self._dpb_ld.items()
+                        if p == rel or p in needed}
+        return res, enc
 
     def flush(self):
         """Low-delay streams buffer nothing."""
         return []
 
-    def _emit(self, res, poc, src, is_intra=True):
+    def _emit(self, res, poc, src, is_intra=True, qp=None):
         chunks = self._au_prefix(SLICE_I if is_intra else SLICE_P)
         y, cb, cr = src
         h, w = y.shape
@@ -147,7 +227,7 @@ class Encoder:
             p_v = psnr(rec_cr, np.asarray(cr, np.int32),
                        self.cfg.input_bitdepth)
         info = FrameInfo(
-            poc=poc, qp=self.cfg.qp,
+            poc=poc, qp=self.cfg.qp if qp is None else qp,
             nal_type=NAL_IDR_W_RADL if is_intra else NAL_TRAIL_R,
             slice_type=SLICE_I if is_intra else SLICE_P,
             bits=len(res.nals) * 8,
@@ -177,9 +257,15 @@ class Encoder:
             psnr_u=p(sse[1], h * w // 4), psnr_v=p(sse[2], h * w // 4))
 
     def can_pipeline(self) -> bool:
-        """The fixed grid takes the pipelined path; variable trees plan
-        each frame on the host and take the per-frame path."""
-        return not self._intra.var
+        """All-intra streams on the fixed grid and plain IPPP without SAO
+        take the pipelined path (the JAX package's rule); variable trees
+        plan each frame on the host, and multi-reference and SAO streams
+        with P frames run per frame."""
+        if self.cfg.intra_period == 1:
+            return not self._intra.var
+        if var_inter(self.cfg):
+            return False
+        return not self._multi and not self.cfg.sao
 
     def encode_stream(self, frames, need_recon: bool = False):
         """Pipelined streaming encode over an iterable of (y, cb, cr)
@@ -196,7 +282,8 @@ class Encoder:
         the host (the copy waits for the device and releases the GIL)
         and finalizer threads run CABAC, so device compute, transfers
         and host serialization of different frames overlap.  Variable
-        trees loop ``encode`` (and ``flush``) instead."""
+        trees, multi-reference streams and SAO streams with P frames
+        loop ``encode`` (and ``flush``) instead."""
         if not self.can_pipeline():
             for f in frames:
                 yield from self.encode(*f)
@@ -245,7 +332,7 @@ class Encoder:
                         (_poc, rel, _shape), = metas
                         res = [ife.finalize_p_downloaded(
                             dl, poc=rel, ref_pocs=[rel - 1],
-                            need_recon=want_pixels)[0]]
+                            need_recon=want_pixels, multi=False)[0]]
                     with stats_lock:
                         self.stats["finalize_s"] += time.monotonic() - t1
                         self.stats["frames"] += len(metas)
@@ -309,7 +396,7 @@ class Encoder:
             if rel > 0:
                 # ife._dpb: the previous submission's reconstruction.
                 handle = ife.submit_p(*batch[0], [(rel - 1, ife._dpb)])
-                ife._dpb = handle[4]
+                ife._dpb = handle[5]
                 kind = "p"
             else:
                 handle = ife.submit_frames(batch)

@@ -164,11 +164,12 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
 
 
 def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
-                               nthreads: int = 1):
-    """P slice of one reference (no per-CTU QP, partitions or explicit
-    chroma modes): returns (bytes, per-substream byte sizes), the sizes
-    empty when wpp is off.  nthreads > 1 encodes the WPP
-    substreams on that many threads."""
+                               nthreads: int = 1, nref_l0: int = 1):
+    """P slice (no per-CTU QP, partitions or explicit chroma modes) with
+    nref_l0 active L0 references, whose ref_idx comes from fd.ref8:
+    returns (bytes, per-substream byte sizes), the sizes empty when wpp
+    is off.  nthreads > 1 encodes the WPP substreams on that many
+    threads."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
     inter8 = np.ascontiguousarray(fd.inter8, np.uint8)
     skip8 = np.ascontiguousarray(fd.skip8, np.uint8)
@@ -184,6 +185,8 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
     nss = np.zeros(1, np.int32)
     sao = _sao_blob(params, fd)
+    ref8 = (np.ascontiguousarray(fd.ref8, np.uint8) if nref_l0 > 1
+            else None)
     n = get_lib().ktpu_encode_slice_data_p(
         params.width, params.height, chroma, qp, 1 if wpp else 0,
         1, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
@@ -193,7 +196,8 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
         dir8.ctypes.data, mvp8_l1.ctypes.data, mvd8_l1.ctypes.data,
         out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
         (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
-        _ptr(sao), None, 1, None, 1 if params.amp else 0, None, None)
+        _ptr(sao), _ptr(ref8), int(nref_l0), None,
+        1 if params.amp else 0, None, None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     szs = [int(v) for v in sizes[:int(nss[0])]] if wpp else []

@@ -8,8 +8,9 @@ Takes a copy of the JAX package's argument parser and its
 flag-to-config mapping, plus ``--device``.  The structure follows the
 preset unless ``--period``/``--gop`` say otherwise, as in the JAX CLI:
 ``--period 1`` is all-intra, ``--period 0`` IPPP after one IDR and
-``--period N`` an IDR every N frames.  Configs outside the port's
-fixed-grid slices raise NotImplementedError.
+``--period N`` an IDR every N frames; with no flags the ultrafast
+preset's low-delay GOP structure.  Configs the port does not cover
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -279,7 +280,7 @@ def main(argv=None) -> int:
               f"V {psnr_acc[2] / n:.4f}", file=sys.stderr)
         print(f" Total time: {dt:.3f} s, FPS: {n / dt:.2f}",
               file=sys.stderr)
-        if args.stats:
+        if args.stats and enc.stats:
             s = enc.stats
             fr = max(s.get("frames", 0), 1)
             print(f" Stages (ms/frame): submit "

@@ -6,8 +6,8 @@
 // order: an intra block builds the 4S+1 reference samples with 8.4.4.2.2
 // substitution, applies the luma [1 2 1] filter and predicts the coded
 // mode (planar, DC, angular, 8.4.4.2.4-6) with the luma DC/10/26
-// boundary fixups; an inter block (P frames, the `inter=True` variant)
-// takes its motion-compensated prediction instead.  Then residual,
+// boundary fixups below S=32; an inter block (P frames, the `inter=True`
+// variant) takes its motion-compensated prediction instead.  Then residual,
 // forward DCT, flat quantization (rounding 171/512 intra, 85/512
 // inter), dequant, inverse DCT and clip.  Outputs are the levels of
 // every block (raster block order) and the reconstructed planes; inter
@@ -28,10 +28,11 @@
 // conversions lengthen the chain).
 //
 // What this design does about it:
-// - One pass per step.  A slot group runs one block: a whole warp at
-//   S=16 and S=8 (so blocks of different modes never share a warp), 8
-//   lanes at S=4.  Stages inside a group synchronise with __syncwarp;
-//   the step ends with the one __syncthreads that publishes its
+// - One pass per step.  A slot group runs one block: two warps at S=32,
+//   a whole warp at S=16 and S=8 (so blocks of different modes never
+//   share a warp), 8 lanes at S=4.  Stages inside a group synchronise
+//   with __syncwarp, or at S=32 with the group's own named barrier; the
+//   step ends with the one __syncthreads that publishes its
 //   reconstruction.  A step with more blocks than groups loops the
 //   groups without a block barrier.
 // - Wavefront state in shared memory: the bottom row (hrow) and right
@@ -59,6 +60,15 @@
 // - Luma and chroma of a batch are one launch: the first CTAs run the
 //   luma plane at S, the rest Cb and Cr at S/2, each on its own SM, so a
 //   P frame's chroma runs beside its luma instead of after it.
+// - Luma S=32 (the CU 32 grid, whose chroma is S=16; the TPU kernel
+//   stops at S=16 and the JAX package reconstructs cu 32 with an XLA
+//   scan) keeps the even-odd split of the smaller sizes by giving a
+//   block two warps: each lane owns one row and, of every 1-D
+//   transform, the even or the odd half of its outputs, so no lane
+//   holds more than 16 outputs.  Its luma intra path applies the [1 2 1]
+//   reference filter for every mode but DC, 10 and 26
+//   (intraHorVerDistThres 0) and no boundary fixups; the JAX package
+//   applies no strong intra smoothing, and nor does this kernel.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -85,25 +95,73 @@ namespace {
 
 constexpr int kMid = 128, kMaxV = 255;  // 8-bit samples
 
-// HEVC transform matrix for nTbS = 16 (8.6.4.2); the S-point matrix is
-// rows k * (16 / S), columns 0..S-1.
-__constant__ int kT16[16][16] = {
-    {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
-    {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90},
-    {89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89},
-    {87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87},
-    {83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83},
-    {80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80},
-    {75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75},
-    {70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70},
-    {64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64},
-    {57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57},
-    {50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50},
-    {43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43},
-    {36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36},
-    {25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25},
-    {18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18},
-    {9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9}};
+// HEVC transform matrix for nTbS = 32 (8.6.4.2); the S-point matrix is
+// rows k * (32 / S), columns 0..S-1.
+__constant__ int kT32[32][32] = {
+    {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64,
+     64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
+    {90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4, -4, -13,
+     -22, -31, -38, -46, -54, -61, -67, -73, -78, -82, -85, -88, -90, -90},
+    {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90, -90,
+     -87, -80, -70, -57, -43, -25, -9, 9, 25, 43, 57, 70, 80, 87, 90},
+    {90, 82, 67, 46, 22, -4, -31, -54, -73, -85, -90, -88, -78, -61, -38, -13,
+     13, 38, 61, 78, 88, 90, 85, 73, 54, 31, 4, -22, -46, -67, -82, -90},
+    {89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89, 89,
+     75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89},
+    {88, 67, 31, -13, -54, -82, -90, -78, -46, -4, 38, 73, 90, 85, 61, 22, -22,
+     -61, -85, -90, -73, -38, 4, 46, 78, 90, 82, 54, 13, -31, -67, -88},
+    {87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87, -87,
+     -57, -9, 43, 80, 90, 70, 25, -25, -70, -90, -80, -43, 9, 57, 87},
+    {85, 46, -13, -67, -90, -73, -22, 38, 82, 88, 54, -4, -61, -90, -78, -31,
+     31, 78, 90, 61, 4, -54, -88, -82, -38, 22, 73, 90, 67, 13, -46, -85},
+    {83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83, 83,
+     36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83},
+    {82, 22, -54, -90, -61, 13, 78, 85, 31, -46, -90, -67, 4, 73, 88, 38, -38,
+     -88, -73, -4, 67, 90, 46, -31, -85, -78, -13, 61, 90, 54, -22, -82},
+    {80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80, -80,
+     -9, 70, 87, 25, -57, -90, -43, 43, 90, 57, -25, -87, -70, 9, 80},
+    {78, -4, -82, -73, 13, 85, 67, -22, -88, -61, 31, 90, 54, -38, -90, -46, 46,
+     90, 38, -54, -90, -31, 61, 88, 22, -67, -85, -13, 73, 82, 4, -78},
+    {75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75, 75,
+     -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75},
+    {73, -31, -90, -22, 78, 67, -38, -90, -13, 82, 61, -46, -88, -4, 85, 54,
+     -54, -85, 4, 88, 46, -61, -82, 13, 90, 38, -67, -78, 22, 90, 31, -73},
+    {70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70, -70,
+     43, 87, -9, -90, -25, 80, 57, -57, -80, 25, 90, 9, -87, -43, 70},
+    {67, -54, -78, 38, 85, -22, -90, 4, 90, 13, -88, -31, 82, 46, -73, -61, 61,
+     73, -46, -82, 31, 88, -13, -90, -4, 90, 22, -85, -38, 78, 54, -67},
+    {64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64,
+     -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64},
+    {61, -73, -46, 82, 31, -88, -13, 90, -4, -90, 22, 85, -38, -78, 54, 67, -67,
+     -54, 78, 38, -85, -22, 90, 4, -90, 13, 88, -31, -82, 46, 73, -61},
+    {57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57, -57,
+     80, 25, -90, 9, 87, -43, -70, 70, 43, -87, -9, 90, -25, -80, 57},
+    {54, -85, -4, 88, -46, -61, 82, 13, -90, 38, 67, -78, -22, 90, -31, -73, 73,
+     31, -90, 22, 78, -67, -38, 90, -13, -82, 61, 46, -88, 4, 85, -54},
+    {50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50, 50,
+     -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50},
+    {46, -90, 38, 54, -90, 31, 61, -88, 22, 67, -85, 13, 73, -82, 4, 78, -78,
+     -4, 82, -73, -13, 85, -67, -22, 88, -61, -31, 90, -54, -38, 90, -46},
+    {43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43, -43,
+     90, -57, -25, 87, -70, -9, 80, -80, 9, 70, -87, 25, 57, -90, 43},
+    {38, -88, 73, -4, -67, 90, -46, -31, 85, -78, 13, 61, -90, 54, 22, -82, 82,
+     -22, -54, 90, -61, -13, 78, -85, 31, 46, -90, 67, 4, -73, 88, -38},
+    {36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36, 36,
+     -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36},
+    {31, -78, 90, -61, 4, 54, -88, 82, -38, -22, 73, -90, 67, -13, -46, 85, -85,
+     46, 13, -67, 90, -73, 22, 38, -82, 88, -54, -4, 61, -90, 78, -31},
+    {25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25, -25,
+     70, -90, 80, -43, -9, 57, -87, 87, -57, 9, 43, -80, 90, -70, 25},
+    {22, -61, 85, -90, 73, -38, -4, 46, -78, 90, -82, 54, -13, -31, 67, -88, 88,
+     -67, 31, 13, -54, 82, -90, 78, -46, 4, 38, -73, 90, -85, 61, -22},
+    {18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18, 18,
+     -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18},
+    {13, -38, 61, -78, 88, -90, 85, -73, 54, -31, 4, 22, -46, 67, -82, 90, -90,
+     82, -67, 46, -22, -4, 31, -54, 73, -85, 90, -88, 78, -61, 38, -13},
+    {9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9, -9,
+     25, -43, 57, -70, 80, -87, 90, -90, 87, -80, 70, -57, 43, -25, 9},
+    {4, -13, 22, -31, 38, -46, 54, -61, 67, -73, 78, -82, 85, -88, 90, -90, 90,
+     -90, 88, -85, 82, -78, 73, -67, 61, -54, 46, -38, 31, -22, 13, -4}};
 
 // H.265 Table 8-4 (index mode - 2) and Table 8-5 (index mode - 11).
 __constant__ int kAngle[33] = {
@@ -212,18 +270,18 @@ __device__ __forceinline__ int clamp_int(int x, int lo, int hi) {
 
 // Lanes of a slot group.  A group of L lanes runs one block: lane
 // (y, q) = (lane % S, lane / S) owns row y and, of each 1-D transform,
-// vector y and part q of P = L / S parts.  S=16 and S=8 take a whole
-// warp (so the blocks of a warp never diverge on their modes), S=4 a
-// quarter.  A part is O = S / P samples of the row: the M = O / 2
+// vector y and part q of P = L / S parts.  S=32 takes two warps, S=16
+// and S=8 a whole warp (so the blocks of a warp never diverge on their
+// modes), S=4 a quarter.  A part is O = S / P samples of the row: the M = O / 2
 // columns q*M.. and their mirrors S-1-(q*M..), the pairs that the
 // even-odd transform couples.
 template <int S>
 struct Shape {
-  static constexpr int L = S == 4 ? 8 : 32;
+  static constexpr int L = S == 4 ? 8 : (S == 32 ? 64 : 32);
   static constexpr int P = L / S;
   static constexpr int O = S / P;
   static constexpr int M = O / 2;
-  static constexpr int LOG2 = S == 16 ? 4 : (S == 8 ? 3 : 2);
+  static constexpr int LOG2 = S == 32 ? 5 : (S == 16 ? 4 : (S == 8 ? 3 : 2));
 };
 
 // Column of a lane's sample i (i < M: q*M + i; then the mirrors).
@@ -236,7 +294,7 @@ __device__ __forceinline__ int owned_col(int q, int i) {
 // Shared-memory coefficient tables of one lane part q (ints):
 // forward, (O, S/2): row i = C[k_i][0..S/2) for the part's outputs k_i
 // = 2 ((q >> 1) O + i) + (q & 1), all even or all odd; inverse, (M, S):
-// row i = C[0..S)[q*M + i].  C[k][n] = kT16[k * 16 / S][n].
+// row i = C[0..S)[q*M + i].  C[k][n] = kT32[k * 32 / S][n].
 template <int S>
 __device__ __forceinline__ int fwd_out(int q, int i) {
   return 2 * ((q >> 1) * Shape<S>::O + i) + (q & 1);
@@ -248,11 +306,11 @@ __device__ void fill_coefs(int* coef) {
   constexpr int NF = Sh::P * Sh::O * (S / 2), NI = Sh::P * Sh::M * S;
   for (int t = threadIdx.x; t < NF; t += blockDim.x) {
     const int q = t / (Sh::O * (S / 2)), i = t / (S / 2) % Sh::O;
-    coef[t] = kT16[fwd_out<S>(q, i) * (16 / S)][t % (S / 2)];
+    coef[t] = kT32[fwd_out<S>(q, i) * (32 / S)][t % (S / 2)];
   }
   for (int t = threadIdx.x; t < NI; t += blockDim.x) {
     const int q = t / (Sh::M * S), i = t / S % Sh::M;
-    coef[NF + t] = kT16[(t % S) * (16 / S)][q * Sh::M + i];
+    coef[NF + t] = kT32[(t % S) * (32 / S)][q * Sh::M + i];
   }
 }
 
@@ -315,7 +373,7 @@ __device__ __forceinline__ bool filter_flag(int mode) {
 
 // Copies the S x S samples of a block (origin off, row stride w) of a
 // uint8 or int32 plane into dst (rows of S samples), with the L lanes of
-// a group.
+// a group, in copies of at most 16 bytes.
 template <int S>
 __device__ __forceinline__ void stage_block(void* dst, const void* plane,
                                             int bytes, size_t off, int w,
@@ -330,9 +388,13 @@ __device__ __forceinline__ void stage_block(void* dst, const void* plane,
                        (size_t)r * w + 4 * k);
     }
   } else {
-    for (int r = lane; r < S; r += L)
-      cp_async<S>(static_cast<uint8_t*>(dst) + r * S,
-                  static_cast<const uint8_t*>(plane) + off + (size_t)r * w);
+    constexpr int B = S < 16 ? S : 16, CPR = S / B;
+    for (int c = lane; c < S * CPR; c += L) {
+      const int r = c / CPR, k = c % CPR;
+      cp_async<B>(static_cast<uint8_t*>(dst) + r * S + B * k,
+                  static_cast<const uint8_t*>(plane) + off + (size_t)r * w +
+                      B * k);
+    }
   }
 }
 
@@ -357,8 +419,17 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
   const int g = threadIdx.x / L;
   const int lane = threadIdx.x % L, y = lane % S, q = lane / S;
   const unsigned mask =
-      L == 32 ? 0xffffffffu
-              : ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
+      L >= 32 ? 0xffffffffu
+              : ((1u << (L & 31)) - 1) << ((threadIdx.x & 31) & ~(L - 1));
+  // Barrier of the group's lanes: its warp, or at L = 64 named barrier
+  // g + 1 (0 is __syncthreads; at most 8 groups of 64).
+  auto group_sync = [&]() {
+    if constexpr (L > 32)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(Shape<S>::L)
+                   : "memory");
+    else
+      __syncwarp(mask);
+  };
 
   const uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
   const int* steps = reinterpret_cast<const int*>(smem);
@@ -444,14 +515,14 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
         }
         ref[i] = src_i < 0 ? kMid : read_ref(src_i);
       }
-      __syncwarp(mask);
+      group_sync();
       const int* pp = ref;
       if (luma && filter_flag<S>(mode)) {
         for (int i = lane; i < R; i += L)
           flt[i] = (i > 0 && i < R - 1)
                        ? (ref[i - 1] + 2 * ref[i] + ref[i + 1] + 2) >> 2
                        : ref[i];
-        __syncwarp(mask);
+        group_sync();
         pp = flt;
       }
 #define LEFT(arr, yy) (arr)[2 * S - 1 - (yy)]
@@ -465,7 +536,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                      (S - 1 - y) * TOP(pp, x) + (y + 1) * left_b + S) >>
                     (LOG2S + 1);
         }
-      } else if (mode == 1) {  // DC, with the luma boundary fixups
+      } else if (mode == 1) {  // DC, with the luma boundary fixups (S < 32)
         int sum = S;
 #pragma unroll
         for (int k = 0; k < S; ++k) sum += TOP(pp, k) + LEFT(pp, k);
@@ -474,10 +545,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
         for (int i = 0; i < O; ++i) {
           const int x = owned_col<S>(q, i);
           int v = dc;
-          if (luma && y == 0)
+          if (luma && S < 32 && y == 0)
             v = x == 0 ? (LEFT(ref, 0) + 2 * dc + TOP(ref, 0) + 2) >> 2
                        : (TOP(ref, x) + 3 * dc + 2) >> 2;
-          else if (luma && x == 0)
+          else if (luma && S < 32 && x == 0)
             v = (LEFT(ref, y) + 3 * dc + 2) >> 2;
           pred[i] = v;
         }
@@ -500,7 +571,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
           }
           mref[S + k] = v;
         }
-        __syncwarp(mask);
+        group_sync();
         const int corner = ref[2 * S];
 #pragma unroll
         for (int i = 0; i < O; ++i) {
@@ -509,10 +580,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
           const int at = S + (vertical ? x : y) + (ta >> 5) + 1;
           const int f = ta & 31;
           int v = ((32 - f) * mref[at] + f * mref[at + 1] + 16) >> 5;
-          if (luma && mode == 10 && y == 0)
+          if (luma && S < 32 && mode == 10 && y == 0)
             v = clamp_int(LEFT(ref, 0) + ((TOP(ref, x) - corner) >> 1), 0,
                           kMaxV);
-          if (luma && mode == 26 && x == 0)
+          if (luma && S < 32 && mode == 26 && x == 0)
             v = clamp_int(TOP(ref, 0) + ((LEFT(ref, y) - corner) >> 1), 0,
                           kMaxV);
           pred[i] = v;
@@ -529,7 +600,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     for (int i = 0; i < O; ++i)
       buf_a[y * SP + owned_col<S>(q, i)] =
           staged<S>(src, pl.orig_bytes, y, owned_col<S>(q, i)) - pred[i];
-    __syncwarp(mask);
+    group_sync();
 #pragma unroll
     for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
     fwd_part<S>(v, cf, sgn, out);
@@ -538,7 +609,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       buf_b[fwd_out<S>(q, i) * SP + y] = round_shift(out[i], shift1);
     // Forward stage 2 (rows): C[k][l] = sum_m T[l][m] E[k][m], lane
     // (k, q); flat quantization and dequantization.
-    __syncwarp(mask);
+    group_sync();
 #pragma unroll
     for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
     fwd_part<S>(v, cf, sgn, out);
@@ -559,7 +630,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     }
     // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
     // clipped, lane (m, q) computing n = q*M.. and their mirrors.
-    __syncwarp(mask);
+    group_sync();
     int lo[M], hi[M];
 #pragma unroll
     for (int k = 0; k < S; ++k) v[k] = buf_a[k * SP + y];
@@ -573,7 +644,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     }
     // Inverse stage 2 (rows): r[n][l] = sum_m T[m][l] E[n][m], lane
     // (n, q) computing its own columns; reconstruct.
-    __syncwarp(mask);
+    group_sync();
 #pragma unroll
     for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
     inv_part<S>(v, ci, lo, hi);
@@ -653,7 +724,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
           cp_async_commit();
           cp_async_wait<0>();
         }
-        __syncwarp(mask);
+        group_sync();
         process(e, stage + buf * 2 * S * S);
       }
     }
@@ -666,10 +737,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 }
 
 // Thread block bound of the kernel of CU size cu: 16 groups of 32 lanes
-// at cu 16 (128 registers a thread), 32 groups at cu 8 (whose S=8 and
-// S=4 paths need fewer registers).
+// at cu 16 and 8 groups of 64 at cu 32 (128 registers a thread), 32
+// groups at cu 8 (whose S=8 and S=4 paths need fewer registers).
 __host__ __device__ constexpr int max_threads(int cu) {
-  return cu == 16 ? 512 : 1024;
+  return cu == 8 ? 1024 : 512;
 }
 
 // Ints of the coefficient tables of block size S (fill_coefs).
@@ -720,8 +791,9 @@ Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
 
 Layout layout_for(int s_max, int n_steps, int n_slots, int ring,
                   int ring_w) {
-  return s_max == 16 ? layout_of<16>(n_steps, n_slots, ring, ring_w)
-                     : layout_of<8>(n_steps, n_slots, ring, ring_w);
+  return s_max == 32   ? layout_of<32>(n_steps, n_slots, ring, ring_w)
+         : s_max == 16 ? layout_of<16>(n_steps, n_slots, ring, ring_w)
+                       : layout_of<8>(n_steps, n_slots, ring, ring_w);
 }
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
@@ -767,13 +839,14 @@ __global__ void __launch_bounds__(max_threads(CU))
 }  // namespace
 
 // Threads and dynamic shared memory (bytes) of a launch whose largest
-// block size is s_max (16, 8 or 4), on a plan of n_steps steps of at most
+// block size is s_max (32, 16, 8 or 4), on a plan of n_steps steps of at most
 // n_slots blocks with an edge ring of `ring` rows of ring_w samples.
 // Returns a cudaError_t.
 extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
                                     int ring, int ring_w, int* threads,
                                     int* smem_bytes) {
-  if ((s_max != 4 && s_max != 8 && s_max != 16) || n_steps < 1 ||
+  if ((s_max != 4 && s_max != 8 && s_max != 16 && s_max != 32) ||
+      n_steps < 1 ||
       n_slots < 1 || ring < 1 || ring_w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout l = layout_for(s_max, n_steps, n_slots, ring, ring_w);
@@ -783,8 +856,9 @@ extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
 }
 
 // Launch over n_planes plane kinds (1..3): one thread block per item,
-// the planes' items in order.  Block sizes: the largest s is 16 (the
-// others 16 or 8) or at most 8 (the others 8 or 4).  inter and every
+// the planes' items in order.  Block sizes: the largest s is 32 (the
+// others 32 or 16), 16 (the others 16 or 8) or at most 8 (the others 8
+// or 4).  inter and every
 // plane's mc are all null (intra variant) or all set (inter).  entries
 // is scratch of (items, nblk) uint32 on the device.  ring is the edge
 // ring's depth and ring_w the width of the widest plane.  Returns a
@@ -803,7 +877,7 @@ extern "C" int ktt_wavefront_recon(
   int items = 0, s_max = 0;
   for (int i = 0; i < n_planes; ++i) {
     const KttPlane& pl = planes[i];
-    if ((pl.s != 4 && pl.s != 8 && pl.s != 16) ||
+    if ((pl.s != 4 && pl.s != 8 && pl.s != 16 && pl.s != 32) ||
         (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w)
       return static_cast<int>(cudaErrorInvalidValue);
     s_max = pl.s > s_max ? pl.s : s_max;
@@ -811,7 +885,7 @@ extern "C" int ktt_wavefront_recon(
     items += pl.nb;
     p.item_end[i] = items;
   }
-  const int cu = s_max == 16 ? 16 : 8;
+  const int cu = s_max > 8 ? s_max : 8;
   for (int i = 0; i < n_planes; ++i)
     if (planes[i].s != cu && planes[i].s != cu / 2)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -834,7 +908,9 @@ extern "C" int ktt_wavefront_recon(
   p.off_ring = l.off_ring;
   p.off_coef = l.off_coef;
   p.off_groups = l.off_groups;
-  const auto kernel = cu == 16 ? wavefront_kernel<16> : wavefront_kernel<8>;
+  const auto kernel = cu == 32   ? wavefront_kernel<32>
+                      : cu == 16 ? wavefront_kernel<16>
+                                 : wavefront_kernel<8>;
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

@@ -1,9 +1,11 @@
 """Frame encoder: device search + wavefront recon + host CABAC.
 
 Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
-(IntraFrameEncoder at cu 8/16, with PFrameMixin's single-reference P
-frames) and for all-intra variable CU trees (``encode_frame_var``: CUs
-8..32 or 8..64, rd 0-2, RDOQ and sign hiding).  The device program
+(IntraFrameEncoder at cu 8/16/32, with PFrameMixin's P frames against
+one or more references) and for variable CU trees on I frames
+(``encode_frame_var``: CUs 8..32 or 8..64, rd 0-2, RDOQ and sign
+hiding; in a stream with P frames, those run on the fixed grid of
+min(intra_max_cu, 32)).  The device program
 (intra mode search; for P frames motion search, the intra/inter
 decision and motion compensation; wavefront reconstruction, deblocking,
 per-frame SSE; on all-intra streams SAO) is plain tensor code on the
@@ -13,9 +15,11 @@ wavefront, decides merge/AMVP signalling, serializes slice data with
 the native CABAC (WPP substreams) and frames the NAL units.
 
 SAO runs on the device right after deblocking (statistics, decision and
-filter, ``_sao_stage``); only the packed per-CTU parameters come back.
-The per-frame SSEs are taken before SAO, as the JAX package takes them
-on its pipelined path.
+filter, ``_sao_stage``) on I frames; only the packed per-CTU parameters
+come back, and the filtered reconstruction is the reference of the next
+P frame.  Fixed-grid P frames run no SAO stage and code every CTU's SAO
+as off, as the JAX package's do.  The per-frame SSEs are taken before
+SAO, as the JAX package takes them on its pipelined path.
 
 Transfers are dense: int16 levels, uint8 modes and recon, the inter map
 and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
@@ -46,8 +50,9 @@ from kvazaar_tpu_torch.constants import (CHROMA_QP_TAB, NAL_IDR_W_RADL,
                                          NAL_TRAIL_R, SLICE_I, SLICE_P)
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.bitstream import native
-from kvazaar_tpu_torch.encoder.inter_cands import (amvp_candidates,
-                                                   merge_candidates)
+from kvazaar_tpu_torch.encoder.inter_cands import (
+    amvp_candidates, amvp_pair_p_multiref_at, merge_candidates,
+    merge_list_p_multiref_at)
 from kvazaar_tpu_torch.encoder.inter_search import (mc_planes,
                                                     search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
@@ -99,16 +104,32 @@ def var_tree(cfg: Config) -> bool:
     return cfg.intra_min_cu < cfg.intra_max_cu
 
 
+def var_inter(cfg: Config) -> bool:
+    """P/B frames run variable CU trees (the JAX package's
+    ``_var_inter_active``): either tool's CU range is not degenerate, or
+    the inter size differs from the fixed working grid, on structures
+    with one reference per list.  Low-delay GOP structures, more than
+    one reference, TMVP and SMP keep the fixed grid."""
+    fixed_cu = min(max(cfg.intra_max_cu, 8), 32)
+    return ((cfg.intra_min_cu != cfg.intra_max_cu
+             or cfg.inter_min_cu != cfg.inter_max_cu
+             or cfg.inter_max_cu != fixed_cu)
+            and not cfg.smp and cfg.ref_frames == 1
+            and cfg.lp_gop is None and not cfg.tmvp)
+
+
 def unsupported(cfg: Config) -> list:
     """Names of the config features the port does not cover yet."""
     out = []
-    if var_tree(cfg):
-        if cfg.intra_period != 1:
-            out.append("variable P/B CU trees (variable trees are "
-                       "ported for all-intra streams)")
-    elif cfg.intra_max_cu not in (8, 16):
-        out.append(f"fixed CU size {cfg.intra_max_cu} (8 and 16 are "
-                   "ported; 32 and 64 inside a variable tree)")
+    p_frames = cfg.intra_period != 1
+    var_p = p_frames and var_inter(cfg)
+    if var_p:
+        out.append("variable P/B CU trees (variable trees are ported for "
+                   "I frames; the P frames of low-delay GOP structures and "
+                   "of more than one reference keep the fixed grid)")
+    if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
+        out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
+                   "ported; 64 inside a variable tree)")
     if cfg.input_bitdepth != 8:
         out.append("bit depths other than 8")
     if cfg.rd >= 3:
@@ -116,12 +137,14 @@ def unsupported(cfg: Config) -> list:
     elif cfg.rd == 2 and not var_tree(cfg):
         out.append("--rd 2 on the fixed CU grid")
     # RDOQ and sign hiding are ported inside variable trees (the JAX
-    # package sends them past its fixed-grid kernel to an XLA scan).
-    fixed_grid = not var_tree(cfg)
+    # package sends them past its fixed-grid kernel to an XLA scan); the
+    # fixed grid codes every frame of a fixed-CU config and the P frames
+    # of a variable-tree one.
+    fixed_grid = not var_tree(cfg) or (p_frames and not var_p)
     for name, on in (("RDOQ on the fixed CU grid", cfg.rdoq and fixed_grid),
                      ("sign hiding on the fixed CU grid",
                       cfg.signhide and fixed_grid),
-                     ("SAO on P frames", cfg.sao and cfg.intra_period != 1),
+                     ("SAO on variable-tree P/B frames", cfg.sao and var_p),
                      ("transform skip", cfg.transform_skip),
                      ("lossless", cfg.lossless),
                      ("implicit RDPCM", cfg.implicit_rdpcm),
@@ -138,16 +161,10 @@ def unsupported(cfg: Config) -> list:
                       cfg.cu_qp_delta_active)):
         if on:
             out.append(name)
-    if cfg.intra_period != 1:
+    if p_frames:
         for name, on in (
                 ("SMP/AMP inter partitions", cfg.smp or cfg.amp),
-                ("TMVP", cfg.tmvp),
-                ("low-delay GOP structures (--gop lp-*)",
-                 cfg.lp_gop is not None),
-                ("more than one reference frame", cfg.ref_frames > 1),
-                ("variable inter CU sizes",
-                 (cfg.inter_min_cu, cfg.inter_max_cu)
-                 != (cfg.intra_max_cu, cfg.intra_max_cu))):
+                ("TMVP", cfg.tmvp)):
             if on:
                 out.append(name)
     return out
@@ -181,36 +198,57 @@ def compute_bs_maps(is_inter, cbf_luma_blk, mv, ref=None):
 
 
 class PFrameMixin:
-    """Single-reference P frames of the fixed grid (the non-SMP,
-    one-reference, fixed-QP branch of the JAX package's PFrameMixin)."""
+    """P frames of the fixed grid with one or more L0 references (the
+    non-SMP, fixed-QP branch of the JAX package's PFrameMixin, without
+    TMVP)."""
 
-    def _p_predict(self, yp, ref):
+    def _p_predict(self, yp, refs):
         """Search and decision of one P frame: (H, W) int32 source luma
-        and the (y, cb, cr) reference planes.  Returns (modes int32
-        (By, Bx), inter map bool, mv int32 (By, Bx, 2), MC prediction
-        planes (y, cb, cr) int32)."""
-        ref_y, ref_cb, ref_cr = ref
+        and the references' (y, cb, cr) planes in L0 order.  Returns
+        (modes int32 (By, Bx), inter map bool, ref_sel int32 (By, Bx)
+        L0 index of each inter block (0 for intra blocks), mv int32
+        (By, Bx, 2), MC prediction planes (y, cb, cr) int32)."""
         plan = self.plan
+        nref = len(refs)
         modes, intra_cost = search_frame_modes(
             yp, plan, self.lambda_satd, self.bitdepth, self.cfg.rd >= 1)
-        mv, inter_cost = search_inter_frame(
-            yp, ref_y, plan, self.lambda_me, self.cfg.me_range,
-            self.bitdepth, subpel=self.cfg.me_subpel)
+        mvs, costs = [], []
+        for ri, (ref_y, _cb, _cr) in enumerate(refs):
+            mv_r, c_r = search_inter_frame(
+                yp, ref_y, plan, self.lambda_me, self.cfg.me_range,
+                self.bitdepth, subpel=self.cfg.me_subpel)
+            # The ref_idx bits: 0 with one reference, else ri + 1 below
+            # the last index and ri for the last (truncated unary).
+            rb = 0 if nref == 1 else (ri + 1 if ri < nref - 1 else ri)
+            mvs.append(mv_r)
+            costs.append(c_r + _f32(self.lambda_me * rb) if rb else c_r)
+        costs = torch.stack(costs)
+        sel = torch.argmin(costs, dim=0)
+        mv = torch.take_along_dim(torch.stack(mvs), sel[None, ..., None],
+                                  dim=0)[0]
         # Mode decision (a slight inter bias covers un-modelled merge
         # savings), in float32 as JAX forms it.
-        inter_map = inter_cost <= intra_cost * _f32(1.02)
+        inter_map = costs.min(dim=0).values <= intra_cost * _f32(1.02)
         mv = torch.where(inter_map[..., None], mv, 0).to(torch.int32)
-        return modes, inter_map, mv, mc_planes(ref_y, ref_cb, ref_cr, mv,
-                                               plan, self.bitdepth)
+        ref_sel = torch.where(inter_map, sel, 0).to(torch.int32)
 
-    def _p_from_planes(self, yp, cbp, crp, ref):
+        def stacked(k):
+            return None if refs[0][k] is None else torch.stack(
+                [r[k] for r in refs])
+
+        mcs = mc_planes(stacked(0), stacked(1), stacked(2), mv, plan,
+                        self.bitdepth, ref_grid=ref_sel)
+        return modes, inter_map, ref_sel, mv, mcs
+
+    def _p_from_planes(self, yp, cbp, crp, refs):
         """Device program of one P frame: (H, W) int32 source planes and
-        the (y, cb, cr) reference planes.  Returns (modes uint8, inter
-        map bool, mv int32 (By, Bx, 2), levels (y, cb, cr), deblocked
-        recon uint8 (y, cb, cr), sses float32 (3,)), on the device."""
+        the references' (y, cb, cr) planes.  Returns (modes uint8, inter
+        map bool, ref_sel int32, mv int32 (By, Bx, 2), levels (y, cb,
+        cr), deblocked recon uint8 (y, cb, cr), sses float32 (3,)), on
+        the device."""
         plan = self.plan
-        modes, inter_map, mv, (mc_y, mc_cb, mc_cr) = self._p_predict(yp,
-                                                                     ref)
+        modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
+            self._p_predict(yp, refs)
 
         def one(t):
             return None if t is None else t[None]
@@ -223,57 +261,65 @@ class PFrameMixin:
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
                 plan.blocks_y, plan.blocks_x)
-            bs = compute_bs_maps(inter_map, cbf_blk, mv)
+            bs = compute_bs_maps(inter_map, cbf_blk, mv, ref=ref_sel)
         recs, sses = self._deblock_sse(
             (yp[None], one(cbp), one(crp)), (rec_y, rec_cb, rec_cr), bs)
 
         def first(t):
             return None if t is None else t[0]
 
-        return (modes.to(torch.uint8), inter_map, mv,
+        return (modes.to(torch.uint8), inter_map, ref_sel, mv,
                 (lv_y[0], first(lv_cb), first(lv_cr)),
                 tuple(first(r) for r in recs), sses[0])
 
     def submit_p(self, y, cb, cr, refs):
         """Upload one frame and queue its P program (asynchronous on a
-        card).  refs: [(ref_poc, (y, cb, cr) device planes)], one
-        reference."""
-        if len(refs) != 1:
-            raise NotImplementedError("P frames with more than one "
-                                      "reference are not ported")
+        card).  refs: [(ref_poc, (y, cb, cr) device planes), ...] in L0
+        order.  The handle's entry 5 is the deblocked recon on the
+        device (the next frame's reference)."""
         ys, cbs, crs = (None if a is None else a[0] for a in
                         self._upload(self.host_pack_sources([(y, cb, cr)])))
-        return self._p_from_planes(ys, cbs, crs, refs[0][1])
+        return self._p_from_planes(ys, cbs, crs, [pl for _rp, pl in refs])
 
     def download_p(self, handle, need_recon: bool = True):
         """The device->host copies of a submitted P frame; safe to call
         from a worker thread.  The device recon stays in the result as
         the next frame's reference."""
-        modes, inter_map, mv, levels, recs, sses = handle
+        modes, inter_map, ref_sel, mv, levels, recs, sses = handle
 
         def host(t):
             return None if t is None else t.cpu().numpy()
 
         want_pixels = need_recon or self.cfg.hash != "none"
         return ((tuple(host(lv) for lv in levels), host(modes),
-                 host(inter_map), host(mv), host(sses)),
+                 host(inter_map), host(ref_sel), host(mv), host(sses)),
                 tuple(host(r) for r in recs) if want_pixels
                 else (None, None, None), recs)
 
     def finalize_p_downloaded(self, downloaded, poc: int, ref_pocs,
-                              need_recon: bool = True):
-        """Host stage: merge/AMVP signalling decisions + CABAC of the
-        plain single-reference IPPP stream shape (the JAX package's
-        ``multi=False``).  Returns (FrameResult, the device recon
-        planes)."""
-        ((lv_y, lv_cb, lv_cr), modes, inter_map, mv, sses), rec_np, \
-            recs = downloaded
-        merge_idx, mvp_idx, mvd = self._merge_amvp_fast(inter_map, mv)
+                              retained=(), need_recon: bool = True,
+                              multi: bool = True):
+        """Host stage: merge/AMVP signalling decisions + CABAC.
+
+        multi: emit the explicit multi-reference RPS and the
+        reference-aware candidate derivation (the encode_p_frame_multi
+        contract) even with one active reference; False = the plain
+        IPPP single-reference stream shape.  Returns (FrameResult, the
+        device recon planes)."""
+        ((lv_y, lv_cb, lv_cr), modes, inter_map, ref_sel, mv, sses), \
+            rec_np, recs = downloaded
+        if multi:
+            merge_idx, mvp_idx, mvd = self._merge_amvp_multi(
+                inter_map, ref_sel, mv, len(ref_pocs), poc, ref_pocs)
+        else:
+            merge_idx, mvp_idx, mvd = self._merge_amvp_fast(inter_map, mv)
         fd = self._assemble_p_frame_data(
             modes, inter_map, mv, merge_idx, mvp_idx, mvd, lv_y, lv_cb,
-            lv_cr)
-        nal = self._serialize_p(fd, poc, poc - ref_pocs[0],
-                                tmvp=self.cfg.tmvp)
+            lv_cr, ref_sel=ref_sel if multi else None)
+        deltas = [poc - rp for rp in ref_pocs]
+        nal = self._serialize_p(fd, poc, deltas[0],
+                                ref_list_l0=deltas if multi else None,
+                                retained_l0=retained, tmvp=self.cfg.tmvp)
         if not (need_recon or self.cfg.hash != "none"):
             rec_np = (None, None, None)
         if self.cfg.hash in ("md5", "checksum"):
@@ -303,8 +349,46 @@ class PFrameMixin:
             axis=2)[:, :, 0]
         return merge_idx, mvp_idx, mvd
 
+    def _merge_amvp_multi(self, inter_map, ref_sel, mv, nref, poc,
+                          ref_pocs):
+        """Scalar loop in decode order over the inter blocks for the
+        multi-reference candidate lists (the oracle decoder derives them
+        the same way)."""
+        s = self.cu
+        by, bx = self.plan.blocks_y, self.plan.blocks_x
+        merge_idx = np.full((by, bx), -1, np.int32)
+        mvp_idx = np.zeros((by, bx), np.uint8)
+        mvd = np.zeros((by, bx, 2), np.int32)
+        order = np.argsort(self.plan.step_of_block.ravel() * (by * bx)
+                           + np.arange(by * bx), kind="stable")
+        for bid in order:
+            yy, xx = divmod(int(bid), bx)
+            if not inter_map[yy, xx]:
+                continue
+            mine = (int(ref_sel[yy, xx]),
+                    (int(mv[yy, xx, 0]), int(mv[yy, xx, 1])))
+            mlist = merge_list_p_multiref_at(
+                inter_map, ref_sel, mv, self.plan.avail, yy, xx, nref,
+                ref_pocs=ref_pocs, cu=s)
+            if mine in mlist:
+                merge_idx[yy, xx] = mlist.index(mine)
+                continue
+            pair = amvp_pair_p_multiref_at(
+                inter_map, ref_sel, mv, self.plan.avail, yy, xx,
+                int(ref_sel[yy, xx]), poc, ref_pocs, cu=s)
+            d0 = sum(abs(int(mv[yy, xx, k]) - pair[0][k])
+                     for k in range(2))
+            d1 = sum(abs(int(mv[yy, xx, k]) - pair[1][k])
+                     for k in range(2))
+            idx = 1 if d1 < d0 else 0
+            mvp_idx[yy, xx] = idx
+            mvd[yy, xx] = (mv[yy, xx, 0] - pair[idx][0],
+                           mv[yy, xx, 1] - pair[idx][1])
+        return merge_idx, mvp_idx, mvd
+
     def _assemble_p_frame_data(self, modes, inter_map, mv, merge_idx,
-                               mvp_idx, mvd, lv_y, lv_cb, lv_cr):
+                               mvp_idx, mvd, lv_y, lv_cb, lv_cr,
+                               ref_sel=None):
         s = self.cu
         c8 = s // 8
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
@@ -346,21 +430,30 @@ class PFrameMixin:
         use_amvp = inter_map & (merge_idx < 0)
         fd.mvp8[::c8, ::c8] = np.where(use_amvp, mvp_idx, 0)
         fd.mvd8[::c8, ::c8] = np.where(use_amvp[..., None], mvd, 0)
+        if ref_sel is not None:
+            fd.ref8[:] = np.kron(
+                np.where(inter_map, ref_sel, 0),
+                np.ones((c8, c8), np.int32)).astype(np.uint8)
         return fd
 
-    def _serialize_p(self, fd, poc, ref_poc_diff, tmvp: bool = False):
+    def _serialize_p(self, fd, poc, ref_poc_diff, ref_list_l0=None,
+                     retained_l0=(), tmvp: bool = False):
         """P slice NAL: native CABAC (WPP substreams) where the library
-        builds, else the Python serializer; then the slice header."""
+        builds, else the Python serializer; then the slice header with
+        the plain one-reference RPS or, given ref_list_l0 (the POC
+        deltas of the active references), the explicit multi-reference
+        RPS with the retained pictures' deltas."""
         qp = self.cfg.qp
+        nref = 1 if ref_list_l0 is None else len(ref_list_l0)
         if native.available():
             data, sizes = native.encode_slice_data_native_p(
                 self.params, fd, qp, self.params.wpp,
-                nthreads=self.cfg.threads or 4)
+                nthreads=self.cfg.threads or 4, nref_l0=nref)
         else:
             sizes = []
             dw = BitWriter()
             enc = SliceDataEncoder(self.params, fd, Contexts(SLICE_P, qp),
-                                   CabacEncoder(dw), nref_l0=1)
+                                   CabacEncoder(dw), nref_l0=nref)
             if self.params.wpp:
                 sizes = enc.encode_slice_data_wpp()
             else:
@@ -370,10 +463,24 @@ class PFrameMixin:
         w = BitWriter()
         write_slice_header(w, self.params, SLICE_P, NAL_TRAIL_R, qp,
                            poc=poc, ref_poc_diff=ref_poc_diff,
-                           ref_list_l0=None, retained_l0=(), tmvp=tmvp,
+                           ref_list_l0=ref_list_l0, retained_l0=retained_l0,
+                           tmvp=tmvp,
                            num_entry_points=max(len(sizes) - 1, 0),
                            entry_point_offsets=sizes[:-1])
         return nal_unit(w.get_bytes() + data, NAL_TRAIL_R)
+
+    def encode_p_frame_multi(self, y, cb=None, cr=None, poc: int = 1,
+                             refs=None, retained=()):
+        """P frame against one or more L0 references in the stream shape
+        of low-delay GOP structures and --ref N.  refs: [(ref_poc, (y,
+        cb, cr) device planes), ...] in L0 order (increasing POC delta);
+        retained: further POC deltas the DPB keeps for later pictures
+        (signalled in the RPS, unused here).  Returns (FrameResult, the
+        deblocked recon planes on the device)."""
+        handle = self.submit_p(y, cb, cr, refs)
+        return self.finalize_p_downloaded(
+            self.download_p(handle), poc, [rp for rp, _pl in refs],
+            retained=retained)
 
     def encode_p_frame(self, y, cb=None, cr=None, poc: int = 1,
                        ref_poc: int = 0) -> FrameResult:
@@ -384,15 +491,15 @@ class PFrameMixin:
                                "an intra frame first")
         handle = self.submit_p(y, cb, cr, [(ref_poc, self._dpb)])
         res, recs = self.finalize_p_downloaded(
-            self.download_p(handle), poc, [ref_poc])
+            self.download_p(handle), poc, [ref_poc], multi=False)
         self._dpb = recs
         return res
 
 
 class IntraFrameEncoder(PFrameMixin):
     """Encodes I frames (batched on the fixed grid, one at a time with
-    variable CU trees) and single-reference P frames of one geometry /
-    config on ``device`` (the name follows the JAX package's class)."""
+    variable CU trees) and fixed-grid P frames of one geometry / config
+    on ``device`` (the name follows the JAX package's class)."""
 
     def __init__(self, cfg: Config, device):
         cfg.validate()
@@ -406,13 +513,14 @@ class IntraFrameEncoder(PFrameMixin):
         self.var = var_tree(cfg)
         # The working grid: a variable tree schedules its own per-size
         # plans and reconstructs 64x64 CUs as 32x32 TBs, so it pads to
-        # 32 at most; the fixed grid's plan is the CU grid.
+        # 32 at most; the fixed grid's plan is the CU grid, which also
+        # carries the P frames of a variable-tree config.
         self.cu = min(cfg.intra_max_cu, 32)
         self.bitdepth = cfg.input_bitdepth
         self.coded_w = -(-cfg.width // self.cu) * self.cu
         self.coded_h = -(-cfg.height // self.cu) * self.cu
-        self.plan = None if self.var else make_intra_plan(
-            self.coded_w, self.coded_h, self.cu, self.chroma, tiles=(1, 1))
+        self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
+                                    self.chroma, tiles=(1, 1))
         self.params = StreamParams(
             width=self.coded_w, height=self.coded_h,
             bitdepth=self.bitdepth,

@@ -3,7 +3,8 @@ with a rate-aware second pass, then dense quarter-pel SATD refinement;
 and full-frame motion compensation of the final MVs.
 
 Counterpart of kvazaar_tpu/encoder/inter_search.py (search_inter_frame
-without the hierarchical hint, mc_planes for one reference).  Costs are
+without the hierarchical hint; mc_planes for one reference or stacked
+references with a per-block reference index).  Costs are
 formed in float32 exactly as the JAX package forms them (the Python
 lambda rounded to float32 first), and every argmin takes the first
 index of a tie, as JAX does.
@@ -121,11 +122,13 @@ def _blocks_to_plane(blocks, by: int, bx: int, size: int):
 
 
 def mc_planes(ref_y, ref_cb, ref_cr, mv, plan: IntraFramePlan,
-              bitdepth: int = 8):
-    """Full-frame MC prediction planes of the final MVs (one reference).
+              bitdepth: int = 8, ref_grid=None):
+    """Full-frame MC prediction planes of the final MVs.
 
-    mv: (By, Bx, 2) quarter-pel.  Returns (pred_y (H, W), pred_cb,
-    pred_cr) int32.  Each block is interpolated from its own clamped
+    mv: (By, Bx, 2) quarter-pel.  With stacked references ((R, H, W)
+    planes) pass ref_grid (By, Bx) int32 L0 ref indices: each block
+    gathers from its selected reference.  Returns (pred_y (H, W),
+    pred_cb, pred_cr) int32.  Each block is interpolated from its own clamped
     window; the JAX package reaches the same samples through
     whole-plane phase planes on a 72-pixel edge extension, which is
     exact while an MV reaches at most 72 pixels outside the frame
@@ -134,14 +137,15 @@ def mc_planes(ref_y, ref_cb, ref_cr, mv, plan: IntraFramePlan,
     by, bx = plan.blocks_y, plan.blocks_x
     x0s, y0s = _block_origins(plan, mv.device)
     mvs = mv.reshape(by * bx, 2).to(torch.int32)
-    py = mc_luma(ref_y.to(torch.int32), x0s, y0s, mvs, s, bitdepth)
+    ridx = None if ref_grid is None else ref_grid.reshape(by * bx)
+    py = mc_luma(ref_y.to(torch.int32), x0s, y0s, mvs, s, bitdepth, ridx)
     out_y = _blocks_to_plane(py, by, bx, s)
     if ref_cb is None:
         return out_y, None, None
     s2 = s // 2
     pcb = mc_chroma(ref_cb.to(torch.int32), x0s // 2, y0s // 2, mvs, s2,
-                    bitdepth)
+                    bitdepth, ridx)
     pcr = mc_chroma(ref_cr.to(torch.int32), x0s // 2, y0s // 2, mvs, s2,
-                    bitdepth)
+                    bitdepth, ridx)
     return (out_y, _blocks_to_plane(pcb, by, bx, s2),
             _blocks_to_plane(pcr, by, bx, s2))

@@ -1,7 +1,8 @@
 """Inter prediction ops: fractional-sample interpolation and exhaustive
 integer-pel SAD motion search, as plain int32 tensor code.
 
-Counterpart of kvazaar_tpu/ops/inter.py for one reference picture.  The
+Counterpart of kvazaar_tpu/ops/inter.py for P frames: one reference
+picture, or stacked references with a per-block index for MC.  The
 JAX package shapes these ops for the TPU's matrix unit (one-hot matmuls
 for the window gather, banded 0/1 matmuls for block sums and for the
 quarter-pel filters, bf16 splits to keep them exact); here the same
@@ -51,14 +52,18 @@ def device_table(name: str, device: torch.device) -> torch.Tensor:
 
 
 def gather_windows(plane: torch.Tensor, x0s: torch.Tensor,
-                   y0s: torch.Tensor, win: int) -> torch.Tensor:
+                   y0s: torch.Tensor, win: int, ridx=None) -> torch.Tensor:
     """Clamped window gather: (N, win, win) from (H, W) at per-block
     integer origins, which may lie outside the plane (the clamp is the
-    spec's reference padding, 8.5.3.3.3.1)."""
+    spec's reference padding, 8.5.3.3.3.1).  With stacked references
+    (R, H, W), ridx (N,) picks each block's plane."""
     h, w = plane.shape[-2], plane.shape[-1]
     ar = torch.arange(win, device=plane.device)
     ys = torch.clamp(y0s[:, None] + ar[None, :], 0, h - 1)
     xs = torch.clamp(x0s[:, None] + ar[None, :], 0, w - 1)
+    if ridx is not None:
+        return plane[ridx.long()[:, None, None], ys[:, :, None],
+                     xs[:, None, :]]
     return plane[ys[:, :, None], xs[:, None, :]]
 
 
@@ -76,16 +81,19 @@ def _tap_sum(win: torch.Tensor, coeffs: torch.Tensor, taps: int,
     return acc
 
 
-def mc_luma_hp(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8):
+def mc_luma_hp(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8,
+               ridx=None):
     """Luma MC at the 14-bit intermediate precision (8.5.3.3.3.1).
 
-    plane: (H, W) int32 reference; x0s/y0s: (N,) block origins; mvs:
-    (N, 2) quarter-pel (mvx, mvy).  Returns (N, S, S) int32."""
+    plane: (H, W) int32 reference (or (R, H, W) with ridx (N,) per
+    block); x0s/y0s: (N,) block origins; mvs: (N, 2) quarter-pel (mvx,
+    mvy).  Returns (N, S, S) int32."""
     ix = x0s + (mvs[:, 0] >> 2)
     iy = y0s + (mvs[:, 1] >> 2)
     fx = (mvs[:, 0] & 3).long()
     fy = (mvs[:, 1] & 3).long()
-    win = gather_windows(plane, ix - 3, iy - 3, size + 7).to(torch.int32)
+    win = gather_windows(plane, ix - 3, iy - 3, size + 7,
+                         ridx).to(torch.int32)
     lf = device_table("LUMA_FILTERS", plane.device)
     hor = _tap_sum(win, lf[fx], 8, size, True)       # (N, S+7, S)
     shift1 = bitdepth - 8
@@ -101,20 +109,23 @@ def uni_round(hp: torch.Tensor, bitdepth: int = 8) -> torch.Tensor:
                        (1 << bitdepth) - 1)
 
 
-def mc_luma(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8):
+def mc_luma(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8,
+            ridx=None):
     """Motion-compensated luma prediction (uni-pred), (N, S, S) int32."""
-    return uni_round(mc_luma_hp(plane, x0s, y0s, mvs, size, bitdepth),
-                     bitdepth)
+    return uni_round(mc_luma_hp(plane, x0s, y0s, mvs, size, bitdepth,
+                                ridx), bitdepth)
 
 
-def mc_chroma_hp(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8):
+def mc_chroma_hp(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8,
+                 ridx=None):
     """Chroma MC at 14-bit precision (4-tap, eighth-pel).  mvs are the
     LUMA quarter-pel MVs, i.e. eighth-pel chroma MVs in 4:2:0."""
     ix = x0s + (mvs[:, 0] >> 3)
     iy = y0s + (mvs[:, 1] >> 3)
     fx = (mvs[:, 0] & 7).long()
     fy = (mvs[:, 1] & 7).long()
-    win = gather_windows(plane, ix - 1, iy - 1, size + 3).to(torch.int32)
+    win = gather_windows(plane, ix - 1, iy - 1, size + 3,
+                         ridx).to(torch.int32)
     cf = device_table("CHROMA_FILTERS", plane.device)
     hor = _tap_sum(win, cf[fx], 4, size, True)
     shift1 = bitdepth - 8
@@ -123,9 +134,10 @@ def mc_chroma_hp(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8):
     return _tap_sum(hor, cf[fy], 4, size, False) >> 6
 
 
-def mc_chroma(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8):
-    return uni_round(mc_chroma_hp(plane, x0s, y0s, mvs, size, bitdepth),
-                     bitdepth)
+def mc_chroma(plane, x0s, y0s, mvs, size: int, bitdepth: int = 8,
+              ridx=None):
+    return uni_round(mc_chroma_hp(plane, x0s, y0s, mvs, size, bitdepth,
+                                  ridx), bitdepth)
 
 
 def edge_pad(plane: torch.Tensor, pad: int) -> torch.Tensor:

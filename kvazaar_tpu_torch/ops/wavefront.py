@@ -45,7 +45,7 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_SIZES = (4, 8, 16)
+_SIZES = (4, 8, 16, 32)
 # blk_info holds a block's step-order position in its low _POS_BITS bits
 # and its availability mask above them (kAvailShift in the kernel).
 _POS_BITS = 20

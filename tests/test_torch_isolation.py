@@ -1,11 +1,12 @@
 """The port stands apart from JAX and holds the JAX package's constants.
 
 - importing and running kvazaar_tpu_torch (all-intra on the fixed grid
-  and with a variable CU tree, IPPP, and the superfast and medium
-  presets' all-intra points with SAO and RDOQ) never imports jax or any
-  kvazaar_tpu module (checked in a fresh
-  interpreter), and no source of the port or chip_smoke.py imports
-  kvazaar_tpu (checked on the syntax tree);
+  and with a variable CU tree, IPPP, the superfast and medium presets'
+  all-intra points with SAO and RDOQ, and the defaults: the ultrafast
+  preset's low-delay GOP and Config()'s cu 32 IPPP) never imports jax
+  or any kvazaar_tpu module (checked in a fresh interpreter), and no
+  source of the port or chip_smoke.py imports kvazaar_tpu (checked on
+  the syntax tree);
 - every table and constant the port copies equals the JAX package's;
 - the kernel module imports on a machine without nvcc, and asking it to
   build the kernel there raises a clear error (no fallback).
@@ -50,6 +51,11 @@ for preset in ("superfast", "medium"):
     assert cfg.sao
     out = list(Encoder(cfg, device="cpu").encode_stream(frames))
     assert len(out) == 3 and all(len(c) > 0 for c, _, _ in out)
+# The defaults: the ultrafast preset (the CLI's) and Config() (cu 32).
+for cfg in (config_from_preset("ultrafast", width=48, height=32, qp=27),
+            Config(width=48, height=32, qp=27)):
+    out = list(Encoder(cfg, device="cpu").encode_stream(frames))
+    assert [o[1].slice_type for o in out] == [2, 1, 1]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked

@@ -297,7 +297,8 @@ def test_cli_medium_all_intra(tmp_path):
     (dict(rd=3), "--rd 3"),
     (dict(tr_depth_intra=1), "tr-depth-intra"),
     (dict(intra_period=0), "variable P/B"),
-    (dict(intra_min_cu=32, intra_max_cu=32), "fixed CU size 32"),
+    (dict(intra_min_cu=32, intra_max_cu=32, rdoq=True),
+     "RDOQ on the fixed CU grid"),
     (dict(intra_min_cu=16, intra_max_cu=16, rd=2), "--rd 2")])
 def test_unported_var_options_raise(change, match):
     kw = _kw("8-32")

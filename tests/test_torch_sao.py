@@ -16,8 +16,8 @@ its CPU backend, jitted:
   JAX encoder's, and the JAX oracle decoder turning the stream back
   into exactly the port's post-SAO reconstruction;
 - every preset's all-intra operating point passes the port's gates, and
-  what stays unported (fixed-grid RDOQ and sign hiding, SAO on P
-  frames) still raises.
+  what stays unported (fixed-grid RDOQ and sign hiding, SAO on
+  variable-tree P frames) still raises.
 
 The JAX SAO program takes about a minute to compile on the CPU (most of
 it XLA compiling one unrolled program), so it is built once per process
@@ -282,7 +282,8 @@ def test_every_preset_all_intra_is_ported(preset):
 @pytest.mark.parametrize("change,match", [
     (dict(rdoq=True), "RDOQ on the fixed CU grid"),
     (dict(signhide=True), "sign hiding on the fixed CU grid"),
-    (dict(sao=True, intra_period=0), "SAO on P frames")])
+    (dict(sao=True, intra_period=0, lp_gop=None),
+     "SAO on variable-tree P/B frames")])
 def test_unported_rdoq_sao_raise(change, match):
     cfg = config_from_preset("superfast", width=64, height=64,
                              intra_period=1, sao=False)

@@ -193,8 +193,10 @@ def test_encode_stream_matches_frame_encoder(name):
 
 
 @pytest.mark.parametrize("change", [
-    dict(intra_max_cu=32, intra_min_cu=32), dict(sao=True, intra_period=0),
-    dict(intra_min_cu=8, intra_period=0), dict(rdoq=True), dict(rd=2)])
+    dict(tmvp=True, intra_period=0), dict(gop_len=8, intra_period=0),
+    dict(intra_min_cu=8, intra_period=0), dict(inter_min_cu=8,
+                                               intra_period=0),
+    dict(rdoq=True), dict(rd=2)])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
     for k, v in change.items():
@@ -204,10 +206,11 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_structures_raise():
-    """IPPP with one reference is ported; B-frame GOPs, more references,
-    SMP, TMVP and rate control still raise."""
+    """Low-delay P frames on the fixed grid are ported (one or more
+    references); B-frame GOPs, variable P trees, SMP, TMVP and rate
+    control still raise."""
     for change, match in ((dict(gop_len=8), "GOP"),
-                          (dict(ref_frames=2), "reference"),
+                          (dict(inter_min_cu=8), "variable P/B"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(bitrate=100000), "rate control")):
@@ -236,7 +239,8 @@ def test_cli_writes_the_api_stream(tmp_path):
     assert (tmp_path / "out.hevc").read_bytes() == want
 
 
-@pytest.mark.parametrize("flags", [[], ["--period", "1", "--lossless"],
+@pytest.mark.parametrize("flags", [["--preset", "medium"],
+                                   ["--period", "1", "--lossless"],
                                    ["--period", "1", "--slices", "wpp"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):
     from kvazaar_tpu_torch import cli

@@ -4,7 +4,9 @@ On the JAX side both the lax.scan path (``wfp.DISABLE``) and the
 interpreted Pallas kernel (``wfp.INTERPRET``) run, exactly as
 tests/test_wavefront_pallas.py drives them, on the same cases: cu 8/16,
 QP 22/32/37, with and without chroma, B=2, intra frames and P frames
-(random inter maps and MC planes: the kernel's inter variant).  Levels
+(random inter maps and MC planes: the kernel's inter variant); at cu 32
+(luma S=32, chroma S=16), which the Pallas kernel does not take and the
+JAX package reconstructs with its lax.scan, the scan alone.  Levels
 and reconstruction must be equal (tolerance 0).  The CUDA kernel itself
 is compared with the same plain path on the card by chip_smoke.py; here
 its host-side tables are checked: the edge ring depth against a
@@ -55,7 +57,9 @@ _JAX_SCAN = _jit_whole(jax_reconstruct_frames)
 
 def _jax_both(plan, ys, cbs, crs, modes, qp, inter=None):
     """(interpreted Pallas kernel, lax.scan) outputs of the JAX
-    package.  inter: None, or (is_inter, mc_y, mc_cb, mc_cr)."""
+    package; at cu 32, which the Pallas kernel does not take, the
+    lax.scan output alone.  inter: None, or (is_inter, mc_y, mc_cb,
+    mc_cr)."""
     def j(a):
         return None if a is None else jnp.asarray(a)
 
@@ -64,16 +68,18 @@ def _jax_both(plan, ys, cbs, crs, modes, qp, inter=None):
     if inter is not None:
         kw = dict(zip(("is_inter", "mc_y", "mc_cb", "mc_cr"),
                       (j(a) for a in inter)))
-    wfp.INTERPRET = True
-    try:
-        kernel = _JAX_KERNEL(*args, **kw)
-    finally:
-        wfp.INTERPRET = False
     wfp.DISABLE = True
     try:
         scan = _JAX_SCAN(*args, **kw)
     finally:
         wfp.DISABLE = False
+    if plan.cu_size == 32:
+        return (scan,)
+    wfp.INTERPRET = True
+    try:
+        kernel = _JAX_KERNEL(*args, **kw)
+    finally:
+        wfp.INTERPRET = False
     return kernel, scan
 
 
@@ -87,8 +93,8 @@ def _check(plan, ys, cbs, crs, modes, qp, inter=None):
                       (t(a) for a in inter)))
     got = reconstruct_frames(t(ys), t(cbs), t(crs), t(modes), plan, qp,
                              chroma_qp(qp), **kw)
-    for want, path in zip(_jax_both(plan, ys, cbs, crs, modes, qp, inter),
-                          ("pallas-interpret", "scan")):
+    outs = _jax_both(plan, ys, cbs, crs, modes, qp, inter)
+    for want, path in zip(outs[::-1], ("scan", "pallas-interpret")):
         for g, w, n in zip(got, want, NAMES):
             assert (g is None) == (w is None), n
             if g is not None:
@@ -100,6 +106,7 @@ def _check(plan, ys, cbs, crs, modes, qp, inter=None):
     (8, 32, 24, 32),
     (16, 64, 32, 22),
     (16, 48, 48, 37),
+    (32, 64, 64, 27),
 ])
 def test_recon_matches_jax(cu, w, h, qp):
     rng = np.random.default_rng(cu * 100 + qp)
@@ -113,6 +120,7 @@ def test_recon_matches_jax(cu, w, h, qp):
 @pytest.mark.parametrize("cu,w,h,qp", [
     (8, 24, 16, 30),
     (16, 48, 32, 22),
+    (32, 64, 64, 30),
 ])
 def test_inter_recon_matches_jax(cu, w, h, qp):
     """P frames: inter blocks (p = 0.5) take the MC prediction and the
@@ -272,16 +280,16 @@ def test_large_planes_are_taken(cu):
 
 
 def test_kernel_transform_matrix():
-    """kT16 in csrc/wavefront.cu is the HEVC matrix; its subsampled rows
-    are the 8- and 4-point matrices, with the even/odd symmetry the
+    """kT32 in csrc/wavefront.cu is the HEVC matrix; its subsampled rows
+    are the 16-, 8- and 4-point matrices, with the even/odd symmetry the
     butterflies rely on."""
     src = (Path(wavefront.__file__).resolve().parent.parent / "csrc"
            / "wavefront.cu").read_text()
-    body = re.search(r"kT16\[16\]\[16\] = \{(.*?)\};", src, re.S).group(1)
-    t16 = np.array([int(v) for v in re.findall(r"-?\d+", body)]
-                   ).reshape(16, 16)
-    for s in (16, 8, 4):
-        t = t16[::16 // s, :s]
+    body = re.search(r"kT32\[32\]\[32\] = \{(.*?)\};", src, re.S).group(1)
+    t32 = np.array([int(v) for v in re.findall(r"-?\d+", body)]
+                   ).reshape(32, 32)
+    for s in (32, 16, 8, 4):
+        t = t32[::32 // s, :s]
         np.testing.assert_array_equal(t, dct_matrix_np(s))
         np.testing.assert_array_equal(t[0::2], t[0::2, ::-1])
         np.testing.assert_array_equal(t[1::2], -t[1::2, ::-1])
