@@ -11,7 +11,8 @@ all-intra with variable CU trees (intra CUs 8..32); the ``superfast``,
 ``medium`` and ``slower`` presets at --period 1 (SAO; RDOQ; sign
 hiding); and the low-delay default operating points (the ``ultrafast``
 preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
-the kernel at luma S=32).
+the kernel at luma S=32), and variable P trees with one reference (the
+medium preset's IPPP point).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -69,7 +70,19 @@ Any failed phase raises, so the script exits nonzero:
    P frame against 2 references; and card == CPU bytes and recon at
    416x240 for ultrafast, superfast, veryfast, faster and fast at their
    defaults, Config() and 3 references at cu 16 (IDR + 5 P frames; fast
-   IDR + 2 P).
+   IDR + 2 P);
+11. variable P trees with one reference (``run_var_p``): the medium
+   preset's IPPP point (--gop 0, intra CUs 8..32, inter CUs 8..64,
+   RDOQ, SAO) at 832x480 through Encoder.encode_stream, IDR + 1 P
+   warm-up then 3 timed P frames of the 46-frame clip (line
+   ``ippp-medium encode_stream:`` with fps, IDR and P bits, PSNR-Y,
+   CU-size histogram, inter share), a stage split of one P frame
+   (coarse motion search, each size's candidates, tree and plan, merge
+   RD, direct pass, var recon with its ATen-op count, deblocking, SAO,
+   downloads, merge/AMVP + skip, CABAC); card == CPU bytes and recon at
+   416x240 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
+   a set_base_qp + reset_stream ladder (QP 22 -> 27 -> 22) on the card
+   against fresh encoders.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -91,6 +104,7 @@ W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
 VAR_TIMED = 4                         # phase 8: frames after 1 warm-up
 MEDIUM_TIMED = 2                      # phase 9: frames after 1 warm-up
+VAR_P_TIMED = 3                       # phase 11: P frames after IDR + P
 BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, the closest listed peak for the
@@ -1072,6 +1086,230 @@ def run_low_delay(torch, wavefront, clip46, dev):
     return rows, inter_rows, joint_rows, launches32
 
 
+def ippp_medium_config(width, height, **kw):
+    """The medium preset's IPPP point (--gop 0 -p 0, one reference):
+    variable P trees, intra CUs 8..32, inter CUs 8..64, RDOQ, SAO."""
+    from kvazaar_tpu_torch.config import config_from_preset
+    kw = dict(dict(qp=QP, intra_period=0, gop_len=1, ref_frames=1), **kw)
+    return config_from_preset(kw.pop("preset", "medium"), width=width,
+                              height=height, **kw)
+
+
+def var_p_stage_split(torch, ife, frames):
+    """Per-stage times of one variable P frame (frames[1] against the
+    encoder's recon of frames[0]), each stage timed once by the host
+    clock between synchronizes (the stages are host-bound, so this is
+    also their device span): the coarse motion search, each size's
+    intra and inter candidates, the whole search, tree and plan, merge
+    RD, the cell MC, the direct inter pass alone, the whole var recon
+    (with the device kernels and ATen ops of one call), deblocking, SAO,
+    the downloads, merge/AMVP + skip flags and CABAC, all in ms."""
+    from kvazaar_tpu_torch.encoder import quadtree as qt
+    from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.inter_search import mc_planes_cells
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.deblock import deblock_frame
+    from kvazaar_tpu_torch.ops.inter import coarse_mv_grids
+
+    cfg = ife.cfg
+    ife.encode_frame(*frames[0])
+    refs = ife._dpb
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name + "_ms"] = 1000 * (time.perf_counter() - t0)
+        return r
+
+    planes = timed("upload", lambda: tuple(a[0] for a in ife._upload(
+        ife.host_pack_sources([frames[1]]))))
+    y, ref = planes[0], refs[0].to(torch.int32)
+    lam_rd = qp_to_lambda(cfg.qp)
+    sizes = [s for s in (8, 16, 32)
+             if cfg.inter_min_cu <= s <= cfg.inter_max_cu]
+    hints = timed("coarse_me", lambda: coarse_mv_grids(
+        y, ref, cfg.me_range, tuple(sizes)))
+    for s in (8, 16, 32):
+        plan = make_intra_plan(ife.coded_w, ife.coded_h, s, chroma=False)
+        if cfg.intra_min_cu <= s <= cfg.intra_max_cu:
+            timed(f"intra_{s}", lambda: qt.intra_rd_recost(
+                y, plan, search_frame_modes(y, plan, ife.lambda_satd, 8,
+                                            cfg.rd >= 1)[0],
+                cfg.qp, lam_rd, 8, p_slice=True))
+        if s in hints:
+            timed(f"inter_{s}", lambda: qt._inter_cost(
+                y, ref, plan, hints[s], ife.lambda_satd, cfg.me_range, 8,
+                cfg.me_subpel, cfg.qp, lam_rd))
+    found = timed("search_total", lambda: ife.var_p_search(y, refs[0]))
+    size8, sched_size8, mode_maps, inter8, mv_cells, vp = timed(
+        "tree_and_plan", lambda: ife.var_p_plan(*found))
+    mv_cells = timed("merge_rd", lambda: ife.merge_rd_p(
+        y, refs[0], size8, inter8, mv_cells))
+    sched = timed("sched_upload", lambda: ife.var_p_sched(
+        vp, planes, size8, inter8, mv_cells))
+    mcs = timed("mc", lambda: mc_planes_cells(*refs, sched["mv_cells"]))
+
+    def direct():
+        for kind, pls, mc, (pw, ph), kqp in (
+                ("iluma", planes[:1], mcs[:1], (ife.coded_w, ife.coded_h),
+                 cfg.qp),
+                ("ichroma", planes[1:], mcs[1:],
+                 (ife.coded_w // 2, ife.coded_h // 2), ife.qp_c)):
+            n = len(pls) * pw * ph
+            qt._direct_pass(sched[kind], pls, mc, pw, ph, kqp, 8,
+                            cfg.signhide, cfg.rdoq, lam_rd,
+                            torch.zeros(n, dtype=torch.int32,
+                                        device=y.device),
+                            torch.zeros(n, dtype=torch.int16,
+                                        device=y.device))
+
+    timed("direct_pass", direct)
+
+    def recon():
+        return qt.reconstruct_frame_var(
+            sched, cfg.qp, ife.qp_c, ife.coded_w, ife.coded_h, True,
+            signhide=cfg.signhide, rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs)
+
+    recs, levels, cbf8 = timed("var_recon", recon)
+
+    def deblock():
+        bs_v, bs_h = qt.var_bs_maps(sched["inter8"], cbf8, sched["mv_cells"],
+                                    sched["edge_v"], sched["edge_h"])
+        return tuple(r.to(torch.uint8) for r in deblock_frame(
+            *recs, cfg.qp, 8, bs_v=bs_v, bs_h=bs_h))
+
+    recs = timed("deblock", deblock)
+    sao = None
+    if cfg.sao:
+        recs, sao = timed("sao", lambda: ife.var_sao(planes, recs))
+    host = timed("d2h", lambda: (
+        [r.cpu().numpy() for r in recs],
+        [lv.cpu().numpy() for lv in levels],
+        None if sao is None else sao.cpu().numpy()))
+    fd = timed("merge_amvp_skip", lambda: ife.var_p_frame_data(
+        size8, sched_size8, mode_maps, inter8, mv_cells, host[1]))
+    _set_sao(fd, host[2])
+    timed("cabac", lambda: ife._serialize_p(fd, 1, 1))
+    out["frame_ms"] = sum(out[k] for k in (
+        "upload_ms", "search_total_ms", "tree_and_plan_ms", "merge_rd_ms",
+        "sched_upload_ms", "mc_ms", "var_recon_ms", "deblock_ms",
+        "sao_ms", "d2h_ms", "merge_amvp_skip_ms", "cabac_ms") if k in out)
+    out["n_steps_real"] = vp.n_steps_real
+    out["inter_share"] = float(inter8.mean())
+    (out["recon_device_kernels_and_copies"],
+     out["recon_aten_ops"]) = count_launches(torch, recon)
+    return out
+
+
+def run_var_p(torch, wavefront, clip46, dev):
+    """Phase 11: variable P trees with one reference.  The medium
+    preset's IPPP point at 832x480 through Encoder.encode_stream (IDR +
+    1 P warm-up, then VAR_P_TIMED timed P frames of the 46-frame motion
+    clip), with its CU-size histogram and inter share and a stage split
+    of one P frame; card == CPU bytes and recon at 416x240 (IDR + 2 P)
+    for medium, slower and ultrafast at --gop 0 (ultrafast's fixed-grid
+    I frame launching the CUDA kernel); and a set_base_qp +
+    reset_stream ladder (QP 22 -> 27) on the card against fresh
+    encoders."""
+    from kvazaar_tpu_torch.api import Encoder
+    cfg = ippp_medium_config(W, H)
+    enc = Encoder(cfg, device=dev)
+    if enc.can_pipeline():
+        raise RuntimeError("ippp-medium: expected the per-frame path")
+    ife = enc._intra
+    trees = []
+    plan_fn = ife.var_p_plan
+
+    def keep_tree(*a):
+        r = plan_fn(*a)
+        trees.append((r[0], r[3]))
+        return r
+
+    ife.var_p_plan = keep_tree
+    clip = clip46[:2 + VAR_P_TIMED]
+    results = []
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(clip):
+        results.append(res)
+        if len(results) == 2:
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    del ife.var_p_plan
+    if [r[1].slice_type for r in results] != [2] + [1] * (len(clip) - 1):
+        raise RuntimeError("ippp-medium: expected IDR + P frames")
+    bits_p, psnr_p = check_output(results[2:], "ippp-medium")
+    cus, inter = {}, []
+    for size8, inter8 in trees[1:]:
+        sizes, cells = np.unique(size8, return_counts=True)
+        for sz, c in zip(sizes, cells):
+            cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
+        inter.append(float(inter8.mean()))
+    log("ippp-medium encode_stream:", json.dumps(dict(
+        frames=len(clip), timed=VAR_P_TIMED, fps=VAR_P_TIMED / dt,
+        idr_bits=results[0][1].bits, p_bits_per_frame=bits_p,
+        psnr_y_p=psnr_p, idr_psnr_y=results[0][1].psnr_y,
+        cus_by_size=cus, inter_share_of_cells=inter)))
+    log("ippp-medium stage split (ms, one P frame):", json.dumps(
+        var_p_stage_split(torch, enc._intra, clip46[:2])))
+    enc.close()
+
+    w, h = 416, 240
+    small = synth_clip_natural(3, w, h, seed=0)
+    for name in ("medium", "slower", "ultrafast"):
+        if name == "ultrafast":
+            from kvazaar_tpu_torch.config import config_from_preset
+            cfg = config_from_preset(name, width=w, height=h, qp=QP,
+                                     lp_gop=None)
+        else:
+            cfg = ippp_medium_config(w, h, preset=name)
+        for k in wavefront.LAUNCHES:
+            wavefront.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        enc_card = Encoder(cfg, device=dev)
+        card = [r for f in small for r in enc_card.encode(*f)]
+        t_card = time.perf_counter() - t0
+        launches = dict(wavefront.LAUNCHES)
+        if name == "ultrafast" and launches["intra"] == 0:
+            raise RuntimeError("ultrafast --gop 0: the I frame did not "
+                               "launch the kernel")
+        t0 = time.perf_counter()
+        enc_cpu = Encoder(cfg, device="cpu")
+        host = [r for f in small for r in enc_cpu.encode(*f)]
+        t_cpu = time.perf_counter() - t0
+        for i, (c, hst) in enumerate(zip(card, host)):
+            if c[0] != hst[0] or not all(
+                    np.array_equal(a, b) for a, b in zip(c[2], hst[2])):
+                raise RuntimeError(f"{name} --gop 0: card and CPU differ at "
+                                   f"frame {i}")
+        log(f"{name} --gop 0 {w}x{h}: card == CPU bytes and recon over "
+            f"{len(small)} frames (bits {[r[1].bits for r in card]}; "
+            f"kernel launches {launches}; card {t_card:.3f} s, CPU "
+            f"{t_cpu:.3f} s)")
+        if name == "medium":
+            enc_card.set_base_qp(27)
+            enc_card.reset_stream()
+            ladder = [r[0] for f in small for r in enc_card.encode(*f)]
+            fresh = Encoder(ippp_medium_config(w, h, qp=27), device=dev)
+            if ladder != [r[0] for f in small for r in fresh.encode(*f)]:
+                raise RuntimeError("set_base_qp ladder: QP 27 differs from "
+                                   "a fresh encoder")
+            enc_card.set_base_qp(22)
+            enc_card.reset_stream()
+            again = [r[0] for f in small for r in enc_card.encode(*f)]
+            if again != [r[0] for r in card]:
+                raise RuntimeError("set_base_qp ladder: back at QP 22 the "
+                                   "stream differs")
+            log(f"set_base_qp ladder on the card (QP 22 -> 27 -> 22 with "
+                f"reset_stream): == fresh encoders ({len(ladder)} frames "
+                f"per QP)")
+        enc_card.close()
+        enc_cpu.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1149,6 +1387,7 @@ def main() -> int:
     compare_ops(torch, frames, dev)
     rows32, inter_rows32, joint32, launches32 = run_low_delay(
         torch, wavefront, clip46, dev)
+    run_var_p(torch, wavefront, clip46, dev)
 
     def record(name, replaces, n, joint, rs):
         """The main path's joint launch (luma + Cb + Cr at the row's CU

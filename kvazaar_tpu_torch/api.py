@@ -4,18 +4,22 @@ Covers all-intra streams (``intra_period == 1``) on the fixed CU grid
 (with SAO) or with variable CU trees (with RDOQ, sign hiding and SAO),
 so every preset's all-intra operating point, and low-delay streams
 (``intra_period == 0``: one IDR, then P frames; ``intra_period > 1``:
-an IDR every N frames) whose P frames run on the fixed CU grid: plain
-IPPP with one reference, and the multi-reference stream shape of
-low-delay GOP structures (``lp_gop``, with a QP offset per position)
-and ``ref_frames > 1``, after fixed-grid or variable-tree I frames,
-with SAO on the I frames.  So the low-delay presets ultrafast..fast
-encode at their defaults, as does ``Config()``.  ``encode``/``flush``
-run per frame; ``encode_stream`` is pipelined on all-intra fixed-grid
-streams and plain IPPP without SAO (device compute overlaps the
-downloads and host CABAC of earlier frames) and per frame otherwise.
-Every other structure raises NotImplementedError: B frames and GOPs,
-rate control, ROI/AQ, field pictures, selective encryption, TMVP,
-variable P/B trees, RDOQ and sign hiding on the fixed grid.
+an IDR every N frames): plain IPPP with one reference, on the fixed CU
+grid or, where the config's CU ranges make it one, as variable CU trees
+(with RDOQ, sign hiding and SAO; so every preset at ``--gop 0`` with
+one reference), and the multi-reference stream shape of low-delay GOP
+structures (``lp_gop``, with a QP offset per position) and
+``ref_frames > 1`` on the fixed grid, after fixed-grid or variable-tree
+I frames, with SAO on the I frames.  So the low-delay presets
+ultrafast..fast encode at their defaults, as does ``Config()``.
+``encode``/``flush`` run per frame; ``encode_stream`` is pipelined on
+all-intra fixed-grid streams and plain fixed-grid IPPP without SAO
+(device compute overlaps the downloads and host CABAC of earlier
+frames) and per frame otherwise.  ``set_base_qp`` and ``reset_stream``
+run a QP ladder on one encoder.  Every other structure raises
+NotImplementedError: B frames and GOPs, rate control, ROI/AQ, field
+pictures, selective encryption, TMVP, RDOQ and sign hiding on the
+fixed grid.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ def _unsupported_structure(cfg: Config) -> list:
     out = []
     if cfg.gop_len > 1:
         out.append("GOP structures (B frames)")
+        if var_inter(cfg):
+            out.append("variable P/B CU trees on B frames")
     if cfg.bitrate > 0:
         out.append("rate control")
     return out
@@ -119,6 +125,31 @@ class Encoder:
 
     def headers(self) -> bytes:
         return self._intra.headers()
+
+    def set_base_qp(self, qp: int) -> None:
+        """Change the stream's base QP, from the next picture on (the JAX
+        package's Encoder.set_base_qp).  The frame encoders of other QPs
+        are dropped and made again at first use.  With reset_stream(),
+        one encoder runs a BD-rate ladder: each QP's stream equals a
+        fresh Encoder's at that QP on the variable-tree operating
+        points."""
+        self.cfg = dataclasses.replace(self.cfg, qp=qp).validate()
+        for enc in self._encoders.values():
+            if enc is not self._intra:
+                enc.close()
+        self._intra.set_base_qp(qp)
+        self._encoders = {qp: self._intra}
+
+    def reset_stream(self) -> None:
+        """Start a new bitstream on this encoder: the parameter sets are
+        written again, the POC restarts at 0 (the next picture is an
+        IDR) and the DPBs are emptied."""
+        self._poc = 0
+        self._last_idr = 0
+        self._wrote_headers = False
+        self._irap_count = 0
+        self._dpb_ld = {}
+        self._intra._dpb = None
 
     def _au_prefix(self, slice_type: int) -> bytes:
         """Per-access-unit prefix: AUD, then parameter sets + version

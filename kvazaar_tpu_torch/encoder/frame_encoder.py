@@ -2,24 +2,27 @@
 
 Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
 (IntraFrameEncoder at cu 8/16/32, with PFrameMixin's P frames against
-one or more references) and for variable CU trees on I frames
+one or more references), for variable CU trees on I frames
 (``encode_frame_var``: CUs 8..32 or 8..64, rd 0-2, RDOQ and sign
-hiding; in a stream with P frames, those run on the fixed grid of
-min(intra_max_cu, 32)).  The device program
-(intra mode search; for P frames motion search, the intra/inter
-decision and motion compensation; wavefront reconstruction, deblocking,
-per-frame SSE; on all-intra streams SAO) is plain tensor code on the
-encoder's device, with the fixed grid's reconstruction in the CUDA
+hiding) and on P frames with one reference (``encode_frame_var_p``,
+where ``var_inter`` holds; the P frames of low-delay GOP structures and
+of more than one reference run on the fixed grid of min(intra_max_cu,
+32)).  The device program (intra mode search; for P frames motion
+search, the intra/inter decision and motion compensation; wavefront
+reconstruction, deblocking, per-frame SSE; SAO) is plain tensor code on
+the encoder's device, with the fixed grid's reconstruction in the CUDA
 kernel on a card; the host picks a variable tree and plans its
-wavefront, decides merge/AMVP signalling, serializes slice data with
-the native CABAC (WPP substreams) and frames the NAL units.
+wavefront, runs the merge RD of a P tree, decides merge/AMVP signalling,
+serializes slice data with the native CABAC (WPP substreams) and frames
+the NAL units.
 
 SAO runs on the device right after deblocking (statistics, decision and
-filter, ``_sao_stage``) on I frames; only the packed per-CTU parameters
-come back, and the filtered reconstruction is the reference of the next
-P frame.  Fixed-grid P frames run no SAO stage and code every CTU's SAO
-as off, as the JAX package's do.  The per-frame SSEs are taken before
-SAO, as the JAX package takes them on its pipelined path.
+filter, ``_sao_stage``) on I frames and variable-tree P frames; only the
+packed per-CTU parameters come back, and the filtered reconstruction is
+the reference of the next P frame.  Fixed-grid P frames run no SAO
+stage and code every CTU's SAO as off, as the JAX package's do.  The
+per-frame SSEs are taken before SAO, as the JAX package takes them on
+its pipelined path.
 
 Transfers are dense: int16 levels, uint8 modes and recon, the inter map
 and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
@@ -51,17 +54,23 @@ from kvazaar_tpu_torch.constants import (CHROMA_QP_TAB, NAL_IDR_W_RADL,
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.bitstream import native
 from kvazaar_tpu_torch.encoder.inter_cands import (
-    amvp_candidates, amvp_pair_p_multiref_at, merge_candidates,
-    merge_list_p_multiref_at)
+    _integral, amvp_candidates, amvp_pair_p_multiref_at, merge_amvp_var_vec,
+    merge_candidates, merge_list_p_multiref_at, var_origin_maps,
+    var_p_derive, var_skip8_vec)
 from kvazaar_tpu_torch.encoder.inter_search import (mc_planes,
+                                                    mc_planes_cells,
+                                                    merge_satd_maps_p,
                                                     search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
                                                    reconstruct_frames)
 from kvazaar_tpu_torch.encoder.intra_search import _f32, search_frame_modes
 from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
+                                                build_cell_fields,
                                                 choose_tree,
                                                 reconstruct_frame_var,
-                                                search_quadtree)
+                                                search_quadtree,
+                                                search_quadtree_p,
+                                                var_bs_maps, var_edge_masks)
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
 from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
@@ -123,10 +132,9 @@ def unsupported(cfg: Config) -> list:
     out = []
     p_frames = cfg.intra_period != 1
     var_p = p_frames and var_inter(cfg)
-    if var_p:
-        out.append("variable P/B CU trees (variable trees are ported for "
-                   "I frames; the P frames of low-delay GOP structures and "
-                   "of more than one reference keep the fixed grid)")
+    if var_p and cfg.gop_len > 1:
+        out.append("variable P/B CU trees on B frames (GOP structures; "
+                   "variable P trees with one reference are ported)")
     if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
         out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
                    "ported; 64 inside a variable tree)")
@@ -144,7 +152,6 @@ def unsupported(cfg: Config) -> list:
     for name, on in (("RDOQ on the fixed CU grid", cfg.rdoq and fixed_grid),
                      ("sign hiding on the fixed CU grid",
                       cfg.signhide and fixed_grid),
-                     ("SAO on variable-tree P/B frames", cfg.sao and var_p),
                      ("transform skip", cfg.transform_skip),
                      ("lossless", cfg.lossless),
                      ("implicit RDPCM", cfg.implicit_rdpcm),
@@ -489,6 +496,9 @@ class PFrameMixin:
         if self._dpb is None:
             raise RuntimeError("encode_p_frame needs a reference: encode "
                                "an intra frame first")
+        if var_inter(self.cfg):
+            return self.encode_frame_var_p(y, cb, cr, poc=poc,
+                                           ref_poc=ref_poc)
         handle = self.submit_p(y, cb, cr, [(ref_poc, self._dpb)])
         res, recs = self.finalize_p_downloaded(
             self.download_p(handle), poc, [ref_poc], multi=False)
@@ -558,6 +568,18 @@ class IntraFrameEncoder(PFrameMixin):
     def headers(self) -> bytes:
         return (write_vps(self.params) + write_sps(self.params)
                 + write_pps(self.params))
+
+    def set_base_qp(self, qp: int) -> None:
+        """Re-point the encoder at base QP qp: the config, the PPS
+        init_qp, the chroma QP and the search lambda (every device stage
+        takes QP and lambdas per call, so no cached table depends on
+        them).  As in the JAX package, the fixed grid's P-frame motion
+        lambda keeps its value from construction: the call serves the
+        variable-tree operating points of a BD-rate ladder."""
+        self.cfg = dataclasses.replace(self.cfg, qp=qp)
+        self.params.qp = qp
+        self.qp_c = chroma_qp(qp)
+        self.lambda_satd = math.sqrt(qp_to_lambda(qp))
 
     def _encode_from_planes(self, ys, cbs, crs):
         """Device program for a (B, H, W) batch: returns (modes uint8
@@ -793,19 +815,7 @@ class IntraFrameEncoder(PFrameMixin):
         size8 = choose_tree(costs, self.coded_w, self.coded_h,
                             qp_to_lambda(self.cfg.qp), percu_bits=0.0,
                             split_bits=SPLIT_FLAG_BINS)
-        # 64x64 CUs reconstruct as four same-mode 32x32 TBs (forced TU
-        # split, 7.3.8.8): schedule them as 32-blocks carrying the 64
-        # CU's mode; depth8 and serialization keep the true tree.
-        sched_size8 = np.minimum(size8, 32).astype(size8.dtype)
-        if 64 in mode_maps and (size8 == 64).any():
-            m32 = mode_maps[32].copy()
-            up = np.kron(mode_maps[64], np.ones((2, 2), m32.dtype))
-            mask32 = size8[::4, ::4] == 64
-            region = m32[:up.shape[0], :up.shape[1]]
-            m32[:up.shape[0], :up.shape[1]] = np.where(
-                mask32[:up.shape[0], :up.shape[1]], up, region)
-            mode_maps = dict(mode_maps)
-            mode_maps[32] = m32
+        sched_size8, mode_maps = _sched_sizes(size8, mode_maps)
         vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
                             self.coded_h, self.chroma)
         return size8, sched_size8, mode_maps, vp
@@ -813,8 +823,9 @@ class IntraFrameEncoder(PFrameMixin):
     def var_sched_arrays(self, vp, planes, sched_size8) -> dict:
         """The schedule reconstruct_frame_var reads, on the device: per
         class its compact slot tensors over the plan's real steps (the
-        slot counts stay on the host), the source planes and the
-        deblocking bS maps."""
+        slot counts stay on the host), the source planes, the deblocking
+        bS maps of an I tree and, for a P tree's plan, the direct pass's
+        inter CUs per size."""
         n = max(vp.n_steps_real, 1)
         dev = self.device
 
@@ -839,6 +850,13 @@ class IntraFrameEncoder(PFrameMixin):
                     "corner_h": up(cs.corner_h[:n]),
                     "modes": up(cs.modes[:n])}
         sched["plane_y"], sched["plane_cb"], sched["plane_cr"] = planes
+        # P trees: each size's inter CUs as one exact batch (x0, y0) for
+        # the direct pass, luma and chroma.
+        for kind, batches in (("iluma", vp.iluma), ("ichroma", vp.ichroma)):
+            if batches is not None:
+                sched[kind] = {s: (up(d["x0"][d["valid"]]),
+                                   up(d["y0"][d["valid"]]))
+                               for s, d in batches.items()}
         # Deblocking bS on the 8x8 cell grid: intra edges (bS 2) exactly
         # at CU/TU boundaries (a 64 CU's forced 32x32 TUs are TU
         # boundaries, 8.7.2; sched_size8 caps at 32).
@@ -927,6 +945,176 @@ class IntraFrameEncoder(PFrameMixin):
         _set_sao(fd, host(sao))
         return self._serialize_i(fd, *rec_np)
 
+    # ---- Variable-CU P frames (one reference) ----
+
+    def var_p_search(self, yp: torch.Tensor, ref_y: torch.Tensor):
+        """Device search of a P tree at every candidate CU size of the
+        (H, W) int32 source luma against the reference luma: (costs,
+        modes, mvs, inter maps) dicts size -> grids, on the device."""
+        cfg = self.cfg
+        return search_quadtree_p(
+            yp, ref_y, self.coded_w, self.coded_h, self.lambda_satd,
+            cfg.me_range, self.bitdepth, (cfg.intra_min_cu, cfg.intra_max_cu),
+            (cfg.inter_min_cu, cfg.inter_max_cu), cfg.rd >= 1,
+            subpel=cfg.me_subpel, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp))
+
+    def var_p_plan(self, costs, modes, mvs, imaps):
+        """Host stage of a P tree: the tree argmin over the searched RD
+        costs, the decisions expanded onto the 8x8 cells, and the
+        wavefront plan of its intra CUs (inter CUs go to the direct
+        pass).  Returns (size8, sched_size8, mode_maps, inter8 (h8, w8)
+        bool, mv_cells (h8, w8, 2) int32, VarPlan)."""
+        host = {k: {s: v.cpu().numpy() for s, v in d.items()}
+                for k, d in (("c", costs), ("m", modes), ("v", mvs),
+                             ("i", imaps))}
+        size8 = choose_tree(host["c"], self.coded_w, self.coded_h,
+                            qp_to_lambda(self.cfg.qp), percu_bits=0.0,
+                            split_bits=SPLIT_FLAG_BINS)
+        sched_size8, mode_maps = _sched_sizes(size8, host["m"])
+        inter8, mv_cells = build_cell_fields(size8, host["i"], host["v"])
+        vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
+                            self.coded_h, self.chroma, inter8_map=inter8)
+        return size8, sched_size8, mode_maps, inter8, mv_cells, vp
+
+    # Truncated-unary merge_idx bin counts (max_num_merge_cand 5).
+    _MERGE_IDX_BITS = np.array([1.0, 2.0, 3.0, 4.0, 4.0])
+
+    def merge_rd_p(self, yp, ref_y, size8, inter8, mv_cells):
+        """Merge-mode RD of a P tree: each inter CU's five merge
+        candidates as MC hypotheses (one device pass of per-cell SATD
+        maps) against its searched MV with its mvd rate, by SATD +
+        lambda * bits in float64 on the host; a winning candidate's MV
+        replaces the CU's (the signalling is derived again from the
+        final field).  Returns the new mv_cells."""
+        d = var_p_derive(size8, inter8, mv_cells)
+        cy, cx, cells = d["cy"], d["cx"], d["cells"]
+        n = cy.size
+        if n == 0:
+            return mv_cells
+        oy, ox = var_origin_maps(size8)
+        h8, w8 = inter8.shape
+        cand_cells = np.empty((5, h8, w8, 2), np.int32)
+        for k in range(5):
+            g = mv_cells.copy()
+            g[cy, cx] = d["cands"][:, k]
+            cand_cells[k] = g[oy, ox]
+        maps = merge_satd_maps_p(
+            yp, ref_y, torch.from_numpy(cand_cells).to(self.device),
+            torch.from_numpy(mv_cells).to(self.device),
+            self.bitdepth).cpu().numpy()
+        sums = np.empty((6, n), np.int64)
+        for k in range(6):
+            icum = _integral(maps[k])
+            sums[k] = (icum[cy + cells, cx + cells] - icum[cy, cx + cells]
+                       - icum[cy + cells, cx] + icum[cy, cx])
+        mine, p0, p1 = d["mine"], d["p0"], d["p1"]
+        amvp_bits = 1.0 + np.minimum(_mvd_bits_np(mine - p0).sum(axis=1),
+                                     _mvd_bits_np(mine - p1).sum(axis=1))
+        lam = self.lambda_satd
+        costs = np.empty((6, n))
+        for k in range(5):
+            costs[k] = sums[k] + lam * self._MERGE_IDX_BITS[k]
+        costs[5] = sums[5] + lam * amvp_bits
+        win = costs.argmin(axis=0)
+        upd = win < 5
+        if not upd.any():
+            return mv_cells
+        g = mv_cells.copy()
+        g[cy[upd], cx[upd]] = d["cands"][upd, win[upd]]
+        return g[oy, ox]
+
+    def var_p_sched(self, vp, planes, size8, inter8, mv_cells) -> dict:
+        """var_sched_arrays of a P tree plus its motion field and the
+        deblocking inputs (inter cells, TU-edge masks), on the device."""
+        sched = self.var_sched_arrays(vp, planes, size8)
+        del sched["bs_v"], sched["bs_h"]
+        ev, eh = var_edge_masks(size8)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        sched.update(edge_v=up(ev), edge_h=up(eh), inter8=up(inter8),
+                     mv_cells=up(mv_cells))
+        return sched
+
+    def var_recon_p(self, sched, refs):
+        """MC of the cell motion field from the reference planes, the
+        P tree's reconstruction (direct inter pass, then the intra
+        wavefront) and its deblocking with the tree's bS.  Returns
+        (deblocked recon uint8 (y, cb, cr), levels int16 (y, cb, cr))."""
+        cfg = self.cfg
+        mcs = mc_planes_cells(*refs, sched["mv_cells"], self.bitdepth)
+        recs, levels, cbf8 = reconstruct_frame_var(
+            sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
+            self.chroma, self.bitdepth, signhide=cfg.signhide,
+            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp), mc_planes=mcs)
+        ry, rcb, rcr = recs
+        if cfg.deblock:
+            bs_v, bs_h = var_bs_maps(sched["inter8"], cbf8,
+                                     sched["mv_cells"], sched["edge_v"],
+                                     sched["edge_h"])
+            ry, rcb, rcr = deblock_frame(ry, rcb, rcr, cfg.qp, 8,
+                                         self.bitdepth, bs_v=bs_v,
+                                         bs_h=bs_h)
+        return tuple(None if r is None else r.to(torch.uint8)
+                     for r in (ry, rcb, rcr)), levels
+
+    def var_p_frame_data(self, size8, sched_size8, mode_maps, inter8,
+                         mv_cells, levels) -> FrameData:
+        """Host assembly of a P tree's FrameData: the var_frame_data
+        fields, the motion field, merge/AMVP signalling and skip flags
+        (levels: numpy (y, cb, cr) planes)."""
+        fd = self.var_frame_data(size8, sched_size8, mode_maps, levels)
+        fd.inter8[:] = inter8.astype(np.uint8)
+        fd.mv8[:] = mv_cells
+        merge8, mvp8, mvd8 = merge_amvp_var_vec(size8, inter8, mv_cells)
+        fd.merge8[:] = np.clip(merge8, -1, 4).astype(np.int8)
+        fd.mvp8[:] = mvp8
+        fd.mvd8[:] = mvd8
+        fd.skip8[:] = var_skip8_vec(size8, inter8, merge8, fd.coeff_y,
+                                    fd.coeff_cb if self.chroma else None,
+                                    fd.coeff_cr if self.chroma else None)
+        return fd
+
+    def encode_frame_var_p(self, y, cb=None, cr=None, poc: int = 1,
+                           ref_poc: int = 0) -> FrameResult:
+        """Variable-CU P frame against the DPB: device search at every
+        size, host tree argmin and plan, merge RD, device MC,
+        reconstruction, deblocking and SAO (at the frame QP's lambda,
+        the frame lambda of a P frame without a GOP layer's override),
+        host signalling and CABAC.  The SAO-filtered recon becomes the
+        DPB."""
+        planes = tuple(None if a is None else a[0] for a in self._upload(
+            self.host_pack_sources([(y, cb, cr)])))
+        refs = self._dpb
+        size8, sched_size8, mode_maps, inter8, mv_cells, vp = \
+            self.var_p_plan(*self.var_p_search(planes[0], refs[0]))
+        mv_cells = self.merge_rd_p(planes[0], refs[0], size8, inter8,
+                                   mv_cells)
+        recs, levels = self.var_recon_p(
+            self.var_p_sched(vp, planes, size8, inter8, mv_cells), refs)
+        sao = None
+        if self.cfg.sao:
+            recs, sao = self.var_sao(planes, recs)
+        self._dpb = recs
+
+        def host(t):
+            return None if t is None else t.cpu().numpy()
+
+        rec_np = [host(r) for r in recs]
+        fd = self.var_p_frame_data(size8, sched_size8, mode_maps, inter8,
+                                   mv_cells, [host(lv) for lv in levels])
+        _set_sao(fd, host(sao))
+        nal = self._serialize_p(fd, poc, poc - ref_poc)
+        if self.cfg.hash in ("md5", "checksum"):
+            from kvazaar_tpu_torch.bitstream.headers import \
+                write_picture_hash_sei
+            nal += write_picture_hash_sei(rec_np, self.bitdepth,
+                                          kind=self.cfg.hash)
+        return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
+                           recon_cr=rec_np[2], frame_data=fd,
+                           bits=len(nal) * 8)
+
     def encode_frames(self, frames) -> list[FrameResult]:
         """Encode a batch of frames through one batched device program
         (a variable tree: one frame at a time)."""
@@ -944,6 +1132,33 @@ class IntraFrameEncoder(PFrameMixin):
         if self._host_pool is not None:
             self._host_pool.shutdown()
             self._host_pool = None
+
+
+def _sched_sizes(size8: np.ndarray, mode_maps: dict):
+    """(sched_size8, mode_maps) of a tree's wavefront: 64x64 CUs
+    reconstruct as four 32x32 TBs (the forced TU split, 7.3.8.8), so
+    they are scheduled as 32 blocks carrying the 64 CU's mode; depth8
+    and the serialization keep the true tree."""
+    sched_size8 = np.minimum(size8, 32).astype(size8.dtype)
+    if 64 in mode_maps and (size8 == 64).any():
+        m32 = mode_maps[32].copy()
+        up = np.kron(mode_maps[64], np.ones((2, 2), m32.dtype))
+        mask32 = size8[::4, ::4] == 64
+        region = m32[:up.shape[0], :up.shape[1]]
+        m32[:up.shape[0], :up.shape[1]] = np.where(
+            mask32[:up.shape[0], :up.shape[1]], up, region)
+        mode_maps = dict(mode_maps)
+        mode_maps[32] = m32
+    return sched_size8, mode_maps
+
+
+def _mvd_bits_np(v: np.ndarray) -> np.ndarray:
+    """Host form of the search's mvd bit estimate (float64)."""
+    a = np.abs(v).astype(np.int64)
+    nbits = np.zeros_like(a)
+    nz = a > 0
+    nbits[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return np.where(a == 0, 1, 2 * nbits + 1).astype(np.float64)
 
 
 def _set_sao(fd: FrameData, packed) -> None:

@@ -357,6 +357,357 @@ def amvp_pair_p_multiref_at(inter_map, refs, mv, avail, by, bx,
 
 
 
+def _cu_decode_key(cy8: int, cx8: int, cu_cells: int):
+    """Decode-order key of the CU containing 8-cell (cy8, cx8):
+    (CTU raster index, z index within the CTU)."""
+    from kvazaar_tpu_torch.encoder.geometry import z_order_index
+    ctu_y, ctu_x = cy8 // 8, cx8 // 8
+    zy = (cy8 % 8) // cu_cells
+    zx = (cx8 % 8) // cu_cells
+    return (ctu_y, ctu_x, z_order_index(zx, zy))
+
+
+def _pu_nbr(inter8, mv8, ny: int, nx: int, cur_key, cu_cells: int,
+            ref8=None):
+    """Motion of the PU covering cell (ny, nx), or None (availability:
+    inside picture, decoded before the current CU, not in the current
+    CU — 6.4.2 — and inter-coded)."""
+    h8, w8 = inter8.shape
+    if ny < 0 or nx < 0 or ny >= h8 or nx >= w8:
+        return None
+    if _cu_decode_key(ny, nx, cu_cells) >= cur_key:
+        return None
+    if not inter8[ny, nx]:
+        return None
+    m = (int(mv8[ny, nx, 0]), int(mv8[ny, nx, 1]))
+    if ref8 is None:
+        return m
+    return (int(ref8[ny, nx]), m)
+
+
+def merge_list_pu_at(inter8, mv8, by8: int, bx8: int, ph8: int,
+                     pw8: int, part: int, pu_idx: int, cu_cells: int,
+                     ref8=None, cu_yx=None):
+    """Merge candidate list for one PU at 8-cell rect (by8, bx8,
+    ph8, pw8).  part: HEVC PartMode (0=2Nx2N, 1=2NxN, 2=Nx2N,
+    4..7=AMP); pu_idx 0/1; cu_yx: the CU origin in 8-cells (defaults
+    to the symmetric-split derivation for back-compat).  Candidates
+    are MV tuples (or (ref, mv) with ref8).  The partIdx==1 merge
+    exclusions (e.g. 2NxN PU1/B1) ride the same-CU availability rule
+    (those cells are in the current CU)."""
+    if cu_yx is None:
+        cu_yx = (by8 - ph8 if (part == 1 and pu_idx) else by8,
+                 bx8 - pw8 if (part == 2 and pu_idx) else bx8)
+    key = _cu_decode_key(cu_yx[0], cu_yx[1], cu_cells)
+    a1 = _pu_nbr(inter8, mv8, by8 + ph8 - 1, bx8 - 1, key, cu_cells,
+                 ref8)
+    b1 = _pu_nbr(inter8, mv8, by8 - 1, bx8 + pw8 - 1, key, cu_cells,
+                 ref8)
+    b0 = _pu_nbr(inter8, mv8, by8 - 1, bx8 + pw8, key, cu_cells, ref8)
+    a0 = _pu_nbr(inter8, mv8, by8 + ph8, bx8 - 1, key, cu_cells, ref8)
+    b2 = _pu_nbr(inter8, mv8, by8 - 1, bx8 - 1, key, cu_cells, ref8)
+    out = []
+    if a1 is not None:
+        out.append(a1)
+    if b1 is not None and b1 != a1:
+        out.append(b1)
+    if b0 is not None and b0 != b1:
+        out.append(b0)
+    if a0 is not None and a0 != a1:
+        out.append(a0)
+    if len(out) < 4 and b2 is not None and b2 != a1 and b2 != b1:
+        out.append(b2)
+    zero = (0, (0, 0)) if ref8 is not None else (0, 0)
+    while len(out) < MAX_MERGE_CANDS:
+        out.append(zero)
+    return out
+
+
+def amvp_pair_pu_at(inter8, mv8, by8: int, bx8: int, ph8: int,
+                    pw8: int, part: int, pu_idx: int, cu_cells: int,
+                    cu_yx=None):
+    """AMVP pair for one PU (8.5.3.2.6 with one L0 reference: no
+    scaling; A = below-left else left, B = above-right else above else
+    above-left)."""
+    if cu_yx is None:
+        cu_yx = (by8 - ph8 if (part == 1 and pu_idx) else by8,
+                 bx8 - pw8 if (part == 2 and pu_idx) else bx8)
+    key = _cu_decode_key(cu_yx[0], cu_yx[1], cu_cells)
+    a = _pu_nbr(inter8, mv8, by8 + ph8, bx8 - 1, key, cu_cells)
+    if a is None:
+        a = _pu_nbr(inter8, mv8, by8 + ph8 - 1, bx8 - 1, key, cu_cells)
+    b = _pu_nbr(inter8, mv8, by8 - 1, bx8 + pw8, key, cu_cells)
+    if b is None:
+        b = _pu_nbr(inter8, mv8, by8 - 1, bx8 + pw8 - 1, key, cu_cells)
+    if b is None:
+        b = _pu_nbr(inter8, mv8, by8 - 1, bx8 - 1, key, cu_cells)
+    out = []
+    if a is not None:
+        out.append(a)
+    if b is not None and (a is None or b != a):
+        out.append(b)
+    while len(out) < 2:
+        out.append((0, 0))
+    return out
+
+
+# ---------------------------------------------------------------------
+# Scalar per-CU reference models of the variable-tree 2Nx2N signalling
+# derivation (the decode-order loops the oracle decoder also follows).
+# The encoder's hot path uses the vectorized forms below; these stay as
+# the equivalence oracle (tests/test_var_vec.py).
+# ---------------------------------------------------------------------
+
+def merge_amvp_var_scalar(size8, inter8, mv8):
+    """Decode-order merge/AMVP signalling for variable 2Nx2N inter
+    CUs (cell-granularity candidate rules, 6.4.2/8.5.3.2; z keys at
+    cell granularity linearize any tree)."""
+    from kvazaar_tpu_torch.encoder.var_schedule import _enumerate_cus
+    h8, w8 = inter8.shape
+    merge8 = np.full((h8, w8), -1, np.int32)
+    mvp8 = np.zeros((h8, w8), np.uint8)
+    mvd8 = np.zeros((h8, w8, 2), np.int32)
+    for (x0, y0, s) in _enumerate_cus(size8):
+        cy8, cx8 = y0 // 8, x0 // 8
+        if not inter8[cy8, cx8]:
+            continue
+        cells = s // 8
+        mine = (int(mv8[cy8, cx8, 0]), int(mv8[cy8, cx8, 1]))
+        mlist = merge_list_pu_at(inter8, mv8, cy8, cx8, cells,
+                                 cells, 0, 0, 1, cu_yx=(cy8, cx8))
+        if mine in mlist:
+            merge8[cy8, cx8] = mlist.index(mine)
+            continue
+        pair = amvp_pair_pu_at(inter8, mv8, cy8, cx8, cells,
+                               cells, 0, 0, 1, cu_yx=(cy8, cx8))
+        d0 = abs(mine[0] - pair[0][0]) + abs(mine[1] - pair[0][1])
+        d1 = abs(mine[0] - pair[1][0]) + abs(mine[1] - pair[1][1])
+        i = 1 if d1 < d0 else 0
+        mvp8[cy8, cx8] = i
+        mvd8[cy8, cx8] = (mine[0] - pair[i][0],
+                          mine[1] - pair[i][1])
+    return merge8, mvp8, mvd8
+
+
+def var_skip8_scalar(size8, inter8, merge8, coeff_y, coeff_cb=None,
+                     coeff_cr=None):
+    """cu_skip_flag per CU: 2Nx2N merge CUs with no coded
+    coefficients in any plane (cell-filled)."""
+    from kvazaar_tpu_torch.encoder.var_schedule import _enumerate_cus
+    h8, w8 = inter8.shape
+    skip8 = np.zeros((h8, w8), np.uint8)
+    for (x0, y0, s) in _enumerate_cus(size8):
+        cy8, cx8 = y0 // 8, x0 // 8
+        if not inter8[cy8, cx8] or merge8[cy8, cx8] < 0:
+            continue
+        cz = not coeff_y[y0:y0 + s, x0:x0 + s].any()
+        if cz and coeff_cb is not None:
+            cz = (not coeff_cb[y0 // 2:(y0 + s) // 2,
+                               x0 // 2:(x0 + s) // 2].any()
+                  and not coeff_cr[y0 // 2:(y0 + s) // 2,
+                                   x0 // 2:(x0 + s) // 2].any())
+        if cz:
+            c = s // 8
+            skip8[cy8:cy8 + c, cx8:cx8 + c] = 1
+    return skip8
+
+
+# ---------------------------------------------------------------------
+# Vectorized (frame-wide numpy) forms of the variable-tree 2Nx2N
+# signalling derivation — bit-identical to the scalar loops above
+# (tested in tests/test_var_vec.py), but one array pass per frame
+# instead of thousands of per-CU Python iterations (the host planning
+# stage sits on the encode critical path).
+# ---------------------------------------------------------------------
+
+def zkey_grid(h8: int, w8: int) -> np.ndarray:
+    """Cell-granularity decode-order key: CTU raster index * 64 +
+    Morton z within the CTU.  Strictly increasing in decode order, and
+    Z[cell] < Z[cu_origin] exactly when the cell's CU is decoded before
+    the CU at that origin (matches _cu_decode_key lexicographic
+    tuples)."""
+    y = np.arange(h8, dtype=np.int64)[:, None]
+    x = np.arange(w8, dtype=np.int64)[None, :]
+    ctu = (y // 8) * ((w8 + 7) // 8) + (x // 8)
+    zy, zx = y % 8, x % 8
+    z = np.zeros((h8, w8), np.int64)
+    for b in range(3):
+        z |= ((zx >> b) & 1) << (2 * b)
+        z |= ((zy >> b) & 1) << (2 * b + 1)
+    return ctu * 64 + z
+
+
+def var_origin_maps(size8: np.ndarray):
+    """(oy, ox): per-cell origin coordinates of the CU covering it
+    (size8 is cell-filled, CUs are size-aligned)."""
+    h8, w8 = size8.shape
+    cm = size8.astype(np.int64) // 8
+    y = np.arange(h8, dtype=np.int64)[:, None]
+    x = np.arange(w8, dtype=np.int64)[None, :]
+    return (y // cm) * cm, (x // cm) * cm
+
+
+def _var_cu_arrays(size8: np.ndarray, inter8: np.ndarray):
+    """Arrays (cy, cx, cells) of the inter CU origins of a var tree."""
+    h8, w8 = size8.shape
+    cm = size8.astype(np.int64) // 8
+    y = np.arange(h8, dtype=np.int64)[:, None]
+    x = np.arange(w8, dtype=np.int64)[None, :]
+    sel = ((y % cm) == 0) & ((x % cm) == 0) & (inter8 != 0)
+    cy, cx = np.nonzero(sel)
+    return cy.astype(np.int64), cx.astype(np.int64), cm[cy, cx]
+
+
+def _nbr_field(Z, key, inter8, ny, nx, *fields):
+    """Vectorized neighbor fetch at cell (ny, nx) per CU: ok mask +
+    each requested field's values (zero-filled where not ok)."""
+    h8, w8 = inter8.shape
+    inb = (ny >= 0) & (nx >= 0) & (ny < h8) & (nx < w8)
+    nyc = np.clip(ny, 0, h8 - 1)
+    nxc = np.clip(nx, 0, w8 - 1)
+    ok = inb & (Z[nyc, nxc] < key) & (inter8[nyc, nxc] != 0)
+    out = []
+    for f in fields:
+        v = f[nyc, nxc].astype(np.int64)
+        v[~ok] = 0
+        out.append(v)
+    return (ok,) + tuple(out)
+
+
+def _neq2(a, b):
+    return (a != b).any(axis=-1)
+
+
+def var_p_derive(size8: np.ndarray, inter8: np.ndarray,
+                 mv8: np.ndarray):
+    """Vectorized per-CU derivation for P variable trees: CU arrays,
+    the 5-entry merge candidate lists, and the AMVP pair.  Returns a
+    dict {cy, cx, cells, mine, cands (n,5,2), p0, p1} (int64)."""
+    h8, w8 = inter8.shape
+    cy, cx, cells = _var_cu_arrays(size8, inter8)
+    n = cy.size
+    out = dict(cy=cy, cx=cx, cells=cells)
+    if n == 0:
+        out.update(mine=np.zeros((0, 2), np.int64),
+                   cands=np.zeros((0, 5, 2), np.int64),
+                   p0=np.zeros((0, 2), np.int64),
+                   p1=np.zeros((0, 2), np.int64))
+        return out
+    Z = zkey_grid(h8, w8)
+    key = Z[cy, cx]
+    mine = mv8[cy, cx].astype(np.int64)
+
+    def nbr(dy, dx):
+        return _nbr_field(Z, key, inter8, cy + dy, cx + dx, mv8)
+
+    a1ok, a1 = nbr(cells - 1, -1)
+    b1ok, b1 = nbr(-1, cells - 1)
+    b0ok, b0 = nbr(-1, cells)
+    a0ok, a0 = nbr(cells, -1)
+    b2ok, b2 = nbr(-1, -1)
+
+    use = np.zeros((n, 5), bool)
+    use[:, 0] = a1ok
+    use[:, 1] = b1ok & (~a1ok | _neq2(b1, a1))
+    use[:, 2] = b0ok & (~b1ok | _neq2(b0, b1))
+    use[:, 3] = a0ok & (~a1ok | _neq2(a0, a1))
+    n4 = use[:, :4].sum(axis=1)
+    use[:, 4] = (b2ok & (n4 < 4) & (~a1ok | _neq2(b2, a1))
+                 & (~b1ok | _neq2(b2, b1)))
+
+    cands = np.zeros((n, MAX_MERGE_CANDS, 2), np.int64)
+    src = np.stack([a1, b1, b0, a0, b2], axis=1)
+    slot = np.zeros(n, np.int64)
+    for k in range(5):
+        u = use[:, k]
+        idx = np.nonzero(u)[0]
+        cands[idx, slot[idx]] = src[idx, k]
+        slot[idx] += 1
+
+    # AMVP: A = below-left else left; B = above-right else above else
+    # above-left; slot1 only when both and different.
+    aok = a0ok | a1ok
+    a = np.where(a0ok[:, None], a0, a1)
+    bok = b0ok | b1ok | b2ok
+    b = np.where(b0ok[:, None], b0, np.where(b1ok[:, None], b1, b2))
+    p0 = np.where(aok[:, None], a, np.where(bok[:, None], b, 0))
+    second = aok & bok & _neq2(b, a)
+    p1 = np.where(second[:, None], b, 0)
+    out.update(mine=mine, cands=cands, p0=p0, p1=p1)
+    return out
+
+
+def merge_amvp_var_vec(size8: np.ndarray, inter8: np.ndarray,
+                       mv8: np.ndarray):
+    """Vectorized P-slice variable-tree merge/AMVP signalling:
+    per-CU equivalent of merge_list_pu_at + amvp_pair_pu_at at cell
+    granularity (cu_cells=1, cu_yx=origin).  Returns (merge8, mvp8,
+    mvd8) shaped like the frame cell grid."""
+    h8, w8 = inter8.shape
+    merge8 = np.full((h8, w8), -1, np.int32)
+    mvp8 = np.zeros((h8, w8), np.uint8)
+    mvd8 = np.zeros((h8, w8, 2), np.int32)
+    d = var_p_derive(size8, inter8, mv8)
+    cy, cx = d["cy"], d["cx"]
+    n = cy.size
+    if n == 0:
+        return merge8, mvp8, mvd8
+    mine, cands, p0, p1 = d["mine"], d["cands"], d["p0"], d["p1"]
+
+    midx = np.full(n, -1, np.int64)
+    for k in range(MAX_MERGE_CANDS - 1, -1, -1):
+        eq = (cands[:, k] == mine).all(axis=1)
+        midx = np.where(eq, k, midx)
+    merged = midx >= 0
+
+    d0 = np.abs(mine - p0).sum(axis=1)
+    d1 = np.abs(mine - p1).sum(axis=1)
+    pick1 = d1 < d0
+    pick = np.where(pick1[:, None], p1, p0)
+
+    merge8[cy[merged], cx[merged]] = midx[merged]
+    um = ~merged
+    mvp8[cy[um], cx[um]] = pick1[um].astype(np.uint8)
+    mvd8[cy[um], cx[um]] = (mine - pick)[um].astype(np.int32)
+    return merge8, mvp8, mvd8
+
+
+def _integral(a: np.ndarray) -> np.ndarray:
+    out = np.zeros((a.shape[0] + 1, a.shape[1] + 1), np.int64)
+    np.cumsum(np.cumsum(a, 0, dtype=np.int64), 1, out=out[1:, 1:])
+    return out
+
+
+def var_skip8_vec(size8, inter8, merge8, coeff_y, coeff_cb=None,
+                  coeff_cr=None):
+    """Vectorized cu_skip_flag: 2Nx2N merge CUs whose coefficient
+    rects are all-zero in every plane (integral-image rect sums,
+    cell-filled via the origin gather)."""
+    h8, w8 = size8.shape
+    cy, cx, cells = _var_cu_arrays(size8, inter8)
+    if cy.size == 0:
+        return np.zeros((h8, w8), np.uint8)
+    cand = merge8[cy, cx] >= 0
+    Iy = _integral(np.asarray(coeff_y) != 0)
+
+    def rect_nz(I, y0, x0, s):
+        return (I[y0 + s, x0 + s] - I[y0, x0 + s] - I[y0 + s, x0]
+                + I[y0, x0])
+
+    y0, x0, s = cy * 8, cx * 8, cells * 8
+    zero = rect_nz(Iy, y0, x0, s) == 0
+    if coeff_cb is not None:
+        Icb = _integral(np.asarray(coeff_cb) != 0)
+        Icr = _integral(np.asarray(coeff_cr) != 0)
+        yc, xc, sc = cy * 4, cx * 4, cells * 4
+        zero &= (rect_nz(Icb, yc, xc, sc) == 0)
+        zero &= (rect_nz(Icr, yc, xc, sc) == 0)
+    q = np.zeros((h8, w8), bool)
+    q[cy, cx] = cand & zero
+    oy, ox = var_origin_maps(size8)
+    return q[oy, ox].astype(np.uint8)
+
+
 def pu_cell_rects(by8: int, bx8: int, cells: int, part: int):
     """PU rectangles in 8-cells (y, x, h, w), decode order, for a CU
     at (by8, bx8).  part: HEVC PartMode (0, 1=2NxN, 2=Nx2N,

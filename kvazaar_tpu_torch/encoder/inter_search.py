@@ -2,12 +2,14 @@
 with a rate-aware second pass, then dense quarter-pel SATD refinement;
 and full-frame motion compensation of the final MVs.
 
-Counterpart of kvazaar_tpu/encoder/inter_search.py (search_inter_frame
-without the hierarchical hint; mc_planes for one reference or stacked
-references with a per-block reference index).  Costs are
-formed in float32 exactly as the JAX package forms them (the Python
-lambda rounded to float32 first), and every argmin takes the first
-index of a tie, as JAX does.
+Counterpart of kvazaar_tpu/encoder/inter_search.py: search_inter_frame
+with its exhaustive search or the refinement of a hierarchical hint;
+mc_planes for one reference or stacked references with a per-block
+reference index; the 8x8-cell MC of variable trees (mc_planes_cells)
+and the per-cell SATD maps of P merge hypotheses (merge_satd_maps_p).
+Costs are formed in float32 exactly as the JAX package forms them (the
+Python lambda rounded to float32 first), and every argmin takes the
+first index of a tie, as JAX does.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder.intra_search import _f32, satd8_batch
-from kvazaar_tpu_torch.ops.inter import (device_table, mc_chroma, mc_luma,
+from kvazaar_tpu_torch.ops.inter import (device_table, gather_windows,
+                                         mc_chroma, mc_luma,
                                          refine_qpel_dense, sad_surfaces)
 
 
@@ -56,20 +59,90 @@ def _block_origins(plan: IntraFramePlan, device: torch.device):
             torch.from_numpy((ys * s).reshape(-1)).to(device))
 
 
+def _int_refine_sads(cur_blocks, ref, x0s, y0s, centers_px, rng: int,
+                     size: int) -> torch.Tensor:
+    """(N, (2rng+1)^2) integer-pel SADs around per-block centers, offsets
+    row-major over dy then dx in -rng..rng: one (S+2rng)^2 window per
+    block, then shifted slices of it."""
+    win = gather_windows(ref, x0s + centers_px[:, 0] - rng,
+                         y0s + centers_px[:, 1] - rng, size + 2 * rng)
+    d = 2 * rng + 1
+    out = []
+    for dy in range(d):
+        rows = win[:, dy:dy + size]                    # (N, S, S + 2rng)
+        sl = torch.stack([rows[..., dx:dx + size] for dx in range(d)],
+                         dim=1)                         # (N, D, S, S)
+        out.append(torch.abs(sl - cur_blocks[:, None]).sum(
+            dim=(-2, -1), dtype=torch.int32))
+    return torch.cat(out, dim=1)
+
+
+def _refine_offsets(rng: int) -> np.ndarray:
+    return np.array([(dx, dy) for dy in range(-rng, rng + 1)
+                     for dx in range(-rng, rng + 1)], np.int32)
+
+
+def _hint_search(cur_blocks, ref, x0s, y0s, mv_hint, by: int, bx: int,
+                 s: int, lam: float):
+    """Hierarchical stage 2: +-4 full-resolution SADs around the coarse
+    hint and around zero, pass 1 the SAD argmin over both candidate sets
+    (hint first), pass 2 the rate-aware re-rank.  Returns (mv_int (N, 2)
+    quarter-pel, multiples of 4; the (N, 2) median predictor)."""
+    n = by * bx
+    rng = 4
+    dev = cur_blocks.device
+    offs = torch.from_numpy(_refine_offsets(rng)).to(dev)      # (K, 2)
+    centers = mv_hint.reshape(n, 2).to(torch.int32) >> 2
+    zero = torch.zeros_like(centers)
+    sads = torch.cat([
+        _int_refine_sads(cur_blocks, ref, x0s, y0s, centers, rng, s),
+        _int_refine_sads(cur_blocks, ref, x0s, y0s, zero, rng, s)], dim=1)
+    cands = torch.cat([centers[:, None] + offs, zero[:, None] + offs],
+                      dim=1)                                   # (N, 2K, 2)
+    ar = torch.arange(n, device=dev)
+    mv1 = cands[ar, torch.argmin(sads, dim=1)] * 4
+    pred = _mv_pred_grid(mv1.reshape(by, bx, 2)).reshape(n, 1, 2)
+    q = cands * 4
+    bits = (_mv_bits_est(q[..., 0] - pred[..., 0])
+            + _mv_bits_est(q[..., 1] - pred[..., 1]))
+    cost = sads.to(torch.float32) + bits * lam
+    return q[ar, torch.argmin(cost, dim=1)], pred.reshape(n, 2)
+
+
+def _full_search(cur, ref, by: int, bx: int, s: int, r: int,
+                 bitdepth: int, lam: float):
+    """Exhaustive +-r integer search: pass 1 the pure-SAD winner, pass 2
+    the re-rank with the mv rate against the median predictor of the
+    pass-1 field.  Returns (mv_int (N, 2), predictor (N, 2))."""
+    n = by * bx
+    d = 2 * r + 1
+    sads = sad_surfaces(cur, ref, r, s, bitdepth).reshape(n, d, d)
+    idx1 = torch.argmin(sads.reshape(n, -1), dim=-1)
+    mv1 = torch.stack([idx1 % d - r, idx1 // d - r], dim=-1)
+    mv1 = (mv1 * 4).reshape(by, bx, 2)
+    pred = _mv_pred_grid(mv1).reshape(n, 1, 1, 2)
+    steps = torch.arange(-r, r + 1, device=cur.device) * 4
+    bits = (_mv_bits_est(steps[None, None, :] - pred[..., 0])
+            + _mv_bits_est(steps[None, :, None] - pred[..., 1]))
+    cost = sads.to(torch.float32) + bits * lam
+    idx2 = torch.argmin(cost.reshape(n, -1), dim=-1)
+    mv_int = (torch.stack([idx2 % d - r, idx2 // d - r], dim=-1)
+              * 4).to(torch.int32)
+    return mv_int, pred.reshape(n, 2)
+
+
 def search_inter_frame(cur, ref, plan: IntraFramePlan, lambda_satd: float,
                        me_range: int, bitdepth: int = 8,
                        subpel: bool = True, mv_hint=None):
     """cur/ref: (H, W) integer planes (ref is the deblocked previous
-    reconstruction).  Returns (mv (By, Bx, 2) int32 quarter-pel, cost
-    (By, Bx) float32: SATD + lambda * mv bits of the winner)."""
-    if mv_hint is not None:
-        raise NotImplementedError("hierarchical ME (mv_hint) is not "
-                                  "ported")
+    reconstruction).  With mv_hint ((By, Bx, 2) quarter-pel, from
+    ops.inter.coarse_mv_grids) the integer search refines around the
+    hint and around zero instead of the exhaustive +-me_range search.
+    Returns (mv (By, Bx, 2) int32 quarter-pel, cost (By, Bx) float32:
+    SATD + lambda * mv bits of the winner)."""
     s = plan.cu_size
     by, bx = plan.blocks_y, plan.blocks_x
     n = by * bx
-    r = me_range
-    d = 2 * r + 1
     dev = cur.device
     lam = _f32(lambda_satd)
     x0s, y0s = _block_origins(plan, dev)
@@ -78,23 +151,12 @@ def search_inter_frame(cur, ref, plan: IntraFramePlan, lambda_satd: float,
     cur_blocks = cur.reshape(by, s, bx, s).permute(0, 2, 1, 3)
     cur_blocks = cur_blocks.reshape(n, s, s)
 
-    sads = sad_surfaces(cur, ref, r, s, bitdepth).reshape(n, d, d)
-
-    # Pass 1: pure-SAD integer winner.
-    idx1 = torch.argmin(sads.reshape(n, -1), dim=-1)
-    mv1 = torch.stack([idx1 % d - r, idx1 // d - r], dim=-1)
-    mv1 = (mv1 * 4).reshape(by, bx, 2)
-
-    # Pass 2: re-minimize with the mv rate against the median predictor.
-    pred = _mv_pred_grid(mv1).reshape(n, 1, 1, 2)
-    steps = torch.arange(-r, r + 1, device=dev) * 4
-    bits = (_mv_bits_est(steps[None, None, :] - pred[..., 0])
-            + _mv_bits_est(steps[None, :, None] - pred[..., 1]))
-    cost = sads.to(torch.float32) + bits * lam
-    idx2 = torch.argmin(cost.reshape(n, -1), dim=-1)
-    mv_int = (torch.stack([idx2 % d - r, idx2 // d - r], dim=-1)
-              * 4).to(torch.int32)
-    pred_n = pred.reshape(n, 2)
+    if mv_hint is not None:
+        mv_int, pred_n = _hint_search(cur_blocks, ref, x0s, y0s, mv_hint,
+                                      by, bx, s, lam)
+    else:
+        mv_int, pred_n = _full_search(cur, ref, by, bx, s, me_range,
+                                      bitdepth, lam)
 
     if not subpel:
         preds = mc_luma(ref, x0s, y0s, mv_int, s, bitdepth)
@@ -149,3 +211,43 @@ def mc_planes(ref_y, ref_cb, ref_cr, mv, plan: IntraFramePlan,
                     bitdepth, ridx)
     return (out_y, _blocks_to_plane(pcb, by, bx, s2),
             _blocks_to_plane(pcr, by, bx, s2))
+
+
+def _cell_origins(h8: int, w8: int, device: torch.device):
+    ys, xs = np.mgrid[0:h8, 0:w8]
+    return (torch.from_numpy((xs * 8).reshape(-1)).to(device),
+            torch.from_numpy((ys * 8).reshape(-1)).to(device))
+
+
+def mc_planes_cells(ref_y, ref_cb, ref_cr, mv_cells, bitdepth: int = 8):
+    """Full-frame MC driven by an 8x8-cell motion field (h8, w8, 2): the
+    MC of every CU size of a variable tree at once (interpolation does
+    not depend on where the block starts, so MC per 8x8 cell equals MC
+    per CU).  Returns (pred_y (H, W), pred_cb, pred_cr) int32."""
+    h8, w8 = mv_cells.shape[:2]
+    x0s, y0s = _cell_origins(h8, w8, mv_cells.device)
+    mvs = mv_cells.reshape(h8 * w8, 2).to(torch.int32)
+    out_y = _blocks_to_plane(mc_luma(ref_y.to(torch.int32), x0s, y0s, mvs,
+                                     8, bitdepth), h8, w8, 8)
+    if ref_cb is None:
+        return out_y, None, None
+    return (out_y,) + tuple(
+        _blocks_to_plane(mc_chroma(p.to(torch.int32), x0s // 2, y0s // 2,
+                                   mvs, 4, bitdepth), h8, w8, 4)
+        for p in (ref_cb, ref_cr))
+
+
+def merge_satd_maps_p(yp, ref_y, cand_cells, cur_cells,
+                      bitdepth: int = 8) -> torch.Tensor:
+    """Per-cell 8x8 SATD of each P merge-candidate motion field and of
+    the searched one.  yp: (H, W) source luma; cand_cells: (K, h8, w8,
+    2) quarter-pel; cur_cells: (h8, w8, 2).  Returns (K+1, h8, w8)
+    int32, the searched field last."""
+    h8, w8 = cur_cells.shape[:2]
+    yp = yp.to(torch.int32)
+    outs = []
+    for mv in list(cand_cells) + [cur_cells]:
+        py, _, _ = mc_planes_cells(ref_y, None, None, mv, bitdepth)
+        d = (py - yp).reshape(h8, 8, w8, 8).permute(0, 2, 1, 3)
+        outs.append(satd8_batch(d))
+    return torch.stack(outs)

@@ -1,12 +1,14 @@
 """Variable-CU quadtree search + data-driven wavefront reconstruction,
-all-intra.
+for I frames and for P frames with one reference.
 
-Counterpart of the intra part of kvazaar_tpu/encoder/quadtree.py.  The
-search evaluates every candidate CU size over the whole frame (open-loop
-mode searches at 8, 16 and 32, the 64 level as four same-mode 32x32
-TBs), costs each candidate in RD units (luma roundtrip SSD + lambda *
-modelled bits + per-CU syntax bins) and the host picks the tree by a
-bottom-up argmin (``choose_tree``, numpy).  encoder/var_schedule.py
+Counterpart of kvazaar_tpu/encoder/quadtree.py without its B-frame
+parts.  The search evaluates every candidate CU size over the whole
+frame (open-loop mode searches at 8, 16 and 32, the 64 level as four
+same-mode 32x32 TBs; in P frames also the hinted motion search at every
+inter size and 64), costs each candidate in RD units (luma roundtrip
+SSD + lambda * modelled bits + per-CU syntax bins; a P size keeps the
+better of its intra and inter candidate) and the host picks the tree by
+a bottom-up argmin (``choose_tree``, numpy).  encoder/var_schedule.py
 plans the tree's wavefront on the host, and ``reconstruct_frame_var``
 runs it on the encoder's device as plain tensor code: one step at a
 time, each CU-size class of the step gathering its reference samples
@@ -22,32 +24,47 @@ tensor with a trailing mid-grey sample, so each slot's 4S+1 reference
 samples (8.4.4.2.2 substitution and the no-neighbour case resolved into
 the indices once per frame) are one gather; Cb and Cr ride one merged
 class pass per size, as in the JAX package.  A step runs only the
-classes and slots it holds, so padded schedule slots cost nothing.
+classes and slots it holds, so padded schedule slots cost nothing.  In
+a P tree the inter CUs take no wavefront step: they reconstruct first,
+in one batch per size (the direct pass), and fill the edge buffers the
+intra CUs read.
 
 Left out (they raise in the frame encoder): the TU-split costs of
---tr-depth-intra, the P/B trees and their direct inter pass, scaling
-lists.
+--tr-depth-intra, B trees, scaling lists.
 """
 
 from __future__ import annotations
+
+import functools
+import types
 
 import numpy as np
 import torch
 
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+from kvazaar_tpu_torch.encoder.inter_search import (_mv_bits_est,
+                                                    _mv_pred_grid,
+                                                    search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import _scan_sel, _tu_roundtrip
-from kvazaar_tpu_torch.encoder.intra_search import (_f32,
+from kvazaar_tpu_torch.encoder.intra_search import (_f32, _ssd_f32,
                                                     modes64_from_satd32,
                                                     rd_cost_given_modes,
                                                     search_frame_modes)
+from kvazaar_tpu_torch.ops.inter import coarse_mv_grids, mc_luma
 from kvazaar_tpu_torch.ops.intra import predict_modes
+from kvazaar_tpu_torch.ops.quant import _fma_f32, dequantize, quantize
+from kvazaar_tpu_torch.ops.rate import tb_rate_bits
+from kvazaar_tpu_torch.ops.transform import (forward_transform,
+                                             inverse_transform)
 
 SIZES = (8, 16, 32)
 
 # Context-bin counts of the CU-level syntax not carried by the TB rate
 # model (the JAX package's constants): intra = part/pred flags (~1) +
-# intra_chroma_pred_mode (~1.5) + chroma cbfs (2).
+# intra_chroma_pred_mode (~1.5) + chroma cbfs (2); inter = merge_flag
+# (1) + rqt_root_cbf (1) + chroma cbfs (2).
 OVERHEAD_BINS_INTRA = 4.5
+OVERHEAD_BINS_INTER = 4.0
 INTRA_MODE_BINS = 2.5      # MPM-weighted average of mpm_idx/rem coding
 SPLIT_FLAG_BINS = 1.0
 
@@ -59,12 +76,38 @@ def _plus_bins(cost: torch.Tensor, lam_rd: float, bins: float):
     return cost + _f32(_f32(lam_rd) * _f32(bins))
 
 
-def intra_rd_recost(y, plan, modes_grid, qp, lam_rd, bitdepth):
-    """Intra RD-unit cost grid (I slices) for the winner modes: luma
-    roundtrip + mode bins + CU overhead bins."""
+def intra_rd_recost(y, plan, modes_grid, qp, lam_rd, bitdepth,
+                    p_slice: bool = False):
+    """Intra RD-unit cost grid for the winner modes: luma roundtrip +
+    mode bins + CU overhead bins (+ pred_mode_flag in P slices)."""
     return _plus_bins(rd_cost_given_modes(y, plan, modes_grid, qp, lam_rd,
                                           bitdepth),
-                      lam_rd, INTRA_MODE_BINS + OVERHEAD_BINS_INTRA)
+                      lam_rd, INTRA_MODE_BINS + OVERHEAD_BINS_INTRA
+                      + (1.0 if p_slice else 0.0))
+
+
+def _sum4_64(cg: torch.Tensor, by64: int, bx64: int) -> torch.Tensor:
+    """float32 sum of each 64 CU's four 32-grid entries, left to right
+    in z order, over the full 64 CUs of a 32 grid."""
+    return (cg[0::2, 0::2][:by64, :bx64] + cg[0::2, 1::2][:by64, :bx64]
+            + cg[1::2, 0::2][:by64, :bx64] + cg[1::2, 1::2][:by64, :bx64])
+
+
+def _intra64_cost(y, width, height, modes64, qp, lam_rd, bitdepth,
+                  p_slice: bool):
+    """RD-unit cost of each full 64 CU coded intra with its 64 mode: the
+    four 32x32 TBs (a forced TU split, 7.3.8.8) roundtripped with that
+    mode, plus the CU's bins."""
+    plan32 = make_intra_plan(width, height, 32, chroma=False)
+    by64, bx64 = modes64.shape
+    pad = torch.zeros((plan32.blocks_y, plan32.blocks_x),
+                      dtype=torch.int32, device=y.device)
+    pad[:2 * by64, :2 * bx64] = torch.repeat_interleave(
+        torch.repeat_interleave(modes64, 2, dim=0), 2, dim=1)
+    cg = rd_cost_given_modes(y, plan32, pad, qp, lam_rd, bitdepth)
+    return _plus_bins(_sum4_64(cg, by64, bx64), lam_rd,
+                      INTRA_MODE_BINS + OVERHEAD_BINS_INTRA
+                      + (1.0 if p_slice else 0.0))
 
 
 def search_quadtree(y, width: int, height: int, lambda_satd: float,
@@ -91,18 +134,9 @@ def search_quadtree(y, width: int, height: int, lambda_satd: float,
                 y, plan, lambda_satd, bitdepth, two_pass,
                 return_satd=True, rdo=rdo, qp=qp, lam_rd=lam_rd)
             m64, _c64 = modes64_from_satd32(satd32, lambda_satd, two_pass)
-            by64, bx64 = m64.shape
-            pad = torch.zeros((plan.blocks_y, plan.blocks_x),
-                              dtype=torch.int32, device=y.device)
-            pad[:2 * by64, :2 * bx64] = torch.repeat_interleave(
-                torch.repeat_interleave(m64, 2, dim=0), 2, dim=1)
-            cg = rd_cost_given_modes(y, plan, pad, qp, lam_rd, bitdepth)
-            c64 = _plus_bins(cg[0::2, 0::2][:by64, :bx64]
-                             + cg[0::2, 1::2][:by64, :bx64]
-                             + cg[1::2, 0::2][:by64, :bx64]
-                             + cg[1::2, 1::2][:by64, :bx64], lam_rd,
-                             INTRA_MODE_BINS + OVERHEAD_BINS_INTRA)
-            modes[64], costs[64] = m64, c64
+            modes[64] = m64
+            costs[64] = _intra64_cost(y, width, height, m64, qp, lam_rd,
+                                      bitdepth, p_slice=False)
         else:
             m, c = search_frame_modes(y, plan, lambda_satd, bitdepth,
                                       two_pass, rdo=rdo, qp=qp,
@@ -203,6 +237,261 @@ def choose_tree(costs: dict, width: int, height: int,
 
 
 # ---------------------------------------------------------------------
+# P-frame search: dense motion search at every candidate CU size and a
+# per-size intra-vs-inter argmin in RD units; choose_tree then picks the
+# tree over the combined costs.
+# ---------------------------------------------------------------------
+
+def tb_rd_cost(resid, s: int, qp, lam_rd, bitdepth: int, intra: bool):
+    """(N,) float32 luma roundtrip RD cost of (N, S, S) int32 residuals:
+    SSD + lam_rd * modelled TB bits (S <= 32)."""
+    levels = quantize(forward_transform(resid, s, bitdepth), qp, s,
+                      bitdepth, intra=intra)
+    rrec = inverse_transform(dequantize(levels, qp, s, bitdepth), s,
+                             bitdepth)
+    return _fma_f32(_ssd_f32(rrec - resid), lam_rd, tb_rate_bits(levels))
+
+
+def inter_rd_grid(y, pred_blocks, s: int, by: int, bx: int, qp, lam_rd,
+                  bitdepth: int):
+    """(By, Bx) inter RD cost grid of MC prediction blocks (N, S, S); a
+    64 CU is four 32x32 TBs (the largest transform)."""
+    n = by * bx
+    orig = y[:by * s, :bx * s].to(torch.int32).reshape(
+        by, s, bx, s).permute(0, 2, 1, 3).reshape(n, s, s)
+    resid = orig - pred_blocks
+    if s <= 32:
+        return tb_rd_cost(resid, s, qp, lam_rd, bitdepth,
+                          intra=False).reshape(by, bx)
+    r4 = resid.reshape(n, 2, 32, 2, 32).permute(0, 1, 3, 2, 4)
+    c4 = tb_rd_cost(r4.reshape(n * 4, 32, 32), 32, qp, lam_rd, bitdepth,
+                    intra=False).reshape(by, bx, 4)
+    return ((c4[..., 0] + c4[..., 1]) + c4[..., 2]) + c4[..., 3]
+
+
+def _mc_blocks_at(ref, mvs_grid, s: int, bitdepth: int):
+    """Uni-pred MC luma blocks (N, S, S) at a per-CU MV grid."""
+    by, bx = mvs_grid.shape[:2]
+    ys, xs = np.mgrid[0:by, 0:bx]
+    dev = mvs_grid.device
+    return mc_luma(ref.to(torch.int32),
+                   torch.from_numpy((xs * s).reshape(-1)).to(dev),
+                   torch.from_numpy((ys * s).reshape(-1)).to(dev),
+                   mvs_grid.reshape(by * bx, 2), s, bitdepth)
+
+
+def _mv_rate_grid(mvs_grid):
+    p = _mv_pred_grid(mvs_grid)
+    return (_mv_bits_est(mvs_grid[..., 0] - p[..., 0])
+            + _mv_bits_est(mvs_grid[..., 1] - p[..., 1]))
+
+
+def _inf_grid(width, height, s, dev):
+    return torch.full((height // s, width // s), float("inf"),
+                      dtype=torch.float32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan64(width: int, height: int):
+    """The 64 grid over the 64-aligned crop (CTUs at the picture's
+    border take inferred splits, so no 64 CU reaches them)."""
+    w64, h64 = (width // 64) * 64, (height // 64) * 64
+    return types.SimpleNamespace(cu_size=64, blocks_y=h64 // 64,
+                                 blocks_x=w64 // 64, width=w64,
+                                 height=h64), w64, h64
+
+
+def _inter_cost(y, ref_y, plan, hint, lambda_satd, me_range, bitdepth,
+                subpel, qp, lam_rd):
+    """(mv grid, RD-unit cost grid) of the inter candidate at one size:
+    the hinted search, the MC blocks' roundtrip, the mv rate, merge_flag
+    and the CU's bins."""
+    s = plan.cu_size
+    mv, _ = search_inter_frame(y, ref_y, plan, lambda_satd, me_range,
+                               bitdepth, subpel=subpel, mv_hint=hint)
+    er = inter_rd_grid(y, _mc_blocks_at(ref_y, mv, s, bitdepth), s,
+                       plan.blocks_y, plan.blocks_x, qp, lam_rd, bitdepth)
+    return mv, _fma_f32(er, lam_rd,
+                        _mv_rate_grid(mv) + 1.0 + OVERHEAD_BINS_INTER)
+
+
+def search_quadtree_p(y, ref_y, width: int, height: int,
+                      lambda_satd: float, me_range: int, bitdepth: int = 8,
+                      intra_rng=(8, 32), inter_rng=(8, 32),
+                      two_pass: bool = True, subpel: bool = True, qp=30,
+                      lam_rd=None):
+    """Device search of a P variable tree.  Returns per-size dicts (64
+    included where a range reaches it and the frame holds a full 64
+    CU): costs (RD units, the better of the intra and the inter
+    candidate; ties go to inter), modes (intra winners), mvs (quarter-
+    pel, zero where intra wins), inter_maps.  A size outside a tool's
+    range costs +inf for that tool."""
+    if lam_rd is None:
+        lam_rd = lambda_satd * lambda_satd
+    dev = y.device
+    y = y.to(torch.int32)
+    ref_y = ref_y.to(torch.int32)
+    sizes = [s for s in SIZES if (intra_rng[0] <= s <= intra_rng[1]
+                                  or inter_rng[0] <= s <= inter_rng[1])]
+    want64 = intra_rng[1] >= 64 or inter_rng[1] >= 64
+    full64 = bool(width // 64 and height // 64)
+    costs, modes, mvs, imaps = {}, {}, {}, {}
+    modes64 = None
+    # Hierarchical motion search: one pooled pass for the whole size
+    # ladder, refined at full resolution in search_inter_frame.
+    inter_sizes = [s for s in sizes if inter_rng[0] <= s <= inter_rng[1]]
+    if inter_rng[1] >= 64 and full64:
+        inter_sizes = inter_sizes + [64]
+    hints = (coarse_mv_grids(y, ref_y, me_range, tuple(inter_sizes),
+                             bitdepth) if inter_sizes else {})
+
+    def decide(s, m, ir, mv, er):
+        imap = er <= ir
+        costs[s] = torch.where(imap, er, ir)
+        modes[s] = m
+        mvs[s] = torch.where(imap[..., None], mv, 0).to(torch.int32)
+        imaps[s] = imap
+
+    for s in sizes:
+        plan = make_intra_plan(width, height, s, chroma=False)
+        if intra_rng[0] <= s <= intra_rng[1]:
+            if s == 32 and want64 and intra_rng[1] >= 64:
+                m, _ic, satd32 = search_frame_modes(
+                    y, plan, lambda_satd, bitdepth, two_pass,
+                    return_satd=True)
+                modes64, _c64 = modes64_from_satd32(satd32, lambda_satd,
+                                                    two_pass)
+            else:
+                m, _ic = search_frame_modes(y, plan, lambda_satd, bitdepth,
+                                            two_pass)
+            ir = intra_rd_recost(y, plan, m, qp, lam_rd, bitdepth,
+                                 p_slice=True)
+        else:
+            m = torch.zeros((height // s, width // s), dtype=torch.int32,
+                            device=dev)
+            ir = _inf_grid(width, height, s, dev)
+        if inter_rng[0] <= s <= inter_rng[1]:
+            mv, er = _inter_cost(y, ref_y, plan, hints[s], lambda_satd,
+                                 me_range, bitdepth, subpel, qp, lam_rd)
+        else:
+            mv = torch.zeros((height // s, width // s, 2),
+                             dtype=torch.int32, device=dev)
+            er = _inf_grid(width, height, s, dev)
+        decide(s, m, ir, mv, er)
+    if want64 and full64:
+        plan64, w64, h64 = _plan64(width, height)
+        by64, bx64 = plan64.blocks_y, plan64.blocks_x
+        if modes64 is not None and intra_rng[1] >= 64:
+            ir64 = _intra64_cost(y, width, height, modes64, qp, lam_rd,
+                                 bitdepth, p_slice=True)
+        else:
+            modes64 = torch.zeros((by64, bx64), dtype=torch.int32,
+                                  device=dev)
+            ir64 = _inf_grid(w64, h64, 64, dev)
+        if inter_rng[1] >= 64:
+            mv64, _ = search_inter_frame(
+                y[:h64, :w64], ref_y[:h64, :w64], plan64, lambda_satd,
+                me_range, bitdepth, subpel=subpel, mv_hint=hints[64])
+            er64 = _fma_f32(
+                inter_rd_grid(y[:h64, :w64],
+                              _mc_blocks_at(ref_y, mv64, 64, bitdepth), 64,
+                              by64, bx64, qp, lam_rd, bitdepth),
+                lam_rd, _mv_rate_grid(mv64) + 1.0 + OVERHEAD_BINS_INTER)
+        else:
+            mv64 = torch.zeros((by64, bx64, 2), dtype=torch.int32,
+                               device=dev)
+            er64 = _inf_grid(w64, h64, 64, dev)
+        decide(64, modes64, ir64, mv64, er64)
+    return costs, modes, mvs, imaps
+
+
+def build_cell_fields(size8: np.ndarray, imaps: dict, mv_grids: dict,
+                      extra_grids: tuple = ()):
+    """Expand per-size CU decisions onto the 8x8-cell grid following
+    the chosen tree: inter8 (h8, w8) bool, mv_cells (h8, w8, 2) int32,
+    plus one expanded grid per entry of extra_grids (each a dict
+    size -> (H/s, W/s[, 2]) array).  Owner lookups are at CU origins
+    (cells are z-aligned)."""
+    h8, w8 = size8.shape
+    inter8 = np.zeros((h8, w8), bool)
+    mv_cells = np.zeros((h8, w8, 2), np.int32)
+    extras = []
+    for g in extra_grids:
+        sample = next(iter(g.values()))
+        shape = (h8, w8) + sample.shape[2:]
+        extras.append(np.zeros(shape, sample.dtype))
+    for s in sorted(imaps.keys()):
+        c = s // 8
+        sel = size8 == s                      # cell-filled owner mask
+        if not sel.any():
+            continue
+        oy = (np.arange(h8) // c)
+        ox = (np.arange(w8) // c)
+
+        # Per-size grids may be cropped (64 level): pad with zeros.
+        def up(grid):
+            g = np.asarray(grid)
+            gy, gx = g.shape[0], g.shape[1]
+            out = np.zeros((h8,) + (w8,) + g.shape[2:], g.dtype)
+            yy = np.minimum(oy, gy - 1)
+            xx = np.minimum(ox, gx - 1)
+            filled = g[np.ix_(yy, xx)]
+            valid = ((oy < gy)[:, None] & (ox < gx)[None, :])
+            out[valid] = filled[valid]
+            return out
+        im = up(imaps[s]).astype(bool)
+        inter8 = np.where(sel, im, inter8)
+        mvu = up(mv_grids[s])
+        mv_cells = np.where(sel[..., None] & im[..., None], mvu,
+                            mv_cells)
+        for i, g in enumerate(extra_grids):
+            gu = up(g[s])
+            if gu.ndim == 3:
+                extras[i] = np.where(sel[..., None] & im[..., None],
+                                     gu, extras[i])
+            else:
+                extras[i] = np.where(sel & im, gu, extras[i])
+    return (inter8, mv_cells) + tuple(extras)
+
+
+def var_edge_masks(size8: np.ndarray):
+    """TU-boundary masks on the 8-cell grid for a variable tree:
+    edge_v[y, x] = the LEFT edge of cell (y, x) is a TU boundary
+    (64 CUs count their forced 32x32 TB edges, 8.7.2)."""
+    c = np.minimum((size8 // 8).astype(np.int32), 4)
+    x8 = np.arange(size8.shape[1])[None, :]
+    y8 = np.arange(size8.shape[0])[:, None]
+    return (x8 % c == 0), (y8 % c == 0)
+
+
+def var_bs_maps(inter8, cbf8, mv_cells, edge_v, edge_h):
+    """Deblocking boundary strengths of a variable P tree on the 8x8 cell
+    grid (8.7.2.4): bS 2 where either side is intra, else 1 on a coded
+    luma TB or an MV difference of a sample or more, at TU boundaries
+    only (PU edges are CU edges: 2Nx2N).  Tensors on one device:
+    inter8 / cbf8 / edge masks (h8, w8) bool, mv_cells (h8, w8, 2)."""
+    intra8 = ~inter8
+
+    def edge(sl_a, sl_b, mask):
+        cbf = cbf8[sl_a] | cbf8[sl_b]
+        mvd = torch.any(torch.abs(mv_cells[sl_a] - mv_cells[sl_b]) >= 4,
+                        dim=-1)
+        bs = torch.where(intra8[sl_a] | intra8[sl_b], 2,
+                         torch.where(cbf | mvd, 1, 0)).to(torch.int32)
+        return torch.where(mask, bs, 0)
+
+    h8, w8 = inter8.shape
+    all_ = slice(None)
+    bs_v = torch.zeros((h8, w8), dtype=torch.int32, device=inter8.device)
+    bs_h = torch.zeros((h8, w8), dtype=torch.int32, device=inter8.device)
+    bs_v[:, 1:] = edge((all_, slice(0, w8 - 1)), (all_, slice(1, w8)),
+                       edge_v[:, 1:])
+    bs_h[1:, :] = edge((slice(0, h8 - 1), all_), (slice(1, h8), all_),
+                       edge_h[1:, :])
+    return bs_v, bs_h
+
+
+# ---------------------------------------------------------------------
 # Data-driven reconstruction.
 # ---------------------------------------------------------------------
 
@@ -292,10 +581,75 @@ def _class_pass(d, t, n, s, bitdepth, luma, signhide=False, rdoq=False,
     return levels, rec
 
 
+def _block_pix(x0, y0, s: int, plane_w: int):
+    """(N, S*S) flat sample positions of blocks at (x0, y0)."""
+    dev = x0.device
+    yy, xx = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    off = torch.from_numpy((yy * plane_w + xx).ravel()).to(dev)
+    return (y0.to(torch.int64) * plane_w + x0.to(torch.int64))[:, None] + off
+
+
+def _mark_cells(cbf8, x0, y0, s: int, cbf):
+    """Write each TB's coded flag (N,) over its 8x8 cells of the flat
+    (h8 * w8) grid cbf8, w8 = cbf8's row length."""
+    c = s // 8
+    w8 = cbf8.shape[1]
+    cy, cx = np.meshgrid(np.arange(c), np.arange(c), indexing="ij")
+    off = torch.from_numpy((cy * w8 + cx).ravel()).to(x0.device)
+    cells = ((y0.to(torch.int64) // 8) * w8
+             + x0.to(torch.int64) // 8)[:, None] + off
+    cbf8.view(-1)[cells.reshape(-1)] = cbf.repeat_interleave(c * c)
+
+
+def _direct_pass(batches, planes, mcs, pw: int, ph: int, qp: int,
+                 bitdepth: int, signhide: bool, rdoq: bool, lam: float,
+                 rec, lv, cbf8=None):
+    """Reconstruct the inter CUs of a variable P tree outside the
+    wavefront: their prediction is motion-compensated, so each size's
+    CUs (batches: size -> (x0, y0) on this plane) run one batched TU
+    roundtrip with the inter quantizer.  Writes the flat recon and level
+    outputs (components plane after plane) and, for luma (cbf8 given),
+    the TBs' coded flags."""
+    comps = len(planes)
+    for s, (x0, y0) in sorted(batches.items()):
+        n = x0.numel()
+        if n == 0:
+            continue
+        pix = _block_pix(x0, y0, s, pw)
+        out = (pix[None] + torch.arange(comps, device=pix.device)[
+            :, None, None] * (pw * ph)).reshape(-1)
+        origs = torch.cat([p.reshape(-1)[pix] for p in planes])
+        pred = torch.cat([m.reshape(-1)[pix] for m in mcs])
+        scan_sel = (torch.zeros(comps * n, dtype=torch.int32,
+                                device=pix.device) if signhide else None)
+        levels, r = _tu_roundtrip(origs.reshape(comps * n, s, s),
+                                  pred.reshape(comps * n, s, s), s, qp,
+                                  bitdepth, intra=False, scan_sel=scan_sel,
+                                  rdoq=rdoq, lam=lam)
+        rec[out] = r.reshape(-1)
+        lv[out] = levels.reshape(-1)
+        if cbf8 is not None:
+            _mark_cells(cbf8, x0, y0, s, torch.any(
+                levels.reshape(n, -1) != 0, dim=1))
+
+
+def _prefill_edges(ebuf, base: int, rec, comps: int, pw: int, ph: int,
+                   gran: int):
+    """Copy every component's bottom rows and right columns of the
+    direct pass's recon into the edge buffers, so intra CUs read their
+    inter neighbours from step 0."""
+    for c in range(comps):
+        plane = rec[c * pw * ph:(c + 1) * pw * ph].reshape(ph, pw)
+        hrow = plane[gran - 1::gran, :].reshape(-1)
+        vcol = plane[:, gran - 1::gran].t().reshape(-1)
+        ebuf[c * base:c * base + hrow.numel()] = hrow
+        ebuf[c * base + hrow.numel():c * base + base - 1] = vcol
+
+
 def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
                           height: int, chroma: bool, bitdepth: int = 8,
                           signhide: bool = False, rdoq: bool = False,
-                          lam: float = 0.0):
+                          lam: float = 0.0, mc_planes=None):
     """sched: the frame's schedule on the device (see the frame
     encoder's ``var_sched_arrays``): 'luma' / 'chroma': size -> {x0,
     y0, avail, corner_h, modes} (T, K[, R]) over the real steps,
@@ -304,26 +658,46 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
     (int32).  signhide / rdoq: sign-data hiding and RDOQ at lambda lam
     (the same lambda for luma and chroma, as the JAX package passes).
 
+    P trees (mc_planes: the (H, W) MC prediction planes (y, cb, cr) of
+    the frame's motion field) add 'iluma' / 'ichroma': size -> (x0, y0)
+    of the inter CUs, which the plan leaves out of the wavefront (their
+    64 CUs as 32x32 TBs).  They reconstruct first, in one batch per
+    size, and pre-fill the edge buffers the intra CUs read.
+
     Returns (rec_y, rec_cb, rec_cr) int32 planes and their levels
     (lv_y, lv_cb, lv_cr) int16 planes (pixel layout); chroma entries are
-    None without chroma."""
+    None without chroma.  With mc_planes also cbf8, the (H/8, W/8) bool
+    grid of each cell's luma TB coded flag (the deblocking bS input)."""
     grey = 1 << (bitdepth - 1)
     dev = sched["plane_y"].device
     wc, hc = width // 2, height // 2
+    inter = mc_planes is not None
     # Per plane kind: (plane width, height, edge granularity, components,
-    # QP, source planes); a kind's components share its flat buffers,
-    # the edge buffer [h | v | grey] per component and the outputs
-    # plane after plane.
-    kinds = {"luma": (width, height, 8, 1, qp, [sched["plane_y"]])}
+    # QP, source planes, MC planes, direct batches); a kind's components
+    # share its flat buffers, the edge buffer [h | v | grey] per
+    # component and the outputs plane after plane.
+    kinds = {"luma": (width, height, 8, 1, qp, [sched["plane_y"]],
+                      mc_planes[:1] if inter else None,
+                      sched.get("iluma"))}
     if chroma:
         kinds["chroma"] = (wc, hc, 4, 2, qp_c,
-                           [sched["plane_cb"], sched["plane_cr"]])
+                           [sched["plane_cb"], sched["plane_cr"]],
+                           mc_planes[1:] if inter else None,
+                           sched.get("ichroma"))
+    cbf8 = (torch.zeros((height // 8, width // 8), dtype=torch.bool,
+                        device=dev) if inter else None)
     outs, classes = {}, []
-    for kind, (pw, ph, gran, comps, kqp, planes) in kinds.items():
+    for kind, (pw, ph, gran, comps, kqp, planes, mcs,
+               direct) in kinds.items():
         ebuf, base = _edge_buffers(pw, ph, gran, comps, grey, dev)
         rec = torch.zeros(comps * pw * ph, dtype=torch.int32, device=dev)
         lv = torch.zeros(comps * pw * ph, dtype=torch.int16, device=dev)
         outs[kind] = (rec, lv)
+        if inter:
+            _direct_pass(direct, planes, mcs, pw, ph, kqp, bitdepth,
+                         signhide, rdoq, lam, rec, lv,
+                         cbf8 if kind == "luma" else None)
+            _prefill_edges(ebuf, base, rec, comps, pw, ph, gran)
         for s in sorted(sched[kind]):
             cs = sched[kind][s]
             d = _derive(cs, s, pw, ph, gran, base, comps)
@@ -349,7 +723,20 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
             lv_out[out] = lv.reshape(-1)
 
     ry, ly = (b.reshape(height, width) for b in outs["luma"])
+    if inter:
+        # The intra CUs' coded flags, from their level blocks.
+        for counts, s, d, luma, _rec, lv_out in classes:
+            if not luma:
+                continue
+            real = torch.from_numpy(np.arange(d["pix"].shape[1])[None]
+                                    < counts[:, None]).to(dev)
+            _mark_cells(cbf8, sched["luma"][s]["x0"][real],
+                        sched["luma"][s]["y0"][real], s, torch.any(
+                            lv_out[d["pix"][real]] != 0, dim=1))
     if not chroma:
-        return (ry, None, None), (ly, None, None)
-    (rcb, rcr), (lcb, lcr) = (b.reshape(2, hc, wc) for b in outs["chroma"])
-    return (ry, rcb, rcr), (ly, lcb, lcr)
+        recs, levels = (ry, None, None), (ly, None, None)
+    else:
+        (rcb, rcr), (lcb, lcr) = (b.reshape(2, hc, wc)
+                                  for b in outs["chroma"])
+        recs, levels = (ry, rcb, rcr), (ly, lcb, lcr)
+    return (recs, levels, cbf8) if inter else (recs, levels)

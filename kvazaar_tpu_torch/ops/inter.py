@@ -212,3 +212,87 @@ def refine_qpel_dense(cur_blocks, ref_plane, x0s, y0s, mv_int,
             preds.append(uni_round(v, bitdepth))
     preds = torch.stack(preds, dim=1)                    # (N, 49, S, S)
     return satd8_batch(preds - cur_blocks[:, None])
+
+
+def sad_surfaces_multi(cur_plane, ref_plane, radius: int, sizes,
+                       bitdepth: int = 8) -> dict:
+    """Integer-pel SAD surfaces for several block sizes in one pass:
+    {size: (H//size, W//size, 2R+1, 2R+1) int32}.
+
+    SAD is additive over sub-blocks, so the surface of the smallest size
+    is taken once and each larger size is the 2x2 block sum of the one
+    below it at the same displacement.  Grids use floor division: a
+    plane not divisible by a size gives the aligned crop's grid, with
+    the SADs still taken against the full plane (real samples beyond
+    the crop, not the edge clamp)."""
+    h, w = cur_plane.shape
+    r = radius
+    d = 2 * r + 1
+    szs = sorted(set(int(s) for s in sizes))
+    base = szs[0]
+    by, bx = h // base, w // base
+    hc, wc = by * base, bx * base
+    cur = cur_plane.to(torch.int32)[:hc, :wc]
+    pad = edge_pad(ref_plane.to(torch.int32), r)
+    rows_out = []
+    for dy in range(d):
+        rows = pad[dy:dy + hc]                          # (Hc, W + 2R)
+        sl = torch.stack([rows[:, k:k + wc] for k in range(d)])
+        blk = torch.abs(sl - cur[None]).reshape(d, by, base, bx, base).sum(
+            dim=(2, 4), dtype=torch.int32)              # (Ddx, By, Bx)
+        rows_out.append(blk)
+    s_now = torch.stack(rows_out)                       # (Ddy, Ddx, By, Bx)
+    out = {}
+    sz_now = base
+    for s in szs:
+        while sz_now < s:
+            by2, bx2 = s_now.shape[2] // 2, s_now.shape[3] // 2
+            s_now = (s_now[:, :, 0:2 * by2:2, 0:2 * bx2:2]
+                     + s_now[:, :, 1:2 * by2:2, 0:2 * bx2:2]
+                     + s_now[:, :, 0:2 * by2:2, 1:2 * bx2:2]
+                     + s_now[:, :, 1:2 * by2:2, 1:2 * bx2:2])
+            sz_now *= 2
+        out[s] = s_now.permute(2, 3, 0, 1).contiguous()
+    return out
+
+
+def box4_mean(plane: torch.Tensor) -> torch.Tensor:
+    """4x4 mean pool (floor) of an (H, W) plane over its 4-aligned crop:
+    the coarse level of the hierarchical motion search."""
+    h4, w4 = plane.shape[0] // 4, plane.shape[1] // 4
+    p = plane[:h4 * 4, :w4 * 4].to(torch.int32)
+    return p.reshape(h4, 4, w4, 4).sum(dim=(1, 3), dtype=torch.int32) >> 4
+
+
+def coarse_mv_grids(cur, ref, radius: int, sizes, bitdepth: int = 8) -> dict:
+    """Hierarchical motion search, stage 1: dense SAD surfaces of the
+    4x4-pooled planes within max(radius // 4, 2) coarse samples, each
+    size's argmin as a full-resolution MV hint grid in quarter-pel
+    units, {size: (H//size, W//size, 2) int32 (x, y)}.  Sizes below 16
+    take the 16 grid's winner, repeated (their pooled blocks are too
+    small to rank); stage 2 (the hint branch of search_inter_frame)
+    refines +-4 full-resolution samples around the hint and around
+    zero."""
+    c4 = box4_mean(cur)
+    r4 = box4_mean(ref)
+    rad4 = max(radius // 4, 2)
+    want = sorted({int(s) for s in sizes if s >= 16}) or [16]
+    surf = sad_surfaces_multi(c4, r4, rad4, tuple(s // 4 for s in want),
+                              bitdepth)
+    d = 2 * rad4 + 1
+    out = {}
+    for s in want:
+        su = surf[s // 4]
+        idx = torch.argmin(su.reshape(su.shape[0], su.shape[1], d * d),
+                           dim=-1)
+        # One coarse step is 4 samples, 16 quarter-pel units.
+        out[s] = torch.stack([(idx % d - rad4) * 16,
+                              (idx // d - rad4) * 16],
+                             dim=-1).to(torch.int32)
+    parent = min(out)
+    for s in sizes:
+        if s < 16:
+            f = parent // s
+            out[s] = torch.repeat_interleave(
+                torch.repeat_interleave(out[parent], f, dim=0), f, dim=1)
+    return out

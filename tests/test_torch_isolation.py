@@ -2,8 +2,10 @@
 
 - importing and running kvazaar_tpu_torch (all-intra on the fixed grid
   and with a variable CU tree, IPPP, the superfast and medium presets'
-  all-intra points with SAO and RDOQ, and the defaults: the ultrafast
-  preset's low-delay GOP and Config()'s cu 32 IPPP) never imports jax
+  all-intra points with SAO and RDOQ, the defaults: the ultrafast
+  preset's low-delay GOP and Config()'s cu 32 IPPP, and the medium
+  preset's variable P trees at --gop 0 with a set_base_qp /
+  reset_stream step) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -56,6 +58,16 @@ for cfg in (config_from_preset("ultrafast", width=48, height=32, qp=27),
             Config(width=48, height=32, qp=27)):
     out = list(Encoder(cfg, device="cpu").encode_stream(frames))
     assert [o[1].slice_type for o in out] == [2, 1, 1]
+# Variable P trees with one reference (the medium preset at --gop 0)
+# and a QP ladder step.
+cfg = config_from_preset("medium", width=48, height=32, qp=27,
+                         intra_period=0, gop_len=1, ref_frames=1)
+enc = Encoder(cfg, device="cpu")
+out = [r for f in frames for r in enc.encode(*f)]
+assert [o[1].slice_type for o in out] == [2, 1, 1]
+enc.set_base_qp(30)
+enc.reset_stream()
+assert [o[1].qp for o in enc.encode(*frames[0])] == [30]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked

@@ -21,8 +21,8 @@ backend, jitted) with tolerance 0:
   every IRAP, a frame size that is not a multiple of the CU, 4:0:0, WPP
   off), and the CLI with no structure flags (the ultrafast preset);
 - the gates: the low-delay presets' defaults, Config() and 3 references
-  pass them; B frames, a variable P tree with one plain reference and
-  TMVP still raise.
+  pass them; B frames, variable trees on B frames and TMVP still
+  raise.
 
 Each JAX reference stream is encoded once per process (cached) and only
 by the tests that compare against it (the others take the port's
@@ -350,8 +350,9 @@ def test_low_delay_defaults_pass_the_gates(name):
     ("ultrafast --gop 0", "variable P/B CU trees"),
     ("tmvp", "TMVP")])
 def test_what_stays_unported_raises(name, match):
-    """B frames (the medium default), a variable P tree with one plain
-    reference and TMVP still raise."""
+    """B frames (the medium default), variable trees on B frames (the
+    ultrafast preset's trees with --gop 0 and a GOP of 8; its one-
+    reference P trees are ported) and TMVP still raise."""
     if name == "medium":
         cfg = config_from_preset("medium", width=64, height=64)
     elif name == "tmvp":
@@ -359,6 +360,6 @@ def test_what_stays_unported_raises(name, match):
                                  tmvp=True)
     else:
         cfg = config_from_preset("ultrafast", width=64, height=64,
-                                 lp_gop=None)
+                                 lp_gop=None, gop_len=8, intra_period=0)
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")

@@ -194,8 +194,8 @@ def test_encode_stream_matches_frame_encoder(name):
 
 @pytest.mark.parametrize("change", [
     dict(tmvp=True, intra_period=0), dict(gop_len=8, intra_period=0),
-    dict(intra_min_cu=8, intra_period=0), dict(inter_min_cu=8,
-                                               intra_period=0),
+    dict(intra_min_cu=8, intra_period=0, bitrate=100000),
+    dict(inter_min_cu=8, intra_period=0, gop_len=8),
     dict(rdoq=True), dict(rd=2)])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
@@ -206,11 +206,11 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_structures_raise():
-    """Low-delay P frames on the fixed grid are ported (one or more
-    references); B-frame GOPs, variable P trees, SMP, TMVP and rate
-    control still raise."""
+    """Low-delay P frames are ported (one or more references on the
+    fixed grid, variable trees with one); B-frame GOPs, variable trees
+    on them, SMP, TMVP and rate control still raise."""
     for change, match in ((dict(gop_len=8), "GOP"),
-                          (dict(inter_min_cu=8), "variable P/B"),
+                          (dict(inter_min_cu=8, gop_len=8), "variable P/B"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(bitrate=100000), "rate control")):
