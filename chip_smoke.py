@@ -11,8 +11,9 @@ all-intra with variable CU trees (intra CUs 8..32); the ``superfast``,
 ``medium`` and ``slower`` presets at --period 1 (SAO; RDOQ; sign
 hiding); and the low-delay default operating points (the ``ultrafast``
 preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
-the kernel at luma S=32), and variable P trees with one reference (the
-medium preset's IPPP point).
+the kernel at luma S=32), variable P trees with one reference (the
+medium preset's IPPP point), and B pyramids (GOP 8 on the fixed grid and
+the medium preset's default, variable B trees).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -82,6 +83,22 @@ Any failed phase raises, so the script exits nonzero:
    downloads, merge/AMVP + skip, CABAC); card == CPU bytes and recon at
    416x240 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
    a set_base_qp + reset_stream ladder (QP 22 -> 27 -> 22) on the card
+   against fresh encoders;
+12. B pyramids (``run_gop``): the inter variant on a real fixed-grid B
+   frame's L0 / L1 / bi-averaged MC planes == plain (line ``inter kernel
+   vs plain`` with ``b_frame``); GOP 8 on the fixed cu 16 grid at 832x480
+   through Encoder.encode_stream, the IDR and one GOP warm, then two
+   GOPs timed (line ``gop8-fixed16 encode_stream:`` with fps, bits per
+   frame by slice type, PSNR-Y, the POC order and each B frame's inter
+   launches; a B frame that launched no kernel fails the phase); the
+   medium preset's default (GOP 8, variable B trees, bipred, RDOQ, SAO)
+   the same way with one timed GOP (line ``gop8-medium encode_stream:``
+   plus the CU-size histogram and inter share per frame) and a stage
+   split of one B frame; card == CPU bytes and recon for the fixed-grid
+   GOP 8 (9 frames) and medium's GOP 8 (9 frames and a 2-frame tail) at
+   416x240, and an open GOP with CRA anchors and RASL B pictures (GOP 4,
+   period 4, variable trees) at 256x128; and a set_base_qp +
+   reset_stream ladder (QP 22 -> 27 -> 22) on a GOP-8 medium encoder
    against fresh encoders.
 
 The kernels' JSON record and the card's name and power limit come just
@@ -105,6 +122,7 @@ IPPP_WARM, IPPP_TIMED = 6, 40
 VAR_TIMED = 4                         # phase 8: frames after 1 warm-up
 MEDIUM_TIMED = 2                      # phase 9: frames after 1 warm-up
 VAR_P_TIMED = 3                       # phase 11: P frames after IDR + P
+GOP = 8                               # phase 12: GOP length
 BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, the closest listed peak for the
@@ -1310,6 +1328,353 @@ def run_var_p(torch, wavefront, clip46, dev):
         enc_cpu.close()
 
 
+def gop_fixed_config(width, height, **kw):
+    """GOP 8 on the fixed 16x16 grid (tests/test_gop.py's structure)."""
+    from kvazaar_tpu_torch import Config
+    return Config(width=width, height=height, qp=kw.pop("qp", QP),
+                  intra_min_cu=16, intra_max_cu=16, gop_len=GOP,
+                  intra_period=0, **kw)
+
+
+def gop_medium_config(width, height, **kw):
+    """The medium preset's default: GOP 8, variable B trees (intra CUs
+    8..32, inter CUs 8..64), bipred, RDOQ, SAO."""
+    from kvazaar_tpu_torch.config import config_from_preset
+    return config_from_preset("medium", width=width, height=height,
+                              **dict(dict(qp=QP), **kw))
+
+
+def compare_kernel_b(torch, clip46, dev):
+    """Phase 12: the inter variant == plain on a real fixed-grid B frame
+    (frame 1 between the recon of frame 0 and of frame 2, coded as a P
+    frame against it): its modes, inter map and L0 / L1 / bi-averaged MC
+    planes.  Returns the rows."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.inter_search import bi_mc_planes
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon
+
+    ife = IntraFrameEncoder(gop_fixed_config(W, H), device=dev)
+    ife.submit_frames([clip46[0]])
+    r0 = ife._dpb
+    r1 = ife.submit_p(*clip46[2], [(0, r0)])[5]
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([clip46[1]]))
+    modes, inter_map, dirs, mv0, mv1 = ife._b_predict(ys[0], r0[0], r1[0])
+    mc_y, mc_cb, mc_cr = bi_mc_planes(r0, r1, mv0, mv1, dirs, ife.plan)
+    share = {d: (inter_map & (dirs == k)).float().mean().item()
+             for k, d in enumerate(("l0", "l1", "bi"))}
+    if min(share.values()) == 0:
+        raise RuntimeError(f"B frame: not every direction used: {share}")
+    rows = []
+    for orig, s, luma, qp, mc in (
+            (ys, 16, True, QP, mc_y[None]),
+            (torch.cat([cbs, crs]), 8, False, ife.qp_c,
+             torch.stack([mc_cb, mc_cr]))):
+        args = (orig, modes[None], ife.plan, s, luma, qp, 8,
+                inter_map[None], mc.to(torch.uint8))
+        got = wavefront_recon(*args)
+        err = max_err(torch, got, wavefront_recon_plain(*args))
+        row = dict(cu=16, s=s, luma=luma, items=orig.shape[0], b_frame=True,
+                   dir_share=share, max_abs_err=err)
+        time_row(torch, row, args, {}, ife.plan)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (orig, modes, inter_map.to(torch.uint8), args[-1], *got),
+            [(orig.numel(), s)])
+        log("inter kernel vs plain:", json.dumps(row))
+        if err != 0:
+            raise RuntimeError(f"inter kernel != plain on a B frame: {row}")
+        rows.append(row)
+    return rows
+
+
+def gop_summary(results, warm, dt, name):
+    """fps, bits per frame by slice type, PSNR-Y and the POC order of a
+    GOP run timed after ``warm`` results."""
+    kinds = {}
+    for r in results[warm:]:
+        k = ("I" if r[1].slice_type == 2 else
+             "P" if r[1].poc % GOP == 0 else "B")
+        kinds.setdefault(k, []).append(r[1].bits)
+    _bits, psnr_y = check_output(results[warm:], name)
+    return dict(frames=len(results), timed=len(results) - warm,
+                fps=(len(results) - warm) / dt,
+                bits_per_frame={k: sum(v) / len(v) for k, v in kinds.items()},
+                psnr_y=psnr_y, poc_order=[r[1].poc for r in results])
+
+
+def timed_gop(torch, cfg, clip, n_timed, dev, hook=None):
+    """Encodes the IDR and one GOP (warm), then n_timed frames, of clip
+    through Encoder.encode_stream on the card; the clock runs
+    from the warm GOP's last result to the end.  hook(enc) runs before
+    the encode.  Returns (encoder, results, seconds)."""
+    from kvazaar_tpu_torch.api import Encoder
+    enc = Encoder(cfg, device=dev)
+    if enc.can_pipeline():
+        raise RuntimeError("GOP: expected the per-frame path")
+    if hook:
+        hook(enc)
+    frames = clip[:GOP + 1 + n_timed]
+    results = []
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(frames):
+        results.append(res)
+        if len(results) == GOP + 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    if len(results) != len(frames):
+        raise RuntimeError(f"GOP: {len(results)} results for {len(frames)} "
+                           "frames")
+    return enc, results, dt
+
+
+def var_b_stage_split(torch, ife, frames):
+    """Per-stage times of one variable B frame (frames[1] at POC 1, the
+    GOP-8 layer of QP + 4, between the IDR of frames[0] and frames[2]
+    coded as a P frame at POC 2), each stage timed once by the host clock
+    between synchronizes: search (L0, L1, bi check at every size), tree
+    and plan, B merge RD, the bi cell MC, the direct inter pass alone,
+    the whole var recon (with the device kernels and ATen ops of one
+    call), deblocking, SAO, the downloads, merge/AMVP + skip flags and
+    CABAC, all in ms."""
+    from kvazaar_tpu_torch.constants import SLICE_B
+    from kvazaar_tpu_torch.encoder import quadtree as qt
+    from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, chroma_qp
+    from kvazaar_tpu_torch.encoder.inter_search import bi_mc_planes_cells
+    from kvazaar_tpu_torch.ops.deblock import deblock_frame
+
+    cfg = ife.cfg
+    ife.encode_frame(*frames[0])
+    r0 = ife._dpb
+    ife.encode_frame_var_p(*frames[2], poc=2, ref_poc=0, qp=cfg.qp + 3,
+                           qp_factor=0.3536)
+    r1 = ife._dpb
+    ql = ife._var_frame_qp_lam(cfg.qp + 4, 0.68, SLICE_B)
+    qp, lam_rd = ql[0], ql[1]
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name + "_ms"] = 1000 * (time.perf_counter() - t0)
+        return r
+
+    planes = timed("upload", lambda: tuple(a[0] for a in ife._upload(
+        ife.host_pack_sources([frames[1]]))))
+    found = timed("search_total", lambda: ife.var_b_search(
+        planes[0], r0[0], r1[0], ql))
+    size8, sched_size8, mode_maps, inter8, dirs8, emv0, emv1, vp = timed(
+        "tree_and_plan", lambda: ife.var_b_plan(*found, ql))
+    dirs8, emv0, emv1 = timed("merge_rd", lambda: ife.merge_rd_b(
+        planes[0], r0[0], r1[0], size8, inter8, dirs8, emv0, emv1, 1,
+        (0, 2), ql))
+    sched = timed("sched_upload", lambda: ife.var_b_sched(
+        vp, planes, size8, inter8, dirs8, emv0, emv1))
+    mcs = timed("mc", lambda: bi_mc_planes_cells(
+        r0, r1, sched["mv_cells"], sched["mv1_cells"], sched["dirs8"]))
+
+    def direct():
+        for kind, pls, mc, (pw, ph), kqp in (
+                ("iluma", planes[:1], mcs[:1], (ife.coded_w, ife.coded_h),
+                 qp),
+                ("ichroma", planes[1:], mcs[1:],
+                 (ife.coded_w // 2, ife.coded_h // 2), chroma_qp(qp))):
+            n = len(pls) * pw * ph
+            qt._direct_pass(sched[kind], pls, mc, pw, ph, kqp, 8,
+                            cfg.signhide, cfg.rdoq, lam_rd,
+                            torch.zeros(n, dtype=torch.int32,
+                                        device=pls[0].device),
+                            torch.zeros(n, dtype=torch.int16,
+                                        device=pls[0].device))
+
+    timed("direct_pass", direct)
+
+    def recon():
+        return qt.reconstruct_frame_var(
+            sched, qp, chroma_qp(qp), ife.coded_w, ife.coded_h, True,
+            signhide=cfg.signhide, rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs)
+
+    recs, levels, cbf8 = timed("var_recon", recon)
+
+    def deblock():
+        bs_v, bs_h = qt.var_bs_maps(
+            sched["inter8"], cbf8, sched["mv_cells"], sched["edge_v"],
+            sched["edge_h"], mv1_cells=sched["mv1_cells"],
+            dirs8=sched["dirs8"])
+        return tuple(r.to(torch.uint8) for r in deblock_frame(
+            *recs, qp, 8, bs_v=bs_v, bs_h=bs_h))
+
+    recs = timed("deblock", deblock)
+    sao = None
+    if cfg.sao:
+        recs, sao = timed("sao", lambda: ife.var_sao(planes, recs,
+                                                     lam=lam_rd))
+    host = timed("d2h", lambda: (
+        [r.cpu().numpy() for r in recs],
+        [lv.cpu().numpy() for lv in levels],
+        None if sao is None else sao.cpu().numpy()))
+    fd = timed("merge_amvp_skip", lambda: ife.var_b_frame_data(
+        size8, sched_size8, mode_maps, inter8, dirs8, emv0, emv1, host[1],
+        1, (0, 2)))
+    _set_sao(fd, host[2])
+    timed("cabac", lambda: ife._serialize_b(fd, 1, 1, 1, qp=qp))
+    out["frame_ms"] = sum(out[k] for k in (
+        "upload_ms", "search_total_ms", "tree_and_plan_ms", "merge_rd_ms",
+        "sched_upload_ms", "mc_ms", "var_recon_ms", "deblock_ms",
+        "sao_ms", "d2h_ms", "merge_amvp_skip_ms", "cabac_ms") if k in out)
+    out["n_steps_real"] = vp.n_steps_real
+    out["inter_share"] = float(inter8.mean())
+    out["bi_share_of_inter"] = float((dirs8[inter8] == 2).mean()) \
+        if inter8.any() else 0.0
+    (out["recon_device_kernels_and_copies"],
+     out["recon_aten_ops"]) = count_launches(torch, recon)
+    return out
+
+
+def card_equals_cpu(name, cfg, clip, dev, with_flush=True):
+    """Encodes clip with cfg on the card and on the CPU through
+    Encoder.encode (and flush); raises unless every picture's bytes and
+    recon agree.  Returns the card's results."""
+    from kvazaar_tpu_torch.api import Encoder
+    runs = []
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        enc = Encoder(cfg, device=d)
+        res = [r for f in clip for r in enc.encode(*f)]
+        if with_flush:
+            res += enc.flush()
+        runs.append((res, time.perf_counter() - t0))
+        enc.close()
+    (card, t_card), (host, t_cpu) = runs
+    if len(card) != len(clip) or len(host) != len(clip):
+        raise RuntimeError(f"{name}: {len(card)} / {len(host)} results for "
+                           f"{len(clip)} frames")
+    for i, (c, hst) in enumerate(zip(card, host)):
+        if c[0] != hst[0] or c[1].poc != hst[1].poc or not all(
+                np.array_equal(a, b) for a, b in zip(c[2], hst[2])):
+            raise RuntimeError(f"{name}: card and CPU differ at picture {i}")
+    log(f"{name}: card == CPU bytes and recon over {len(clip)} frames "
+        f"(POCs {[r[1].poc for r in card]}, QPs {[r[1].qp for r in card]}; "
+        f"card {t_card:.3f} s, CPU {t_cpu:.3f} s)")
+    return card
+
+
+def run_gop(torch, wavefront, clip46, dev):
+    """Phase 12: B pyramids.  The inter variant on a real B frame's
+    bi-averaged MC planes == plain; GOP 8 on the fixed cu 16 grid and the
+    medium preset's default (variable B trees) at 832x480 through
+    Encoder.encode_stream, each warm over the IDR and one GOP and then
+    timed, with a stage split of one variable B frame; card == CPU for a
+    fixed-grid GOP 8, medium's GOP 8 with a tail and an open GOP with CRA
+    and RASL pictures; and a set_base_qp + reset_stream ladder on a GOP-8
+    medium encoder.  Returns the B-frame kernel rows."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.constants import NAL_CRA_NUT
+    from kvazaar_tpu_torch.encoder import frame_encoder as fe
+
+    rows = compare_kernel_b(torch, clip46, dev)
+    # The 46-frame motion clip: a clip that repeats every 8 frames would
+    # make each P anchor a copy of the IDR.
+
+    # GOP 8 on the fixed grid: each B frame's inter launches.
+    per_b = []
+    encode_b = fe.PFrameMixin.encode_b_frame
+
+    def counted(self, y, cb, cr, poc, *a, **k):
+        n0 = wavefront.LAUNCHES["inter"]
+        r = encode_b(self, y, cb, cr, poc, *a, **k)
+        per_b.append((poc, wavefront.LAUNCHES["inter"] - n0))
+        return r
+
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    fe.PFrameMixin.encode_b_frame = counted
+    try:
+        enc, results, dt = timed_gop(torch, gop_fixed_config(W, H),
+                                     clip46, 2 * GOP, dev)
+    finally:
+        fe.PFrameMixin.encode_b_frame = encode_b
+    launches = dict(wavefront.LAUNCHES)
+    if len(per_b) != 3 * (GOP - 1) or min(n for _p, n in per_b) == 0:
+        raise RuntimeError(f"gop8-fixed16: a B frame launched no kernel: "
+                           f"{per_b}")
+    summary = gop_summary(results, GOP + 1, dt, "gop8-fixed16")
+    summary.update(kernel_launches=launches,
+                   inter_launches_per_b_frame=[n for _p, n in per_b])
+    log("gop8-fixed16 encode_stream:", json.dumps(summary))
+    enc.close()
+
+    # The medium default: variable B trees.
+    trees = []
+
+    def keep_trees(enc):
+        ife = enc._intra
+        for name, at in (("var_p_plan", 3), ("var_b_plan", 3)):
+            fn = getattr(ife, name)
+
+            def keep(*a, _fn=fn, _at=at):
+                r = _fn(*a)
+                trees.append((r[0], r[_at]))
+                return r
+            setattr(ife, name, keep)
+
+    for k in wavefront.LAUNCHES:
+        wavefront.LAUNCHES[k] = 0
+    enc, results, dt = timed_gop(torch, gop_medium_config(W, H), clip46,
+                                 GOP, dev, hook=keep_trees)
+    summary = gop_summary(results, GOP + 1, dt, "gop8-medium")
+    cus, inter = {}, []
+    for size8, inter8 in trees[-GOP:]:
+        sizes, cells = np.unique(size8, return_counts=True)
+        for sz, c in zip(sizes, cells):
+            cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
+        inter.append(float(inter8.mean()))
+    summary.update(kernel_launches=dict(wavefront.LAUNCHES),
+                   cus_by_size=cus, inter_share_of_cells=inter)
+    log("gop8-medium encode_stream:", json.dumps(summary))
+    enc.close()
+    ife = fe.IntraFrameEncoder(gop_medium_config(W, H), device=dev)
+    log("gop8-medium stage split (ms, one B frame):", json.dumps(
+        var_b_stage_split(torch, ife, clip46[:3])))
+    ife.close()
+
+    w, h = 416, 240
+    small = synth_clip_natural(11, w, h, seed=0)
+    card_equals_cpu(f"gop8-fixed16 {w}x{h}", gop_fixed_config(w, h),
+                    small[:9], dev)
+    card = card_equals_cpu(f"gop8-medium {w}x{h}", gop_medium_config(w, h),
+                           small, dev)
+    cra = card_equals_cpu("open-gop4-medium 256x128", gop_medium_config(
+        256, 128, gop_len=4, intra_period=4), synth_clip_natural(
+        9, 256, 128, seed=3), dev)
+    if [r[1].nal_type for r in cra].count(NAL_CRA_NUT) != 2:
+        raise RuntimeError("open GOP: expected two CRA pictures")
+
+    enc = Encoder(gop_medium_config(w, h), device=dev)
+    first = [r[0] for r in card[:GOP + 1]]
+    ladder = {}
+    for qp in (22, 27, 22):
+        enc.set_base_qp(qp)
+        enc.reset_stream()
+        got = [r[0] for f in small[:GOP + 1] for r in enc.encode(*f)]
+        if qp in ladder and got != ladder[qp]:
+            raise RuntimeError("GOP set_base_qp ladder: back at QP 22 the "
+                               "stream differs")
+        ladder[qp] = got
+    fresh = Encoder(gop_medium_config(w, h, qp=27), device=dev)
+    if ladder[27] != [r[0] for f in small[:GOP + 1]
+                      for r in fresh.encode(*f)] or ladder[22] != first:
+        raise RuntimeError("GOP set_base_qp ladder differs from fresh "
+                           "encoders")
+    log(f"GOP-8 medium set_base_qp ladder on the card (QP 22 -> 27 -> 22 "
+        f"with reset_stream): == fresh encoders ({GOP + 1} frames per QP)")
+    enc.close()
+    fresh.close()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1388,6 +1753,7 @@ def main() -> int:
     rows32, inter_rows32, joint32, launches32 = run_low_delay(
         torch, wavefront, clip46, dev)
     run_var_p(torch, wavefront, clip46, dev)
+    run_gop(torch, wavefront, clip46, dev)
 
     def record(name, replaces, n, joint, rs):
         """The main path's joint launch (luma + Cb + Cr at the row's CU

@@ -11,15 +11,20 @@ one reference), and the multi-reference stream shape of low-delay GOP
 structures (``lp_gop``, with a QP offset per position) and
 ``ref_frames > 1`` on the fixed grid, after fixed-grid or variable-tree
 I frames, with SAO on the I frames.  So the low-delay presets
-ultrafast..fast encode at their defaults, as does ``Config()``.
-``encode``/``flush`` run per frame; ``encode_stream`` is pipelined on
+ultrafast..fast encode at their defaults, as does ``Config()``.  B
+pyramids (``gop_len`` 4 or 8: an IDR, then GOPs coded in the order of
+``GOP_TABLES`` from a reorder buffer, each picture at its layer's QP
+and lambda) encode on the fixed grid or as variable trees, the latter
+with open-GOP CRA anchors and RASL pictures under periodic intra; so
+medium..placebo encode at their defaults too.  ``encode``/``flush`` run
+per frame (a GOP's pictures come out when its last source arrives; the
+tail of a stream codes as a P chain); ``encode_stream`` is pipelined on
 all-intra fixed-grid streams and plain fixed-grid IPPP without SAO
 (device compute overlaps the downloads and host CABAC of earlier
 frames) and per frame otherwise.  ``set_base_qp`` and ``reset_stream``
 run a QP ladder on one encoder.  Every other structure raises
-NotImplementedError: B frames and GOPs, rate control, ROI/AQ, field
-pictures, selective encryption, TMVP, RDOQ and sign hiding on the
-fixed grid.
+NotImplementedError: rate control, ROI/AQ, field pictures, selective
+encryption, TMVP, SMP/AMP, RDOQ and sign hiding on the fixed grid.
 """
 
 from __future__ import annotations
@@ -34,8 +39,8 @@ import numpy as np
 
 from kvazaar_tpu_torch.checkpoint import Checkpointer
 from kvazaar_tpu_torch.config import Config, lp_gop_table
-from kvazaar_tpu_torch.constants import NAL_IDR_W_RADL, NAL_TRAIL_R, \
-    SLICE_I, SLICE_P
+from kvazaar_tpu_torch.constants import NAL_CRA_NUT, NAL_IDR_W_RADL, \
+    NAL_RASL_R, NAL_TRAIL_R, SLICE_I, SLICE_P
 from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
                                                     psnr, var_inter)
 
@@ -58,14 +63,25 @@ class FrameInfo:
     psnr_v: float
 
 
+# Hierarchical GOP structures (the JAX package's table): entries in
+# coding order, (POC offset from the previous anchor, L0 distance back,
+# L1 distance forward or None for the P anchor, QP offset, lambda
+# factor).  GOP 8 is the reference's B pyramid; GOP 4 is a 3-layer one.
+GOP_TABLES = {
+    4: [(4, 4, None, 1, 0.442), (2, 2, 2, 2, 0.3536),
+        (1, 1, 1, 3, 0.68), (3, 1, 1, 3, 0.68)],
+    8: [(8, 8, None, 1, 0.442), (4, 4, 4, 2, 0.3536),
+        (2, 2, 2, 3, 0.3536), (1, 1, 1, 4, 0.68), (3, 1, 1, 4, 0.68),
+        (6, 2, 2, 3, 0.3536), (5, 1, 1, 4, 0.68), (7, 1, 1, 4, 0.68)],
+}
+
+
 def _unsupported_structure(cfg: Config) -> list:
     """Stream structures the port does not cover (the frame encoder
     rejects the coding tools it does not cover)."""
     out = []
-    if cfg.gop_len > 1:
-        out.append("GOP structures (B frames)")
-        if var_inter(cfg):
-            out.append("variable P/B CU trees on B frames")
+    if cfg.gop_len > 1 and cfg.gop_len not in GOP_TABLES:
+        out.append(f"GOP length {cfg.gop_len} (4 and 8 are ported)")
     if cfg.bitrate > 0:
         out.append("rate control")
     return out
@@ -95,6 +111,13 @@ class Encoder:
         self._lp_table = (None if cfg.lp_gop is None
                           else lp_gop_table(*cfg.lp_gop, cfg.ref_frames))
         self._dpb_ld = {}
+        # B pyramids: the display-order sources of the GOP being
+        # buffered, the POC-keyed DPB (POC -> device planes) and the POC
+        # of the GOP's previous anchor.
+        self._gop = cfg.gop_len if cfg.gop_len > 1 else 0
+        self._pending = []
+        self._dpb_map = {}
+        self._base_poc = 0
         self._poc = 0
         self._last_idr = 0
         self._wrote_headers = False
@@ -143,7 +166,12 @@ class Encoder:
     def reset_stream(self) -> None:
         """Start a new bitstream on this encoder: the parameter sets are
         written again, the POC restarts at 0 (the next picture is an
-        IDR) and the DPBs are emptied."""
+        IDR) and the DPBs and the GOP reorder buffer are emptied (call
+        flush() first to code a buffered GOP tail)."""
+        if self._pending:
+            raise RuntimeError("flush() before reset_stream()")
+        self._dpb_map = {}
+        self._base_poc = 0
         self._poc = 0
         self._last_idr = 0
         self._wrote_headers = False
@@ -175,11 +203,15 @@ class Encoder:
         return out
 
     def encode(self, y: np.ndarray, cb=None, cr=None):
-        """Encode one frame.  Returns a list with one (annexb_bytes,
-        FrameInfo, recon) result (a list for API parity with the GOP
-        paths of the JAX package).  Plain IPPP P frames reference the
-        previous frame, multi-reference ones the structure's references;
-        the POC restarts at every IDR (8.3.1)."""
+        """Encode one frame.  Returns a list of (annexb_bytes, FrameInfo,
+        recon) results in coding order: one per frame on low-delay
+        streams, where plain IPPP P frames reference the previous frame,
+        multi-reference ones the structure's references, and the POC
+        restarts at every IDR (8.3.1); in a B pyramid empty while a GOP
+        is buffering, then the GOP's pictures (call flush() after the
+        last frame)."""
+        if self._gop:
+            return self._encode_gop_input(y, cb, cr)
         is_intra = self._is_intra(self._poc)
         enc = self._intra
         if is_intra:
@@ -240,11 +272,127 @@ class Encoder:
         return res, enc
 
     def flush(self):
-        """Low-delay streams buffer nothing."""
-        return []
+        """The buffered tail of a B pyramid (shorter than a GOP), coded
+        as a low-delay P chain; low-delay streams buffer nothing."""
+        if not self._pending:
+            return []
+        out = []
+        ife = self._intra
+        for i, src in enumerate(self._pending):
+            poc = self._base_poc + 1 + i
+            ife._dpb = self._dpb_map[poc - 1]
+            res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - 1)
+            self._dpb_map[poc] = ife._dpb
+            out.append(self._emit_gop(res, poc, src, ife.cfg.qp))
+        self._pending = []
+        self._poc = self._base_poc + 1
+        return out
 
-    def _emit(self, res, poc, src, is_intra=True, qp=None):
-        chunks = self._au_prefix(SLICE_I if is_intra else SLICE_P)
+    def _encode_gop_input(self, y, cb, cr):
+        """B pyramid input: the IDR at POC 0 codes at once; later frames
+        fill the reorder buffer, and a full GOP is coded."""
+        if self._poc == 0:
+            res = self._intra.encode_frame(y, cb, cr)
+            self._dpb_map[0] = self._intra._dpb
+            self._poc = 1
+            return [self._emit_gop(res, 0, (y, cb, cr), self.cfg.qp)]
+        self._pending.append((y, cb, cr))
+        if len(self._pending) < self._gop:
+            return []
+        out = (self._flush_gop_var() if var_inter(self.cfg)
+               else self._flush_gop_fixed())
+        self._base_poc += self._gop
+        # Keep only the pictures the next GOP can reference.
+        self._dpb_map = {p: v for p, v in self._dpb_map.items()
+                         if p >= self._base_poc}
+        self._pending = []
+        self._poc = self._base_poc + 1
+        return out
+
+    def _gop_entries(self):
+        """(POC, source, L0 distance, L1 distance or None, QP offset,
+        lambda factor) of the buffered GOP's pictures in coding order."""
+        base = self._base_poc
+        return [(base + off, self._pending[off - 1], l0, l1, qp_off, fac)
+                for off, l0, l1, qp_off, fac in GOP_TABLES[self._gop]]
+
+    def _flush_gop_var(self):
+        """A GOP of variable trees on the base frame encoder, each
+        picture at its layer's QP (the base QP plus the layer's offset,
+        clipped to 0..51) and lambda.  Under periodic intra the anchor at
+        a period boundary codes as a CRA (the POC runs on) and the GOP's
+        B pictures, which precede it in display order and reference
+        across it, as RASL_R (the JAX package's open-GOP rule; it codes
+        the same bytes with two finalize workers)."""
+        ife = self._intra
+        period = self.cfg.intra_period
+        cra_poc = self._base_poc + self._gop
+        is_cra_gop = period > 1 and cra_poc % period == 0
+        out = []
+        for poc, src, l0, l1, qp_off, fac in self._gop_entries():
+            frame_qp = (min(max(self.cfg.qp + qp_off, 0), 51) if qp_off
+                        else None)
+            if l1 is None and is_cra_gop:
+                res = ife.encode_frame(*src, nal_type=NAL_CRA_NUT, poc=poc)
+                self._dpb_map[poc] = ife._dpb
+                out.append(self._emit_gop(res, poc, src, ife.cfg.qp,
+                                          nal_type=NAL_CRA_NUT,
+                                          slice_type=SLICE_I))
+                continue
+            if l1 is None:
+                ife._dpb = self._dpb_map[poc - l0]
+                res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - l0,
+                                         qp=frame_qp, qp_factor=fac)
+                self._dpb_map[poc] = ife._dpb
+            else:
+                res, self._dpb_map[poc] = ife.encode_b_frame(
+                    *src, poc=poc,
+                    ref0=(poc - l0, self._dpb_map[poc - l0]),
+                    ref1=(poc + l1, self._dpb_map[poc + l1]), qp=frame_qp,
+                    qp_factor=fac,
+                    nal_type=NAL_RASL_R if is_cra_gop else None)
+            out.append(self._emit_gop(
+                res, poc, src, ife.cfg.qp if frame_qp is None else frame_qp))
+        return out
+
+    def _flush_gop_fixed(self):
+        """A GOP on the fixed grid: each picture on the frame encoder of
+        its layer's QP (the lambda factor is unused there, and periodic
+        intra adds no CRA, as in the JAX package)."""
+        out = []
+        for poc, src, l0, l1, qp_off, _fac in self._gop_entries():
+            ife = self._intra
+            if qp_off:
+                ife = self._encoder_for_qp(
+                    min(max(self.cfg.qp + qp_off, 0), 51))
+            if l1 is None:
+                ife._dpb = self._dpb_map[poc - l0]
+                res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - l0)
+                self._dpb_map[poc] = ife._dpb
+            else:
+                res, self._dpb_map[poc] = ife.encode_b_frame(
+                    *src, poc=poc, ref0=(poc - l0, self._dpb_map[poc - l0]),
+                    ref1=(poc + l1, self._dpb_map[poc + l1]))
+            out.append(self._emit_gop(res, poc, src, ife.cfg.qp))
+        return out
+
+    def _emit_gop(self, res, poc, src, qp, nal_type=None, slice_type=None):
+        """_emit of a B-pyramid picture, as the JAX package's GOP path
+        reports it: the AUD's pic_type is I for the IDR and a CRA and 0
+        otherwise; FrameInfo gives NAL type 1 and slice type 1 to every P
+        and B picture (RASL ones included) and the CRA its own types."""
+        is_i = poc == 0 or slice_type == SLICE_I
+        return self._emit(
+            res, poc, src, is_intra=is_i, qp=qp, aud_type=SLICE_I if is_i
+            else 0, nal_type=(NAL_IDR_W_RADL if poc == 0 else nal_type
+                              or NAL_TRAIL_R),
+            slice_type=SLICE_I if poc == 0 else slice_type or SLICE_P)
+
+    def _emit(self, res, poc, src, is_intra=True, qp=None, aud_type=None,
+              nal_type=None, slice_type=None):
+        chunks = self._au_prefix(
+            (SLICE_I if is_intra else SLICE_P) if aud_type is None
+            else aud_type)
         y, cb, cr = src
         h, w = y.shape
         rec_y = res.recon_y[:h, :w]
@@ -259,8 +407,10 @@ class Encoder:
                        self.cfg.input_bitdepth)
         info = FrameInfo(
             poc=poc, qp=self.cfg.qp if qp is None else qp,
-            nal_type=NAL_IDR_W_RADL if is_intra else NAL_TRAIL_R,
-            slice_type=SLICE_I if is_intra else SLICE_P,
+            nal_type=(nal_type if nal_type is not None else
+                      NAL_IDR_W_RADL if is_intra else NAL_TRAIL_R),
+            slice_type=(slice_type if slice_type is not None else
+                        SLICE_I if is_intra else SLICE_P),
             bits=len(res.nals) * 8,
             psnr_y=psnr(rec_y, np.asarray(y, np.int32),
                         self.cfg.input_bitdepth),
@@ -290,13 +440,13 @@ class Encoder:
     def can_pipeline(self) -> bool:
         """All-intra streams on the fixed grid and plain IPPP without SAO
         take the pipelined path (the JAX package's rule); variable trees
-        plan each frame on the host, and multi-reference and SAO streams
-        with P frames run per frame."""
+        plan each frame on the host, and B pyramids, multi-reference and
+        SAO streams with P frames run per frame."""
         if self.cfg.intra_period == 1:
             return not self._intra.var
         if var_inter(self.cfg):
             return False
-        return not self._multi and not self.cfg.sao
+        return not self._gop and not self._multi and not self.cfg.sao
 
     def encode_stream(self, frames, need_recon: bool = False):
         """Pipelined streaming encode over an iterable of (y, cb, cr)
@@ -313,8 +463,8 @@ class Encoder:
         the host (the copy waits for the device and releases the GIL)
         and finalizer threads run CABAC, so device compute, transfers
         and host serialization of different frames overlap.  Variable
-        trees, multi-reference streams and SAO streams with P frames
-        loop ``encode`` (and ``flush``) instead."""
+        trees, B pyramids, multi-reference streams and SAO streams with
+        P frames loop ``encode`` (and ``flush``) instead."""
         if not self.can_pipeline():
             for f in frames:
                 yield from self.encode(*f)

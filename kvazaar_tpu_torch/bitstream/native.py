@@ -164,22 +164,24 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
 
 
 def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
-                               nthreads: int = 1, nref_l0: int = 1):
-    """P slice (no per-CTU QP, partitions or explicit chroma modes) with
-    nref_l0 active L0 references, whose ref_idx comes from fd.ref8:
-    returns (bytes, per-substream byte sizes), the sizes empty when wpp
-    is off.  nthreads > 1 encodes the WPP substreams on that many
-    threads."""
+                               slice_type: int = 1, nthreads: int = 1,
+                               nref_l0: int = 1):
+    """P or B slice (slice_type 1 or 0; no per-CTU QP, partitions or
+    explicit chroma modes).  A P slice has nref_l0 active L0 references,
+    whose ref_idx comes from fd.ref8; a B slice has one reference per
+    list and reads fd.dir8, fd.mvp8_l1 and fd.mvd8_l1.  Returns (bytes,
+    per-substream byte sizes), the sizes empty when wpp is off.
+    nthreads > 1 encodes the WPP substreams on that many threads."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
     inter8 = np.ascontiguousarray(fd.inter8, np.uint8)
     skip8 = np.ascontiguousarray(fd.skip8, np.uint8)
     merge8 = np.ascontiguousarray(fd.merge8, np.int8)
     mvp8 = np.ascontiguousarray(fd.mvp8, np.uint8)
     mvd8 = np.ascontiguousarray(fd.mvd8, np.int32)
-    # B-slice fields, unread in a P slice.
-    dir8 = np.zeros_like(inter8)
-    mvp8_l1 = np.zeros_like(mvp8)
-    mvd8_l1 = np.zeros_like(mvd8)
+    # B-slice fields (unread in a P slice).
+    dir8 = np.ascontiguousarray(fd.dir8, np.uint8)
+    mvp8_l1 = np.ascontiguousarray(fd.mvp8_l1, np.uint8)
+    mvd8_l1 = np.ascontiguousarray(fd.mvd8_l1, np.int32)
     cap = cy.nbytes * 2 + 65536
     out = np.empty(cap, np.uint8)
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
@@ -189,7 +191,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
             else None)
     n = get_lib().ktpu_encode_slice_data_p(
         params.width, params.height, chroma, qp, 1 if wpp else 0,
-        1, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
+        slice_type, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), inter8.ctypes.data, skip8.ctypes.data,
         merge8.ctypes.data, mvp8.ctypes.data, mvd8.ctypes.data,

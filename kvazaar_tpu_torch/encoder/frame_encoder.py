@@ -2,13 +2,16 @@
 
 Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
 (IntraFrameEncoder at cu 8/16/32, with PFrameMixin's P frames against
-one or more references), for variable CU trees on I frames
-(``encode_frame_var``: CUs 8..32 or 8..64, rd 0-2, RDOQ and sign
-hiding) and on P frames with one reference (``encode_frame_var_p``,
-where ``var_inter`` holds; the P frames of low-delay GOP structures and
-of more than one reference run on the fixed grid of min(intra_max_cu,
-32)).  The device program (intra mode search; for P frames motion
-search, the intra/inter decision and motion compensation; wavefront
+one or more references and B frames against one reference per list),
+for variable CU trees on I frames (``encode_frame_var``: CUs 8..32 or
+8..64, rd 0-2, RDOQ and sign hiding), on P frames with one reference
+(``encode_frame_var_p``) and on B frames (``encode_frame_var_b``), where
+``var_inter`` holds; the P frames of low-delay GOP structures and of
+more than one reference run on the fixed grid of min(intra_max_cu,
+32).  The P and B frames of a B pyramid take their GOP layer's QP and
+lambda (``frame_lambda``).  The device program (intra mode search; for
+P/B frames motion search, the intra/inter decision and motion
+compensation (bi-averaged for BI blocks); wavefront
 reconstruction, deblocking, per-frame SSE; SAO) is plain tensor code on
 the encoder's device, with the fixed grid's reconstruction in the CUDA
 kernel on a card; the host picks a variable tree and plans its
@@ -50,17 +53,18 @@ from kvazaar_tpu_torch.bitstream.headers import (StreamParams,
 from kvazaar_tpu_torch.bitstream.syntax import FrameData, SliceDataEncoder
 from kvazaar_tpu_torch.config import Config
 from kvazaar_tpu_torch.constants import (CHROMA_QP_TAB, NAL_IDR_W_RADL,
-                                         NAL_TRAIL_R, SLICE_I, SLICE_P)
+                                         NAL_TRAIL_R, SLICE_B, SLICE_I,
+                                         SLICE_P)
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.bitstream import native
 from kvazaar_tpu_torch.encoder.inter_cands import (
-    _integral, amvp_candidates, amvp_pair_p_multiref_at, merge_amvp_var_vec,
-    merge_candidates, merge_list_p_multiref_at, var_origin_maps,
-    var_p_derive, var_skip8_vec)
-from kvazaar_tpu_torch.encoder.inter_search import (mc_planes,
-                                                    mc_planes_cells,
-                                                    merge_satd_maps_p,
-                                                    search_inter_frame)
+    _integral, amvp_candidates, amvp_pair_b_at, amvp_pair_p_multiref_at,
+    merge_amvp_var_b_vec, merge_amvp_var_vec, merge_candidates,
+    merge_list_b_at, merge_list_p_multiref_at, var_b_derive,
+    var_origin_maps, var_p_derive, var_skip8_vec)
+from kvazaar_tpu_torch.encoder.inter_search import (
+    bi_check, bi_mc_planes, bi_mc_planes_cells, mc_planes, mc_planes_cells,
+    merge_satd_maps_b, merge_satd_maps_p, search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
                                                    reconstruct_frames)
 from kvazaar_tpu_torch.encoder.intra_search import _f32, search_frame_modes
@@ -69,6 +73,7 @@ from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
                                                 choose_tree,
                                                 reconstruct_frame_var,
                                                 search_quadtree,
+                                                search_quadtree_b,
                                                 search_quadtree_p,
                                                 var_bs_maps, var_edge_masks)
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
@@ -85,6 +90,30 @@ def chroma_qp(qp: int) -> int:
 def qp_to_lambda(qp: int) -> float:
     """I-frame lambda: 0.57 * 2^((qp-12)/3)."""
     return 0.57 * 2.0 ** ((qp - 12) / 3.0)
+
+
+def frame_lambda(qp: int, slice_type: int, gop_len: int = 0,
+                 intra_period: int = 0, qp_factor=None,
+                 keyframe: bool = False) -> float:
+    """Per-picture lambda (the JAX package's frame_lambda):
+    2^((qp-12)/3) scaled by the slice kind (I: 0.57 with a reduction by
+    the intra period; GOP pictures: the GOP entry's qp_factor; plain P:
+    0.4624), then the non-keyframe boost clip(2, 4, (qp-12)/6)."""
+    period = gop_len if gop_len > 0 else intra_period
+    lam = 2.0 ** ((qp - 12) / 3.0)
+    if slice_type == SLICE_I:
+        lam *= 0.57
+        if period == 0:
+            lam *= 0.5
+        else:
+            lam *= 1.0 - min(max(0.05 * (period - 1), 0.0), 0.5)
+    elif gop_len > 0 and qp_factor is not None:
+        lam *= qp_factor
+    else:
+        lam *= 0.4624
+    if period > 0 and not keyframe:
+        lam *= min(max((qp - 12) / 6.0, 2.0), 4.0)
+    return lam
 
 
 def pad_to_multiple(plane: np.ndarray, mult: int) -> np.ndarray:
@@ -117,8 +146,9 @@ def var_inter(cfg: Config) -> bool:
     """P/B frames run variable CU trees (the JAX package's
     ``_var_inter_active``): either tool's CU range is not degenerate, or
     the inter size differs from the fixed working grid, on structures
-    with one reference per list.  Low-delay GOP structures, more than
-    one reference, TMVP and SMP keep the fixed grid."""
+    with one reference per list (IPPP with one reference, B pyramids).
+    Low-delay GOP structures, more than one reference, TMVP and SMP keep
+    the fixed grid."""
     fixed_cu = min(max(cfg.intra_max_cu, 8), 32)
     return ((cfg.intra_min_cu != cfg.intra_max_cu
              or cfg.inter_min_cu != cfg.inter_max_cu
@@ -132,9 +162,6 @@ def unsupported(cfg: Config) -> list:
     out = []
     p_frames = cfg.intra_period != 1
     var_p = p_frames and var_inter(cfg)
-    if var_p and cfg.gop_len > 1:
-        out.append("variable P/B CU trees on B frames (GOP structures; "
-                   "variable P trees with one reference are ported)")
     if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
         out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
                    "ported; 64 inside a variable tree)")
@@ -175,6 +202,31 @@ def unsupported(cfg: Config) -> list:
             if on:
                 out.append(name)
     return out
+
+
+def compute_bs_maps_b(is_inter, cbf_luma_blk, dirs, mv0, mv1):
+    """Per-CU-edge boundary strengths of a fixed-grid B frame (8.7.2.4):
+    inter-inter edges get bS 1 where the sides' directions differ or a
+    list the first side uses moves by a sample or more."""
+    intra_b = ~is_inter
+
+    def edge(sl_a, sl_b):
+        cbf = cbf_luma_blk[sl_a] | cbf_luma_blk[sl_b]
+        d_a = dirs[sl_a]
+        d0 = torch.any(torch.abs(mv0[sl_a] - mv0[sl_b]) >= 4, dim=-1)
+        d1 = torch.any(torch.abs(mv1[sl_a] - mv1[sl_b]) >= 4, dim=-1)
+        mvd = ((d_a != dirs[sl_b]) | ((d_a != 1) & d0)
+               | ((d_a != 0) & d1))
+        return torch.where(intra_b[sl_a] | intra_b[sl_b], 2,
+                           torch.where(cbf | mvd, 1, 0)).to(torch.int32)
+
+    by, bx = is_inter.shape
+    all_ = slice(None)
+    bs_v = torch.zeros((by, bx), dtype=torch.int32, device=mv0.device)
+    bs_h = torch.zeros((by, bx), dtype=torch.int32, device=mv0.device)
+    bs_v[:, 1:] = edge((all_, slice(0, bx - 1)), (all_, slice(1, bx)))
+    bs_h[1:, :] = edge((slice(0, by - 1), all_), (slice(1, by), all_))
+    return bs_v, bs_h
 
 
 def compute_bs_maps(is_inter, cbf_luma_blk, mv, ref=None):
@@ -329,11 +381,7 @@ class PFrameMixin:
                                 retained_l0=retained, tmvp=self.cfg.tmvp)
         if not (need_recon or self.cfg.hash != "none"):
             rec_np = (None, None, None)
-        if self.cfg.hash in ("md5", "checksum"):
-            from kvazaar_tpu_torch.bitstream.headers import \
-                write_picture_hash_sei
-            nal += write_picture_hash_sei(rec_np, self.bitdepth,
-                                          kind=self.cfg.hash)
+        nal = self._with_hash(nal, rec_np)
         res = FrameResult(
             nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
             recon_cr=rec_np[2], frame_data=fd, bits=len(nal) * 8,
@@ -443,30 +491,35 @@ class PFrameMixin:
                 np.ones((c8, c8), np.int32)).astype(np.uint8)
         return fd
 
-    def _serialize_p(self, fd, poc, ref_poc_diff, ref_list_l0=None,
-                     retained_l0=(), tmvp: bool = False):
-        """P slice NAL: native CABAC (WPP substreams) where the library
-        builds, else the Python serializer; then the slice header with
-        the plain one-reference RPS or, given ref_list_l0 (the POC
-        deltas of the active references), the explicit multi-reference
-        RPS with the retained pictures' deltas."""
-        qp = self.cfg.qp
-        nref = 1 if ref_list_l0 is None else len(ref_list_l0)
+    def _slice_data(self, fd, slice_type: int, qp: int, nref: int = 1):
+        """P or B slice data: native CABAC (WPP substreams) where the
+        library builds, else the Python serializer.  Returns (bytes,
+        substream sizes)."""
         if native.available():
-            data, sizes = native.encode_slice_data_native_p(
-                self.params, fd, qp, self.params.wpp,
+            return native.encode_slice_data_native_p(
+                self.params, fd, qp, self.params.wpp, slice_type=slice_type,
                 nthreads=self.cfg.threads or 4, nref_l0=nref)
+        sizes = []
+        dw = BitWriter()
+        enc = SliceDataEncoder(self.params, fd, Contexts(slice_type, qp),
+                               CabacEncoder(dw), nref_l0=nref)
+        if self.params.wpp:
+            sizes = enc.encode_slice_data_wpp()
         else:
-            sizes = []
-            dw = BitWriter()
-            enc = SliceDataEncoder(self.params, fd, Contexts(SLICE_P, qp),
-                                   CabacEncoder(dw), nref_l0=nref)
-            if self.params.wpp:
-                sizes = enc.encode_slice_data_wpp()
-            else:
-                enc.encode_slice_data()
-                dw.align_zero()
-            data = dw.get_bytes()
+            enc.encode_slice_data()
+            dw.align_zero()
+        return dw.get_bytes(), sizes
+
+    def _serialize_p(self, fd, poc, ref_poc_diff, ref_list_l0=None,
+                     retained_l0=(), tmvp: bool = False, qp=None):
+        """P slice NAL at slice QP qp (default the config's): the slice
+        data, then the slice header with the plain one-reference RPS or,
+        given ref_list_l0 (the POC deltas of the active references), the
+        explicit multi-reference RPS with the retained pictures'
+        deltas."""
+        qp = self.cfg.qp if qp is None else qp
+        nref = 1 if ref_list_l0 is None else len(ref_list_l0)
+        data, sizes = self._slice_data(fd, SLICE_P, qp, nref)
         w = BitWriter()
         write_slice_header(w, self.params, SLICE_P, NAL_TRAIL_R, qp,
                            poc=poc, ref_poc_diff=ref_poc_diff,
@@ -475,6 +528,30 @@ class PFrameMixin:
                            num_entry_points=max(len(sizes) - 1, 0),
                            entry_point_offsets=sizes[:-1])
         return nal_unit(w.get_bytes() + data, NAL_TRAIL_R)
+
+    def _serialize_b(self, fd, poc, rpd0, rpd1, qp=None,
+                     nal_type=NAL_TRAIL_R):
+        """B slice NAL (one reference per list, rpd0 pictures back and
+        rpd1 ahead) at slice QP qp; nal_type RASL_R for the leading
+        pictures of an open-GOP CRA."""
+        qp = self.cfg.qp if qp is None else qp
+        data, sizes = self._slice_data(fd, SLICE_B, qp)
+        w = BitWriter()
+        write_slice_header(w, self.params, SLICE_B, nal_type, qp, poc=poc,
+                           ref_poc_diff=rpd0, ref_poc_diff_l1=rpd1,
+                           num_entry_points=max(len(sizes) - 1, 0),
+                           entry_point_offsets=sizes[:-1])
+        return nal_unit(w.get_bytes() + data, nal_type)
+
+    def _with_hash(self, nal: bytes, rec_np) -> bytes:
+        """nal followed by the picture hash SEI of rec_np, where the
+        config asks for one."""
+        if self.cfg.hash in ("md5", "checksum"):
+            from kvazaar_tpu_torch.bitstream.headers import \
+                write_picture_hash_sei
+            nal += write_picture_hash_sei(rec_np, self.bitdepth,
+                                          kind=self.cfg.hash)
+        return nal
 
     def encode_p_frame_multi(self, y, cb=None, cr=None, poc: int = 1,
                              refs=None, retained=()):
@@ -490,20 +567,196 @@ class PFrameMixin:
             retained=retained)
 
     def encode_p_frame(self, y, cb=None, cr=None, poc: int = 1,
-                       ref_poc: int = 0) -> FrameResult:
+                       ref_poc: int = 0, qp=None,
+                       qp_factor=None) -> FrameResult:
         """Plain IPPP P frame against the DPB (the previous frame's
-        deblocked reconstruction, on the device)."""
+        deblocked reconstruction, on the device).  qp / qp_factor: a GOP
+        layer's QP and lambda factor, taken by variable trees (a fixed
+        grid takes its QP from the frame encoder's config, as in the JAX
+        package)."""
         if self._dpb is None:
             raise RuntimeError("encode_p_frame needs a reference: encode "
                                "an intra frame first")
         if var_inter(self.cfg):
             return self.encode_frame_var_p(y, cb, cr, poc=poc,
-                                           ref_poc=ref_poc)
+                                           ref_poc=ref_poc, qp=qp,
+                                           qp_factor=qp_factor)
         handle = self.submit_p(y, cb, cr, [(ref_poc, self._dpb)])
         res, recs = self.finalize_p_downloaded(
             self.download_p(handle), poc, [ref_poc], multi=False)
         self._dpb = recs
         return res
+
+    # ---- Fixed-grid B frames (one reference per list) ----
+
+    def _b_predict(self, yp, r0_y, r1_y):
+        """Search and decision of a fixed-grid B frame: the mode search,
+        a full motion search against each list, the bi-pred check
+        (``satd + lambda_me * (both lists' mv rate)``, one multiply-add;
+        +inf without bipred), the first-index argmin over (L0, L1, BI)
+        and the intra/inter decision with its 1.02 inter bias in
+        float32.  Returns (modes, inter map bool, dirs int32, mv0, mv1
+        (By, Bx, 2) int32), MVs and dirs zero outside inter blocks."""
+        plan = self.plan
+        bd = self.bitdepth
+        modes, intra_cost = search_frame_modes(
+            yp, plan, self.lambda_satd, bd, self.cfg.rd >= 1)
+        r0_y, r1_y = r0_y.to(torch.int32), r1_y.to(torch.int32)
+        mv0, c0 = search_inter_frame(yp, r0_y, plan, self.lambda_me,
+                                     self.cfg.me_range, bd,
+                                     subpel=self.cfg.me_subpel)
+        mv1, c1 = search_inter_frame(yp, r1_y, plan, self.lambda_me,
+                                     self.cfg.me_range, bd,
+                                     subpel=self.cfg.me_subpel)
+        if self.cfg.bipred:
+            cbi = bi_check(yp.to(torch.int32), r0_y, r1_y, mv0, mv1, plan,
+                           self.lambda_me, bd)[0]
+        else:
+            cbi = torch.full_like(c0, float("inf"))
+        costs = torch.stack([c0, c1, cbi])
+        dirs = torch.argmin(costs, dim=0).to(torch.int32)
+        inter_map = costs.min(dim=0).values <= intra_cost * _f32(1.02)
+        keep = inter_map[..., None]
+        return (modes, inter_map, torch.where(inter_map, dirs, 0),
+                torch.where(keep, mv0, 0).to(torch.int32),
+                torch.where(keep, mv1, 0).to(torch.int32))
+
+    def _b_from_planes(self, yp, cbp, crp, ref0, ref1):
+        """Device program of a fixed-grid B frame: (H, W) int32 source
+        planes and each list's reference (y, cb, cr) planes.  The CUs'
+        L0 / L1 / bi-averaged MC planes go into the wavefront kernel's
+        inter variant.  Returns (modes uint8, inter map, dirs, mv0, mv1,
+        levels (y, cb, cr), deblocked recon uint8 (y, cb, cr), sses
+        float32 (3,)), on the device."""
+        plan = self.plan
+        modes, inter_map, dirs, mv0, mv1 = self._b_predict(yp, ref0[0],
+                                                           ref1[0])
+        mc_y, mc_cb, mc_cr = bi_mc_planes(ref0, ref1, mv0, mv1, dirs, plan,
+                                          self.bitdepth)
+
+        def one(t):
+            return None if t is None else t[None]
+
+        rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr = reconstruct_frames(
+            yp[None], one(cbp), one(crp), modes[None], plan, self.cfg.qp,
+            self.qp_c, self.bitdepth, is_inter=inter_map[None],
+            mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr))
+        bs = None
+        if self.cfg.deblock:
+            cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
+                plan.blocks_y, plan.blocks_x)
+            bs = compute_bs_maps_b(inter_map, cbf_blk, dirs, mv0, mv1)
+        recs, sses = self._deblock_sse(
+            (yp[None], one(cbp), one(crp)), (rec_y, rec_cb, rec_cr), bs)
+
+        def first(t):
+            return None if t is None else t[0]
+
+        return (modes.to(torch.uint8), inter_map, dirs, mv0, mv1,
+                (lv_y[0], first(lv_cb), first(lv_cr)),
+                tuple(first(r) for r in recs), sses[0])
+
+    def _merge_amvp_b(self, inter_map, dirs, mv0, mv1, poc, ref_pocs):
+        """Scalar loop in decode order over a fixed-grid B frame's inter
+        blocks: the merge list of (dir, mv0, mv1) on the effective motion
+        fields (an unused list's MV is 0), else AMVP per used list (L1
+        candidates scaled by POC distance).  Returns (merge_idx, mvp0,
+        mvp1, mvd0, mvd1, emv0, emv1)."""
+        by, bx = self.plan.blocks_y, self.plan.blocks_x
+        mvd0 = np.zeros((by, bx, 2), np.int32)
+        mvd1 = np.zeros((by, bx, 2), np.int32)
+        mvp0 = np.zeros((by, bx), np.uint8)
+        mvp1 = np.zeros((by, bx), np.uint8)
+        merge_idx = np.full((by, bx), -1, np.int32)
+        order = np.argsort(self.plan.step_of_block.ravel() * (by * bx)
+                           + np.arange(by * bx), kind="stable")
+        emv0 = np.where((dirs != 1)[..., None] & inter_map[..., None],
+                        mv0, 0)
+        emv1 = np.where((dirs != 0)[..., None] & inter_map[..., None],
+                        mv1, 0)
+        avail = self.plan.avail
+        for bid in order:
+            yy, xx = divmod(int(bid), bx)
+            if not inter_map[yy, xx]:
+                continue
+            d = int(dirs[yy, xx])
+            mine = (d, (int(emv0[yy, xx, 0]), int(emv0[yy, xx, 1])),
+                    (int(emv1[yy, xx, 0]), int(emv1[yy, xx, 1])))
+            mlist = merge_list_b_at(inter_map, dirs, emv0, emv1, avail, yy,
+                                    xx, ref_pocs)
+            if mine in mlist:
+                merge_idx[yy, xx] = mlist.index(mine)
+                continue
+            for lst, mv, mvp, mvd in ((0, mv0, mvp0, mvd0),
+                                      (1, mv1, mvp1, mvd1)):
+                if d == 1 - lst:
+                    continue
+                pair = amvp_pair_b_at(inter_map, dirs, emv0, emv1, avail,
+                                      yy, xx, lst, poc, ref_pocs)
+                d0 = sum(abs(int(mv[yy, xx, k]) - pair[0][k])
+                         for k in range(2))
+                d1 = sum(abs(int(mv[yy, xx, k]) - pair[1][k])
+                         for k in range(2))
+                idx = 1 if d1 < d0 else 0
+                mvp[yy, xx] = idx
+                mvd[yy, xx] = (mv[yy, xx, 0] - pair[idx][0],
+                               mv[yy, xx, 1] - pair[idx][1])
+        return merge_idx, mvp0, mvp1, mvd0, mvd1, emv0, emv1
+
+    def _assemble_b_frame_data(self, modes, inter_map, dirs, mv0, mv1,
+                               mvd0, mvd1, mvp0, mvp1, merge_idx, lv_y,
+                               lv_cb, lv_cr):
+        """FrameData of a fixed-grid B frame: the P frame's fields (mv0
+        as L0), then the directions, the L1 motion field and each list's
+        AMVP signalling at the CU marker cells."""
+        c8 = self.cu // 8
+        fd = self._assemble_p_frame_data(modes, inter_map, mv0, merge_idx,
+                                         mvp0, mvd0, lv_y, lv_cb, lv_cr)
+        fd.dir8[:] = np.kron(dirs.astype(np.uint8),
+                             np.ones((c8, c8), np.uint8))
+        fd.mv8_l1[:] = np.kron(mv1, np.ones((c8, c8, 1), np.int32)) \
+            .reshape(fd.mv8_l1.shape)
+        use_amvp = inter_map & (merge_idx < 0)
+        fd.mvp8_l1[::c8, ::c8] = np.where(use_amvp, mvp1, 0)
+        fd.mvd8_l1[::c8, ::c8] = np.where(use_amvp[..., None], mvd1, 0)
+        return fd
+
+    def encode_b_frame(self, y, cb, cr, poc: int, ref0, ref1, qp=None,
+                       qp_factor=None, nal_type=None):
+        """B frame against one past and one future reference: ref0 /
+        ref1 = (ref_poc, (y, cb, cr) device planes).  qp / qp_factor: the
+        GOP layer's QP and lambda factor, taken by variable trees (a
+        fixed grid takes its QP from the frame encoder's config);
+        nal_type: RASL_R for the leading pictures of an open-GOP CRA
+        (variable trees).  Returns (FrameResult, the recon planes on the
+        device: the reference picture this frame leaves)."""
+        if var_inter(self.cfg):
+            return self.encode_frame_var_b(y, cb, cr, poc, ref0, ref1,
+                                           qp=qp, qp_factor=qp_factor,
+                                           nal_type=nal_type)
+        (poc0, r0), (poc1, r1) = ref0, ref1
+        ys, cbs, crs = (None if a is None else a[0] for a in
+                        self._upload(self.host_pack_sources([(y, cb, cr)])))
+        modes, inter_map, dirs, mv0, mv1, levels, recs, sses = \
+            self._b_from_planes(ys, cbs, crs, r0, r1)
+
+        def host(t):
+            return None if t is None else t.cpu().numpy()
+
+        inter_map, dirs, mv0, mv1 = (host(t) for t in (inter_map, dirs,
+                                                       mv0, mv1))
+        merge_idx, mvp0, mvp1, mvd0, mvd1, emv0, emv1 = self._merge_amvp_b(
+            inter_map, dirs, mv0, mv1, poc, (poc0, poc1))
+        fd = self._assemble_b_frame_data(
+            host(modes), inter_map, dirs, emv0, emv1, mvd0, mvd1, mvp0,
+            mvp1, merge_idx, *(host(lv) for lv in levels))
+        rec_np = tuple(host(r) for r in recs)
+        nal = self._with_hash(self._serialize_b(fd, poc, poc - poc0,
+                                                poc1 - poc), rec_np)
+        return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
+                           recon_cr=rec_np[2], frame_data=fd,
+                           bits=len(nal) * 8,
+                           sse=tuple(float(v) for v in host(sses))), recs
 
 
 class IntraFrameEncoder(PFrameMixin):
@@ -564,6 +817,9 @@ class IntraFrameEncoder(PFrameMixin):
         # Reference planes of the next P frame: the last frame's
         # deblocked reconstruction (y, cb, cr) on the device.
         self._dpb = None
+        # (nal_type, poc) of the I picture being coded: an open-GOP CRA
+        # overrides the IDR at POC 0 (encode_frame).
+        self._islice = None
 
     def headers(self) -> bytes:
         return (write_vps(self.params) + write_sps(self.params)
@@ -599,11 +855,12 @@ class IntraFrameEncoder(PFrameMixin):
             recs, sao = self._sao_stage((ys, cbs, crs), recs)
         return modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao
 
-    def _sao_stage(self, srcs, recs):
+    def _sao_stage(self, srcs, recs, lam=None):
         """SAO of a (B, H, W) batch on the device: per-CTU statistics of
         the deblocked reconstruction against the source, the decision
         (each CTU's own choice, then the merge wavefront) and the
-        filter, at the frame QP's lambda.  Returns (the filtered recon
+        filter, at lambda lam (default the config QP's; a GOP layer
+        passes its own).  Returns (the filtered recon
         uint8 (y, cb, cr), the packed parameters int32 (B, Cy, Cx, 20):
         merge, type (luma, chroma), edge class (luma, chroma), band
         position (y, cb, cr), offsets (y, cb, cr) x 4)."""
@@ -614,8 +871,9 @@ class IntraFrameEncoder(PFrameMixin):
         if cbs is not None:
             stats_c = (sao_stats(cbs, rcb, 32, bd),
                        sao_stats(crs, rcr, 32, bd))
-        p = sao_decide_frame_device(sao_stats(ys, ry, 64, bd), stats_c,
-                                    qp_to_lambda(self.cfg.qp))
+        p = sao_decide_frame_device(
+            sao_stats(ys, ry, 64, bd), stats_c,
+            qp_to_lambda(self.cfg.qp) if lam is None else lam)
         t, eo, bp, off = p["type"], p["eo"], p["bp"], p["off"]
         ry = apply_sao_plane(ry, t[..., 0], eo[..., 0], bp[..., 0],
                              off[..., 0, :], 64, bd)
@@ -754,7 +1012,8 @@ class IntraFrameEncoder(PFrameMixin):
         return self._serialize_i(fd, rec_y, rec_cb, rec_cr)
 
     def _serialize_i(self, fd, rec_y, rec_cb, rec_cr) -> FrameResult:
-        """IDR slice NAL of one I frame's FrameData: native CABAC (WPP
+        """I slice NAL of one I frame's FrameData (an IDR at POC 0, or
+        the open-GOP CRA that encode_frame names): native CABAC (WPP
         substreams) where the library builds, else the Python
         serializer; then the slice header and the picture hash SEI."""
         # Slice data first (entry-point offsets go into the header).
@@ -777,18 +1036,15 @@ class IntraFrameEncoder(PFrameMixin):
                 enc.encode_slice_data()
                 dw.align_zero()
             data = dw.get_bytes()
+        nal_type, poc = self._islice or (NAL_IDR_W_RADL, 0)
         w = BitWriter()
-        write_slice_header(w, self.params, SLICE_I, NAL_IDR_W_RADL,
-                           self.cfg.qp, poc=0, ref_list_l0=[],
+        write_slice_header(w, self.params, SLICE_I, nal_type,
+                           self.cfg.qp, poc=poc, ref_list_l0=[],
                            num_entry_points=max(len(sizes) - 1, 0),
                            entry_point_offsets=sizes[:-1])
-        nal = nal_unit(w.get_bytes() + data, NAL_IDR_W_RADL)
-        if self.cfg.hash in ("md5", "checksum") and rec_y is not None:
-            from kvazaar_tpu_torch.bitstream.headers import \
-                write_picture_hash_sei
-            nal += write_picture_hash_sei((rec_y, rec_cb, rec_cr),
-                                          self.bitdepth,
-                                          kind=self.cfg.hash)
+        nal = nal_unit(w.get_bytes() + data, nal_type)
+        if rec_y is not None:
+            nal = self._with_hash(nal, (rec_y, rec_cb, rec_cr))
         return FrameResult(nals=nal, recon_y=rec_y, recon_cb=rec_cb,
                            recon_cr=rec_cr, frame_data=fd,
                            bits=len(nal) * 8)
@@ -886,15 +1142,15 @@ class IntraFrameEncoder(PFrameMixin):
         return tuple(None if r is None else r.to(torch.uint8)
                      for r in (ry, rcb, rcr))
 
-    def var_sao(self, planes, recs):
-        """SAO of one frame (see ``_sao_stage``): planes / recs are the
-        (H, W) source and deblocked planes; returns (filtered recon,
-        packed parameters (Cy, Cx, 20))."""
+    def var_sao(self, planes, recs, lam=None):
+        """SAO of one frame (see ``_sao_stage``, lambda lam): planes /
+        recs are the (H, W) source and deblocked planes; returns
+        (filtered recon, packed parameters (Cy, Cx, 20))."""
         def one(t):
             return None if t is None else t[None]
 
         recs, packed = self._sao_stage(tuple(one(p) for p in planes),
-                                       tuple(one(r) for r in recs))
+                                       tuple(one(r) for r in recs), lam)
         return tuple(None if r is None else r[0] for r in recs), packed[0]
 
     def var_frame_data(self, size8, sched_size8, mode_maps,
@@ -945,51 +1201,99 @@ class IntraFrameEncoder(PFrameMixin):
         _set_sao(fd, host(sao))
         return self._serialize_i(fd, *rec_np)
 
-    # ---- Variable-CU P frames (one reference) ----
+    # ---- Variable-CU P and B frames (one reference per list) ----
 
-    def var_p_search(self, yp: torch.Tensor, ref_y: torch.Tensor):
+    def _var_frame_qp_lam(self, qp=None, qp_factor=None,
+                          slice_type: int = SLICE_P):
+        """(frame_qp, lam_rd, lam_satd) of a variable-tree P or B frame:
+        with neither qp nor qp_factor the config's QP, its I-frame lambda
+        and the search lambda; a GOP layer's QP and factor take the
+        per-picture lambda of ``frame_lambda`` and its square root."""
+        if qp is None and qp_factor is None:
+            return self.cfg.qp, qp_to_lambda(self.cfg.qp), self.lambda_satd
+        frame_qp = self.cfg.qp if qp is None else int(qp)
+        lam = frame_lambda(frame_qp, slice_type, gop_len=self.cfg.gop_len,
+                           intra_period=self.cfg.intra_period,
+                           qp_factor=qp_factor, keyframe=False)
+        return frame_qp, lam, math.sqrt(lam)
+
+    def var_p_search(self, yp: torch.Tensor, ref_y: torch.Tensor, ql=None):
         """Device search of a P tree at every candidate CU size of the
-        (H, W) int32 source luma against the reference luma: (costs,
-        modes, mvs, inter maps) dicts size -> grids, on the device."""
+        (H, W) int32 source luma against the reference luma, at ql =
+        (frame_qp, lam_rd, lam_satd) (default: ``_var_frame_qp_lam()``):
+        (costs, modes, mvs, inter maps) dicts size -> grids, on the
+        device."""
         cfg = self.cfg
+        qp, lam_rd, lam_satd = ql or self._var_frame_qp_lam()
         return search_quadtree_p(
-            yp, ref_y, self.coded_w, self.coded_h, self.lambda_satd,
-            cfg.me_range, self.bitdepth, (cfg.intra_min_cu, cfg.intra_max_cu),
+            yp, ref_y, self.coded_w, self.coded_h, lam_satd, cfg.me_range,
+            self.bitdepth, (cfg.intra_min_cu, cfg.intra_max_cu),
             (cfg.inter_min_cu, cfg.inter_max_cu), cfg.rd >= 1,
-            subpel=cfg.me_subpel, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp))
+            subpel=cfg.me_subpel, qp=qp, lam_rd=lam_rd)
 
-    def var_p_plan(self, costs, modes, mvs, imaps):
-        """Host stage of a P tree: the tree argmin over the searched RD
-        costs, the decisions expanded onto the 8x8 cells, and the
-        wavefront plan of its intra CUs (inter CUs go to the direct
-        pass).  Returns (size8, sched_size8, mode_maps, inter8 (h8, w8)
-        bool, mv_cells (h8, w8, 2) int32, VarPlan)."""
-        host = {k: {s: v.cpu().numpy() for s, v in d.items()}
-                for k, d in (("c", costs), ("m", modes), ("v", mvs),
-                             ("i", imaps))}
-        size8 = choose_tree(host["c"], self.coded_w, self.coded_h,
-                            qp_to_lambda(self.cfg.qp), percu_bits=0.0,
+    def _inter_tree_plan(self, costs, modes, imaps, mv_grids, lam_rd,
+                         extra_grids=()):
+        """Host stage of an inter tree: the tree argmin over the searched
+        RD costs (device dicts), the decisions expanded onto the 8x8
+        cells (build_cell_fields, with extra_grids) and the wavefront
+        plan of its intra CUs (inter CUs go to the direct pass).
+        Returns (size8, sched_size8, mode_maps, cell fields, VarPlan)."""
+        def host(d):
+            return {s: v.cpu().numpy() for s, v in d.items()}
+
+        size8 = choose_tree(host(costs), self.coded_w, self.coded_h,
+                            lam_rd, percu_bits=0.0,
                             split_bits=SPLIT_FLAG_BINS)
-        sched_size8, mode_maps = _sched_sizes(size8, host["m"])
-        inter8, mv_cells = build_cell_fields(size8, host["i"], host["v"])
+        sched_size8, mode_maps = _sched_sizes(size8, host(modes))
+        fields = build_cell_fields(size8, host(imaps), host(mv_grids),
+                                   tuple(host(g) for g in extra_grids))
         vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
-                            self.coded_h, self.chroma, inter8_map=inter8)
+                            self.coded_h, self.chroma, inter8_map=fields[0])
+        return size8, sched_size8, mode_maps, fields, vp
+
+    def var_p_plan(self, costs, modes, mvs, imaps, ql=None):
+        """Host stage of a P tree (``_inter_tree_plan`` at ql's lam_rd).
+        Returns (size8, sched_size8, mode_maps, inter8 (h8, w8) bool,
+        mv_cells (h8, w8, 2) int32, VarPlan)."""
+        lam_rd = (ql or self._var_frame_qp_lam())[1]
+        size8, sched_size8, mode_maps, (inter8, mv_cells), vp = \
+            self._inter_tree_plan(costs, modes, imaps, mvs, lam_rd)
         return size8, sched_size8, mode_maps, inter8, mv_cells, vp
 
     # Truncated-unary merge_idx bin counts (max_num_merge_cand 5).
     _MERGE_IDX_BITS = np.array([1.0, 2.0, 3.0, 4.0, 4.0])
 
-    def merge_rd_p(self, yp, ref_y, size8, inter8, mv_cells):
+    @staticmethod
+    def _cu_sums(maps, cy, cx, cells):
+        """Per-CU sums (K, n) of per-cell maps (K, h8, w8), from integral
+        images."""
+        out = np.empty((maps.shape[0], cy.size), np.int64)
+        for k in range(maps.shape[0]):
+            icum = _integral(maps[k])
+            out[k] = (icum[cy + cells, cx + cells] - icum[cy, cx + cells]
+                      - icum[cy + cells, cx] + icum[cy, cx])
+        return out
+
+    def _merge_rd_win(self, sums, lam, amvp_bits):
+        """float64 merge RD of n CUs: sums (6, n) SATDs of the five merge
+        candidates and of the searched motion; returns each CU's winner
+        0..5 (5 = keep the searched motion)."""
+        costs = np.empty((6, sums.shape[1]))
+        for k in range(5):
+            costs[k] = sums[k] + lam * self._MERGE_IDX_BITS[k]
+        costs[5] = sums[5] + lam * amvp_bits
+        return costs.argmin(axis=0)
+
+    def merge_rd_p(self, yp, ref_y, size8, inter8, mv_cells, ql=None):
         """Merge-mode RD of a P tree: each inter CU's five merge
         candidates as MC hypotheses (one device pass of per-cell SATD
         maps) against its searched MV with its mvd rate, by SATD +
-        lambda * bits in float64 on the host; a winning candidate's MV
+        lam_satd * bits in float64 on the host; a winning candidate's MV
         replaces the CU's (the signalling is derived again from the
         final field).  Returns the new mv_cells."""
         d = var_p_derive(size8, inter8, mv_cells)
         cy, cx, cells = d["cy"], d["cx"], d["cells"]
-        n = cy.size
-        if n == 0:
+        if cy.size == 0:
             return mv_cells
         oy, ox = var_origin_maps(size8)
         h8, w8 = inter8.shape
@@ -1002,20 +1306,12 @@ class IntraFrameEncoder(PFrameMixin):
             yp, ref_y, torch.from_numpy(cand_cells).to(self.device),
             torch.from_numpy(mv_cells).to(self.device),
             self.bitdepth).cpu().numpy()
-        sums = np.empty((6, n), np.int64)
-        for k in range(6):
-            icum = _integral(maps[k])
-            sums[k] = (icum[cy + cells, cx + cells] - icum[cy, cx + cells]
-                       - icum[cy + cells, cx] + icum[cy, cx])
         mine, p0, p1 = d["mine"], d["p0"], d["p1"]
         amvp_bits = 1.0 + np.minimum(_mvd_bits_np(mine - p0).sum(axis=1),
                                      _mvd_bits_np(mine - p1).sum(axis=1))
-        lam = self.lambda_satd
-        costs = np.empty((6, n))
-        for k in range(5):
-            costs[k] = sums[k] + lam * self._MERGE_IDX_BITS[k]
-        costs[5] = sums[5] + lam * amvp_bits
-        win = costs.argmin(axis=0)
+        win = self._merge_rd_win(self._cu_sums(maps, cy, cx, cells),
+                                 (ql or self._var_frame_qp_lam())[2],
+                                 amvp_bits)
         upd = win < 5
         if not upd.any():
             return mv_cells
@@ -1037,25 +1333,34 @@ class IntraFrameEncoder(PFrameMixin):
                      mv_cells=up(mv_cells))
         return sched
 
-    def var_recon_p(self, sched, refs):
-        """MC of the cell motion field from the reference planes, the
-        P tree's reconstruction (direct inter pass, then the intra
-        wavefront) and its deblocking with the tree's bS.  Returns
-        (deblocked recon uint8 (y, cb, cr), levels int16 (y, cb, cr))."""
-        cfg = self.cfg
+    def var_recon_p(self, sched, refs, ql=None):
+        """MC of the cell motion field from the reference planes, then
+        ``_var_recon_inter``.  Returns (deblocked recon uint8 (y, cb,
+        cr), levels int16 (y, cb, cr))."""
         mcs = mc_planes_cells(*refs, sched["mv_cells"], self.bitdepth)
+        return self._var_recon_inter(sched, mcs, ql)
+
+    def _var_recon_inter(self, sched, mcs, ql):
+        """An inter tree's reconstruction from its MC planes (direct
+        inter pass, then the intra wavefront) at ql's frame QP (its
+        chroma QP from Table 8-10) and RDOQ lambda lam_rd, and its
+        deblocking at the frame QP with the tree's bS (the B form where
+        the schedule carries mv1_cells and dirs8)."""
+        cfg = self.cfg
+        qp, lam_rd, _ = ql or self._var_frame_qp_lam()
         recs, levels, cbf8 = reconstruct_frame_var(
-            sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
+            sched, qp, chroma_qp(qp), self.coded_w, self.coded_h,
             self.chroma, self.bitdepth, signhide=cfg.signhide,
-            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp), mc_planes=mcs)
+            rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs)
         ry, rcb, rcr = recs
         if cfg.deblock:
             bs_v, bs_h = var_bs_maps(sched["inter8"], cbf8,
                                      sched["mv_cells"], sched["edge_v"],
-                                     sched["edge_h"])
-            ry, rcb, rcr = deblock_frame(ry, rcb, rcr, cfg.qp, 8,
-                                         self.bitdepth, bs_v=bs_v,
-                                         bs_h=bs_h)
+                                     sched["edge_h"],
+                                     mv1_cells=sched.get("mv1_cells"),
+                                     dirs8=sched.get("dirs8"))
+            ry, rcb, rcr = deblock_frame(ry, rcb, rcr, qp, 8, self.bitdepth,
+                                         bs_v=bs_v, bs_h=bs_h)
         return tuple(None if r is None else r.to(torch.uint8)
                      for r in (ry, rcb, rcr)), levels
 
@@ -1071,49 +1376,211 @@ class IntraFrameEncoder(PFrameMixin):
         fd.merge8[:] = np.clip(merge8, -1, 4).astype(np.int8)
         fd.mvp8[:] = mvp8
         fd.mvd8[:] = mvd8
+        self._set_skip8(fd, size8, inter8, merge8)
+        return fd
+
+    def _set_skip8(self, fd, size8, inter8, merge8) -> None:
+        """cu_skip_flag per CU: merge CUs with no coded coefficient."""
         fd.skip8[:] = var_skip8_vec(size8, inter8, merge8, fd.coeff_y,
                                     fd.coeff_cb if self.chroma else None,
                                     fd.coeff_cr if self.chroma else None)
-        return fd
 
-    def encode_frame_var_p(self, y, cb=None, cr=None, poc: int = 1,
-                           ref_poc: int = 0) -> FrameResult:
-        """Variable-CU P frame against the DPB: device search at every
-        size, host tree argmin and plan, merge RD, device MC,
-        reconstruction, deblocking and SAO (at the frame QP's lambda,
-        the frame lambda of a P frame without a GOP layer's override),
-        host signalling and CABAC.  The SAO-filtered recon becomes the
-        DPB."""
-        planes = tuple(None if a is None else a[0] for a in self._upload(
-            self.host_pack_sources([(y, cb, cr)])))
-        refs = self._dpb
-        size8, sched_size8, mode_maps, inter8, mv_cells, vp = \
-            self.var_p_plan(*self.var_p_search(planes[0], refs[0]))
-        mv_cells = self.merge_rd_p(planes[0], refs[0], size8, inter8,
-                                   mv_cells)
-        recs, levels = self.var_recon_p(
-            self.var_p_sched(vp, planes, size8, inter8, mv_cells), refs)
+    def _var_inter_finish(self, planes, recs, lam_rd):
+        """SAO of an inter tree at lam_rd where the config sets it; the
+        result becomes a reference picture.  Returns (device recon, host
+        recon, host packed SAO parameters or None)."""
         sao = None
         if self.cfg.sao:
-            recs, sao = self.var_sao(planes, recs)
-        self._dpb = recs
+            recs, sao = self.var_sao(planes, recs, lam=lam_rd)
 
         def host(t):
             return None if t is None else t.cpu().numpy()
 
-        rec_np = [host(r) for r in recs]
+        return recs, [host(r) for r in recs], host(sao)
+
+    def encode_frame_var_p(self, y, cb=None, cr=None, poc: int = 1,
+                           ref_poc: int = 0, qp=None,
+                           qp_factor=None) -> FrameResult:
+        """Variable-CU P frame against the DPB: device search at every
+        size, host tree argmin and plan, merge RD, device MC,
+        reconstruction, deblocking and SAO, host signalling and CABAC,
+        at the QP and lambdas of ``_var_frame_qp_lam(qp, qp_factor)``
+        (a GOP layer's; by default the config QP's).  The SAO-filtered
+        recon becomes the DPB."""
+        ql = self._var_frame_qp_lam(qp, qp_factor, SLICE_P)
+        planes = tuple(None if a is None else a[0] for a in self._upload(
+            self.host_pack_sources([(y, cb, cr)])))
+        refs = self._dpb
+        size8, sched_size8, mode_maps, inter8, mv_cells, vp = \
+            self.var_p_plan(*self.var_p_search(planes[0], refs[0], ql), ql)
+        mv_cells = self.merge_rd_p(planes[0], refs[0], size8, inter8,
+                                   mv_cells, ql)
+        recs, levels = self.var_recon_p(
+            self.var_p_sched(vp, planes, size8, inter8, mv_cells), refs, ql)
+        self._dpb, rec_np, sao = self._var_inter_finish(planes, recs, ql[1])
         fd = self.var_p_frame_data(size8, sched_size8, mode_maps, inter8,
-                                   mv_cells, [host(lv) for lv in levels])
-        _set_sao(fd, host(sao))
-        nal = self._serialize_p(fd, poc, poc - ref_poc)
-        if self.cfg.hash in ("md5", "checksum"):
-            from kvazaar_tpu_torch.bitstream.headers import \
-                write_picture_hash_sei
-            nal += write_picture_hash_sei(rec_np, self.bitdepth,
-                                          kind=self.cfg.hash)
+                                   mv_cells, [lv.cpu().numpy()
+                                              for lv in levels])
+        _set_sao(fd, sao)
+        nal = self._with_hash(self._serialize_p(fd, poc, poc - ref_poc,
+                                                qp=ql[0]), rec_np)
         return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
                            recon_cr=rec_np[2], frame_data=fd,
                            bits=len(nal) * 8)
+
+    def var_b_search(self, yp, r0_y, r1_y, ql):
+        """Device search of a B tree (``search_quadtree_b``) at ql:
+        (costs, modes, mv0s, mv1s, dirs, inter maps) dicts size ->
+        grids."""
+        cfg = self.cfg
+        qp, lam_rd, lam_satd = ql
+        return search_quadtree_b(
+            yp, r0_y, r1_y, self.coded_w, self.coded_h, lam_satd,
+            cfg.me_range, self.bitdepth, (cfg.intra_min_cu, cfg.intra_max_cu),
+            (cfg.inter_min_cu, cfg.inter_max_cu), cfg.rd >= 1,
+            subpel=cfg.me_subpel, bipred=cfg.bipred, qp=qp, lam_rd=lam_rd)
+
+    def var_b_plan(self, costs, modes, mv0s, mv1s, dirs, imaps, ql):
+        """Host stage of a B tree (``_inter_tree_plan``); the cells'
+        motion as the effective per-list fields (an unused list's MV is
+        0).  Returns (size8, sched_size8, mode_maps, inter8, dirs8, emv0,
+        emv1, VarPlan)."""
+        size8, sched_size8, mode_maps, fields, vp = self._inter_tree_plan(
+            costs, modes, imaps, mv0s, ql[1], (mv1s, dirs))
+        inter8, mv0_cells, mv1_cells, dirs8 = fields
+        emv0 = np.where((dirs8 != 1)[..., None] & inter8[..., None],
+                        mv0_cells, 0)
+        emv1 = np.where((dirs8 != 0)[..., None] & inter8[..., None],
+                        mv1_cells, 0)
+        return size8, sched_size8, mode_maps, inter8, dirs8, emv0, emv1, vp
+
+    def merge_rd_b(self, yp, r0_y, r1_y, size8, inter8, dirs8, emv0, emv1,
+                   poc, ref_pocs, ql):
+        """Merge-mode RD of a B tree: candidates carry full motion (dir,
+        mv0, mv1), combined bi-pred entries included, against the
+        searched motion with inter_pred_idc (2 bins) and each used
+        list's AMVP rate; a winning candidate's motion replaces the
+        CU's, unused lists zeroed again.  Returns (dirs8, emv0, emv1)."""
+        d = var_b_derive(size8, inter8, dirs8, emv0, emv1, poc, ref_pocs)
+        cy, cx, cells = d["cy"], d["cx"], d["cells"]
+        n = cy.size
+        if n == 0:
+            return dirs8, emv0, emv1
+        oy, ox = var_origin_maps(size8)
+        h8, w8 = inter8.shape
+        cd = np.empty((5, h8, w8), np.int32)
+        cm0 = np.empty((5, h8, w8, 2), np.int32)
+        cm1 = np.empty((5, h8, w8, 2), np.int32)
+        for k in range(5):
+            for dst, src, key in ((cd, dirs8.astype(np.int32), "cd"),
+                                  (cm0, emv0, "c0"), (cm1, emv1, "c1")):
+                g = src.copy()
+                g[cy, cx] = d[key][:, k]
+                dst[k] = g[oy, ox]
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        maps = merge_satd_maps_b(
+            yp, r0_y, r1_y, up(cd), up(cm0), up(cm1),
+            up(dirs8.astype(np.int32)), up(emv0), up(emv1),
+            self.bitdepth).cpu().numpy()
+        md, mm = d["md"], (d["mm0"], d["mm1"])
+        amvp_bits = np.full(n, 2.0)            # inter_pred_idc
+        for lst in (0, 1):
+            p0, p1 = d["amvp"][lst]
+            used = (md != 1) if lst == 0 else (md != 0)
+            b = 1.0 + np.minimum(_mvd_bits_np(mm[lst] - p0).sum(axis=1),
+                                 _mvd_bits_np(mm[lst] - p1).sum(axis=1))
+            amvp_bits += np.where(used, b, 0.0)
+        win = self._merge_rd_win(self._cu_sums(maps, cy, cx, cells), ql[2],
+                                 amvp_bits)
+        upd = win < 5
+        if not upd.any():
+            return dirs8, emv0, emv1
+        gd = dirs8.astype(np.int32).copy()
+        g0, g1 = emv0.copy(), emv1.copy()
+        for g, key in ((gd, "cd"), (g0, "c0"), (g1, "c1")):
+            g[cy[upd], cx[upd]] = d[key][upd, win[upd]]
+        gd, g0, g1 = gd[oy, ox], g0[oy, ox], g1[oy, ox]
+        g0 = np.where((gd != 1)[..., None] & inter8[..., None], g0, 0)
+        g1 = np.where((gd != 0)[..., None] & inter8[..., None], g1, 0)
+        return (gd.astype(dirs8.dtype), g0.astype(np.int32),
+                g1.astype(np.int32))
+
+    def var_b_sched(self, vp, planes, size8, inter8, dirs8, emv0,
+                    emv1) -> dict:
+        """var_p_sched of a B tree (emv0 as the L0 field) plus its L1
+        field and directions (0 on intra cells)."""
+        sched = self.var_p_sched(vp, planes, size8, inter8, emv0)
+        sched["mv1_cells"] = torch.from_numpy(emv1).to(self.device)
+        sched["dirs8"] = torch.from_numpy(
+            np.where(inter8, dirs8, 0).astype(np.int32)).to(self.device)
+        return sched
+
+    def var_recon_b(self, sched, ref0, ref1, ql):
+        """Each cell's L0, L1 or bi-averaged MC from the two references'
+        planes, then ``_var_recon_inter``."""
+        mcs = bi_mc_planes_cells(ref0, ref1, sched["mv_cells"],
+                                 sched["mv1_cells"], sched["dirs8"],
+                                 self.bitdepth)
+        return self._var_recon_inter(sched, mcs, ql)
+
+    def var_b_frame_data(self, size8, sched_size8, mode_maps, inter8, dirs8,
+                         emv0, emv1, levels, poc, ref_pocs) -> FrameData:
+        """Host assembly of a B tree's FrameData: the var_frame_data
+        fields, both motion fields and the directions, merge/AMVP
+        signalling per list and skip flags."""
+        fd = self.var_frame_data(size8, sched_size8, mode_maps, levels)
+        fd.inter8[:] = inter8.astype(np.uint8)
+        fd.mv8[:] = emv0
+        fd.mv8_l1[:] = emv1
+        fd.dir8[:] = np.where(inter8, dirs8, 0).astype(np.uint8)
+        merge8, mvp8, mvd8, mvp8_l1, mvd8_l1 = merge_amvp_var_b_vec(
+            size8, inter8, dirs8, emv0, emv1, poc, ref_pocs)
+        fd.merge8[:] = np.clip(merge8, -1, 4).astype(np.int8)
+        fd.mvp8[:] = mvp8
+        fd.mvd8[:] = mvd8
+        fd.mvp8_l1[:] = mvp8_l1
+        fd.mvd8_l1[:] = mvd8_l1
+        self._set_skip8(fd, size8, inter8, merge8)
+        return fd
+
+    def encode_frame_var_b(self, y, cb, cr, poc: int, ref0, ref1, qp=None,
+                           qp_factor=None, nal_type=None):
+        """Variable-CU B frame: ref0 / ref1 = (ref_poc, (y, cb, cr)
+        device planes), one past and one future reference.  Device
+        search (L0, L1 and bi-pred at every size), host tree argmin and
+        plan, B merge RD, device bi MC, reconstruction, deblocking and
+        SAO, host signalling and CABAC, at the GOP layer's QP and
+        lambdas; nal_type RASL_R for the leading pictures of an open-GOP
+        CRA.  Returns (FrameResult, the SAO-filtered recon planes on the
+        device: the reference picture this frame leaves)."""
+        ql = self._var_frame_qp_lam(qp, qp_factor, SLICE_B)
+        planes = tuple(None if a is None else a[0] for a in self._upload(
+            self.host_pack_sources([(y, cb, cr)])))
+        (poc0, r0), (poc1, r1) = ref0, ref1
+        size8, sched_size8, mode_maps, inter8, dirs8, emv0, emv1, vp = \
+            self.var_b_plan(*self.var_b_search(planes[0], r0[0], r1[0], ql),
+                            ql)
+        dirs8, emv0, emv1 = self.merge_rd_b(
+            planes[0], r0[0], r1[0], size8, inter8, dirs8, emv0, emv1, poc,
+            (poc0, poc1), ql)
+        recs, levels = self.var_recon_b(
+            self.var_b_sched(vp, planes, size8, inter8, dirs8, emv0, emv1),
+            r0, r1, ql)
+        recs, rec_np, sao = self._var_inter_finish(planes, recs, ql[1])
+        fd = self.var_b_frame_data(size8, sched_size8, mode_maps, inter8,
+                                   dirs8, emv0, emv1,
+                                   [lv.cpu().numpy() for lv in levels], poc,
+                                   (poc0, poc1))
+        _set_sao(fd, sao)
+        nal = self._with_hash(self._serialize_b(
+            fd, poc, poc - poc0, poc1 - poc, qp=ql[0],
+            nal_type=nal_type or NAL_TRAIL_R), rec_np)
+        return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
+                           recon_cr=rec_np[2], frame_data=fd,
+                           bits=len(nal) * 8), recs
 
     def encode_frames(self, frames) -> list[FrameResult]:
         """Encode a batch of frames through one batched device program
@@ -1123,9 +1590,16 @@ class IntraFrameEncoder(PFrameMixin):
         return self.finalize_downloaded(
             self.download_frames(self.submit_frames(frames)))
 
-    def encode_frame(self, y: np.ndarray, cb=None, cr=None) -> FrameResult:
-        """y: (H, W) uint8 source luma; cb/cr half size (4:2:0)."""
-        return self.encode_frames([(y, cb, cr)])[0]
+    def encode_frame(self, y: np.ndarray, cb=None, cr=None, nal_type=None,
+                     poc: int = 0) -> FrameResult:
+        """y: (H, W) uint8 source luma; cb/cr half size (4:2:0).
+        nal_type / poc: the CRA of an open GOP (it codes its POC); by
+        default an IDR at POC 0."""
+        self._islice = None if nal_type is None else (nal_type, poc)
+        try:
+            return self.encode_frames([(y, cb, cr)])[0]
+        finally:
+            self._islice = None
 
     def close(self) -> None:
         """Stop the host CABAC pool."""

@@ -160,6 +160,75 @@ def merge_list_at(inter_map, mv, avail, by, bx):
     return out
 
 
+# Table 8-8: combined bi-predictive merge candidate (l0CandIdx,
+# l1CandIdx) order.
+_COMB_ORDER = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1),
+               (0, 3), (3, 0), (1, 3), (3, 1), (2, 3), (3, 2))
+
+
+def merge_list_b_at(inter_map, dirs, mv0, mv1, avail, by, bx,
+                    ref_poc: tuple):
+    """Scalar B merge list for one block: 5 tuples (dir, (mx0, my0),
+    (mx1, my1)) with unused-list MVs normalized to (0, 0).
+
+    Spatial candidates carry the neighbor's full motion (8.5.3.2.3),
+    then combined bi-predictive candidates (8.5.3.2.4, Table 8-8) and
+    zero candidates (8.5.3.2.5).  One reference per list, TMVP off.
+    Matches the reference's get_spatial_merge_candidates +
+    kvz_inter_get_merge_cand (src/inter.c:799,1130) for this operating
+    point; shared verbatim by encoder decision and oracle decoder."""
+
+    def nbr(pos):
+        if not avail[by, bx, pos]:
+            return None
+        dy, dx = _DELTAS[pos]
+        ny, nx = by + dy, bx + dx
+        if not inter_map[ny, nx]:
+            return None
+        d = int(dirs[ny, nx])
+        m0 = ((int(mv0[ny, nx, 0]), int(mv0[ny, nx, 1]))
+              if d != 1 else (0, 0))
+        m1 = ((int(mv1[ny, nx, 0]), int(mv1[ny, nx, 1]))
+              if d != 0 else (0, 0))
+        return (d, m0, m1)
+
+    a1 = nbr(_L)
+    b1 = nbr(_A)
+    b0 = nbr(_AR)
+    a0 = nbr(_BL)
+    b2 = nbr(_AL)
+    out = []
+    if a1 is not None:
+        out.append(a1)
+    if b1 is not None and b1 != a1:
+        out.append(b1)
+    if b0 is not None and b0 != b1:
+        out.append(b0)
+    if a0 is not None and a0 != a1:
+        out.append(a0)
+    if len(out) < 4 and b2 is not None and b2 != a1 and b2 != b1:
+        out.append(b2)
+
+    # Combined bi-predictive candidates.
+    n_orig = len(out)
+    if n_orig >= 2:
+        for (i0, i1) in _COMB_ORDER[:n_orig * (n_orig - 1)]:
+            if len(out) >= MAX_MERGE_CANDS:
+                break
+            if i0 >= n_orig or i1 >= n_orig:
+                continue
+            d0, m00, _ = out[i0]
+            d1, _, m11 = out[i1]
+            if d0 == 1 or d1 == 0:     # need predFlagL0 / predFlagL1
+                continue
+            if ref_poc[0] != ref_poc[1] or m00 != m11:
+                out.append((2, m00, m11))
+
+    while len(out) < MAX_MERGE_CANDS:
+        out.append((2, (0, 0), (0, 0)))
+    return out
+
+
 def _mv_scale(mvc, tb: int, td: int):
     """Temporal MV scaling (8.5.3.2.8): scale mvc coded against a ref
     `td` pics away onto a ref `tb` pics away."""
@@ -175,6 +244,78 @@ def _mv_scale(mvc, tb: int, td: int):
         return max(-32768, min(32767, s * ((abs(p) + 127) >> 8)))
 
     return (sc(mvc[0]), sc(mvc[1]))
+
+
+def amvp_pair_b_at(inter_map, dirs, mv0, mv1, avail, by, bx, lst: int,
+                   poc: int, ref_poc: tuple):
+    """AMVP pair for one PU of a B slice, target list `lst`
+    (8.5.3.2.6/8.5.3.2.7, one reference per list, TMVP off).
+
+    dirs: (By, Bx) 0=L0/1=L1/2=BI; mv0/mv1 per-list MV fields;
+    ref_poc = (poc_l0, poc_l1).  Shared verbatim by the encoder's mvd
+    derivation and the oracle decoder's MV reconstruction."""
+    tgt_poc = ref_poc[lst]
+    mvs = (mv0, mv1)
+
+    def nbr(pos):
+        if not avail[by, bx, pos]:
+            return None
+        dy, dx = _DELTAS[pos]
+        ny, nx = by + dy, bx + dx
+        if not inter_map[ny, nx]:
+            return None
+        d = int(dirs[ny, nx])
+        uses = [l for l in (lst, 1 - lst)
+                if (d == 2 or d == l)]
+        return [(l, (int(mvs[l][ny, nx, 0]), int(mvs[l][ny, nx, 1])))
+                for l in uses]
+
+    def same_ref(positions):
+        for pos in positions:
+            n = nbr(pos)
+            if n is None:
+                continue
+            for (l, v) in n:
+                if ref_poc[l] == tgt_poc:
+                    return v
+        return None
+
+    def scaled(positions):
+        for pos in positions:
+            n = nbr(pos)
+            if n is None:
+                continue
+            for (l, v) in n:
+                td = poc - ref_poc[l]
+                tb = poc - tgt_poc
+                if td == 0:
+                    continue
+                return v if td == tb else _mv_scale(v, tb, td)
+        return None
+
+    a_positions = (_BL, _L)
+    b_positions = (_AR, _A, _AL)
+    a_pu_present = any(nbr(p) is not None for p in a_positions)
+    a = same_ref(a_positions)
+    if a is None and a_pu_present:
+        a = scaled(a_positions)
+    b = same_ref(b_positions)
+    if not a_pu_present:
+        # isScaledFlag == 0: B's same-ref result takes A's slot and B
+        # is re-derived allowing scaling (8.5.3.2.7).
+        if a is None:
+            a = b
+            b = scaled(b_positions)
+            if b == a:
+                b = None
+    out = []
+    if a is not None:
+        out.append(a)
+    if b is not None and (a is None or b != a):
+        out.append(b)
+    while len(out) < 2:
+        out.append((0, 0))
+    return out
 
 
 def amvp_pair_at(inter_map, mv, avail, by, bx):
@@ -356,6 +497,13 @@ def amvp_pair_p_multiref_at(inter_map, refs, mv, avail, by, bx,
     return out
 
 
+# ---------------------------------------------------------------------
+# PU-level derivation (SMP: PART_2NxN / PART_Nx2N) on the 8x8 cell
+# grid — the reference's per-PU neighbor positions
+# (get_spatial_merge_candidates, src/inter.c:799) with the prediction-
+# block availability rules of 6.4.2 (same-CU neighbors unavailable,
+# z-scan decode-order precedence otherwise).
+# ---------------------------------------------------------------------
 
 def _cu_decode_key(cy8: int, cx8: int, cu_cells: int):
     """Decode-order key of the CU containing 8-cell (cy8, cx8):
@@ -451,6 +599,137 @@ def amvp_pair_pu_at(inter8, mv8, by8: int, bx8: int, ph8: int,
     return out
 
 
+def _pu_nbr_b(inter8, dirs8, mv08, mv18, ny: int, nx: int, cur_key):
+    """Full motion (dir, mv0, mv1) of the PU covering cell (ny, nx)
+    for B-slice candidate derivation at cell granularity (cu_cells=1
+    z keys linearize any variable tree), or None."""
+    h8, w8 = inter8.shape
+    if ny < 0 or nx < 0 or ny >= h8 or nx >= w8:
+        return None
+    if _cu_decode_key(ny, nx, 1) >= cur_key:
+        return None
+    if not inter8[ny, nx]:
+        return None
+    d = int(dirs8[ny, nx])
+    m0 = ((int(mv08[ny, nx, 0]), int(mv08[ny, nx, 1]))
+          if d != 1 else (0, 0))
+    m1 = ((int(mv18[ny, nx, 0]), int(mv18[ny, nx, 1]))
+          if d != 0 else (0, 0))
+    return (d, m0, m1)
+
+
+def merge_list_b_pu_at(inter8, dirs8, mv08, mv18, by8: int, bx8: int,
+                       cells: int, ref_poc: tuple):
+    """B merge list for a 2Nx2N PU at cell rect (by8, bx8, cells) of a
+    variable tree — the cell-granularity form of merge_list_b_at
+    (8.5.3.2.3/.4/.5, one reference per list, TMVP off).  Shared by the
+    encoder's signalling decision and the oracle decoder."""
+    key = _cu_decode_key(by8, bx8, 1)
+    a1 = _pu_nbr_b(inter8, dirs8, mv08, mv18, by8 + cells - 1,
+                   bx8 - 1, key)
+    b1 = _pu_nbr_b(inter8, dirs8, mv08, mv18, by8 - 1,
+                   bx8 + cells - 1, key)
+    b0 = _pu_nbr_b(inter8, dirs8, mv08, mv18, by8 - 1, bx8 + cells,
+                   key)
+    a0 = _pu_nbr_b(inter8, dirs8, mv08, mv18, by8 + cells, bx8 - 1,
+                   key)
+    b2 = _pu_nbr_b(inter8, dirs8, mv08, mv18, by8 - 1, bx8 - 1, key)
+    out = []
+    if a1 is not None:
+        out.append(a1)
+    if b1 is not None and b1 != a1:
+        out.append(b1)
+    if b0 is not None and b0 != b1:
+        out.append(b0)
+    if a0 is not None and a0 != a1:
+        out.append(a0)
+    if len(out) < 4 and b2 is not None and b2 != a1 and b2 != b1:
+        out.append(b2)
+    n_orig = len(out)
+    if n_orig >= 2:
+        for (i0, i1) in _COMB_ORDER[:n_orig * (n_orig - 1)]:
+            if len(out) >= MAX_MERGE_CANDS:
+                break
+            if i0 >= n_orig or i1 >= n_orig:
+                continue
+            d0, m00, _ = out[i0]
+            d1, _, m11 = out[i1]
+            if d0 == 1 or d1 == 0:
+                continue
+            if ref_poc[0] != ref_poc[1] or m00 != m11:
+                out.append((2, m00, m11))
+    while len(out) < MAX_MERGE_CANDS:
+        out.append((2, (0, 0), (0, 0)))
+    return out
+
+
+def amvp_pair_b_pu_at(inter8, dirs8, mv08, mv18, by8: int, bx8: int,
+                      cells: int, lst: int, poc: int, ref_poc: tuple):
+    """AMVP pair for one 2Nx2N PU of a B slice in a variable tree,
+    target list `lst` — the cell-granularity form of amvp_pair_b_at
+    (8.5.3.2.6/.7, one reference per list, TMVP off)."""
+    key = _cu_decode_key(by8, bx8, 1)
+    tgt_poc = ref_poc[lst]
+    mvs = (mv08, mv18)
+
+    def nbr(ny, nx):
+        n = _pu_nbr_b(inter8, dirs8, mv08, mv18, ny, nx, key)
+        if n is None:
+            return None
+        d = n[0]
+        uses = [l for l in (lst, 1 - lst) if (d == 2 or d == l)]
+        return [(l, (int(mvs[l][ny, nx, 0]), int(mvs[l][ny, nx, 1])))
+                for l in uses]
+
+    a_positions = ((by8 + cells, bx8 - 1), (by8 + cells - 1, bx8 - 1))
+    b_positions = ((by8 - 1, bx8 + cells), (by8 - 1, bx8 + cells - 1),
+                   (by8 - 1, bx8 - 1))
+
+    def same_ref(positions):
+        for (ny, nx) in positions:
+            n = nbr(ny, nx)
+            if n is None:
+                continue
+            for (l, v) in n:
+                if ref_poc[l] == tgt_poc:
+                    return v
+        return None
+
+    def scaled(positions):
+        for (ny, nx) in positions:
+            n = nbr(ny, nx)
+            if n is None:
+                continue
+            for (l, v) in n:
+                td = poc - ref_poc[l]
+                tb = poc - tgt_poc
+                if td == 0:
+                    continue
+                return v if td == tb else _mv_scale(v, tb, td)
+        return None
+
+    a_pu_present = any(nbr(ny, nx) is not None
+                       for (ny, nx) in a_positions)
+    a = same_ref(a_positions)
+    if a is None and a_pu_present:
+        a = scaled(a_positions)
+    b = same_ref(b_positions)
+    if not a_pu_present:
+        if a is None:
+            a = b
+            b = scaled(b_positions)
+            if b == a:
+                b = None
+    out = []
+    if a is not None:
+        out.append(a)
+    if b is not None and (a is None or b != a):
+        out.append(b)
+    while len(out) < 2:
+        out.append((0, 0))
+    return out
+
+
 # ---------------------------------------------------------------------
 # Scalar per-CU reference models of the variable-tree 2Nx2N signalling
 # derivation (the decode-order loops the oracle decoder also follows).
@@ -487,6 +766,56 @@ def merge_amvp_var_scalar(size8, inter8, mv8):
         mvd8[cy8, cx8] = (mine[0] - pair[i][0],
                           mine[1] - pair[i][1])
     return merge8, mvp8, mvd8
+
+
+def merge_amvp_var_b_scalar(size8, inter8, dirs8, mv08, mv18,
+                            poc, ref_poc):
+    """B-slice variant: full-motion merge candidates + per-list
+    AMVP (8.5.3.2.3/.6) at cell granularity."""
+    from kvazaar_tpu_torch.encoder.var_schedule import _enumerate_cus
+    h8, w8 = inter8.shape
+    merge8 = np.full((h8, w8), -1, np.int32)
+    mvp8 = np.zeros((h8, w8), np.uint8)
+    mvd8 = np.zeros((h8, w8, 2), np.int32)
+    mvp8_l1 = np.zeros((h8, w8), np.uint8)
+    mvd8_l1 = np.zeros((h8, w8, 2), np.int32)
+    for (x0, y0, s) in _enumerate_cus(size8):
+        cy8, cx8 = y0 // 8, x0 // 8
+        if not inter8[cy8, cx8]:
+            continue
+        cells = s // 8
+        d = int(dirs8[cy8, cx8])
+        m0 = ((int(mv08[cy8, cx8, 0]), int(mv08[cy8, cx8, 1]))
+              if d != 1 else (0, 0))
+        m1 = ((int(mv18[cy8, cx8, 0]), int(mv18[cy8, cx8, 1]))
+              if d != 0 else (0, 0))
+        mine = (d, m0, m1)
+        mlist = merge_list_b_pu_at(inter8, dirs8, mv08, mv18,
+                                   cy8, cx8, cells, ref_poc)
+        if mine in mlist:
+            merge8[cy8, cx8] = mlist.index(mine)
+            continue
+        if d != 1:
+            pair = amvp_pair_b_pu_at(inter8, dirs8, mv08, mv18,
+                                     cy8, cx8, cells, 0, poc,
+                                     ref_poc)
+            d0_ = sum(abs(m0[k] - pair[0][k]) for k in range(2))
+            d1_ = sum(abs(m0[k] - pair[1][k]) for k in range(2))
+            i = 1 if d1_ < d0_ else 0
+            mvp8[cy8, cx8] = i
+            mvd8[cy8, cx8] = (m0[0] - pair[i][0],
+                              m0[1] - pair[i][1])
+        if d != 0:
+            pair = amvp_pair_b_pu_at(inter8, dirs8, mv08, mv18,
+                                     cy8, cx8, cells, 1, poc,
+                                     ref_poc)
+            d0_ = sum(abs(m1[k] - pair[0][k]) for k in range(2))
+            d1_ = sum(abs(m1[k] - pair[1][k]) for k in range(2))
+            i = 1 if d1_ < d0_ else 0
+            mvp8_l1[cy8, cx8] = i
+            mvd8_l1[cy8, cx8] = (m1[0] - pair[i][0],
+                                 m1[1] - pair[i][1])
+    return merge8, mvp8, mvd8, mvp8_l1, mvd8_l1
 
 
 def var_skip8_scalar(size8, inter8, merge8, coeff_y, coeff_cb=None,
@@ -670,6 +999,224 @@ def merge_amvp_var_vec(size8: np.ndarray, inter8: np.ndarray,
     mvp8[cy[um], cx[um]] = pick1[um].astype(np.uint8)
     mvd8[cy[um], cx[um]] = (mine - pick)[um].astype(np.int32)
     return merge8, mvp8, mvd8
+
+
+def _mv_scale_vec(v: np.ndarray, tb: int, td: int) -> np.ndarray:
+    """_mv_scale over (n, 2) arrays with scalar POC distances."""
+    td = max(-128, min(127, td))
+    tb = max(-128, min(127, tb))
+    q = 16384 + (abs(td) >> 1)
+    tx = (q // abs(td)) * (1 if td > 0 else -1)
+    dsf = max(-4096, min(4095, (tb * tx + 32) >> 6))
+    p = dsf * v
+    s = np.where(p >= 0, 1, -1)
+    return np.clip(s * ((np.abs(p) + 127) >> 8), -32768, 32767)
+
+
+def var_b_derive(size8, inter8, dirs8, mv08, mv18, poc: int,
+                 ref_poc: tuple):
+    """Vectorized per-CU derivation for B variable trees: CU arrays,
+    full-motion merge candidates (cd/c0/c1), and per-list AMVP pairs.
+    Returns {cy, cx, cells, md, mm0, mm1, cd (n,5), c0 (n,5,2),
+    c1 (n,5,2), amvp: {0: (p0, p1), 1: (p0, p1)}}."""
+    h8, w8 = inter8.shape
+    cy, cx, cells = _var_cu_arrays(size8, inter8)
+    n = cy.size
+    out = dict(cy=cy, cx=cx, cells=cells)
+    if n == 0:
+        z2 = np.zeros((0, 2), np.int64)
+        out.update(md=np.zeros(0, np.int64), mm0=z2, mm1=z2,
+                   cd=np.zeros((0, 5), np.int64),
+                   c0=np.zeros((0, 5, 2), np.int64),
+                   c1=np.zeros((0, 5, 2), np.int64),
+                   amvp={0: (z2, z2), 1: (z2, z2)})
+        return out
+    Z = zkey_grid(h8, w8)
+    key = Z[cy, cx]
+    md = dirs8[cy, cx].astype(np.int64)
+    mm0 = np.where((md != 1)[:, None], mv08[cy, cx].astype(np.int64), 0)
+    mm1 = np.where((md != 0)[:, None], mv18[cy, cx].astype(np.int64), 0)
+
+    def nbr(dy, dx):
+        ok, d, m0, m1 = _nbr_field(Z, key, inter8, cy + dy, cx + dx,
+                                   dirs8, mv08, mv18)
+        m0 = np.where((d != 1)[:, None], m0, 0)
+        m1 = np.where((d != 0)[:, None], m1, 0)
+        return ok, d, m0, m1
+
+    POS = {"a1": (cells - 1, -1), "b1": (-1, cells - 1),
+           "b0": (-1, cells), "a0": (cells, -1), "b2": (-1, -1)}
+    nb = {k: nbr(dy, dx) for k, (dy, dx) in POS.items()}
+
+    def neq(p, q):
+        okp, dp, p0, p1 = nb[p]
+        okq, dq, q0, q1 = nb[q]
+        return (~okq | (dp != dq) | _neq2(p0, q0) | _neq2(p1, q1))
+
+    use = np.zeros((n, 5), bool)
+    use[:, 0] = nb["a1"][0]
+    use[:, 1] = nb["b1"][0] & neq("b1", "a1")
+    use[:, 2] = nb["b0"][0] & neq("b0", "b1")
+    use[:, 3] = nb["a0"][0] & neq("a0", "a1")
+    n4 = use[:, :4].sum(axis=1)
+    use[:, 4] = (nb["b2"][0] & (n4 < 4) & neq("b2", "a1")
+                 & neq("b2", "b1"))
+
+    cd = np.full((n, MAX_MERGE_CANDS), 2, np.int64)
+    c0 = np.zeros((n, MAX_MERGE_CANDS, 2), np.int64)
+    c1 = np.zeros((n, MAX_MERGE_CANDS, 2), np.int64)
+    order = ["a1", "b1", "b0", "a0", "b2"]
+    slot = np.zeros(n, np.int64)
+    for k, name in enumerate(order):
+        u = use[:, k]
+        idx = np.nonzero(u)[0]
+        _ok, d, m0, m1 = nb[name]
+        cd[idx, slot[idx]] = d[idx]
+        c0[idx, slot[idx]] = m0[idx]
+        c1[idx, slot[idx]] = m1[idx]
+        slot[idx] += 1
+    ns = slot.copy()
+
+    # Combined bi-predictive candidates (Table 8-8); i0/i1 < ns always
+    # holds within the _COMB_ORDER[:ns*(ns-1)] prefix.
+    refs_differ = ref_poc[0] != ref_poc[1]
+    for t, (i0, i1) in enumerate(_COMB_ORDER):
+        can = (t < ns * (ns - 1)) & (slot < MAX_MERGE_CANDS)
+        if not can.any():
+            continue
+        d0 = cd[:, i0]
+        d1 = cd[:, i1]
+        valid = (can & (d0 != 1) & (d1 != 0)
+                 & (refs_differ | _neq2(c0[:, i0], c1[:, i1])))
+        idx = np.nonzero(valid)[0]
+        cd[idx, slot[idx]] = 2
+        c0[idx, slot[idx]] = c0[idx, i0]
+        c1[idx, slot[idx]] = c1[idx, i1]
+        slot[idx] += 1
+    # Zero-fill is the (2, 0, 0) initialization; but slots written by
+    # spatial candidates below `slot` are final either way.
+
+    def amvp_list(lst: int):
+        """(pair0, pair1, ok-pattern) per CU for target list lst —
+        amvp_pair_b_pu_at vectorized."""
+        tgt_poc = ref_poc[lst]
+        mvs_all = (mv08, mv18)
+
+        def uses(name, lidx):
+            ok, d, _m0, _m1 = nb[name]
+            return ok & ((d == 2) | (d == lidx))
+
+        def raw(name, lidx):
+            dy, dx = POS[name]
+            ny = np.clip(cy + dy, 0, h8 - 1)
+            nx = np.clip(cx + dx, 0, w8 - 1)
+            return mvs_all[lidx][ny, nx].astype(np.int64)
+
+        a_names = ("a0", "a1")
+        b_names = ("b0b", "b1b", "b2")
+        # AMVP B-position names differ from merge: above-right, above,
+        # above-left = b0, b1, b2 in merge naming.
+        bmap = {"b0b": "b0", "b1b": "b1", "b2": "b2"}
+
+        def first_same_ref(names):
+            val = np.zeros((n, 2), np.int64)
+            found = np.zeros(n, bool)
+            for nm in names:
+                mm = bmap.get(nm, nm)
+                for lidx in (lst, 1 - lst):
+                    if ref_poc[lidx] != tgt_poc:
+                        continue
+                    v = uses(mm, lidx) & ~found
+                    val[v] = raw(mm, lidx)[v]
+                    found |= uses(mm, lidx)
+            return val, found
+
+        def first_scaled(names):
+            val = np.zeros((n, 2), np.int64)
+            found = np.zeros(n, bool)
+            for nm in names:
+                mm = bmap.get(nm, nm)
+                for lidx in (lst, 1 - lst):
+                    td = poc - ref_poc[lidx]
+                    tb = poc - tgt_poc
+                    if td == 0:
+                        continue
+                    r = raw(mm, lidx)
+                    sv = r if td == tb else _mv_scale_vec(r, tb, td)
+                    v = uses(mm, lidx) & ~found
+                    val[v] = sv[v]
+                    found |= uses(mm, lidx)
+            return val, found
+
+        a_present = nb["a0"][0] | nb["a1"][0]
+        a_val, a_found = first_same_ref(a_names)
+        as_val, as_found = first_scaled(a_names)
+        a_ok = a_found | (~a_found & a_present & as_found)
+        a_val = np.where(a_found[:, None], a_val, as_val)
+        b_val, b_found = first_same_ref(b_names)
+        bs_val, bs_found = first_scaled(b_names)
+        # isScaledFlag == 0 (no A-side PU): B takes A's slot, B is
+        # re-derived with scaling, dropped if equal to the new A.
+        npres = ~a_present
+        b_eq_bs = b_found & bs_found & ~_neq2(bs_val, b_val)
+        a_ok2 = np.where(npres, b_found, a_ok)
+        a_val2 = np.where(npres[:, None], b_val, a_val)
+        b_ok2 = np.where(npres, bs_found & ~b_eq_bs, b_found)
+        b_val2 = np.where(npres[:, None], bs_val, b_val)
+        p0 = np.where(a_ok2[:, None], a_val2,
+                      np.where(b_ok2[:, None], b_val2, 0))
+        second = a_ok2 & b_ok2 & _neq2(b_val2, a_val2)
+        p1 = np.where(second[:, None], b_val2, 0)
+        return p0, p1
+
+    out.update(md=md, mm0=mm0, mm1=mm1, cd=cd, c0=c0, c1=c1,
+               amvp={0: amvp_list(0), 1: amvp_list(1)})
+    return out
+
+
+def merge_amvp_var_b_vec(size8, inter8, dirs8, mv08, mv18, poc: int,
+                         ref_poc: tuple):
+    """Vectorized B-slice variable-tree merge/AMVP signalling:
+    per-CU equivalent of merge_list_b_pu_at + amvp_pair_b_pu_at.
+    dirs8/mv08/mv18 are the effective (unused-list-zeroed) fields.
+    Returns (merge8, mvp8, mvd8, mvp8_l1, mvd8_l1)."""
+    h8, w8 = inter8.shape
+    merge8 = np.full((h8, w8), -1, np.int32)
+    mvp8 = np.zeros((h8, w8), np.uint8)
+    mvd8 = np.zeros((h8, w8, 2), np.int32)
+    mvp8_l1 = np.zeros((h8, w8), np.uint8)
+    mvd8_l1 = np.zeros((h8, w8, 2), np.int32)
+    d = var_b_derive(size8, inter8, dirs8, mv08, mv18, poc, ref_poc)
+    cy, cx = d["cy"], d["cx"]
+    n = cy.size
+    if n == 0:
+        return merge8, mvp8, mvd8, mvp8_l1, mvd8_l1
+    md, mm0, mm1 = d["md"], d["mm0"], d["mm1"]
+    cd, c0, c1 = d["cd"], d["c0"], d["c1"]
+
+    midx = np.full(n, -1, np.int64)
+    for k in range(MAX_MERGE_CANDS - 1, -1, -1):
+        eq = ((cd[:, k] == md) & (c0[:, k] == mm0).all(axis=1)
+              & (c1[:, k] == mm1).all(axis=1))
+        midx = np.where(eq, k, midx)
+    merged = midx >= 0
+    merge8[cy[merged], cx[merged]] = midx[merged]
+
+    um = ~merged
+    for lst, (mp8, md8, mmv) in ((0, (mvp8, mvd8, mm0)),
+                                 (1, (mvp8_l1, mvd8_l1, mm1))):
+        use_l = um & ((md != 1) if lst == 0 else (md != 0))
+        if not use_l.any():
+            continue
+        p0, p1 = d["amvp"][lst]
+        d0 = np.abs(mmv - p0).sum(axis=1)
+        d1 = np.abs(mmv - p1).sum(axis=1)
+        pick1 = d1 < d0
+        pick = np.where(pick1[:, None], p1, p0)
+        sel = use_l
+        mp8[cy[sel], cx[sel]] = pick1[sel].astype(np.uint8)
+        md8[cy[sel], cx[sel]] = (mmv - pick)[sel].astype(np.int32)
+    return merge8, mvp8, mvd8, mvp8_l1, mvd8_l1
 
 
 def _integral(a: np.ndarray) -> np.ndarray:

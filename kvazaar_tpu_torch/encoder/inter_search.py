@@ -6,7 +6,11 @@ Counterpart of kvazaar_tpu/encoder/inter_search.py: search_inter_frame
 with its exhaustive search or the refinement of a hierarchical hint;
 mc_planes for one reference or stacked references with a per-block
 reference index; the 8x8-cell MC of variable trees (mc_planes_cells)
-and the per-cell SATD maps of P merge hypotheses (merge_satd_maps_p).
+and the per-cell SATD maps of P merge hypotheses (merge_satd_maps_p);
+for B frames the bi-pred check (bi_check), the per-block L0 / L1 / BI
+prediction planes of the fixed grid (bi_mc_planes) and of a variable
+tree's cells (bi_mc_planes_cells) and the SATD maps of B merge
+hypotheses (merge_satd_maps_b).
 Costs are formed in float32 exactly as the JAX package forms them (the
 Python lambda rounded to float32 first), and every argmin takes the
 first index of a tie, as JAX does.
@@ -20,9 +24,12 @@ import torch
 from kvazaar_tpu_torch.encoder import plan_cached
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder.intra_search import _f32, satd8_batch
-from kvazaar_tpu_torch.ops.inter import (device_table, gather_windows,
-                                         mc_chroma, mc_luma,
-                                         refine_qpel_dense, sad_surfaces)
+from kvazaar_tpu_torch.ops.inter import (bi_average, device_table,
+                                         gather_windows, mc_chroma,
+                                         mc_chroma_hp, mc_luma, mc_luma_hp,
+                                         refine_qpel_dense, sad_surfaces,
+                                         uni_round)
+from kvazaar_tpu_torch.ops.quant import _fma_f32
 
 
 def _mv_bits_est(dv: torch.Tensor) -> torch.Tensor:
@@ -248,6 +255,124 @@ def merge_satd_maps_p(yp, ref_y, cand_cells, cur_cells,
     outs = []
     for mv in list(cand_cells) + [cur_cells]:
         py, _, _ = mc_planes_cells(ref_y, None, None, mv, bitdepth)
+        d = (py - yp).reshape(h8, 8, w8, 8).permute(0, 2, 1, 3)
+        outs.append(satd8_batch(d))
+    return torch.stack(outs)
+
+
+def mc_planes_hp(ref_y, ref_cb, ref_cr, mv, plan: IntraFramePlan,
+                 bitdepth: int = 8):
+    """Full-frame MC at the 14-bit intermediate precision (the bi-pred
+    averaging input, 8.5.3.3.4.2).  Returns (hp_y (H, W), hp_cb, hp_cr)
+    int32."""
+    s = plan.cu_size
+    by, bx = plan.blocks_y, plan.blocks_x
+    x0s, y0s = _block_origins(plan, mv.device)
+    mvs = mv.reshape(by * bx, 2).to(torch.int32)
+    py = _blocks_to_plane(mc_luma_hp(ref_y.to(torch.int32), x0s, y0s, mvs,
+                                     s, bitdepth), by, bx, s)
+    if ref_cb is None:
+        return py, None, None
+    s2 = s // 2
+    return (py,) + tuple(
+        _blocks_to_plane(mc_chroma_hp(p.to(torch.int32), x0s // 2,
+                                      y0s // 2, mvs, s2, bitdepth),
+                         by, bx, s2) for p in (ref_cb, ref_cr))
+
+
+def bi_check(cur, r0, r1, mv0, mv1, plan: IntraFramePlan,
+             lambda_satd: float, bitdepth: int = 8):
+    """The bi-pred hypothesis of each CU of plan: the 14-bit L0 and L1
+    predictions (N, S, S), their bi average, and its cost ``satd + lambda
+    * (both lists' mv rate)``, one multiply-add as XLA's CPU backend
+    fuses it.  cur / r0 / r1: (H, W) int32 planes; mv0 / mv1: (By, Bx,
+    2).  Returns (cost (By, Bx) float32, hp0, hp1, bi)."""
+    s = plan.cu_size
+    by, bx = plan.blocks_y, plan.blocks_x
+    n = by * bx
+    x0s, y0s = _block_origins(plan, cur.device)
+    hp0 = mc_luma_hp(r0, x0s, y0s, mv0.reshape(n, 2), s, bitdepth)
+    hp1 = mc_luma_hp(r1, x0s, y0s, mv1.reshape(n, 2), s, bitdepth)
+    bi = bi_average(hp0, hp1, bitdepth)
+    blocks = cur.reshape(by, s, bx, s).permute(0, 2, 1, 3).reshape(n, s, s)
+    satd = satd8_batch(bi - blocks).reshape(by, bx)
+    p0, p1 = _mv_pred_grid(mv0), _mv_pred_grid(mv1)
+    rate = (_mv_bits_est(mv0[..., 0] - p0[..., 0])
+            + _mv_bits_est(mv0[..., 1] - p0[..., 1])
+            + _mv_bits_est(mv1[..., 0] - p1[..., 0])
+            + _mv_bits_est(mv1[..., 1] - p1[..., 1]))
+    return (_fma_f32(satd.to(torch.float32), lambda_satd, rate), hp0, hp1,
+            bi)
+
+
+def _select_dirs(h0, h1, dirs, size: int, bitdepth: int):
+    """Final prediction samples of 14-bit L0 / L1 planes under a per-block
+    direction grid (0 = L0, 1 = L1, 2 = BI) of ``size``-pixel blocks."""
+    if h0 is None:
+        return None
+    d = torch.repeat_interleave(torch.repeat_interleave(dirs, size, dim=0),
+                                size, dim=1)
+    return torch.where(d == 0, uni_round(h0, bitdepth),
+                       torch.where(d == 1, uni_round(h1, bitdepth),
+                                   bi_average(h0, h1, bitdepth)))
+
+
+def bi_mc_planes(ref0, ref1, mv0, mv1, dirs, plan: IntraFramePlan,
+                 bitdepth: int = 8):
+    """Prediction planes of a fixed-grid B frame: each CU's L0, L1 or BI
+    prediction with the spec's rounding.  ref0/ref1: (y, cb, cr) planes;
+    mv0/mv1: (By, Bx, 2) quarter-pel; dirs: (By, Bx) 0/1/2."""
+    s = plan.cu_size
+    hp0 = mc_planes_hp(*ref0, mv0, plan, bitdepth)
+    hp1 = mc_planes_hp(*ref1, mv1, plan, bitdepth)
+    return tuple(_select_dirs(a, b, dirs, n, bitdepth)
+                 for a, b, n in zip(hp0, hp1, (s, s // 2, s // 2)))
+
+
+def bi_mc_planes_cells(ref0, ref1, mv0_cells, mv1_cells, dirs8,
+                       bitdepth: int = 8):
+    """Prediction planes of a variable B tree from its 8x8-cell motion
+    fields: ref0/ref1 (y, cb, cr) planes (cb/cr None for luma only),
+    mv0/mv1_cells (h8, w8, 2) quarter-pel, dirs8 (h8, w8) 0 = L0, 1 = L1,
+    2 = BI.  Returns (pred_y, pred_cb, pred_cr) int32."""
+    h8, w8 = dirs8.shape
+    x0s, y0s = _cell_origins(h8, w8, dirs8.device)
+    mv0 = mv0_cells.reshape(h8 * w8, 2).to(torch.int32)
+    mv1 = mv1_cells.reshape(h8 * w8, 2).to(torch.int32)
+
+    def hp(plane, mvs, luma):
+        if luma:
+            return _blocks_to_plane(mc_luma_hp(plane.to(torch.int32), x0s,
+                                               y0s, mvs, 8, bitdepth),
+                                    h8, w8, 8)
+        return _blocks_to_plane(mc_chroma_hp(plane.to(torch.int32),
+                                             x0s // 2, y0s // 2, mvs, 4,
+                                             bitdepth), h8, w8, 4)
+
+    out_y = _select_dirs(hp(ref0[0], mv0, True), hp(ref1[0], mv1, True),
+                         dirs8, 8, bitdepth)
+    if ref0[1] is None:
+        return out_y, None, None
+    return (out_y,) + tuple(
+        _select_dirs(hp(ref0[k], mv0, False), hp(ref1[k], mv1, False),
+                     dirs8, 4, bitdepth) for k in (1, 2))
+
+
+def merge_satd_maps_b(yp, ref0_y, ref1_y, cand_d, cand_m0, cand_m1,
+                      cur_d, cur_m0, cur_m1,
+                      bitdepth: int = 8) -> torch.Tensor:
+    """B form of merge_satd_maps_p: each hypothesis carries full motion
+    (dir, mv0, mv1).  cand_d: (K, h8, w8); cand_m0/m1: (K, h8, w8, 2).
+    Returns (K+1, h8, w8) int32 per-cell SATD, the searched field last."""
+    h8, w8 = cur_d.shape
+    yp = yp.to(torch.int32)
+    triples = [(cand_d[i], cand_m0[i], cand_m1[i])
+               for i in range(cand_d.shape[0])]
+    outs = []
+    for dd, m0, m1 in triples + [(cur_d, cur_m0, cur_m1)]:
+        py, _, _ = bi_mc_planes_cells((ref0_y, None, None),
+                                      (ref1_y, None, None), m0, m1, dd,
+                                      bitdepth)
         d = (py - yp).reshape(h8, 8, w8, 8).permute(0, 2, 1, 3)
         outs.append(satd8_batch(d))
     return torch.stack(outs)

@@ -1,13 +1,15 @@
 """Variable-CU quadtree search + data-driven wavefront reconstruction,
-for I frames and for P frames with one reference.
+for I frames, P frames with one reference and B frames with one
+reference per list.
 
-Counterpart of kvazaar_tpu/encoder/quadtree.py without its B-frame
-parts.  The search evaluates every candidate CU size over the whole
-frame (open-loop mode searches at 8, 16 and 32, the 64 level as four
-same-mode 32x32 TBs; in P frames also the hinted motion search at every
-inter size and 64), costs each candidate in RD units (luma roundtrip
-SSD + lambda * modelled bits + per-CU syntax bins; a P size keeps the
-better of its intra and inter candidate) and the host picks the tree by
+Counterpart of kvazaar_tpu/encoder/quadtree.py.  The search evaluates
+every candidate CU size over the whole frame (open-loop mode searches at
+8, 16 and 32, the 64 level as four same-mode 32x32 TBs; in P frames also
+the hinted motion search at every inter size and 64, in B frames that
+search against each list and a bi-pred check), costs each candidate in
+RD units (luma roundtrip SSD + lambda * modelled bits + per-CU syntax
+bins; an inter size keeps the better of its intra and inter candidate)
+and the host picks the tree by
 a bottom-up argmin (``choose_tree``, numpy).  encoder/var_schedule.py
 plans the tree's wavefront on the host, and ``reconstruct_frame_var``
 runs it on the encoder's device as plain tensor code: one step at a
@@ -27,10 +29,11 @@ class pass per size, as in the JAX package.  A step runs only the
 classes and slots it holds, so padded schedule slots cost nothing.  In
 a P tree the inter CUs take no wavefront step: they reconstruct first,
 in one batch per size (the direct pass), and fill the edge buffers the
-intra CUs read.
+intra CUs read; a B tree's prediction planes carry each cell's L0, L1
+or bi-averaged MC.
 
 Left out (they raise in the frame encoder): the TU-split costs of
---tr-depth-intra, B trees, scaling lists.
+--tr-depth-intra, scaling lists.
 """
 
 from __future__ import annotations
@@ -43,14 +46,14 @@ import torch
 
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.encoder.inter_search import (_mv_bits_est,
-                                                    _mv_pred_grid,
+                                                    _mv_pred_grid, bi_check,
                                                     search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import _scan_sel, _tu_roundtrip
 from kvazaar_tpu_torch.encoder.intra_search import (_f32, _ssd_f32,
                                                     modes64_from_satd32,
                                                     rd_cost_given_modes,
                                                     search_frame_modes)
-from kvazaar_tpu_torch.ops.inter import coarse_mv_grids, mc_luma
+from kvazaar_tpu_torch.ops.inter import coarse_mv_grids, mc_luma, uni_round
 from kvazaar_tpu_torch.ops.intra import predict_modes
 from kvazaar_tpu_torch.ops.quant import _fma_f32, dequantize, quantize
 from kvazaar_tpu_torch.ops.rate import tb_rate_bits
@@ -315,6 +318,55 @@ def _inter_cost(y, ref_y, plan, hint, lambda_satd, me_range, bitdepth,
                         _mv_rate_grid(mv) + 1.0 + OVERHEAD_BINS_INTER)
 
 
+def _intra_candidates(y, width: int, height: int, sizes, intra_rng,
+                      want64: bool, lambda_satd: float, bitdepth: int,
+                      two_pass: bool, qp, lam_rd) -> dict:
+    """The intra candidate of a P or B frame at each CU size in sizes,
+    and at 64 where want64 and the frame holds a full 64 CU: size ->
+    (modes, RD-unit cost grid), the cost +inf outside the intra range
+    (the 64 modes are the best single mode over four 32x32 TBs)."""
+    dev = y.device
+    out = {}
+    modes64 = None
+    for s in sizes:
+        plan = make_intra_plan(width, height, s, chroma=False)
+        if not intra_rng[0] <= s <= intra_rng[1]:
+            out[s] = (torch.zeros((height // s, width // s),
+                                  dtype=torch.int32, device=dev),
+                      _inf_grid(width, height, s, dev))
+            continue
+        if s == 32 and want64 and intra_rng[1] >= 64:
+            m, _ic, satd32 = search_frame_modes(
+                y, plan, lambda_satd, bitdepth, two_pass, return_satd=True)
+            modes64, _c64 = modes64_from_satd32(satd32, lambda_satd,
+                                                two_pass)
+        else:
+            m, _ic = search_frame_modes(y, plan, lambda_satd, bitdepth,
+                                        two_pass)
+        out[s] = (m, intra_rd_recost(y, plan, m, qp, lam_rd, bitdepth,
+                                     p_slice=True))
+    if want64 and width // 64 and height // 64:
+        plan64, w64, h64 = _plan64(width, height)
+        if modes64 is not None and intra_rng[1] >= 64:
+            out[64] = (modes64, _intra64_cost(y, width, height, modes64, qp,
+                                              lam_rd, bitdepth, p_slice=True))
+        else:
+            out[64] = (torch.zeros((plan64.blocks_y, plan64.blocks_x),
+                                   dtype=torch.int32, device=dev),
+                       _inf_grid(w64, h64, 64, dev))
+    return out
+
+
+def _inter_sizes(sizes, inter_rng, width: int, height: int):
+    """The CU sizes an inter frame searches motion at: the inter range's
+    of sizes, and 64 where the range reaches it and the frame holds a
+    full 64 CU."""
+    out = [s for s in sizes if inter_rng[0] <= s <= inter_rng[1]]
+    if inter_rng[1] >= 64 and width // 64 and height // 64:
+        out.append(64)
+    return out
+
+
 def search_quadtree_p(y, ref_y, width: int, height: int,
                       lambda_satd: float, me_range: int, bitdepth: int = 8,
                       intra_rng=(8, 32), inter_rng=(8, 32),
@@ -333,76 +385,123 @@ def search_quadtree_p(y, ref_y, width: int, height: int,
     ref_y = ref_y.to(torch.int32)
     sizes = [s for s in SIZES if (intra_rng[0] <= s <= intra_rng[1]
                                   or inter_rng[0] <= s <= inter_rng[1])]
-    want64 = intra_rng[1] >= 64 or inter_rng[1] >= 64
-    full64 = bool(width // 64 and height // 64)
-    costs, modes, mvs, imaps = {}, {}, {}, {}
-    modes64 = None
+    intra = _intra_candidates(y, width, height, sizes, intra_rng,
+                              intra_rng[1] >= 64 or inter_rng[1] >= 64,
+                              lambda_satd, bitdepth, two_pass, qp, lam_rd)
     # Hierarchical motion search: one pooled pass for the whole size
     # ladder, refined at full resolution in search_inter_frame.
-    inter_sizes = [s for s in sizes if inter_rng[0] <= s <= inter_rng[1]]
-    if inter_rng[1] >= 64 and full64:
-        inter_sizes = inter_sizes + [64]
+    inter_sizes = _inter_sizes(sizes, inter_rng, width, height)
     hints = (coarse_mv_grids(y, ref_y, me_range, tuple(inter_sizes),
                              bitdepth) if inter_sizes else {})
-
-    def decide(s, m, ir, mv, er):
+    costs, modes, mvs, imaps = {}, {}, {}, {}
+    for s, (m, ir) in intra.items():
+        if s in inter_sizes and s < 64:
+            plan = make_intra_plan(width, height, s, chroma=False)
+            mv, er = _inter_cost(y, ref_y, plan, hints[s], lambda_satd,
+                                 me_range, bitdepth, subpel, qp, lam_rd)
+        elif s in inter_sizes:
+            plan64, w64, h64 = _plan64(width, height)
+            mv, _ = search_inter_frame(
+                y[:h64, :w64], ref_y[:h64, :w64], plan64, lambda_satd,
+                me_range, bitdepth, subpel=subpel, mv_hint=hints[64])
+            er = _fma_f32(
+                inter_rd_grid(y[:h64, :w64],
+                              _mc_blocks_at(ref_y, mv, 64, bitdepth), 64,
+                              plan64.blocks_y, plan64.blocks_x, qp, lam_rd,
+                              bitdepth),
+                lam_rd, _mv_rate_grid(mv) + 1.0 + OVERHEAD_BINS_INTER)
+        else:
+            mv = torch.zeros(m.shape + (2,), dtype=torch.int32, device=dev)
+            er = torch.full_like(ir, float("inf"))
         imap = er <= ir
         costs[s] = torch.where(imap, er, ir)
         modes[s] = m
         mvs[s] = torch.where(imap[..., None], mv, 0).to(torch.int32)
         imaps[s] = imap
-
-    for s in sizes:
-        plan = make_intra_plan(width, height, s, chroma=False)
-        if intra_rng[0] <= s <= intra_rng[1]:
-            if s == 32 and want64 and intra_rng[1] >= 64:
-                m, _ic, satd32 = search_frame_modes(
-                    y, plan, lambda_satd, bitdepth, two_pass,
-                    return_satd=True)
-                modes64, _c64 = modes64_from_satd32(satd32, lambda_satd,
-                                                    two_pass)
-            else:
-                m, _ic = search_frame_modes(y, plan, lambda_satd, bitdepth,
-                                            two_pass)
-            ir = intra_rd_recost(y, plan, m, qp, lam_rd, bitdepth,
-                                 p_slice=True)
-        else:
-            m = torch.zeros((height // s, width // s), dtype=torch.int32,
-                            device=dev)
-            ir = _inf_grid(width, height, s, dev)
-        if inter_rng[0] <= s <= inter_rng[1]:
-            mv, er = _inter_cost(y, ref_y, plan, hints[s], lambda_satd,
-                                 me_range, bitdepth, subpel, qp, lam_rd)
-        else:
-            mv = torch.zeros((height // s, width // s, 2),
-                             dtype=torch.int32, device=dev)
-            er = _inf_grid(width, height, s, dev)
-        decide(s, m, ir, mv, er)
-    if want64 and full64:
-        plan64, w64, h64 = _plan64(width, height)
-        by64, bx64 = plan64.blocks_y, plan64.blocks_x
-        if modes64 is not None and intra_rng[1] >= 64:
-            ir64 = _intra64_cost(y, width, height, modes64, qp, lam_rd,
-                                 bitdepth, p_slice=True)
-        else:
-            modes64 = torch.zeros((by64, bx64), dtype=torch.int32,
-                                  device=dev)
-            ir64 = _inf_grid(w64, h64, 64, dev)
-        if inter_rng[1] >= 64:
-            mv64, _ = search_inter_frame(
-                y[:h64, :w64], ref_y[:h64, :w64], plan64, lambda_satd,
-                me_range, bitdepth, subpel=subpel, mv_hint=hints[64])
-            er64 = _fma_f32(
-                inter_rd_grid(y[:h64, :w64],
-                              _mc_blocks_at(ref_y, mv64, 64, bitdepth), 64,
-                              by64, bx64, qp, lam_rd, bitdepth),
-                lam_rd, _mv_rate_grid(mv64) + 1.0 + OVERHEAD_BINS_INTER)
-        else:
-            mv64 = torch.zeros((by64, bx64, 2), dtype=torch.int32,
-                               device=dev)
-            er64 = _inf_grid(w64, h64, 64, dev)
-        decide(64, modes64, ir64, mv64, er64)
     return costs, modes, mvs, imaps
+
+
+def _bi_inter_at(cur, r0, r1, plan, hints, lambda_satd, me_range, bitdepth,
+                 subpel, bipred, qp, lam_rd):
+    """The B inter candidate at one size: the hinted search against each
+    list, the bi-pred SATD check (``satd + lambda * (both lists' mv
+    rate)``, one multiply-add; +inf with bipred off), the first-index
+    argmin over (L0, L1, BI), and the RD-unit cost of the chosen
+    prediction (roundtrip + the chosen lists' mv rate + inter_pred_idc
+    (2) + merge_flag (1) + the CU's bins).  Returns (mv0, mv1, dirs,
+    cost) grids."""
+    s = plan.cu_size
+    by, bx = plan.blocks_y, plan.blocks_x
+    mv0, c0 = search_inter_frame(cur, r0, plan, lambda_satd, me_range,
+                                 bitdepth, subpel=subpel, mv_hint=hints[0])
+    mv1, c1 = search_inter_frame(cur, r1, plan, lambda_satd, me_range,
+                                 bitdepth, subpel=subpel, mv_hint=hints[1])
+    cbi, hp0, hp1, bi = bi_check(cur, r0, r1, mv0, mv1, plan, lambda_satd,
+                                 bitdepth)
+    if not bipred:
+        cbi = torch.full_like(c0, float("inf"))
+    dirs = torch.argmin(torch.stack([c0, c1, cbi]), dim=0).to(torch.int32)
+    r0b, r1b = _mv_rate_grid(mv0), _mv_rate_grid(mv1)
+    dn = dirs.reshape(by * bx, 1, 1)
+    pred = torch.where(dn == 0, uni_round(hp0, bitdepth),
+                       torch.where(dn == 1, uni_round(hp1, bitdepth), bi))
+    rate = torch.where(dirs == 0, r0b, torch.where(dirs == 1, r1b,
+                                                   r0b + r1b))
+    er = inter_rd_grid(cur, pred, s, by, bx, qp, lam_rd, bitdepth)
+    return mv0, mv1, dirs, _fma_f32(er, lam_rd, rate + 2.0 + 1.0
+                                    + OVERHEAD_BINS_INTER)
+
+
+def search_quadtree_b(y, r0_y, r1_y, width: int, height: int,
+                      lambda_satd: float, me_range: int, bitdepth: int = 8,
+                      intra_rng=(8, 32), inter_rng=(8, 32),
+                      two_pass: bool = True, subpel: bool = True,
+                      bipred: bool = True, qp=30, lam_rd=None):
+    """Device search of a B variable tree: per size (64 included as in
+    search_quadtree_p) the intra candidate and the B inter candidate of
+    ``_bi_inter_at`` (a hinted L0 and L1 search, one pooled hint pass per
+    list for the whole size ladder); ties go to inter.  Returns per-size
+    dicts (costs, modes, mv0s, mv1s, dirs, inter maps), the MVs and dirs
+    zero where intra wins."""
+    if lam_rd is None:
+        lam_rd = lambda_satd * lambda_satd
+    dev = y.device
+    y = y.to(torch.int32)
+    r0_y = r0_y.to(torch.int32)
+    r1_y = r1_y.to(torch.int32)
+    sizes = [s for s in SIZES if (intra_rng[0] <= s <= intra_rng[1]
+                                  or inter_rng[0] <= s <= inter_rng[1])]
+    intra = _intra_candidates(y, width, height, sizes, intra_rng,
+                              intra_rng[1] >= 64 or inter_rng[1] >= 64,
+                              lambda_satd, bitdepth, two_pass, qp, lam_rd)
+    inter_sizes = _inter_sizes(sizes, inter_rng, width, height)
+    hints = [coarse_mv_grids(y, r, me_range, tuple(inter_sizes), bitdepth)
+             if inter_sizes else {} for r in (r0_y, r1_y)]
+    out = ({}, {}, {}, {}, {}, {})
+    for s, (m, ir) in intra.items():
+        if s in inter_sizes:
+            if s < 64:
+                plan, cur, r0, r1 = (make_intra_plan(width, height, s,
+                                                     chroma=False),
+                                     y, r0_y, r1_y)
+            else:
+                plan, w64, h64 = _plan64(width, height)
+                cur, r0, r1 = (p[:h64, :w64] for p in (y, r0_y, r1_y))
+            mv0, mv1, dirs, er = _bi_inter_at(
+                cur, r0, r1, plan, (hints[0][s], hints[1][s]), lambda_satd,
+                me_range, bitdepth, subpel, bipred, qp, lam_rd)
+        else:
+            mv0 = mv1 = torch.zeros(m.shape + (2,), dtype=torch.int32,
+                                    device=dev)
+            dirs = torch.zeros_like(m)
+            er = torch.full_like(ir, float("inf"))
+        imap = er <= ir
+        for d, v in zip(out, (torch.where(imap, er, ir), m,
+                              torch.where(imap[..., None], mv0, 0),
+                              torch.where(imap[..., None], mv1, 0),
+                              torch.where(imap, dirs, 0), imap)):
+            d[s] = v
+    return out
 
 
 def build_cell_fields(size8: np.ndarray, imaps: dict, mv_grids: dict,
@@ -464,18 +563,27 @@ def var_edge_masks(size8: np.ndarray):
     return (x8 % c == 0), (y8 % c == 0)
 
 
-def var_bs_maps(inter8, cbf8, mv_cells, edge_v, edge_h):
-    """Deblocking boundary strengths of a variable P tree on the 8x8 cell
-    grid (8.7.2.4): bS 2 where either side is intra, else 1 on a coded
-    luma TB or an MV difference of a sample or more, at TU boundaries
-    only (PU edges are CU edges: 2Nx2N).  Tensors on one device:
-    inter8 / cbf8 / edge masks (h8, w8) bool, mv_cells (h8, w8, 2)."""
+def var_bs_maps(inter8, cbf8, mv_cells, edge_v, edge_h, mv1_cells=None,
+                dirs8=None):
+    """Deblocking boundary strengths of a variable P or B tree on the 8x8
+    cell grid (8.7.2.4): bS 2 where either side is intra, else 1 on a
+    coded luma TB or an MV difference of a sample or more (in a B tree:
+    or different directions, the MV rule on each list the first side
+    uses), at TU boundaries only (PU edges are CU edges: 2Nx2N).
+    Tensors on one device: inter8 / cbf8 / edge masks (h8, w8) bool,
+    mv_cells / mv1_cells (h8, w8, 2), dirs8 (h8, w8) 0/1/2."""
     intra8 = ~inter8
 
     def edge(sl_a, sl_b, mask):
         cbf = cbf8[sl_a] | cbf8[sl_b]
         mvd = torch.any(torch.abs(mv_cells[sl_a] - mv_cells[sl_b]) >= 4,
                         dim=-1)
+        if mv1_cells is not None:
+            d_a = dirs8[sl_a]
+            d1 = torch.any(torch.abs(mv1_cells[sl_a] - mv1_cells[sl_b])
+                           >= 4, dim=-1)
+            mvd = ((d_a != dirs8[sl_b]) | ((d_a != 1) & mvd)
+                   | ((d_a != 0) & d1))
         bs = torch.where(intra8[sl_a] | intra8[sl_b], 2,
                          torch.where(cbf | mvd, 1, 0)).to(torch.int32)
         return torch.where(mask, bs, 0)

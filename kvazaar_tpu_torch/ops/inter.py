@@ -1,8 +1,9 @@
 """Inter prediction ops: fractional-sample interpolation and exhaustive
 integer-pel SAD motion search, as plain int32 tensor code.
 
-Counterpart of kvazaar_tpu/ops/inter.py for P frames: one reference
-picture, or stacked references with a per-block index for MC.  The
+Counterpart of kvazaar_tpu/ops/inter.py for P and B frames: one
+reference picture, or stacked references with a per-block index for MC,
+and the bi-pred average of two 14-bit predictions.  The
 JAX package shapes these ops for the TPU's matrix unit (one-hot matmuls
 for the window gather, banded 0/1 matmuls for block sums and for the
 quarter-pel filters, bf16 splits to keep them exact); here the same
@@ -106,6 +107,15 @@ def uni_round(hp: torch.Tensor, bitdepth: int = 8) -> torch.Tensor:
     """Default weighted-sample process, uni-pred (8.5.3.3.4.2)."""
     shift = 14 - bitdepth
     return torch.clamp((hp + (1 << (shift - 1))) >> shift, 0,
+                       (1 << bitdepth) - 1)
+
+
+def bi_average(hp0: torch.Tensor, hp1: torch.Tensor,
+               bitdepth: int = 8) -> torch.Tensor:
+    """Default weighted-sample process, bi-pred (8.5.3.3.4.2): the two
+    14-bit predictions averaged with one final rounding."""
+    shift = 15 - bitdepth
+    return torch.clamp((hp0 + hp1 + (1 << (shift - 1))) >> shift, 0,
                        (1 << bitdepth) - 1)
 
 

@@ -5,7 +5,7 @@
   all-intra points with SAO and RDOQ, the defaults: the ultrafast
   preset's low-delay GOP and Config()'s cu 32 IPPP, and the medium
   preset's variable P trees at --gop 0 with a set_base_qp /
-  reset_stream step) never imports jax
+  reset_stream step, and a fixed-grid GOP-4 B pyramid) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -68,6 +68,14 @@ assert [o[1].slice_type for o in out] == [2, 1, 1]
 enc.set_base_qp(30)
 enc.reset_stream()
 assert [o[1].qp for o in enc.encode(*frames[0])] == [30]
+# A B pyramid on the fixed grid: GOP 4 (an IDR, then one GOP: a P anchor
+# and three B frames, bi-pred included).
+cfg = Config(width=48, height=32, qp=27, intra_min_cu=16, intra_max_cu=16,
+             gop_len=4, intra_period=0)
+enc = Encoder(cfg, device="cpu")
+out = list(enc.encode_stream(frames + frames[:2]))
+assert [o[1].poc for o in out] == [0, 4, 2, 1, 3]
+assert all(len(c) > 0 for c, _, _ in out)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked

@@ -346,20 +346,24 @@ def test_low_delay_defaults_pass_the_gates(name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("medium", "GOP structures"),
-    ("ultrafast --gop 0", "variable P/B CU trees"),
+    pytest.param("medium", "rate control", id="medium-GOP structures"),
+    pytest.param("ultrafast --gop 0", "scaling lists",
+                 id="ultrafast --gop 0-variable P/B CU trees"),
     ("tmvp", "TMVP")])
 def test_what_stays_unported_raises(name, match):
-    """B frames (the medium default), variable trees on B frames (the
-    ultrafast preset's trees with --gop 0 and a GOP of 8; its one-
-    reference P trees are ported) and TMVP still raise."""
+    """On the B pyramids that are ported (the medium default; the
+    ultrafast preset's trees with --gop 0 and a GOP of 8), rate control
+    and scaling lists still raise, and so does TMVP on a low-delay
+    stream."""
     if name == "medium":
-        cfg = config_from_preset("medium", width=64, height=64)
+        cfg = config_from_preset("medium", width=64, height=64,
+                                 bitrate=100000)
     elif name == "tmvp":
         cfg = config_from_preset("ultrafast", width=64, height=64,
                                  tmvp=True)
     else:
         cfg = config_from_preset("ultrafast", width=64, height=64,
-                                 lp_gop=None, gop_len=8, intra_period=0)
+                                 lp_gop=None, gop_len=8, intra_period=0,
+                                 scaling_list="default")
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")

@@ -193,9 +193,10 @@ def test_encode_stream_matches_frame_encoder(name):
 
 
 @pytest.mark.parametrize("change", [
-    dict(tmvp=True, intra_period=0), dict(gop_len=8, intra_period=0),
+    dict(tmvp=True, intra_period=0),
+    dict(gop_len=8, intra_period=0, bitrate=100000),
     dict(intra_min_cu=8, intra_period=0, bitrate=100000),
-    dict(inter_min_cu=8, intra_period=0, gop_len=8),
+    dict(inter_min_cu=8, intra_period=0, gop_len=8, rd=3),
     dict(rdoq=True), dict(rd=2)])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
@@ -206,11 +207,15 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_structures_raise():
-    """Low-delay P frames are ported (one or more references on the
-    fixed grid, variable trees with one); B-frame GOPs, variable trees
-    on them, SMP, TMVP and rate control still raise."""
-    for change, match in ((dict(gop_len=8), "GOP"),
-                          (dict(inter_min_cu=8, gop_len=8), "variable P/B"),
+    """Low-delay P frames and B pyramids are ported (one or more
+    references on the fixed grid, variable trees with one per list);
+    scaling lists and lossless coding on a B pyramid (fixed grid,
+    variable trees),
+    SMP, TMVP and rate control still raise."""
+    for change, match in ((dict(gop_len=8, scaling_list="default"),
+                           "scaling lists"),
+                          (dict(inter_min_cu=8, gop_len=8, lossless=True),
+                           "lossless"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(bitrate=100000), "rate control")):
@@ -239,7 +244,8 @@ def test_cli_writes_the_api_stream(tmp_path):
     assert (tmp_path / "out.hevc").read_bytes() == want
 
 
-@pytest.mark.parametrize("flags", [["--preset", "medium"],
+@pytest.mark.parametrize("flags", [["--preset", "medium", "--bitrate",
+                                    "100000"],
                                    ["--period", "1", "--lossless"],
                                    ["--period", "1", "--slices", "wpp"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):
