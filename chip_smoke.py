@@ -12,8 +12,9 @@ all-intra with variable CU trees (intra CUs 8..32); the ``superfast``,
 hiding); and the low-delay default operating points (the ``ultrafast``
 preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
 the kernel at luma S=32), variable P trees with one reference (the
-medium preset's IPPP point), and B pyramids (GOP 8 on the fixed grid and
-the medium preset's default, variable B trees).
+medium preset's IPPP point), B pyramids (GOP 8 on the fixed grid and
+the medium preset's default, variable B trees), and rate control with a
+per-CTU QP map (``--bitrate`` on ``Config()``).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -99,7 +100,22 @@ Any failed phase raises, so the script exits nonzero:
    416x240, and an open GOP with CRA anchors and RASL B pictures (GOP 4,
    period 4, variable trees) at 256x128; and a set_base_qp +
    reset_stream ladder (QP 22 -> 27 -> 22) on a GOP-8 medium encoder
-   against fresh encoders.
+   against fresh encoders;
+13. rate control and per-CTU QP (``run_rate_control``): the joint launch
+   with a per-block QP map (a random per-CTU map in [QP - 6, QP + 6],
+   chroma through Table 8-10) == plain, intra and inter at cu 16 and 32,
+   at 832x480 and 1920x1088 (line ``qp-map kernel vs plain``, timed
+   against the scalar launch, with the bound; a uniform map gives the
+   scalar launch's output); the cell ``rc-ippp-832x480-2mbps``
+   (Config() at QP 22 with --bitrate 2000000: LCU rate control through
+   cu_qp_delta, fixed cu 32, one reference) through
+   Encoder.encode_stream, IDR + 5 P frames warm and 40 P frames timed
+   (fps, achieved kbit/s against 2000, slice, frame and CTU QP range;
+   exactly one QP-map launch per frame) and a stage split of one of its
+   P frames (``rc-ippp stage split``); and card == CPU bytes and
+   recon at 416x240 for ROI + AQ all-intra, the medium preset with
+   --bitrate 1000000 (GOP 8, variable B trees, the GOP allocation and
+   a 2-frame tail) and the ultrafast preset with --bitrate 1000000.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -111,6 +127,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1675,6 +1692,281 @@ def run_gop(torch, wavefront, clip46, dev):
     return rows
 
 
+RC_BITRATE = 2_000_000                # phase 13's cell: target bits/s
+
+
+def rc_config(width, height, **kw):
+    """Config() at QP 22 with a target bitrate and one IDR: fixed cu 32,
+    LCU rate control with cu_qp_delta, 25 fps, one reference."""
+    from kvazaar_tpu_torch import Config
+    return Config(width=width, height=height, qp=QP,
+                  **dict(dict(bitrate=RC_BITRATE, intra_period=0), **kw))
+
+
+def compare_kernel_qp(torch, frames, clip46, dev):
+    """Phase 13 (i): the joint launch with a per-block QP map (a random
+    per-CTU map in [QP - 6, QP + 6], each block at its CTU's QP, chroma
+    through Table 8-10) == the plain version per plane kind, intra and
+    inter at cu 16 and 32, at 832x480 (the searched modes of one frame;
+    a real P frame) and 1920x1088 (random inputs); a uniform map gives
+    the scalar launch's levels and recon; timed against the scalar
+    launch, with the bound.  Returns the rows."""
+    from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         chroma_qp)
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
+
+    rng = np.random.default_rng(13)
+    rows = []
+
+    def row_of(shape, ife, planes, modes, inter):
+        plan, cu = ife.plan, ife.plan.cu_size
+        cy, cx = -(-ife.coded_h // 64), -(-ife.coded_w // 64)
+        qp_ctu = torch.from_numpy(rng.integers(
+            QP - 6, QP + 7, (modes.shape[0], cy, cx), dtype=np.int32)).to(dev)
+        qmap = ife._qp_blk_of(qp_ctu).contiguous()
+        cmap = torch.from_numpy(CHROMA_QP_TAB.astype(np.int32)).to(dev)[
+            qmap.long()]
+        kw = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+
+        def launch(qp_map=None):
+            return wavefront_recon_planes(*planes, modes, plan, QP,
+                                          chroma_qp(QP), qp_map=qp_map, **kw)
+
+        got = launch(qmap)
+        want = []
+
+        def plain():
+            for orig, mc, s, luma, m in (
+                    (planes[0], kw.get("mc_y"), cu, True, qmap),
+                    (planes[1], kw.get("mc_cb"), cu // 2, False, cmap),
+                    (planes[2], kw.get("mc_cr"), cu // 2, False, cmap)):
+                want.extend(wavefront_recon_plain(
+                    orig, modes, plan, s, luma, QP, 8, kw.get("is_inter"),
+                    mc, m))
+
+        # The plain version runs once, timed while it computes the
+        # reference outputs (seconds per run at 1920x1088).
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = max_err(torch, got, want)
+        uniform = torch.full_like(qmap, QP)
+        same = max_err(torch, launch(uniform), launch()) == 0
+        row = dict(shape=shape, cu=cu, variant="intra" if inter is None
+                   else "inter", items=planes[0].shape[0], max_abs_err=err,
+                   uniform_equals_scalar=same,
+                   qp_range=[int(qmap.min()), int(qmap.max())],
+                   ms=cuda_ms(torch, lambda: launch(qmap), 20),
+                   scalar_ms=cuda_ms(torch, launch, 20), plain_ms=plain_ms,
+                   n_steps=plan.n_steps)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (*planes, modes, qmap, cmap, *kw.values(), *got),
+            [(planes[0].numel(), cu), (2 * planes[1].numel(), cu // 2)])
+        log("qp-map kernel vs plain:", json.dumps(row))
+        if err != 0 or not same:
+            raise RuntimeError(f"qp-map launch != plain at {row}")
+        rows.append(row)
+
+    for cu in (16, 32):
+        ife = IntraFrameEncoder(headline_config(W, H, cu), device=dev)
+        planes = ife._upload(ife.host_pack_sources(frames[:1]))
+        modes = search_frame_modes(planes[0][0], ife.plan,
+                                   ife.lambda_satd)[0][None]
+        row_of(f"{W}x{H} 1 I frame", ife, planes, modes, None)
+        ife, (ys, cbs, crs), modes, inter_map, mcs = p_frame_inputs(
+            torch, clip46, cu, dev)
+        row_of(f"{W}x{H} 1 P frame", ife, (ys, cbs, crs), modes[None],
+               (inter_map[None], *(m[None] for m in mcs)))
+        big_w, big_h = BIG[0]
+        ife = IntraFrameEncoder(headline_config(big_w, big_h, cu),
+                                device=dev)
+        plan = ife.plan
+
+        def rand(shape, hi, dtype=np.uint8):
+            return torch.from_numpy(rng.integers(0, hi, shape,
+                                                 dtype=dtype)).to(dev)
+
+        planes = (rand((1, big_h, big_w), 256),
+                  rand((1, big_h // 2, big_w // 2), 256),
+                  rand((1, big_h // 2, big_w // 2), 256))
+        modes = rand((1, plan.blocks_y, plan.blocks_x), 35, np.int32)
+        row_of(f"{big_w}x{big_h} random intra", ife, planes, modes, None)
+        row_of(f"{big_w}x{big_h} random inter", ife, planes, modes,
+               (rand(tuple(modes.shape), 2) != 0,
+                *(rand(tuple(p.shape), 256) for p in planes)))
+    return rows
+
+
+def rc_p_split(torch, enc, y, cb, cr, poc):
+    """Per-stage times (ms) of one P frame of the rate-controlled cell
+    after its run (the encoder's DPB as reference; its state is read,
+    not advanced): the controller and the per-CTU map on the host; the
+    device program of the frame by wall clock after a synchronize; and
+    inside it, by CUDA events, the reconstruction with the QP map
+    against the same launch at the frame QP, the effective-QP chain and
+    deblocking with the effective map against the scalar QP; then the
+    downloads and CABAC with cu_qp_delta."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import compute_bs_maps
+    from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
+    from kvazaar_tpu_torch.ops.deblock import deblock_frame
+    ife, out = enc._intra, {}
+    ref = ife._dpb
+    t0 = time.perf_counter()
+    _lam, qp = enc._rc.frame_lambda_qp(False)
+    qmap = enc._qp_ctu_for(min(max(qp, enc._prev_qp - 3),
+                               enc._prev_qp + 3), y, False)
+    out["rc_and_map_ms"] = 1000 * (time.perf_counter() - t0)
+    for _ in range(2):                     # warm, then timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = ife.submit_p(y, cb, cr, [(poc - 1, ref)], qmap)
+        torch.cuda.synchronize()
+    out["p_program_ms"] = 1000 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    dl = ife.download_p(handle)
+    out["d2h_ms"] = 1000 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ife.finalize_p_downloaded(dl, poc, [poc - 1], multi=False, qp_ctu=qmap)
+    out["cabac_ms"] = 1000 * (time.perf_counter() - t0)
+
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([(y, cb, cr)]))
+    modes, inter_map, ref_sel, mv, mcs = ife._p_predict(ys[0], [ref])
+    qp_ctu = ife._upload_qp(qmap)[None]
+    qp_blk = ife._qp_blk_of(qp_ctu)
+    box = {}
+
+    def recon(qp_map):
+        box["rec"] = reconstruct_frames(
+            ys, cbs, crs, modes[None], ife.plan, QP, ife.qp_c,
+            is_inter=inter_map[None], mc_y=mcs[0][None], mc_cb=mcs[1][None],
+            mc_cr=mcs[2][None], qp_map=qp_map)
+
+    def deblock(with_map):
+        rec = box["rec"]
+        cbf = (rec[1][0] != 0).flatten(1).any(dim=1).reshape(
+            ife.plan.blocks_y, ife.plan.blocks_x)
+        bs_v, bs_h = compute_bs_maps(inter_map, cbf, mv, ref=ref_sel)
+        qm = (ife._deblock_qp_map(qp_ctu, (rec[1], rec[3], rec[5]))
+              if with_map else None)
+        deblock_frame(rec[0], rec[2], rec[4], QP, ife.cu, bs_v=bs_v,
+                      bs_h=bs_h, qp_map=qm)
+
+    for name, fn in (("recon_scalar", lambda: recon(None)),
+                     ("recon_qp_map", lambda: recon(qp_blk)),
+                     ("effective_qp", lambda: ife._deblock_qp_map(
+                         qp_ctu, (box["rec"][1], box["rec"][3],
+                                  box["rec"][5]))),
+                     ("deblock_scalar", lambda: deblock(False)),
+                     ("deblock_qp_map", lambda: deblock(True))):
+        fn()                                            # warm
+        out[name + "_ms"] = cuda_ms(torch, fn, 3)
+    return out
+
+
+def run_rate_control(torch, wavefront, clip46, dev):
+    """Phase 13: rate control and per-CTU QP.  The kernel with a per-block
+    QP map == plain (``compare_kernel_qp``); the cell rc-ippp-832x480-2mbps
+    (Config() at QP 22 with --bitrate 2000000: LCU rate control through
+    cu_qp_delta, fixed cu 32, one reference) through Encoder.encode_stream,
+    IDR + 5 P frames warm and 40 P frames timed, one kernel launch with a
+    QP map per P frame; card == CPU bytes and recon at 416x240 for ROI +
+    AQ all-intra, the medium preset with --bitrate (GOP 8, variable B
+    trees, the GOP allocation; a GOP and a 2-frame tail) and the
+    ultrafast preset with --bitrate (low-delay GOP, frame-level rate
+    control).  Returns (kernel rows, the cell's QP-map launches)."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    rows = compare_kernel_qp(torch, clip46[:FRAMES], clip46, dev)
+
+    enc = Encoder(rc_config(W, H), device=dev)
+    if enc.can_pipeline() or not enc.cfg.cu_qp_delta_active:
+        raise RuntimeError("rc cell: expected per-CTU QP, per frame")
+    ctu_qps, frame_qps = [], []
+    note, rc_qp = enc._note_ctu_weights, enc._rc_qp
+
+    def keep_map(fd, is_intra):
+        ctu_qps.append(fd.qp_ctu.copy())
+        return note(fd, is_intra)
+
+    def keep_qp(lam, qp):
+        out = rc_qp(lam, qp)
+        frame_qps.append(out[1])
+        return out
+
+    enc._note_ctu_weights, enc._rc_qp = keep_map, keep_qp
+    for counts in (wavefront.LAUNCHES, wavefront.QP_MAP_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    results, per_frame = [], []
+    before = dict(wavefront.QP_MAP_LAUNCHES)
+    t0 = time.perf_counter()
+    for res in enc.encode_stream(clip46):
+        now = dict(wavefront.QP_MAP_LAUNCHES)
+        per_frame.append({k: now[k] - before[k] for k in now})
+        before = now
+        results.append(res)
+        if len(results) == IPPP_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES)
+    qp_launches = dict(wavefront.QP_MAP_LAUNCHES)
+    if per_frame[0] != {"intra": 1, "inter": 0} or any(
+            f != {"intra": 0, "inter": 1} for f in per_frame[1:]):
+        raise RuntimeError(f"rc cell: expected one QP-map launch per "
+                           f"frame, got {per_frame}")
+    if launches != qp_launches:
+        raise RuntimeError(f"rc cell: launches without a QP map: "
+                           f"{launches} / {qp_launches}")
+    kinds = [r[1].slice_type for r in results]
+    if kinds[0] != 2 or any(k != 1 for k in kinds[1:]):
+        raise RuntimeError(f"rc cell: expected IDR + P frames, got {kinds}")
+    bits = [r[1].bits for r in results]
+    _bits, psnr_y = check_output(results[IPPP_WARM:], "rc cell")
+    fps_src = enc.cfg.framerate_num / enc.cfg.framerate_denom
+    effective = np.stack(ctu_qps)
+    summary = dict(
+        frames=len(results), timed=len(results) - IPPP_WARM,
+        fps=(len(results) - IPPP_WARM) / dt,
+        target_kbps=RC_BITRATE / 1e3,
+        kbps_all=sum(bits) * fps_src / len(bits) / 1e3,
+        kbps_timed=sum(bits[IPPP_WARM:]) * fps_src
+        / (len(bits) - IPPP_WARM) / 1e3,
+        idr_bits=bits[0], p_bits_per_frame=sum(bits[1:]) / (len(bits) - 1),
+        psnr_y=psnr_y,
+        slice_qp=[min(r[1].qp for r in results),
+                  max(r[1].qp for r in results)],
+        rc_frame_qp=[min(frame_qps), max(frame_qps)],
+        ctu_qp=[int(effective.min()), int(effective.max())],
+        ctu_qp_timed=[int(effective[IPPP_WARM:].min()),
+                      int(effective[IPPP_WARM:].max())],
+        kernel_launches=launches, qp_map_launches=qp_launches)
+    log("rc-ippp-832x480-2mbps encode_stream:", json.dumps(summary))
+    log("rc-ippp stage split (ms, one P frame):", json.dumps(
+        rc_p_split(torch, enc, *clip46[-1], len(clip46) - 1)))
+    enc.close()
+
+    w, h = 416, 240
+    small = synth_clip_natural(11, w, h, seed=0)
+    roi = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "roi_phase13.txt")
+    os.makedirs(os.path.dirname(roi), exist_ok=True)
+    with open(roi, "w") as f:
+        f.write("3 2\n-4 2 0\n3 -2 1\n")
+    card_equals_cpu(f"roi-aq all-intra {w}x{h}", rc_config(
+        w, h, bitrate=0, intra_period=1, roi=roi, aq=1.0), small[:3], dev)
+    card_equals_cpu(f"medium --bitrate 1000000 {w}x{h}", config_from_preset(
+        "medium", width=w, height=h, qp=QP, bitrate=1_000_000), small, dev)
+    card_equals_cpu(f"ultrafast --bitrate 1000000 {w}x{h}",
+                    config_from_preset("ultrafast", width=w, height=h,
+                                       qp=QP, bitrate=1_000_000),
+                    small[:6], dev)
+    return rows, qp_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1754,6 +2046,11 @@ def main() -> int:
         torch, wavefront, clip46, dev)
     run_var_p(torch, wavefront, clip46, dev)
     run_gop(torch, wavefront, clip46, dev)
+    qp_rows, qp_launches = run_rate_control(torch, wavefront, clip46, dev)
+
+    # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
+    qp_cell = next(r for r in qp_rows if r["cu"] == 32
+                   and r["shape"] == f"{W}x{H} 1 P frame")
 
     def record(name, replaces, n, joint, rs):
         """The main path's joint launch (luma + Cb + Cr at the row's CU
@@ -1779,7 +2076,15 @@ def main() -> int:
                launches32["intra"], joint32[0], rows32),
         record("wavefront_recon_inter_cu32",
                "kvazaar_tpu/ops/wavefront_pallas.py:283",
-               launches32["inter"], joint32[1], inter_rows32)]}))
+               launches32["inter"], joint32[1], inter_rows32),
+        {"name": "wavefront_recon_qpmap", "route": "cuda",
+         "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+         "replaces": "kvazaar_tpu/ops/wavefront_pallas.py:283",
+         "launches": sum(qp_launches.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in qp_rows),
+         "ms": qp_cell["ms"], "plain_ms": qp_cell["plain_ms"],
+         "bound_ms": qp_cell["bound_ms"], "bound_by": qp_cell["bound_by"],
+         "library_ms": None}]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

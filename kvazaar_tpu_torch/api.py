@@ -22,9 +22,17 @@ tail of a stream codes as a P chain); ``encode_stream`` is pipelined on
 all-intra fixed-grid streams and plain fixed-grid IPPP without SAO
 (device compute overlaps the downloads and host CABAC of earlier
 frames) and per frame otherwise.  ``set_base_qp`` and ``reset_stream``
-run a QP ladder on one encoder.  Every other structure raises
-NotImplementedError: rate control, ROI/AQ, field pictures, selective
-encryption, TMVP, SMP/AMP, RDOQ and sign hiding on the fixed grid.
+run a QP ladder on one encoder.  Rate control (``bitrate``) runs on
+every one of these structures: the R-lambda controller of
+encoder/rate_control.py picks each picture's QP (a GOP's pictures from
+the GOP's allocation), within 3 of the previous picture's; where the
+config makes per-CTU QP active (the fixed grid, all-intra or IPPP with
+one reference) the frame's QP rides a per-CTU map, allocated over the
+CTUs by the previous frame's complexity and coded with cu_qp_delta, and
+elsewhere a frame encoder per QP codes it.  ROI maps and variance AQ
+add to that map.  Every other structure raises NotImplementedError:
+field pictures, selective encryption, TMVP, SMP/AMP, RDOQ and sign
+hiding on the fixed grid.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from kvazaar_tpu_torch.constants import NAL_CRA_NUT, NAL_IDR_W_RADL, \
     NAL_RASL_R, NAL_TRAIL_R, SLICE_I, SLICE_P
 from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
                                                     psnr, var_inter)
+from kvazaar_tpu_torch.encoder.rate_control import RateController
 
 
 # Frames per device program in encode_stream on all-intra streams (the
@@ -82,8 +91,6 @@ def _unsupported_structure(cfg: Config) -> list:
     out = []
     if cfg.gop_len > 1 and cfg.gop_len not in GOP_TABLES:
         out.append(f"GOP length {cfg.gop_len} (4 and 8 are ported)")
-    if cfg.bitrate > 0:
-        out.append("rate control")
     return out
 
 
@@ -123,6 +130,29 @@ class Encoder:
         self._wrote_headers = False
         self._irap_count = 0
         self.stats = {}
+        # The low-delay encoder that coded the last picture: the owner of
+        # the DPB when rate control switches frame encoders.
+        self._ld_enc = self._intra
+        # Rate control: the controller, the QP of the last picture (each
+        # picture's QP stays within 3 of it) and the per-CTU complexity of
+        # the last I and P frame (the LCU allocation's weights).
+        self._rc = None
+        if cfg.bitrate > 0:
+            self._rc = RateController(
+                cfg.bitrate, cfg.framerate_num / max(cfg.framerate_denom, 1),
+                cfg.width, cfg.height)
+        self._prev_qp = cfg.qp
+        self._rc_wts = {}
+        # ROI: "W H" then W*H QP offsets on a grid scaled to the CTUs.
+        self._roi_map = None
+        if cfg.roi is not None:
+            with open(cfg.roi) as f:
+                toks = f.read().split()
+            rw, rh = int(toks[0]), int(toks[1])
+            vals = np.array([int(t) for t in toks[2:2 + rw * rh]], np.int32)
+            if vals.size != rw * rh:
+                raise ValueError("ROI file: expected %d deltas" % (rw * rh))
+            self._roi_map = vals.reshape(rh, rw)
 
     def _is_intra(self, poc: int) -> bool:
         """--period semantics: 1 all-intra, N > 1 an IDR every N
@@ -162,6 +192,8 @@ class Encoder:
                 enc.close()
         self._intra.set_base_qp(qp)
         self._encoders = {qp: self._intra}
+        self._ld_enc = self._intra
+        self._prev_qp = qp
 
     def reset_stream(self) -> None:
         """Start a new bitstream on this encoder: the parameter sets are
@@ -178,6 +210,7 @@ class Encoder:
         self._irap_count = 0
         self._dpb_ld = {}
         self._intra._dpb = None
+        self._ld_enc = self._intra
 
     def _au_prefix(self, slice_type: int) -> bytes:
         """Per-access-unit prefix: AUD, then parameter sets + version
@@ -213,22 +246,86 @@ class Encoder:
         if self._gop:
             return self._encode_gop_input(y, cb, cr)
         is_intra = self._is_intra(self._poc)
-        enc = self._intra
+        enc, lam, frame_qp = self._intra, None, self.cfg.qp
+        if self._rc is not None:
+            lam, frame_qp = self._rc_qp(*self._rc.frame_lambda_qp(is_intra))
+            # With per-CTU QP the frame's QP rides the map (the slice QP
+            # stays the config's); otherwise a frame encoder per QP.
+            if not self.cfg.cu_qp_delta_active:
+                enc = self._encoder_for_qp(frame_qp)
+        enc._dpb = self._ld_enc._dpb
+        qp_ctu = self._qp_ctu_for(frame_qp, y, is_intra)
         if is_intra:
-            res = enc.encode_frame(y, cb, cr)
+            res = enc.encode_frame(y, cb, cr, qp_ctu=qp_ctu)
             self._last_idr = self._poc
             if self._multi:
                 self._dpb_ld = {0: enc._dpb}
         elif self._multi:
-            res, enc = self._encode_p_multi(y, cb, cr,
+            res, enc = self._encode_p_multi(enc, y, cb, cr,
                                             self._poc - self._last_idr)
         else:
             rel = self._poc - self._last_idr
-            res = enc.encode_p_frame(y, cb, cr, poc=rel, ref_poc=rel - 1)
+            res = enc.encode_p_frame(y, cb, cr, poc=rel, ref_poc=rel - 1,
+                                     qp_ctu=qp_ctu)
+        self._note_ctu_weights(res.frame_data, is_intra)
+        if lam is not None:
+            self._rc.update(len(res.nals) * 8, lam)
+            self._ld_enc = enc
         out = self._emit(res, self._poc, (y, cb, cr), is_intra,
                          qp=enc.cfg.qp)
         self._poc += 1
         return [out]
+
+    def _rc_qp(self, lam, qp):
+        """(lambda, QP) of the next picture under rate control: the
+        controller's QP within 3 of the previous picture's."""
+        qp = min(max(qp, self._prev_qp - 3), self._prev_qp + 3)
+        self._prev_qp = qp
+        return lam, qp
+
+    def _rc_enc(self, is_intra: bool):
+        """(frame encoder, lambda) of the next picture under frame-level
+        rate control, or (the base encoder, None) at a fixed QP."""
+        if self._rc is None:
+            return self._intra, None
+        lam, qp = self._rc_qp(*self._rc.frame_lambda_qp(is_intra))
+        return self._encoder_for_qp(qp), lam
+
+    def _qp_ctu_for(self, base_qp: int, y: np.ndarray, is_intra: bool):
+        """The next frame's (Cy, Cx) per-CTU QP map, or None where per-CTU
+        QP is off: the LCU allocation around base_qp (weights of the last
+        frame of the same slice type), plus the ROI map's offsets, plus
+        variance AQ (log2 of each CTU's luma variance against the frame's
+        mean, times the strength, within +-3), clipped to 0..51."""
+        if not self.cfg.cu_qp_delta_active:
+            return None
+        p = self._intra.params
+        cy, cx = p.height_in_ctus, p.width_in_ctus
+        if self._rc is not None and self.cfg.lcu_rc:
+            qmap = self._rc.lcu_qp_map(base_qp, (cy, cx),
+                                       self._rc_wts.get(is_intra))
+        else:
+            qmap = np.full((cy, cx), base_qp, np.int32)
+        if self._roi_map is not None:
+            rh, rw = self._roi_map.shape
+            iy = np.minimum(np.arange(cy) * rh // cy, rh - 1)
+            ix = np.minimum(np.arange(cx) * rw // cx, rw - 1)
+            qmap = qmap + self._roi_map[np.ix_(iy, ix)]
+        if self.cfg.aq > 0:
+            h, w = y.shape
+            yp = np.pad(np.asarray(y, np.float64),
+                        ((0, cy * 64 - h), (0, cx * 64 - w)), mode="edge")
+            lv = np.log2(yp.reshape(cy, 64, cx, 64).var(axis=(1, 3)) + 1.0)
+            dqp = np.rint(self.cfg.aq * (lv - lv.mean()))
+            qmap = qmap + np.clip(dqp, -3, 3).astype(np.int32)
+        return np.clip(qmap, 0, 51).astype(np.int32)
+
+    def _note_ctu_weights(self, fd, is_intra: bool) -> None:
+        """Keeps a coded frame's per-CTU complexity for the LCU
+        allocation of the next frame of its slice type."""
+        if self._rc is not None and self.cfg.lcu_rc:
+            self._rc_wts[is_intra] = RateController.ctu_weights_from_levels(
+                fd, self._intra.coded_w, self._intra.coded_h)
 
     def _lp_pattern(self, rel_poc: int) -> dict:
         """Structure entry of the low-delay frame at relative POC
@@ -238,13 +335,14 @@ class Encoder:
         return dict(poc_offset=rel_poc, layer=1, qp_offset=0,
                     ref_neg=list(range(1, self.cfg.ref_frames + 1)))
 
-    def _encode_p_multi(self, y, cb, cr, rel: int):
+    def _encode_p_multi(self, enc, y, cb, cr, rel: int):
         """One P frame of the multi-reference stream shape: the active
         references (the structure's deltas present in the DPB, at most
         ref_frames of them), the retained pictures that a frame within
-        one structure period still needs, the position's QP, and the
-        DPB pruned to those pictures.  Returns (FrameResult, the frame
-        encoder that coded it)."""
+        one structure period still needs, and the DPB pruned to those
+        pictures; on enc or, without rate control, on the frame encoder
+        of the position's QP.  Returns (FrameResult, the frame encoder
+        that coded it)."""
         pat = self._lp_pattern(rel)
         deltas = []
         for d in pat["ref_neg"]:
@@ -261,8 +359,7 @@ class Encoder:
         retained = sorted(rel - p for p in self._dpb_ld
                           if p not in used and p in needed)
         refs = [(rel - d, self._dpb_ld[rel - d]) for d in deltas]
-        enc = self._intra
-        if pat["qp_offset"]:
+        if pat["qp_offset"] and self._rc is None:
             enc = self._encoder_for_qp(self.cfg.qp + pat["qp_offset"])
         res, recs = enc.encode_p_frame_multi(y, cb, cr, poc=rel, refs=refs,
                                              retained=retained)
@@ -277,11 +374,12 @@ class Encoder:
         if not self._pending:
             return []
         out = []
-        ife = self._intra
         for i, src in enumerate(self._pending):
             poc = self._base_poc + 1 + i
+            ife, lam = self._rc_enc(False)
             ife._dpb = self._dpb_map[poc - 1]
             res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - 1)
+            self._rc_update(res, lam)
             self._dpb_map[poc] = ife._dpb
             out.append(self._emit_gop(res, poc, src, ife.cfg.qp))
         self._pending = []
@@ -292,10 +390,12 @@ class Encoder:
         """B pyramid input: the IDR at POC 0 codes at once; later frames
         fill the reorder buffer, and a full GOP is coded."""
         if self._poc == 0:
-            res = self._intra.encode_frame(y, cb, cr)
-            self._dpb_map[0] = self._intra._dpb
+            enc, lam = self._rc_enc(True)
+            res = enc.encode_frame(y, cb, cr)
+            self._rc_update(res, lam)
+            self._dpb_map[0] = enc._dpb
             self._poc = 1
-            return [self._emit_gop(res, 0, (y, cb, cr), self.cfg.qp)]
+            return [self._emit_gop(res, 0, (y, cb, cr), enc.cfg.qp)]
         self._pending.append((y, cb, cr))
         if len(self._pending) < self._gop:
             return []
@@ -309,12 +409,32 @@ class Encoder:
         self._poc = self._base_poc + 1
         return out
 
+    def _rc_update(self, res, lam) -> None:
+        """The controller learns a coded picture's bits (lam: the
+        lambda it chose for it; None at a fixed QP)."""
+        if lam is not None:
+            self._rc.update(len(res.nals) * 8, lam)
+
     def _gop_entries(self):
         """(POC, source, L0 distance, L1 distance or None, QP offset,
-        lambda factor) of the buffered GOP's pictures in coding order."""
+        lambda factor, RC lambda, RC QP) of the buffered GOP's pictures in
+        coding order, the last two None at a fixed QP.  Under rate control
+        the GOP's allocation gives each picture its bit target, whose
+        lambda and QP (within 3 of the previous picture's) replace the
+        layer's QP offset; the QP of a picture is taken when its entry
+        is reached, after the controller has learnt the pictures before
+        it."""
         base = self._base_poc
-        return [(base + off, self._pending[off - 1], l0, l1, qp_off, fac)
-                for off, l0, l1, qp_off, fac in GOP_TABLES[self._gop]]
+        table = GOP_TABLES[self._gop]
+        targets = (None if self._rc is None
+                   else self._rc.allocate_gop(table))
+        for gi, (off, l0, l1, qp_off, fac) in enumerate(table):
+            lam = rc_qp = None
+            if targets is not None:
+                lam, rc_qp = self._rc_qp(
+                    *self._rc.pic_lambda_qp(targets[gi]))
+            yield (base + off, self._pending[off - 1], l0, l1, qp_off, fac,
+                   lam, rc_qp)
 
     def _flush_gop_var(self):
         """A GOP of variable trees on the base frame encoder, each
@@ -323,14 +443,20 @@ class Encoder:
         a period boundary codes as a CRA (the POC runs on) and the GOP's
         B pictures, which precede it in display order and reference
         across it, as RASL_R (the JAX package's open-GOP rule; it codes
-        the same bytes with two finalize workers)."""
+        the same bytes with two finalize workers).  Under rate control
+        each picture takes its allocated QP at its layer's lambda factor,
+        and the anchor codes as a P frame (the JAX package's rate
+        controlled GOP path has no CRA)."""
         ife = self._intra
         period = self.cfg.intra_period
         cra_poc = self._base_poc + self._gop
-        is_cra_gop = period > 1 and cra_poc % period == 0
+        is_cra_gop = (self._rc is None and period > 1
+                      and cra_poc % period == 0)
         out = []
-        for poc, src, l0, l1, qp_off, fac in self._gop_entries():
-            frame_qp = (min(max(self.cfg.qp + qp_off, 0), 51) if qp_off
+        for poc, src, l0, l1, qp_off, fac, lam, rc_qp in \
+                self._gop_entries():
+            frame_qp = (rc_qp if lam is not None
+                        else min(max(self.cfg.qp + qp_off, 0), 51) if qp_off
                         else None)
             if l1 is None and is_cra_gop:
                 res = ife.encode_frame(*src, nal_type=NAL_CRA_NUT, poc=poc)
@@ -351,18 +477,23 @@ class Encoder:
                     ref1=(poc + l1, self._dpb_map[poc + l1]), qp=frame_qp,
                     qp_factor=fac,
                     nal_type=NAL_RASL_R if is_cra_gop else None)
+            self._rc_update(res, lam)
             out.append(self._emit_gop(
                 res, poc, src, ife.cfg.qp if frame_qp is None else frame_qp))
         return out
 
     def _flush_gop_fixed(self):
         """A GOP on the fixed grid: each picture on the frame encoder of
-        its layer's QP (the lambda factor is unused there, and periodic
-        intra adds no CRA, as in the JAX package)."""
+        its layer's QP, or under rate control of its allocated QP (the
+        lambda factor is unused there, and periodic intra adds no CRA, as
+        in the JAX package)."""
         out = []
-        for poc, src, l0, l1, qp_off, _fac in self._gop_entries():
+        for poc, src, l0, l1, qp_off, _fac, lam, rc_qp in \
+                self._gop_entries():
             ife = self._intra
-            if qp_off:
+            if lam is not None:
+                ife = self._encoder_for_qp(rc_qp)
+            elif qp_off:
                 ife = self._encoder_for_qp(
                     min(max(self.cfg.qp + qp_off, 0), 51))
             if l1 is None:
@@ -373,6 +504,7 @@ class Encoder:
                 res, self._dpb_map[poc] = ife.encode_b_frame(
                     *src, poc=poc, ref0=(poc - l0, self._dpb_map[poc - l0]),
                     ref1=(poc + l1, self._dpb_map[poc + l1]))
+            self._rc_update(res, lam)
             out.append(self._emit_gop(res, poc, src, ife.cfg.qp))
         return out
 
@@ -440,8 +572,12 @@ class Encoder:
     def can_pipeline(self) -> bool:
         """All-intra streams on the fixed grid and plain IPPP without SAO
         take the pipelined path (the JAX package's rule); variable trees
-        plan each frame on the host, and B pyramids, multi-reference and
-        SAO streams with P frames run per frame."""
+        plan each frame on the host, rate control and per-CTU QP maps
+        decide each frame's QP from the frames before it, and B
+        pyramids, multi-reference and SAO streams with P frames run per
+        frame."""
+        if self.cfg.cu_qp_delta_active or self._rc is not None:
+            return False
         if self.cfg.intra_period == 1:
             return not self._intra.var
         if var_inter(self.cfg):

@@ -125,21 +125,40 @@ def _sao_blob(params, fd):
     return blob
 
 
+def _qp_ctu_arr(params, fd):
+    """A writable copy of fd.qp_ctu for the native serializer, which
+    turns it into the effective per-CTU QPs (a CTU without coded
+    coefficients signals no cu_qp_delta and keeps its predictor), or
+    None when cu_qp_delta is off."""
+    if not params.cu_qp_delta or fd.qp_ctu is None:
+        return None
+    return np.array(fd.qp_ctu, np.int32, order="C")
+
+
+def _read_back(fd, qpc) -> None:
+    """fd.qp_ctu takes the effective map the serializer wrote."""
+    if qpc is not None:
+        fd.qp_ctu[:] = qpc
+
+
 def encode_slice_data_native(params, fd, qp: int) -> bytes:
-    """CABAC slice data + final alignment of an I slice without per-CTU
-    QP or explicit chroma modes."""
+    """CABAC slice data + final alignment of an I slice without explicit
+    chroma modes (with per-CTU QP where params.cu_qp_delta is set and
+    fd.qp_ctu holds it; fd.qp_ctu becomes the effective map)."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
     cap = cy.nbytes * 2 + 65536
     out = np.empty(cap, np.uint8)
     sao = _sao_blob(params, fd)
+    qpc = _qp_ctu_arr(params, fd)
     n = get_lib().ktpu_encode_slice_data(
         params.width, params.height, chroma, qp,
         params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap,
-        1 if params.sign_hiding else 0, _ptr(sao), None, None)
+        1 if params.sign_hiding else 0, _ptr(sao), _ptr(qpc), None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
+    _read_back(fd, qpc)
     return out[:n].tobytes()
 
 
@@ -151,25 +170,28 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
     nss = np.zeros(1, np.int32)
     sao = _sao_blob(params, fd)
+    qpc = _qp_ctu_arr(params, fd)
     n = get_lib().ktpu_encode_slice_data_wpp(
         params.width, params.height, chroma, qp,
         params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap, sizes.ctypes.data,
-        nss.ctypes.data, 1 if params.sign_hiding else 0, _ptr(sao), None,
-        None)
+        nss.ctypes.data, 1 if params.sign_hiding else 0, _ptr(sao),
+        _ptr(qpc), None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
+    _read_back(fd, qpc)
     return out[:n].tobytes(), [int(v) for v in sizes[:int(nss[0])]]
 
 
 def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
                                slice_type: int = 1, nthreads: int = 1,
                                nref_l0: int = 1):
-    """P or B slice (slice_type 1 or 0; no per-CTU QP, partitions or
-    explicit chroma modes).  A P slice has nref_l0 active L0 references,
-    whose ref_idx comes from fd.ref8; a B slice has one reference per
-    list and reads fd.dir8, fd.mvp8_l1 and fd.mvd8_l1.  Returns (bytes,
+    """P or B slice (slice_type 1 or 0; no partitions or explicit chroma
+    modes; per-CTU QP as in ``encode_slice_data_native``).  A P slice
+    has nref_l0 active L0 references, whose ref_idx comes from fd.ref8;
+    a B slice has one reference per list and reads fd.dir8, fd.mvp8_l1
+    and fd.mvd8_l1.  Returns (bytes,
     per-substream byte sizes), the sizes empty when wpp is off.
     nthreads > 1 encodes the WPP substreams on that many threads."""
     depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
@@ -189,6 +211,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
     sao = _sao_blob(params, fd)
     ref8 = (np.ascontiguousarray(fd.ref8, np.uint8) if nref_l0 > 1
             else None)
+    qpc = _qp_ctu_arr(params, fd)
     n = get_lib().ktpu_encode_slice_data_p(
         params.width, params.height, chroma, qp, 1 if wpp else 0,
         slice_type, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
@@ -199,8 +222,9 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
         out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
         (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
         _ptr(sao), _ptr(ref8), int(nref_l0), None,
-        1 if params.amp else 0, None, None)
+        1 if params.amp else 0, _ptr(qpc), None)
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
+    _read_back(fd, qpc)
     szs = [int(v) for v in sizes[:int(nss[0])]] if wpp else []
     return out[:n].tobytes(), szs

@@ -9,7 +9,10 @@
 // boundary fixups below S=32; an inter block (P frames, the `inter=True`
 // variant) takes its motion-compensated prediction instead.  Then residual,
 // forward DCT, flat quantization (rounding 171/512 intra, 85/512
-// inter), dequant, inverse DCT and clip.  Outputs are the levels of
+// inter) at the plane's QP or, given a per-block QP map (LCU rate
+// control, ROI and AQ; the TPU kernel has none, and the JAX package
+// reconstructs such frames with its XLA scan), at each block's own QP,
+// dequant, inverse DCT and clip.  Outputs are the levels of
 // every block (raster block order) and the reconstructed planes; inter
 // blocks feed later intra neighbours through the edge state like any
 // other block.
@@ -81,12 +84,17 @@
 
 // One plane kind of a launch: nb items (frames) of (h, w) samples at
 // block size s.  orig and mc hold uint8 or int32 samples (orig_bytes,
-// mc_bytes); mc is null for the intra variant.
+// mc_bytes); mc is null for the intra variant.  qp, where set, holds
+// each block's QP (0..51, this plane's: the chroma planes' are mapped
+// through Table 8-10), shared by the items like the modes; the blocks
+// then quantize at their own QP, and q_scale, q_bits, q_offset,
+// q_offset_inter and dq_mult are unused.
 struct KttPlane {
   const void* orig;
   const void* mc;
-  uint8_t* rec;      // (nb, h, w)
-  int16_t* levels;   // (nb, nblk, s, s)
+  uint8_t* rec;       // (nb, h, w)
+  int16_t* levels;    // (nb, nblk, s, s)
+  const int32_t* qp;  // (bm, nblk) or null
   int nb, s, h, w, luma, orig_bytes, mc_bytes;
   int q_scale, q_bits, q_offset, q_offset_inter, dq_mult, dq_shift;
 };
@@ -170,6 +178,10 @@ __constant__ int kAngle[33] = {
 __constant__ int kInvAngle[15] = {
     -4096, -1638, -910, -630, -482, -390, -315, -256,
     -315, -390, -482, -630, -910, -1638, -4096};
+
+// Quantizer and dequantizer scales per QP % 6 (8.6.3; the flat list).
+__constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
+__constant__ int kInvQuantScale[6] = {40, 45, 51, 57, 64, 72};
 
 // Packed per-block word: block id, availability mask, coded mode, inter
 // flag.  Bit r of the mask is set when reference region r is available,
@@ -406,8 +418,10 @@ __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
                     : buf[y * S + x];
 }
 
-// One plane item (one frame of one plane kind) in thread block order.
-template <int S>
+// One plane item (one frame of one plane kind) in thread block order;
+// QP: the planes carry per-block QP maps (a separate instance, so that
+// the scalar path keeps its registers).
+template <int S, bool QP>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                           unsigned char* smem) {
   using Sh = Shape<S>;
@@ -459,6 +473,8 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
   const int shift1 = LOG2S - 1;  // LOG2S + bitdepth - 9
   const int sgn = 1 - 2 * (q & 1);
   const uint32_t m_bx = reciprocal(p.blocks_x), m_ring = reciprocal(ring);
+  [[maybe_unused]] const int32_t* qp_row =
+      QP ? pl.qp + (size_t)(item % p.bm) * p.nblk : nullptr;
 
   // Starts the copies of the source (and, for an inter block, the MC)
   // samples of the block of packed word e into buffer buf; the caller
@@ -481,6 +497,19 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     const int by = div_by(bid, p.blocks_x, m_bx), bx = bid - by * p.blocks_x;
     const int x0 = bx * S, y0 = by * S;
     const int rc = by - div_by(by, ring, m_ring) * ring;
+    // The block's quantizer: the plane's, or from its own QP (qbits =
+    // 14 + QP / 6 + 15 - bitdepth - log2 S).  The load has no use before
+    // the quantization, so its latency hides behind the prediction and
+    // the forward transform.
+    int q_scale = pl.q_scale, q_bits = pl.q_bits, dq_mult = pl.dq_mult;
+    int q_offset = inter ? pl.q_offset_inter : pl.q_offset;
+    if constexpr (QP) {
+      const int qp = qp_row[bid], per = qp / 6, rem = qp - 6 * per;
+      q_scale = kQuantScale[rem];
+      q_bits = 21 - LOG2S + per;
+      q_offset = (inter ? 85 : 171) << (q_bits - 9);
+      dq_mult = kInvQuantScale[rem] << per;
+    }
 
     int pred[O];
     if (inter) {
@@ -613,19 +642,18 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 #pragma unroll
     for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
     fwd_part<S>(v, cf, sgn, out);
-    const int q_offset = inter ? pl.q_offset_inter : pl.q_offset;
     int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
 #pragma unroll
     for (int i = 0; i < O; ++i) {
       const int l = fwd_out<S>(q, i);
       const int c = round_shift(out[i], LOG2S + 6);
       const int mag = c < 0 ? -c : c;
-      int lv = (mag * pl.q_scale + q_offset) >> pl.q_bits;
+      int lv = (mag * q_scale + q_offset) >> q_bits;
       lv = lv > 32767 ? 32767 : lv;
       lv = c < 0 ? -lv : lv;
       lv_row[l] = (int16_t)lv;
       buf_a[y * SP + l] = clamp_int(
-          (lv * pl.dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+          (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
           -32768, 32767);
     }
     // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
@@ -797,8 +825,8 @@ Layout layout_for(int s_max, int n_steps, int n_slots, int ring,
 }
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
-// CU / 2 (chroma).
-template <int CU>
+// CU / 2 (chroma); QP: the planes carry per-block QP maps.
+template <int CU, bool QP>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -831,9 +859,21 @@ __global__ void __launch_bounds__(max_threads(CU))
   __syncthreads();
 
   if (pl.s == CU)
-    run_plane<CU>(p, pl, item, smem);
+    run_plane<CU, QP>(p, pl, item, smem);
   else
-    run_plane<CU / 2>(p, pl, item, smem);
+    run_plane<CU / 2, QP>(p, pl, item, smem);
+}
+
+// The kernel instance of CU size cu (32, 16 or 8), with or without QP
+// maps.
+using KernelFn = void (*)(const Params);
+
+KernelFn kernel_for(int cu, bool qp) {
+  if (cu == 32)
+    return qp ? wavefront_kernel<32, true> : wavefront_kernel<32, false>;
+  if (cu == 16)
+    return qp ? wavefront_kernel<16, true> : wavefront_kernel<16, false>;
+  return qp ? wavefront_kernel<8, true> : wavefront_kernel<8, false>;
 }
 
 }  // namespace
@@ -859,7 +899,8 @@ extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
 // the planes' items in order.  Block sizes: the largest s is 32 (the
 // others 32 or 16), 16 (the others 16 or 8) or at most 8 (the others 8
 // or 4).  inter and every
-// plane's mc are all null (intra variant) or all set (inter).  entries
+// plane's mc are all null (intra variant) or all set (inter); so are the
+// planes' qp, which hold values in 0..51.  entries
 // is scratch of (items, nblk) uint32 on the device.  ring is the edge
 // ring's depth and ring_w the width of the widest plane.  Returns a
 // cudaError_t; a layout the device cannot give is refused by
@@ -875,10 +916,12 @@ extern "C" int ktt_wavefront_recon(
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   int items = 0, s_max = 0;
+  const bool qp = planes[0].qp != nullptr;
   for (int i = 0; i < n_planes; ++i) {
     const KttPlane& pl = planes[i];
     if ((pl.s != 4 && pl.s != 8 && pl.s != 16 && pl.s != 32) ||
-        (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w)
+        (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w ||
+        qp != (pl.qp != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     s_max = pl.s > s_max ? pl.s : s_max;
     p.plane[i] = pl;
@@ -908,9 +951,7 @@ extern "C" int ktt_wavefront_recon(
   p.off_ring = l.off_ring;
   p.off_coef = l.off_coef;
   p.off_groups = l.off_groups;
-  const auto kernel = cu == 32   ? wavefront_kernel<32>
-                      : cu == 16 ? wavefront_kernel<16>
-                                 : wavefront_kernel<8>;
+  const KernelFn kernel = kernel_for(cu, qp);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

@@ -31,6 +31,13 @@ Transfers are dense: int16 levels, uint8 modes and recon, the inter map
 and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
 packed upload or nibble level pack).  The reference picture of the next
 P frame (the DPB) stays on the device as the deblocked reconstruction.
+
+Fixed-grid I frames and one-reference P frames also take a per-CTU QP
+map (LCU rate control, ROI and AQ; ``encode_frame(qp_ctu=)``,
+``encode_p_frame(qp_ctu=)``): the search stays at the config's QP, each
+block reconstructs at its CTU's QP (the wavefront kernel takes the map),
+deblocking takes the effective map a decoder derives from the
+cu_qp_delta syntax, and the slice data codes cu_qp_delta.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
                                                 var_bs_maps, var_edge_masks)
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
+from kvazaar_tpu_torch.ops.quant import int32_table
 from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
                                        sao_decide_frame_device, sao_stats)
 
@@ -190,9 +198,7 @@ def unsupported(cfg: Config) -> list:
                      ("mesh sharding", cfg.mesh_tiles > 1),
                      ("selective encryption", cfg.crypto is not None),
                      ("field (interlaced) sources",
-                      cfg.source_scan_type != 0),
-                     ("per-CTU QP (rate control, ROI, AQ)",
-                      cfg.cu_qp_delta_active)):
+                      cfg.source_scan_type != 0)):
         if on:
             out.append(name)
     if p_frames:
@@ -258,8 +264,76 @@ def compute_bs_maps(is_inter, cbf_luma_blk, mv, ref=None):
 
 class PFrameMixin:
     """P frames of the fixed grid with one or more L0 references (the
-    non-SMP, fixed-QP branch of the JAX package's PFrameMixin, without
-    TMVP)."""
+    non-SMP branch of the JAX package's PFrameMixin, without TMVP), at
+    the config's QP or, with one reference, a per-CTU QP map; and the
+    per-CTU QP machinery that fixed-grid I frames share."""
+
+    # ---- Per-CTU QP (LCU rate control, ROI, AQ): each block quantizes
+    # at its CTU's QP; deblocking takes the effective map, the QP a
+    # decoder derives from the cu_qp_delta syntax (8.6.1, quantization
+    # group = CTU). ----
+
+    def _qp_grid_idx(self):
+        """(CTU rows, CTU columns, the CTU row of each block row, the CTU
+        column of each block column)."""
+        ctus_y = -(-self.coded_h // 64)
+        ctus_x = -(-self.coded_w // 64)
+        by = np.minimum(np.arange(self.plan.blocks_y) * self.cu // 64,
+                        ctus_y - 1)
+        bx = np.minimum(np.arange(self.plan.blocks_x) * self.cu // 64,
+                        ctus_x - 1)
+        return ctus_y, ctus_x, by, bx
+
+    def _qp_blk_of(self, qp_ctu: torch.Tensor) -> torch.Tensor:
+        """(B, Cy, Cx) per-CTU values -> (B, By, Bx) per block."""
+        _, _, by, bx = self._qp_grid_idx()
+
+        def idx(a):
+            return int32_table(a.astype(np.int32).tobytes(),
+                               qp_ctu.device).long()
+
+        return qp_ctu[:, idx(by)][:, :, idx(bx)]
+
+    def _cbf_ctu_of(self, lv_y, lv_cb, lv_cr) -> torch.Tensor:
+        """(B, Cy, Cx) bool: the CTU codes a coefficient, from raster-order
+        levels (B, N_blocks, S, S)."""
+        b = lv_y.shape[0]
+        cy, cx, byi, bxi = self._qp_grid_idx()
+        cbf = (lv_y != 0).flatten(2).any(dim=2)
+        for lv in (lv_cb, lv_cr):
+            if lv is not None:
+                cbf = cbf | (lv != 0).flatten(2).any(dim=2)
+        ctu = (byi[:, None] * cx + bxi[None, :]).astype(np.int32).ravel()
+        idx = int32_table(ctu.tobytes(), lv_y.device).long()
+        out = torch.zeros((b, cy * cx), dtype=torch.int32,
+                          device=lv_y.device)
+        out.scatter_reduce_(1, idx.expand(b, -1), cbf.to(torch.int32),
+                            reduce="amax")
+        return out.reshape(b, cy, cx) != 0
+
+    def _effective_qp_ctu(self, qp_ctu, cbf_ctu) -> torch.Tensor:
+        """Intended (B, Cy, Cx) map + cbf -> the effective map: a CTU with
+        no coded coefficient signals no cu_qp_delta and takes its
+        predictor, the QP of the last coded CTU before it, or the slice
+        QP at the start of the slice and, under WPP, of each CTU row."""
+        b, cy, cx = qp_ctu.shape
+        q, c = qp_ctu, cbf_ctu
+        if not self.params.wpp:
+            q, c = q.reshape(b, 1, cy * cx), c.reshape(b, 1, cy * cx)
+        idx = torch.arange(q.shape[2], device=q.device).expand(q.shape)
+        last = torch.cummax(torch.where(c, idx, -1), dim=2).values
+        eff = torch.where(last >= 0,
+                          torch.take_along_dim(q, last.clamp(min=0), dim=2),
+                          self.cfg.qp)
+        return eff.reshape(b, cy, cx).to(torch.int32)
+
+    def _deblock_qp_map(self, qp_ctu, levels):
+        """(By, Bx) effective per-block QP of a one-frame batch for
+        deblocking, or None without a QP map or deblocking."""
+        if qp_ctu is None or not self.cfg.deblock:
+            return None
+        return self._qp_blk_of(self._effective_qp_ctu(
+            qp_ctu, self._cbf_ctu_of(*levels)))[0]
 
     def _p_predict(self, yp, refs):
         """Search and decision of one P frame: (H, W) int32 source luma
@@ -299,12 +373,13 @@ class PFrameMixin:
                         self.bitdepth, ref_grid=ref_sel)
         return modes, inter_map, ref_sel, mv, mcs
 
-    def _p_from_planes(self, yp, cbp, crp, refs):
+    def _p_from_planes(self, yp, cbp, crp, refs, qp_ctu=None):
         """Device program of one P frame: (H, W) int32 source planes and
-        the references' (y, cb, cr) planes.  Returns (modes uint8, inter
-        map bool, ref_sel int32, mv int32 (By, Bx, 2), levels (y, cb,
-        cr), deblocked recon uint8 (y, cb, cr), sses float32 (3,)), on
-        the device."""
+        the references' (y, cb, cr) planes; qp_ctu: (Cy, Cx) int32
+        per-CTU QP on the device (the search stays at the config's QP).
+        Returns (modes uint8, inter map bool, ref_sel int32, mv int32
+        (By, Bx, 2), levels (y, cb, cr), deblocked recon uint8 (y, cb,
+        cr), sses float32 (3,)), on the device."""
         plan = self.plan
         modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
             self._p_predict(yp, refs)
@@ -312,17 +387,20 @@ class PFrameMixin:
         def one(t):
             return None if t is None else t[None]
 
+        qp_ctu = one(qp_ctu)
         rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr = reconstruct_frames(
             yp[None], one(cbp), one(crp), modes[None], plan, self.cfg.qp,
             self.qp_c, self.bitdepth, is_inter=inter_map[None],
-            mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr))
+            mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr),
+            qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu))
         bs = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
                 plan.blocks_y, plan.blocks_x)
             bs = compute_bs_maps(inter_map, cbf_blk, mv, ref=ref_sel)
         recs, sses = self._deblock_sse(
-            (yp[None], one(cbp), one(crp)), (rec_y, rec_cb, rec_cr), bs)
+            (yp[None], one(cbp), one(crp)), (rec_y, rec_cb, rec_cr), bs,
+            self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)))
 
         def first(t):
             return None if t is None else t[0]
@@ -331,14 +409,22 @@ class PFrameMixin:
                 (lv_y[0], first(lv_cb), first(lv_cr)),
                 tuple(first(r) for r in recs), sses[0])
 
-    def submit_p(self, y, cb, cr, refs):
+    def submit_p(self, y, cb, cr, refs, qp_ctu=None):
         """Upload one frame and queue its P program (asynchronous on a
         card).  refs: [(ref_poc, (y, cb, cr) device planes), ...] in L0
-        order.  The handle's entry 5 is the deblocked recon on the
+        order; qp_ctu: (Cy, Cx) int per-CTU QP (LCU rate control, ROI,
+        AQ) or None.  The handle's entry 5 is the deblocked recon on the
         device (the next frame's reference)."""
         ys, cbs, crs = (None if a is None else a[0] for a in
                         self._upload(self.host_pack_sources([(y, cb, cr)])))
-        return self._p_from_planes(ys, cbs, crs, [pl for _rp, pl in refs])
+        return self._p_from_planes(ys, cbs, crs, [pl for _rp, pl in refs],
+                                   self._upload_qp(qp_ctu))
+
+    def _upload_qp(self, qp_ctu):
+        """(Cy, Cx) host QP map -> int32 on the device (None stays)."""
+        if qp_ctu is None:
+            return None
+        return torch.from_numpy(np.asarray(qp_ctu, np.int32)).to(self.device)
 
     def download_p(self, handle, need_recon: bool = True):
         """The device->host copies of a submitted P frame; safe to call
@@ -357,14 +443,16 @@ class PFrameMixin:
 
     def finalize_p_downloaded(self, downloaded, poc: int, ref_pocs,
                               retained=(), need_recon: bool = True,
-                              multi: bool = True):
+                              multi: bool = True, qp_ctu=None):
         """Host stage: merge/AMVP signalling decisions + CABAC.
 
         multi: emit the explicit multi-reference RPS and the
         reference-aware candidate derivation (the encode_p_frame_multi
         contract) even with one active reference; False = the plain
-        IPPP single-reference stream shape.  Returns (FrameResult, the
-        device recon planes)."""
+        IPPP single-reference stream shape.  qp_ctu: the frame's
+        intended per-CTU QP map, coded with cu_qp_delta (FrameData.qp_ctu
+        becomes the effective map).  Returns (FrameResult, the device
+        recon planes)."""
         ((lv_y, lv_cb, lv_cr), modes, inter_map, ref_sel, mv, sses), \
             rec_np, recs = downloaded
         if multi:
@@ -375,6 +463,8 @@ class PFrameMixin:
         fd = self._assemble_p_frame_data(
             modes, inter_map, mv, merge_idx, mvp_idx, mvd, lv_y, lv_cb,
             lv_cr, ref_sel=ref_sel if multi else None)
+        if qp_ctu is not None:
+            fd.qp_ctu = np.asarray(qp_ctu, np.int32).copy()
         deltas = [poc - rp for rp in ref_pocs]
         nal = self._serialize_p(fd, poc, deltas[0],
                                 ref_list_l0=deltas if multi else None,
@@ -567,23 +657,25 @@ class PFrameMixin:
             retained=retained)
 
     def encode_p_frame(self, y, cb=None, cr=None, poc: int = 1,
-                       ref_poc: int = 0, qp=None,
+                       ref_poc: int = 0, qp_ctu=None, qp=None,
                        qp_factor=None) -> FrameResult:
         """Plain IPPP P frame against the DPB (the previous frame's
-        deblocked reconstruction, on the device).  qp / qp_factor: a GOP
-        layer's QP and lambda factor, taken by variable trees (a fixed
-        grid takes its QP from the frame encoder's config, as in the JAX
-        package)."""
+        deblocked reconstruction, on the device).  qp_ctu: (Cy, Cx)
+        per-CTU QP (LCU rate control, ROI, AQ; fixed grid); qp /
+        qp_factor: a GOP layer's QP and lambda factor, taken by variable
+        trees (a fixed grid takes its QP from the frame encoder's config,
+        as in the JAX package)."""
         if self._dpb is None:
             raise RuntimeError("encode_p_frame needs a reference: encode "
                                "an intra frame first")
-        if var_inter(self.cfg):
+        if var_inter(self.cfg) and qp_ctu is None:
             return self.encode_frame_var_p(y, cb, cr, poc=poc,
                                            ref_poc=ref_poc, qp=qp,
                                            qp_factor=qp_factor)
-        handle = self.submit_p(y, cb, cr, [(ref_poc, self._dpb)])
+        handle = self.submit_p(y, cb, cr, [(ref_poc, self._dpb)], qp_ctu)
         res, recs = self.finalize_p_downloaded(
-            self.download_p(handle), poc, [ref_poc], multi=False)
+            self.download_p(handle), poc, [ref_poc], multi=False,
+            qp_ctu=qp_ctu)
         self._dpb = recs
         return res
 
@@ -806,6 +898,7 @@ class IntraFrameEncoder(PFrameMixin):
             transfer=cfg.transfer, colormatrix=cfg.colormatrix,
             chroma_loc=cfg.chromaloc,
             tier=1 if cfg.tier == "high" else 0,
+            cu_qp_delta=cfg.cu_qp_delta_active,
             level_idc=int(round(float(cfg.level) * 30))
             if cfg.level is not None else compute_level_idc(
                 self.coded_w, self.coded_h,
@@ -837,19 +930,25 @@ class IntraFrameEncoder(PFrameMixin):
         self.qp_c = chroma_qp(qp)
         self.lambda_satd = math.sqrt(qp_to_lambda(qp))
 
-    def _encode_from_planes(self, ys, cbs, crs):
+    def _encode_from_planes(self, ys, cbs, crs, qp_ctu=None):
         """Device program for a (B, H, W) batch: returns (modes uint8
         (B, By, Bx), levels int16 (y, cb, cr), recon uint8 (y, cb, cr),
-        sses float32 (B, 3)), all on the encoder's device."""
+        sses float32 (B, 3)), all on the encoder's device.  qp_ctu: a
+        one-frame batch's (1, Cy, Cx) per-CTU QP on the device: the
+        search stays at the config's QP, the reconstruction takes each
+        block's QP and deblocking the effective map."""
         modes = torch.stack([
             search_frame_modes(y, self.plan, self.lambda_satd,
                                self.bitdepth, self.cfg.rd >= 1)[0]
             for y in ys])
         (rec_y, lv_y, rec_cb, lv_cb, rec_cr,
-         lv_cr) = reconstruct_frames(ys, cbs, crs, modes, self.plan,
-                                     self.cfg.qp, self.qp_c, self.bitdepth)
-        recs, sses = self._deblock_sse((ys, cbs, crs),
-                                       (rec_y, rec_cb, rec_cr))
+         lv_cr) = reconstruct_frames(
+             ys, cbs, crs, modes, self.plan, self.cfg.qp, self.qp_c,
+             self.bitdepth,
+             qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu))
+        recs, sses = self._deblock_sse(
+            (ys, cbs, crs), (rec_y, rec_cb, rec_cr),
+            qp_map=self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)))
         sao = None
         if self.cfg.sao:
             recs, sao = self._sao_stage((ys, cbs, crs), recs)
@@ -886,11 +985,12 @@ class IntraFrameEncoder(PFrameMixin):
                             off.flatten(-2)], dim=-1)
         return (ry, rcb, rcr), packed
 
-    def _deblock_sse(self, srcs, recs, bs=None):
+    def _deblock_sse(self, srcs, recs, bs=None, qp_map=None):
         """Deblock a (B, H, W) batch of reconstructions (bs: the (bs_v,
-        bs_h) maps of a P frame, None = all-intra) and take each frame's
-        SSE against its source.  Returns (recon uint8 (y, cb, cr), sses
-        float32 (B, 3))."""
+        bs_h) maps of a P frame, None = all-intra; qp_map: a one-frame
+        batch's (By, Bx) per-block QP, None = the config's QP) and take
+        each frame's SSE against its source.  Returns (recon uint8 (y,
+        cb, cr), sses float32 (B, 3))."""
         ys, cbs, crs = srcs
         rec_y, rec_cb, rec_cr = recs
         if self.cfg.deblock:
@@ -901,7 +1001,7 @@ class IntraFrameEncoder(PFrameMixin):
             dy, dcb, dcr = deblock_frame(rec_y, rec_cb, rec_cr,
                                          self.cfg.qp, self.cu,
                                          self.bitdepth, bs_v=bs_v,
-                                         bs_h=bs_h)
+                                         bs_h=bs_h, qp_map=qp_map)
             rec_y = dy.to(torch.uint8)
             if rec_cb is not None:
                 rec_cb = dcb.to(torch.uint8)
@@ -994,9 +1094,11 @@ class IntraFrameEncoder(PFrameMixin):
         return out
 
     def _host_finalize(self, modes, lv_y, lv_cb, lv_cr, rec_y, rec_cb,
-                       rec_cr, sao=None) -> FrameResult:
+                       rec_cr, sao=None, qp_ctu=None) -> FrameResult:
         s = self.cu
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
+        if qp_ctu is not None:
+            fd.qp_ctu = np.asarray(qp_ctu, np.int32).copy()
         fd.depth8[:] = 6 - int(math.log2(s))
         fd.mode4[:] = np.kron(modes, np.ones((s // 4, s // 4), np.uint8))
         fd.coeff_y[:] = blocks_to_plane(lv_y, self.plan, s, self.coded_w,
@@ -1590,16 +1692,36 @@ class IntraFrameEncoder(PFrameMixin):
         return self.finalize_downloaded(
             self.download_frames(self.submit_frames(frames)))
 
-    def encode_frame(self, y: np.ndarray, cb=None, cr=None, nal_type=None,
-                     poc: int = 0) -> FrameResult:
-        """y: (H, W) uint8 source luma; cb/cr half size (4:2:0).
-        nal_type / poc: the CRA of an open GOP (it codes its POC); by
-        default an IDR at POC 0."""
+    def encode_frame(self, y: np.ndarray, cb=None, cr=None, qp_ctu=None,
+                     nal_type=None, poc: int = 0) -> FrameResult:
+        """y: (H, W) uint8 source luma; cb/cr half size (4:2:0).  qp_ctu:
+        (Cy, Cx) per-CTU QP map (LCU rate control, ROI, AQ; fixed grid),
+        coded with cu_qp_delta.  nal_type / poc: the CRA of an open GOP
+        (it codes its POC); by default an IDR at POC 0."""
         self._islice = None if nal_type is None else (nal_type, poc)
         try:
+            if qp_ctu is not None:
+                return self.encode_frame_qp(y, cb, cr, qp_ctu)
             return self.encode_frames([(y, cb, cr)])[0]
         finally:
             self._islice = None
+
+    def encode_frame_qp(self, y, cb, cr, qp_ctu) -> FrameResult:
+        """I frame of the fixed grid with a (Cy, Cx) per-CTU QP map: the
+        mode search at the config's QP, the reconstruction at each
+        block's QP, deblocking at the effective QPs and SAO at the
+        config's lambda, then CABAC with cu_qp_delta."""
+        ys, cbs, crs = self._upload(self.host_pack_sources([(y, cb, cr)]))
+        modes, levels, recs, _sses, sao = self._encode_from_planes(
+            ys, cbs, crs, self._upload_qp(qp_ctu)[None])
+        self._dpb = tuple(None if r is None else r[0] for r in recs)
+
+        def host(t):
+            return None if t is None else t[0].cpu().numpy()
+
+        return self._host_finalize(host(modes), *(host(t) for t in levels),
+                                   *(host(r) for r in recs), sao=host(sao),
+                                   qp_ctu=qp_ctu)
 
     def close(self) -> None:
         """Stop the host CABAC pool."""

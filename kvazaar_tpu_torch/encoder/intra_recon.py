@@ -1,7 +1,9 @@
 """Exact wavefront reconstruction of the fixed-grid planes.
 
 Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra and P
-frames without QP maps, scaling lists, RDOQ, transform skip or explicit
+frames at one QP or with a per-block QP map (LCU rate control, ROI and
+AQ: each block quantizes at its own QP, chroma at the QP that Table 8-10
+maps it to), without scaling lists, RDOQ, transform skip or explicit
 chroma modes (the TU roundtrip ``_tu_roundtrip`` also takes RDOQ and
 sign hiding, which the variable-tree reconstruction uses).  On P frames
 an inter block takes its motion-compensated
@@ -76,8 +78,9 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
 
 def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
                   rdoq=False, lam=0.0):
-    """Flat TU roundtrip: (levels int16, reconstruction int32).  intra:
-    bool, or a per-block bool tensor (N,); scan_sel: the (N,) scanIdx
+    """Flat TU roundtrip: (levels int16, reconstruction int32).  qp: an
+    int or a per-block int tensor (N,); intra: bool, or a per-block bool
+    tensor (N,); scan_sel: the (N,) scanIdx
     of each block when sign hiding is on, else None; rdoq: RDOQ at
     lambda lam instead of the scalar quantizer."""
     coeff = forward_transform(orig - pred, s, bitdepth)
@@ -104,9 +107,11 @@ def _scan_sel(modes: torch.Tensor, s: int, luma: bool) -> torch.Tensor:
 
 
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
-                bitdepth, luma, inter_items=None, mc_flat=None):
-    """One wavefront step for every slot of every item.  Returns the
-    step's (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
+                bitdepth, luma, inter_items=None, mc_flat=None,
+                qp_items=None):
+    """One wavefront step for every slot of every item (qp_items: the
+    items' per-block QPs, else every block at qp).  Returns the step's
+    (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
     gidx, noref, sidx, bids = tables
     nb = rec_flat.shape[0]
     refs = build_refs(rec_flat, gidx[step], noref[step], bitdepth)
@@ -121,6 +126,8 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
         mc = mc_flat[:, sidx[step]].reshape(nb * k, s, s)
         pred = torch.where(inter[:, None, None], mc, pred)
         intra = ~inter
+    if qp_items is not None:
+        qp = qp_items[:, bids[step]].reshape(-1)          # (NB*slots,)
     levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra)
     return levels.reshape(nb, k, s, s), rec.reshape(nb, k, s * s)
 
@@ -144,7 +151,7 @@ def _flat(planes: torch.Tensor) -> torch.Tensor:
 def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           plan: IntraFramePlan, s: int, luma: bool,
                           qp: int, bitdepth: int = 8, is_inter=None,
-                          mc=None):
+                          mc=None, qp_map=None):
     """Plain PyTorch version of the wavefront kernel, on any device;
     same contract as ops.wavefront.wavefront_recon."""
     nb, h, w = orig.shape
@@ -157,6 +164,7 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     if is_inter is not None:
         inter_items = _items(is_inter, nb, nblk) != 0
         mc_flat = _flat(mc)
+    qp_items = None if qp_map is None else _items(qp_map, nb, nblk)
     orig_flat = _flat(orig)
     rec_flat = torch.zeros((nb, h * w + 1), dtype=torch.int32, device=dev)
     levels = torch.zeros((nb, nblk + 1, s, s), dtype=torch.int16,
@@ -164,7 +172,7 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     for step in range(plan.n_steps):
         lv, rec = _plane_pass(rec_flat, orig_flat, modes_items, tables,
                               step, s, qp, bitdepth, luma, inter_items,
-                              mc_flat)
+                              mc_flat, qp_items)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
     return (rec_flat[:, :h * w].reshape(nb, h, w).to(torch.uint8),
@@ -173,15 +181,17 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
 
 def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                        qp_c: int, bitdepth: int = 8, is_inter=None,
-                       mc_y=None, mc_cb=None, mc_cr=None):
+                       mc_y=None, mc_cb=None, mc_cr=None, qp_map=None):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
     (B, By, Bx) int32.  P frames also pass is_inter (B, By, Bx) bool and
     the motion-compensated prediction planes mc_y (B, H, W) (+ chroma).
-    Returns (recon_y, levels_y, recon_cb, levels_cb, recon_cr,
-    levels_cr): recon (B, H, W) uint8, levels (B, N_blocks, S, S) int16
-    in raster block order."""
+    qp_map: (B, By, Bx) int per-block luma QP (clipped to 0..51, chroma
+    through Table 8-10), replacing qp and qp_c.  Returns (recon_y,
+    levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon (B, H, W)
+    uint8, levels (B, N_blocks, S, S) int16 in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
     return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
-                                  bitdepth, is_inter, mc_y, mc_cb, mc_cr)
+                                  bitdepth, is_inter, mc_y, mc_cb, mc_cr,
+                                  qp_map)

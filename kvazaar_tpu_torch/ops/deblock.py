@@ -1,10 +1,13 @@
-"""HEVC deblocking (8.7.2) for uniform-CU frames at one QP.
+"""HEVC deblocking (8.7.2) for uniform-CU frames.
 
-Counterpart of kvazaar_tpu/ops/deblock.py without QP maps.  Every
+Counterpart of kvazaar_tpu/ops/deblock.py.  Every
 CU-grid line is a TU+PU boundary; its boundary strength is 2 on
 all-intra frames (both sides intra, 8.7.2.4) or comes per edge from the
 (By, Bx) maps ``bs_v``/``bs_h`` on P frames: bS 0 leaves the edge
-unfiltered, luma tC follows bS, chroma filters only bS 2.  Intra
+unfiltered, luma tC follows bS, chroma filters only bS 2.  The QP is
+the frame's or, given a per-block map (LCU rate control, ROI and AQ),
+each edge's two-sided average ((QpP + QpQ + 1) >> 1, 8.7.2.5.3), chroma
+through Table 8-10.  Intra
 prediction reads unfiltered samples, so the filter is a frame-level
 post-pass: every vertical edge filters in parallel, then every
 horizontal edge on that output.  The beta/tC tables are copies of the
@@ -13,12 +16,11 @@ JAX package's (pinned by a test).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
+from kvazaar_tpu_torch.ops.quant import int32_table
 
 # Spec Table 8-12 constants.
 TC_TABLE = np.array([
@@ -155,17 +157,8 @@ def _tc_lookup(qp_plus: int, bs: torch.Tensor, scale: int):
     """tC per entry of a bS tensor; bS 0 gives tC 0, which disables the
     filter exactly as the spec skips bS 0 edges."""
     idx = torch.clamp(qp_plus + 2 * (bs - 1), 0, 53)
-    tc = _index(TC_TABLE.tobytes(), bs.device)[idx.long()] * scale
+    tc = int32_table(TC_TABLE.tobytes(), bs.device)[idx.long()] * scale
     return torch.where(bs > 0, tc, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _index(data: bytes, device: torch.device) -> torch.Tensor:
-    """An int32 index/table vector on ``device``, uploaded once per
-    content (a per-call copy from pageable memory would make the host
-    wait for the device)."""
-    return torch.from_numpy(np.frombuffer(data, np.int32).copy()).to(
-        device)
 
 
 def _edge_bs(bs_map: torch.Tensor, n_edges: int, step: int, blk: int,
@@ -175,35 +168,50 @@ def _edge_bs(bs_map: torch.Tensor, n_edges: int, step: int, blk: int,
     edge on a grid of ``blk`` samples."""
     mm = bs_map.T if transposed else bs_map
     cols = (np.arange(n_edges, dtype=np.int32) + 1) * step // blk
-    return mm[:, _index(cols.tobytes(), bs_map.device).long()].T
+    return mm[:, int32_table(cols.tobytes(), bs_map.device).long()].T
 
 
 def _rows_of(n: int, per: int, blk: int, n_rows: int, device):
     """Block row of each of n groups of ``per`` lines."""
     rows = np.minimum(np.arange(n, dtype=np.int32) * per // blk,
                       n_rows - 1)
-    return _index(rows.tobytes(), device).long()
+    return int32_table(rows.tobytes(), device).long()
+
+
+def _edge_qp(qp_map: torch.Tensor, n_edges: int, step: int, blk: int,
+             transposed: bool) -> torch.Tensor:
+    """(E, Brows) QP of edge e: the two-sided average of the blocks
+    either side of it, from a (By, Bx) map of per-block luma QPs."""
+    mm = (qp_map.T if transposed else qp_map).to(torch.int32)
+    cols = (np.arange(n_edges, dtype=np.int32) + 1) * step // blk
+    idx = int32_table(cols.tobytes(), qp_map.device).long()
+    return ((mm[:, idx - 1] + mm[:, idx] + 1) >> 1).T
 
 
 def deblock_plane(plane: torch.Tensor, qp: int, edge_step: int,
                   bitdepth: int = 8, beta_off2: int = 0,
                   tc_off2: int = 0, chroma: bool = False, bs_v=None,
-                  bs_h=None, blk: int = 0) -> torch.Tensor:
+                  bs_h=None, blk: int = 0, qp_map=None) -> torch.Tensor:
     """Deblock one plane (..., H, W) int32: vertical edges, then
     horizontal edges on that output.  edge_step: S for luma, S/2 for
     chroma (chroma filters only edges on its own 8-grid).  bs_v/bs_h:
     (By, Bx) int32 bS of each block's left/top edge on the block grid
-    of size ``blk`` (default: the edge step); None = all bS 2."""
+    of size ``blk`` (default: the edge step); None = all bS 2.  qp_map:
+    (By, Bx) int32 per-block luma QP on the same grid, replacing qp."""
     scale = 1 << (bitdepth - 8)
+    beta = qp_plus = None           # per edge with a QP map
     if chroma:
-        qp_plus = int(CHROMA_QP_TAB[min(max(qp, 0), 51)]) + (tc_off2 << 1)
         step, taps = max(edge_step, 8), 4
+        if qp_map is None:
+            qp_plus = int(CHROMA_QP_TAB[min(max(qp, 0), 51)]) + (tc_off2
+                                                                  << 1)
     else:
-        beta, _ = luma_params(qp, beta_off2, tc_off2, bitdepth)
-        if beta == 0:
-            return plane
-        qp_plus = qp + (tc_off2 << 1)
         step, taps = edge_step, 8
+        if qp_map is None:
+            beta, _ = luma_params(qp, beta_off2, tc_off2, bitdepth)
+            if beta == 0:
+                return plane
+            qp_plus = qp + (tc_off2 << 1)
     blk = blk or step
     h, w = plane.shape[-2], plane.shape[-1]
     if bs_v is None:
@@ -212,16 +220,27 @@ def deblock_plane(plane: torch.Tensor, qp: int, edge_step: int,
 
     def filt_for(bs_map, transposed, n_lines):
         def filt(st):
-            bs_e = _edge_bs(bs_map, st.shape[-3], step, blk, transposed)
+            n_e = st.shape[-3]
+            bs_e = _edge_bs(bs_map, n_e, step, blk, transposed)
+            qe = (None if qp_map is None
+                  else _edge_qp(qp_map, n_e, step, blk, transposed))
             if chroma:
                 rows = _rows_of(n_lines, 1, blk, bs_e.shape[1], st.device)
                 bs_l = bs_e[:, rows]                      # (E, lines)
-                tc_l = _tc_lookup(qp_plus, torch.where(bs_l == 2, 2, 0),
-                                  scale)
+                qpp = qp_plus
+                if qe is not None:
+                    cq = int32_table(CHROMA_QP_TAB.astype(np.int32).tobytes(),
+                                st.device)[torch.clamp(qe, 0, 51).long()]
+                    qpp = cq[:, rows] + (tc_off2 << 1)    # (E, lines)
+                tc_l = _tc_lookup(qpp, torch.where(bs_l == 2, 2, 0), scale)
                 return _filter_chroma_stripes(st, tc_l, bitdepth)
             rows = _rows_of(n_lines // 4, 4, blk, bs_e.shape[1], st.device)
-            tc_g = _tc_lookup(qp_plus, bs_e[:, rows], scale)   # (E, G)
-            return _filter_luma_stripes(st, beta, tc_g, bitdepth)
+            beta_g, qpp = (beta, qp_plus) if qe is None else (
+                int32_table(BETA_TABLE.tobytes(), st.device)[torch.clamp(
+                    qe[:, rows] + (beta_off2 << 1), 0, 51).long()] * scale,
+                qe[:, rows] + (tc_off2 << 1))
+            tc_g = _tc_lookup(qpp, bs_e[:, rows], scale)   # (E, G)
+            return _filter_luma_stripes(st, beta_g, tc_g, bitdepth)
         return filt
 
     plane = _deblock_plane_vertical(plane, step, filt_for(bs_v, False, h),
@@ -234,19 +253,17 @@ def deblock_plane(plane: torch.Tensor, qp: int, edge_step: int,
 
 def deblock_frame(y, cb, cr, qp: int, cu_size: int, bitdepth: int = 8,
                   beta_off2: int = 0, tc_off2: int = 0, bs_v=None,
-                  bs_h=None):
+                  bs_h=None, qp_map=None):
     """Deblock a frame (y: (..., H, W); cb/cr half size or None);
     returns int32 planes.  bs_v/bs_h: per-CU-edge boundary strengths on
     the (By, Bx) grid (bs_v[by][bx] = edge at x = bx*S); None = all-intra
-    bS 2."""
+    bS 2.  qp_map: (By, Bx) int32 per-block luma QP (else ``qp``)."""
     y = deblock_plane(y.to(torch.int32), qp, cu_size, bitdepth,
                       beta_off2, tc_off2, chroma=False, bs_v=bs_v,
-                      bs_h=bs_h, blk=cu_size)
+                      bs_h=bs_h, blk=cu_size, qp_map=qp_map)
     if cb is not None:
-        cb = deblock_plane(cb.to(torch.int32), qp, cu_size // 2, bitdepth,
-                           beta_off2, tc_off2, chroma=True, bs_v=bs_v,
-                           bs_h=bs_h, blk=cu_size // 2)
-        cr = deblock_plane(cr.to(torch.int32), qp, cu_size // 2, bitdepth,
-                           beta_off2, tc_off2, chroma=True, bs_v=bs_v,
-                           bs_h=bs_h, blk=cu_size // 2)
+        cb, cr = (deblock_plane(p.to(torch.int32), qp, cu_size // 2,
+                                bitdepth, beta_off2, tc_off2, chroma=True,
+                                bs_v=bs_v, bs_h=bs_h, blk=cu_size // 2,
+                                qp_map=qp_map) for p in (cb, cr))
     return y, cb, cr

@@ -1,9 +1,11 @@
 """Flat-list HEVC quantization / dequantization (H.265 8.6.3), RDOQ and
 sign-data hiding, batched.
 
-Counterpart of kvazaar_tpu/ops/quant.py for a frame-level QP without
-scaling lists.  int32 arithmetic exactly as the JAX package forms it;
-the scale tables are copies pinned by a test.
+Counterpart of kvazaar_tpu/ops/quant.py without scaling lists: the
+scalar quantizer takes a frame-level QP or one QP per block (LCU rate
+control, ROI and AQ), RDOQ a frame-level QP.  int32 arithmetic exactly
+as the JAX package forms it; the scale tables are copies pinned by a
+test.
 
 RDOQ's costs are float32 and decide levels at near-ties, so they are
 formed as the JAX package's CPU backend forms them (pinned with
@@ -49,13 +51,39 @@ def quant_params(qp: int, log2_size: int, bitdepth: int):
             int(INV_QUANT_SCALES[qp % 6]), inv_shift)
 
 
-def quantize(coeff: torch.Tensor, qp: int, size: int, bitdepth: int = 8,
+def _quant_params_arr(qp: torch.Tensor, log2_size: int, bitdepth: int):
+    """Array form of quant_params for a per-block QP tensor (LCU rate
+    control, ROI and AQ): (scale, qbits, inv_scale) of qp's shape; the
+    inverse shift depends on the size alone."""
+    qp = qp.to(torch.int32)
+    idx = torch.remainder(qp, 6).long()
+    qbits = QUANT_SHIFT + torch.div(qp, 6, rounding_mode="floor") \
+        + (15 - bitdepth - log2_size)
+    return (int32_table(QUANT_SCALES.tobytes(), qp.device)[idx], qbits,
+            int32_table(INV_QUANT_SCALES.tobytes(), qp.device)[idx])
+
+
+@functools.lru_cache(maxsize=None)
+def int32_table(data: bytes, device: torch.device) -> torch.Tensor:
+    """An int32 table or index vector on ``device``, uploaded once per
+    content (a per-call copy from pageable memory would make the host
+    wait for the device)."""
+    return torch.from_numpy(np.frombuffer(data, np.int32).copy()).to(device)
+
+
+def quantize(coeff: torch.Tensor, qp, size: int, bitdepth: int = 8,
              intra=True) -> torch.Tensor:
     """Scalar quantization with the 171/512 (intra) or 85/512 (inter)
     rounding offset.  ``intra`` is a bool, or a bool tensor over the
-    leading (block) axes of coeff for mixed P-frame batches.  int32-safe:
-    |coeff| fits int16."""
-    scale, qbits, _, _ = quant_params(qp, size.bit_length() - 1, bitdepth)
+    leading (block) axes of coeff for mixed P-frame batches.  qp is an
+    int, or an int tensor of one QP per block over those axes.
+    int32-safe: |coeff| fits int16."""
+    log2n = size.bit_length() - 1
+    if isinstance(qp, torch.Tensor):
+        scale, qbits, _ = _quant_params_arr(qp, log2n, bitdepth)
+        scale, qbits = scale[..., None, None], qbits[..., None, None]
+    else:
+        scale, qbits, _, _ = quant_params(qp, log2n, bitdepth)
     if isinstance(intra, bool):
         offset = (171 if intra else 85) << (qbits - 9)
     else:
@@ -65,14 +93,20 @@ def quantize(coeff: torch.Tensor, qp: int, size: int, bitdepth: int = 8,
     return torch.where(c < 0, -level, level)
 
 
-def dequantize(level: torch.Tensor, qp: int, size: int,
+def dequantize(level: torch.Tensor, qp, size: int,
                bitdepth: int = 8) -> torch.Tensor:
     """Spec scaling with the *16 folded into the shift (int32-safe:
-    |level| * levScale << 8 < 2^31)."""
-    _, _, inv_scale, shift = quant_params(qp, size.bit_length() - 1,
-                                          bitdepth)
-    d = (level.to(torch.int32) * (inv_scale << (qp // 6))
-         + (1 << (shift - 5))) >> (shift - 4)
+    |level| * levScale << 8 < 2^31); qp as in ``quantize``."""
+    log2n = size.bit_length() - 1
+    shift = bitdepth + log2n - 5
+    if isinstance(qp, torch.Tensor):
+        _, _, inv_scale = _quant_params_arr(qp, log2n, bitdepth)
+        mult = (inv_scale << torch.div(qp.to(torch.int32), 6,
+                                       rounding_mode="floor"))[..., None,
+                                                               None]
+    else:
+        mult = int(INV_QUANT_SCALES[qp % 6]) << (qp // 6)
+    d = (level.to(torch.int32) * mult + (1 << (shift - 5))) >> (shift - 4)
     return torch.clamp(d, -32768, 32767)
 
 
@@ -180,6 +214,9 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     signature: both roundings use the half offset.  Returns int32
     levels."""
     del intra
+    if isinstance(qp, torch.Tensor):
+        raise NotImplementedError("RDOQ with a per-block QP (no ported "
+                                  "path combines them)")
     log2n = size.bit_length() - 1
     scale, qbits, inv_scale, inv_shift = quant_params(qp, log2n, bitdepth)
     inv_m = inv_scale << (qp // 6)

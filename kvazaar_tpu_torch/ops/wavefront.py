@@ -2,7 +2,8 @@
 
 ``wavefront_recon_planes`` reconstructs the luma and chroma planes of a
 batch of frames, all-intra or, given an inter mask and MC planes, as P
-frames; ``wavefront_recon`` reconstructs one plane kind.  For CUDA
+frames, at one QP or with a per-block QP map; ``wavefront_recon``
+reconstructs one plane kind.  For CUDA
 tensors both launch the hand-written kernel once (or raise); for CPU
 tensors they run the kernel's plain PyTorch version, the per-step loop
 of encoder/intra_recon.py, once per plane kind.  There is no fallback
@@ -16,7 +17,8 @@ and the depth of the shared-memory edge ring) are derived here, once per
 plan and device; the launch's threads and shared memory come from the
 library (``ktt_wavefront_layout``), and a plan that needs more shared
 memory than the device gives raises here.  ``LAUNCHES`` counts the
-kernel launches of this process, intra and inter variants apart.
+kernel launches of this process, intra and inter variants apart, and
+``QP_MAP_LAUNCHES`` those of them that took a per-block QP map.
 """
 
 from __future__ import annotations
@@ -33,13 +35,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import plan_cached
-from kvazaar_tpu_torch.ops.quant import quant_params
+from kvazaar_tpu_torch.ops.quant import int32_table, quant_params
 
 # Kernel launches made by this module (only here, after a launch), per
-# variant.
+# variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
+# among them.
 LAUNCHES = {"intra": 0, "inter": 0}
+QP_MAP_LAUNCHES = {"intra": 0, "inter": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -59,7 +64,7 @@ _NEIGHBOURS = ((-1, 0), (0, -1), (1, -1), (-1, 1), (-1, -1))
 class _Plane(ctypes.Structure):
     """KttPlane of csrc/wavefront.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("orig", "mc", "rec",
-                                                 "levels")]
+                                                 "levels", "qp")]
                 + [(n, ctypes.c_int) for n in (
                     "nb", "s", "h", "w", "luma", "orig_bytes", "mc_bytes",
                     "q_scale", "q_bits", "q_offset", "q_offset_inter",
@@ -247,7 +252,8 @@ def _plan_tables(plan: IntraFramePlan, device: torch.device):
 
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                     plan: IntraFramePlan, s: int, luma: bool, qp: int,
-                    bitdepth: int = 8, is_inter=None, mc=None):
+                    bitdepth: int = 8, is_inter=None, mc=None,
+                    qp_map=None):
     """Reconstruct a batch of planes of one kind.
 
     orig: (NB, H, W) uint8 or int32 coded-size planes (H, W = the
@@ -255,38 +261,50 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
     int32 with NB % Bm == 0 — item i uses modes[i % Bm].  P frames add
     is_inter (Bm, By, Bx) bool, shared like modes, and mc (NB, H, W)
     uint8 or int32 MC prediction planes in [0, 255]: inter blocks take
-    mc and the inter rounding.  Returns (rec (NB, H, W) uint8, levels
-    (NB, By*Bx, S, S) int16 in raster block order)."""
+    mc and the inter rounding.  qp_map: (Bm, By, Bx) int32 per-block QPs
+    of this plane kind in 0..51, shared like modes, replacing qp.
+    Returns (rec (NB, H, W) uint8, levels (NB, By*Bx, S, S) int16 in
+    raster block order)."""
     if orig.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         return wavefront_recon_plain(orig, modes, plan, s, luma, qp,
-                                     bitdepth, is_inter, mc)
+                                     bitdepth, is_inter, mc, qp_map)
     if orig.device.type != "cuda":
         raise ValueError(f"wavefront_recon: unsupported device "
                          f"{orig.device}")
-    _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc)
-    return _launch([(orig, mc, s, luma, qp)], modes, plan, is_inter)
+    _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map)
+    return _launch([(orig, mc, s, luma, qp, qp_map)], modes, plan,
+                   is_inter)
 
 
 def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                            qp: int, qp_c: int, bitdepth: int = 8,
                            is_inter=None, mc_y=None, mc_cb=None,
-                           mc_cr=None):
+                           mc_cr=None, qp_map=None):
     """Reconstruct the luma and (where cbs is given) chroma planes of a
     batch of frames in one launch.
 
     ys (B, H, W), cbs/crs (B, H/2, W/2) or None, uint8 or int32; modes
     (Bm, By, Bx) int32, shared by the three planes.  P frames add
     is_inter (Bm, By, Bx) bool and the MC planes mc_y/mc_cb/mc_cr of
-    the shapes of ys/cbs/crs.  Returns (rec_y, lv_y, rec_cb, lv_cb,
-    rec_cr, lv_cr), the chroma entries None without chroma."""
+    the shapes of ys/cbs/crs.  qp_map: (Bm, By, Bx) per-block luma QPs,
+    shared like modes, replacing qp and qp_c: clipped to 0..51, and
+    mapped through Table 8-10 for Cb and Cr, on the device.  Returns
+    (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr), the chroma entries None
+    without chroma."""
     s = plan.cu_size
+    qp_y = qp_c_map = None
+    if qp_map is not None:
+        qp_y = torch.clamp(qp_map.to(torch.int32), 0, 51)
+        qp_c_map = int32_table(CHROMA_QP_TAB.astype(np.int32).tobytes(),
+                          qp_y.device)[qp_y.long()].contiguous()
+        qp_y = qp_y.contiguous()
     if ys.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         rec_y, lv_y = wavefront_recon_plain(ys, modes, plan, s, True, qp,
-                                            bitdepth, is_inter, mc_y)
+                                            bitdepth, is_inter, mc_y, qp_y)
         if cbs is None:
             return rec_y, lv_y, None, None, None, None
         # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
@@ -294,17 +312,18 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
         rec_c, lv_c = wavefront_recon_plain(torch.cat([cbs, crs]), modes,
                                             plan, s // 2, False, qp_c,
-                                            bitdepth, is_inter, mc_c)
+                                            bitdepth, is_inter, mc_c,
+                                            qp_c_map)
         return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
     if ys.device.type != "cuda":
         raise ValueError(f"wavefront_recon_planes: unsupported device "
                          f"{ys.device}")
-    planes = [(ys, mc_y, s, True, qp)]
+    planes = [(ys, mc_y, s, True, qp, qp_y)]
     if cbs is not None:
-        planes += [(cbs, mc_cb, s // 2, False, qp_c),
-                   (crs, mc_cr, s // 2, False, qp_c)]
-    for orig, mc, ps, luma, _ in planes:
-        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc)
+        planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map),
+                   (crs, mc_cr, s // 2, False, qp_c, qp_c_map)]
+    for orig, mc, ps, luma, _, qm in planes:
+        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc, qm)
     out = _launch(planes, modes, plan, is_inter)
     if cbs is None:
         return (*out, None, None, None, None)
@@ -312,8 +331,8 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
 
 
 def _launch(planes, modes, plan: IntraFramePlan, is_inter):
-    """One kernel launch over checked (orig, mc, s, luma, qp) plane
-    kinds; returns (rec, levels) per kind, flattened."""
+    """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
+    plane kinds; returns (rec, levels) per kind, flattened."""
     lib = _library()
     dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
@@ -333,7 +352,7 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
     # The kernel packs each item's schedule words here.
     entries = torch.empty(sum(p[0].shape[0] for p in planes) * nblk,
                           dtype=torch.int32, device=dev)
-    for st, (orig, mc, s, luma, qp) in zip(structs, planes):
+    for st, (orig, mc, s, luma, qp, qp_map) in zip(structs, planes):
         nb, h, w = orig.shape
         rec = torch.empty((nb, h, w), dtype=torch.uint8, device=dev)
         levels = torch.empty((nb, nblk, s, s), dtype=torch.int16,
@@ -343,6 +362,7 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
         st.orig, st.rec, st.levels = (orig.data_ptr(), rec.data_ptr(),
                                       levels.data_ptr())
         st.mc = None if mc is None else mc.data_ptr()
+        st.qp = None if qp_map is None else qp_map.data_ptr()
         st.nb, st.s, st.h, st.w, st.luma = nb, s, h, w, int(luma)
         st.orig_bytes = orig.element_size()
         st.mc_bytes = 0 if mc is None else mc.element_size()
@@ -362,11 +382,15 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["intra" if is_inter is None else "inter"] += 1
+    variant = "intra" if is_inter is None else "inter"
+    LAUNCHES[variant] += 1
+    if planes[0][5] is not None:
+        QP_MAP_LAUNCHES[variant] += 1
     return tuple(outs)
 
 
-def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
+def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
+           qp_map=None):
     """Validate what the kernel takes; returns (NB, H, W)."""
     if bitdepth != 8:
         raise ValueError("wavefront kernel: 8-bit only")
@@ -407,6 +431,12 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None):
                 or mc.dtype not in (torch.uint8, torch.int32)):
             raise ValueError("wavefront kernel: mc must be uint8 or int32 "
                              "with the shape of orig on its device")
+    if qp_map is not None and (
+            qp_map.device != orig.device or qp_map.dtype != torch.int32
+            or qp_map.shape != modes.shape or not qp_map.is_contiguous()):
+        raise ValueError("wavefront kernel: qp_map must be contiguous "
+                         "int32 with the shape of modes on the device of "
+                         "orig")
     # Sample rows are read as 4- and 16-byte words.
     if any(not t.is_contiguous() or t.data_ptr() % 16
            for t in (orig, mc) if t is not None):

@@ -495,10 +495,10 @@ def test_preset_default_encodes(preset):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(bitrate=100000), "rate control"),
+    (dict(crypto="k"), "selective encryption"),
     (dict(intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
-          inter_max_cu=16, sao=False, rdoq=False, bitrate=100000),
-     "rate control"),
+          inter_max_cu=16, sao=False, rdoq=False, crypto="k"),
+     "selective encryption"),
     (dict(tr_depth_intra=1), "tr-depth-intra"),
     (dict(scaling_list="default"), "scaling lists")])
 def test_what_stays_unported_on_a_gop_raises(change, match):

@@ -5,7 +5,8 @@
   all-intra points with SAO and RDOQ, the defaults: the ultrafast
   preset's low-delay GOP and Config()'s cu 32 IPPP, and the medium
   preset's variable P trees at --gop 0 with a set_base_qp /
-  reset_stream step, and a fixed-grid GOP-4 B pyramid) never imports jax
+  reset_stream step, a fixed-grid GOP-4 B pyramid, and rate control:
+  --bitrate on Config()'s IPPP and ROI + AQ) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -76,6 +77,21 @@ enc = Encoder(cfg, device="cpu")
 out = list(enc.encode_stream(frames + frames[:2]))
 assert [o[1].poc for o in out] == [0, 4, 2, 1, 3]
 assert all(len(c) > 0 for c, _, _ in out)
+# Rate control: --bitrate on Config()'s IPPP (per-CTU QP through
+# cu_qp_delta), and an ROI map with variance AQ.
+import os, tempfile
+enc = Encoder(Config(width=48, height=32, qp=27, bitrate=200000,
+                     intra_period=0), device="cpu")
+out = [r for f in frames for r in enc.encode(*f)]
+assert enc._rc.s.frames_coded == 3 and enc._intra.params.cu_qp_delta
+with tempfile.TemporaryDirectory() as tmp:
+    roi = os.path.join(tmp, "roi.txt")
+    with open(roi, "w") as f:
+        f.write("1 1\n-3\n")
+    cfg = Config(width=48, height=32, qp=27, roi=roi, aq=1.0,
+                 intra_period=0)
+    out = list(Encoder(cfg, device="cpu").encode_stream(frames))
+assert [o[1].slice_type for o in out] == [2, 1, 1]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
@@ -129,7 +145,7 @@ def test_port_sources_import_no_kvazaar_tpu():
     "constants", "ops.scan", "ops.inter", "ops.rate", "ops.quant",
     "ops.sao", "bitstream.contexts",
     "bitstream.headers", "bitstream.syntax", "encoder.inter_cands",
-    "encoder.quadtree", "encoder.var_schedule"])
+    "encoder.quadtree", "encoder.rate_control", "encoder.var_schedule"])
 def test_copied_constants_equal_jax(module):
     """Every upper-case constant of a copied module equals the JAX
     package's constant of the same name."""
@@ -170,6 +186,11 @@ def test_copied_tables_equal_jax_arrays():
         for log2n in (2, 3, 4, 5):
             assert quant.quant_params(qp, log2n, 8) == \
                 jquant.quant_params(qp, log2n, 8)
+    from kvazaar_tpu.encoder.rate_control import \
+        RateController as JaxRateController
+    from kvazaar_tpu_torch.encoder.rate_control import RateController
+    assert (RateController.MIN_QP, RateController.MAX_QP) == \
+        (JaxRateController.MIN_QP, JaxRateController.MAX_QP)
     np.testing.assert_array_equal(deblock.TC_TABLE, jdeblock.TC_TABLE)
     np.testing.assert_array_equal(deblock.BETA_TABLE, jdeblock.BETA_TABLE)
     for qp in range(52):

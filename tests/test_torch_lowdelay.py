@@ -346,18 +346,19 @@ def test_low_delay_defaults_pass_the_gates(name):
 
 
 @pytest.mark.parametrize("name,match", [
-    pytest.param("medium", "rate control", id="medium-GOP structures"),
+    pytest.param("medium", "selective encryption",
+                 id="medium-GOP structures"),
     pytest.param("ultrafast --gop 0", "scaling lists",
                  id="ultrafast --gop 0-variable P/B CU trees"),
     ("tmvp", "TMVP")])
 def test_what_stays_unported_raises(name, match):
     """On the B pyramids that are ported (the medium default; the
-    ultrafast preset's trees with --gop 0 and a GOP of 8), rate control
-    and scaling lists still raise, and so does TMVP on a low-delay
-    stream."""
+    ultrafast preset's trees with --gop 0 and a GOP of 8), selective
+    encryption and scaling lists still raise, and so does TMVP on a
+    low-delay stream."""
     if name == "medium":
         cfg = config_from_preset("medium", width=64, height=64,
-                                 bitrate=100000)
+                                 crypto="k")
     elif name == "tmvp":
         cfg = config_from_preset("ultrafast", width=64, height=64,
                                  tmvp=True)

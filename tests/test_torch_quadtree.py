@@ -296,7 +296,7 @@ def test_cli_medium_all_intra(tmp_path):
 @pytest.mark.parametrize("change,match", [
     (dict(rd=3), "--rd 3"),
     (dict(tr_depth_intra=1), "tr-depth-intra"),
-    (dict(intra_period=0, gop_len=8, bitrate=100000), "rate control"),
+    (dict(intra_period=0, gop_len=8, crypto="k"), "selective encryption"),
     (dict(intra_min_cu=32, intra_max_cu=32, rdoq=True),
      "RDOQ on the fixed CU grid"),
     (dict(intra_min_cu=16, intra_max_cu=16, rd=2), "--rd 2")])

@@ -283,7 +283,7 @@ def test_every_preset_all_intra_is_ported(preset):
     (dict(rdoq=True), "RDOQ on the fixed CU grid"),
     (dict(signhide=True), "sign hiding on the fixed CU grid"),
     (dict(sao=True, intra_period=0, lp_gop=None, gop_len=8,
-          bitrate=100000), "rate control")])
+          crypto="k"), "selective encryption")])
 def test_unported_rdoq_sao_raise(change, match):
     cfg = config_from_preset("superfast", width=64, height=64,
                              intra_period=1, sao=False)

@@ -9,10 +9,10 @@ reconstruction.  One case also runs the public Encoder.encode_stream.
 
 ``oracle_decode`` (shared by the port's stream tests) runs the JAX
 oracle decoder with its tensor stages (reconstruction, motion
-compensation, boundary strengths, deblocking, SAO) each jitted whole: the
-same integer functions, compiled once per shape instead of one XLA
-compile per primitive call, which made the decode of three 64x48 P
-frames take about 22 s.
+compensation, bi-prediction, boundary strengths, deblocking, SAO) each
+jitted whole: the same integer functions, compiled once per shape
+instead of one XLA compile per primitive call, which made the decode of
+three 64x48 P frames take about 22 s.
 """
 
 import contextlib
@@ -69,9 +69,14 @@ class _ById:
         return isinstance(other, _ById) and other.v is self.v
 
 
+def _is_array(v) -> bool:
+    return isinstance(v, (np.ndarray, jax.Array))
+
+
 def _jit_whole(fn):
-    """fn jitted as a whole: arrays are traced, every other argument
-    (numbers, None, plans, scaling tables) is static."""
+    """fn jitted as a whole: arrays and tuples of arrays (None entries
+    allowed) are traced, every other argument (numbers, None, plans,
+    scaling tables) is static."""
     sig = inspect.signature(fn)
 
     @functools.lru_cache(maxsize=None)
@@ -84,7 +89,9 @@ def _jit_whole(fn):
         bound.apply_defaults()
         dyn, static = {}, []
         for n, v in bound.arguments.items():
-            if isinstance(v, (np.ndarray, jax.Array)):
+            if _is_array(v) or (
+                    isinstance(v, tuple) and any(map(_is_array, v))
+                    and all(x is None or _is_array(x) for x in v)):
                 dyn[n] = v
             else:
                 try:
@@ -100,7 +107,10 @@ def _jit_whole(fn):
 # The oracle decoder's tensor stages, looked up at call time.
 _ORACLE_STAGES = (("kvazaar_tpu.ops.deblock", "deblock_frame"),
                   ("kvazaar_tpu.encoder.inter_search", "mc_planes"),
+                  ("kvazaar_tpu.encoder.inter_search", "bi_mc_planes"),
                   ("kvazaar_tpu.encoder.frame_encoder", "compute_bs_maps"),
+                  ("kvazaar_tpu.encoder.frame_encoder",
+                   "compute_bs_maps_b"),
                   ("kvazaar_tpu.ops.sao", "apply_sao_plane"),
                   ("kvazaar_tpu.bitstream.decoder", "_decode_recon_impl"))
 _JITTED = {}
@@ -194,8 +204,8 @@ def test_encode_stream_matches_frame_encoder(name):
 
 @pytest.mark.parametrize("change", [
     dict(tmvp=True, intra_period=0),
-    dict(gop_len=8, intra_period=0, bitrate=100000),
-    dict(intra_min_cu=8, intra_period=0, bitrate=100000),
+    dict(gop_len=8, intra_period=0, crypto="k"),
+    dict(intra_min_cu=8, intra_period=0, crypto="k"),
     dict(inter_min_cu=8, intra_period=0, gop_len=8, rd=3),
     dict(rdoq=True), dict(rd=2)])
 def test_unported_configs_raise(change):
@@ -211,14 +221,14 @@ def test_unported_structures_raise():
     references on the fixed grid, variable trees with one per list);
     scaling lists and lossless coding on a B pyramid (fixed grid,
     variable trees),
-    SMP, TMVP and rate control still raise."""
+    SMP, TMVP and selective encryption still raise."""
     for change, match in ((dict(gop_len=8, scaling_list="default"),
                            "scaling lists"),
                           (dict(inter_min_cu=8, gop_len=8, lossless=True),
                            "lossless"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
-                          (dict(bitrate=100000), "rate control")):
+                          (dict(crypto="k"), "selective encryption")):
         cfg = _cfg(64, 48, 16, 22)
         cfg.intra_period = 0
         for k, v in change.items():
@@ -244,8 +254,8 @@ def test_cli_writes_the_api_stream(tmp_path):
     assert (tmp_path / "out.hevc").read_bytes() == want
 
 
-@pytest.mark.parametrize("flags", [["--preset", "medium", "--bitrate",
-                                    "100000"],
+@pytest.mark.parametrize("flags", [["--preset", "medium", "--crypto",
+                                    "k"],
                                    ["--period", "1", "--lossless"],
                                    ["--period", "1", "--slices", "wpp"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):

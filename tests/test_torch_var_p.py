@@ -553,12 +553,12 @@ def test_one_reference_var_p_passes_the_gates(name):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(gop_len=8, bitrate=100000), "rate control"),
+    (dict(gop_len=8, crypto="k"), "selective encryption"),
     (dict(gop_len=8, tr_depth_intra=1), "tr-depth-intra"),
     (dict(tmvp=True), "TMVP"),
     (dict(smp=True, intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
           inter_max_cu=16), "SMP"),
-    (dict(bitrate=100000), "rate control")])
+    (dict(crypto="k"), "selective encryption")])
 def test_what_stays_unported_raises(change, match):
     cfg = Config(width=64, height=64, intra_min_cu=8, intra_max_cu=32,
                  intra_period=0)
@@ -567,5 +567,5 @@ def test_what_stays_unported_raises(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")
     if "gop_len" in change:         # the B pyramid itself is ported
-        cfg.bitrate, cfg.tr_depth_intra = 0, 0
+        cfg.crypto, cfg.tr_depth_intra = None, 0
         assert tfe.unsupported(cfg) == _unsupported_structure(cfg) == []
