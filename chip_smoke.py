@@ -14,7 +14,9 @@ preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
 the kernel at luma S=32), variable P trees with one reference (the
 medium preset's IPPP point), B pyramids (GOP 8 on the fixed grid and
 the medium preset's default, variable B trees), and rate control with a
-per-CTU QP map (``--bitrate`` on ``Config()``).
+per-CTU QP map (``--bitrate`` on ``Config()``), and 10-bit (Main 10)
+streams up to BASELINE config #5 (a 10-bit 3840x2160 GOP-8 stream with
+``--bitrate``).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -44,8 +46,8 @@ Any failed phase raises, so the script exits nonzero:
    clip on the card, timed after one warm-up frame, with the launch
    counts read around the run (this path runs no hand kernel: its
    var-tree wavefront is plain PyTorch); each timed frame's wavefront
-   depth, their CU-size histogram and per-stage split, with the device
-   kernels and ATen ops of one frame's reconstruction; the first 2
+   depth, their CU-size histogram and per-stage split (phase 9b counts
+   the device kernels and ATen ops of a var recon); the first 2
    frames again on the CPU, byte-identical; one frame at intra 8..64,
    rd 2, on the card and the CPU, byte-identical;
 9. every preset's all-intra operating point: the ``superfast`` preset
@@ -115,7 +117,22 @@ Any failed phase raises, so the script exits nonzero:
    P frames (``rc-ippp stage split``); and card == CPU bytes and
    recon at 416x240 for ROI + AQ all-intra, the medium preset with
    --bitrate 1000000 (GOP 8, variable B trees, the GOP allocation and
-   a 2-frame tail) and the ultrafast preset with --bitrate 1000000.
+   a 2-frame tail) and the ultrafast preset with --bitrate 1000000;
+14. 10-bit (``run_tenbit``): the kernel's 10-bit instances == plain
+   (line ``10-bit kernel vs plain``, timed against the 8-bit launch at
+   the same shape): intra cu 16 over the intra cell's 8 frames, inter
+   cu 32 on a real P and a real bi-averaged B frame, the per-block QP
+   instance at cu 32 (a uniform map == the scalar launch), at 832x480,
+   and intra cu 16 / cu 32, inter and QP map on one 3840x2160 frame;
+   the cell ``intra-10bit-832x480-qp22`` (the headline configuration
+   at input_bitdepth=10, timed as phase 6); the cell
+   ``gop8-rc-10bit-3840x2160-15mbps`` (BASELINE config #5: 10-bit,
+   GOP 8, --bitrate 15000000, fixed cu 32; the IDR and one GOP warm,
+   one GOP timed: fps, kbit/s against 15000, the QP range, PSNR-Y at
+   peak 1023 and the peak device memory); and card == CPU bytes and
+   recon at 416x240 for 10-bit superfast --period 1, ultrafast, medium
+   (GOP 8, variable B trees) and Config() with --bitrate (a per-CTU QP
+   map).
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -136,7 +153,7 @@ import numpy as np
 
 W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
-VAR_TIMED = 4                         # phase 8: frames after 1 warm-up
+VAR_TIMED = 2                         # phase 8: frames after 1 warm-up
 MEDIUM_TIMED = 2                      # phase 9: frames after 1 warm-up
 VAR_P_TIMED = 3                       # phase 11: P frames after IDR + P
 GOP = 8                               # phase 12: GOP length
@@ -625,9 +642,11 @@ def run_ippp(torch, wavefront, frames, dev):
     return launches["inter"]
 
 
-def count_launches(torch, fn):
+def count_launches(torch, fn, device=True):
     """(device kernels and copies, ATen ops dispatched) of one call of
-    fn; the first is None when the profiler records no device event."""
+    fn; the first is None when the profiler records no device event, or
+    without ``device`` (the profiler's window over a var recon takes a
+    minute or more)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -641,21 +660,26 @@ def count_launches(torch, fn):
     with Count():
         fn()
     torch.cuda.synchronize()
+    if not device:
+        return None, Count.n
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev = sum(e.count for e in prof.key_averages()
               if e.device_type.name == "CUDA")
+    log(f"count_launches: {Count.n} ATen ops, profiled in "
+        f"{time.perf_counter() - t0:.1f} s")
     return (dev or None), Count.n
 
 
-def var_stage_split(torch, ife, frames):
+def var_stage_split(torch, ife, frames, count=True):
     """Per-stage times of var-tree frames, each stage timed once per
     frame by the host clock between synchronizes (the device stages are
     host-bound, so this is also their device span), averaged over the
     frames; each frame's wavefront depth, the CU-size histogram over
-    the frames, and the device kernels and ATen ops of the first
+    the frames, and (count) the device kernels and ATen ops of the first
     frame's reconstruction.  The stages are encode_frame_var's, with
     the config's RDOQ, sign hiding and SAO."""
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
@@ -711,13 +735,14 @@ def var_stage_split(torch, ife, frames):
         sizes, cells = np.unique(size8, return_counts=True)
         for sz, c in zip(sizes, cells):
             cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
-        if i == 0:
+        if i == 0 and count:
             first = count_launches(torch, recon)
     out = {k: v / len(frames) for k, v in totals.items()}
     out["frame_ms"] = sum(v for k, v in out.items()
                           if k != "build_var_plan_ms")
-    (out["recon_device_kernels_and_copies"],
-     out["recon_aten_ops"]) = first
+    if count:
+        (out["recon_device_kernels_and_copies"],
+         out["recon_aten_ops"]) = first
     return out, depths, cus
 
 
@@ -746,8 +771,9 @@ def run_var(torch, wavefront, frames, dev):
             math.isfinite(p) and 30.0 < p < 99.0 for p in psnr_y):
         raise RuntimeError(f"implausible var-tree output: bits {bits} "
                            f"PSNR-Y {psnr_y}")
+    # The ATen ops of a var recon are counted in phase 9b (medium).
     split, n_steps_real, cus = var_stage_split(torch, enc._intra,
-                                               clip[1:])
+                                               clip[1:], count=False)
     summary = dict(frames=len(clip), timed=VAR_TIMED, fps=VAR_TIMED / dt,
                    bits_per_frame=sum(bits) / len(bits),
                    psnr_y=sum(psnr_y) / len(psnr_y),
@@ -1137,8 +1163,9 @@ def var_p_stage_split(torch, ife, frames):
     also their device span): the coarse motion search, each size's
     intra and inter candidates, the whole search, tree and plan, merge
     RD, the cell MC, the direct inter pass alone, the whole var recon
-    (with the device kernels and ATen ops of one call), deblocking, SAO,
-    the downloads, merge/AMVP + skip flags and CABAC, all in ms."""
+    (with the ATen ops of one call; phase 9b profiles a var recon's
+    device kernels), deblocking, SAO, the downloads, merge/AMVP + skip
+    flags and CABAC, all in ms."""
     from kvazaar_tpu_torch.encoder import quadtree as qt
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
     from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
@@ -1235,8 +1262,7 @@ def var_p_stage_split(torch, ife, frames):
         "sao_ms", "d2h_ms", "merge_amvp_skip_ms", "cabac_ms") if k in out)
     out["n_steps_real"] = vp.n_steps_real
     out["inter_share"] = float(inter8.mean())
-    (out["recon_device_kernels_and_copies"],
-     out["recon_aten_ops"]) = count_launches(torch, recon)
+    out["recon_aten_ops"] = count_launches(torch, recon, device=False)[1]
     return out
 
 
@@ -1451,9 +1477,9 @@ def var_b_stage_split(torch, ife, frames):
     coded as a P frame at POC 2), each stage timed once by the host clock
     between synchronizes: search (L0, L1, bi check at every size), tree
     and plan, B merge RD, the bi cell MC, the direct inter pass alone,
-    the whole var recon (with the device kernels and ATen ops of one
-    call), deblocking, SAO, the downloads, merge/AMVP + skip flags and
-    CABAC, all in ms."""
+    the whole var recon, deblocking, SAO, the downloads, merge/AMVP +
+    skip flags and CABAC, all in ms (phase 11 counts the ATen ops of a
+    var P recon; a B frame's are not counted, to save the run's time)."""
     from kvazaar_tpu_torch.constants import SLICE_B
     from kvazaar_tpu_torch.encoder import quadtree as qt
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, chroma_qp
@@ -1545,8 +1571,6 @@ def var_b_stage_split(torch, ife, frames):
     out["inter_share"] = float(inter8.mean())
     out["bi_share_of_inter"] = float((dirs8[inter8] == 2).mean()) \
         if inter8.any() else 0.0
-    (out["recon_device_kernels_and_copies"],
-     out["recon_aten_ops"]) = count_launches(torch, recon)
     return out
 
 
@@ -1967,6 +1991,309 @@ def run_rate_control(torch, wavefront, clip46, dev):
     return rows, qp_launches
 
 
+TENBIT_BITRATE = 15_000_000           # phase 14's 4K cell: target bits/s
+TENBIT_FPS = 25                       # ... at 25 frames a second
+
+
+def to_10bit(clip, seed):
+    """A clip's 8-bit planes as 10-bit content: (p << 2) plus seeded low
+    bits, uint16 in 0..1023."""
+    rng = np.random.default_rng(seed)
+    return [tuple((p.astype(np.uint16) << 2)
+                  + rng.integers(0, 4, p.shape, dtype=np.uint16)
+                  for p in f) for f in clip]
+
+
+def tenbit_config(width, height, cu=16):
+    """The headline configuration at input_bitdepth=10."""
+    cfg = headline_config(width, height, cu)
+    cfg.input_bitdepth = 10
+    return cfg
+
+
+def gop_rc_10bit_config(width, height, **kw):
+    """BASELINE config #5: Config() at 10-bit with a GOP-8 B pyramid and
+    a target bitrate (fixed cu 32, frame-level rate control)."""
+    from kvazaar_tpu_torch import Config
+    return Config(width=width, height=height, qp=QP, **dict(dict(
+        input_bitdepth=10, gop_len=GOP, intra_period=0,
+        bitrate=TENBIT_BITRATE), **kw))
+
+
+def compare_kernel_10bit(torch, frames10, clip10, big10, dev):
+    """Phase 14 (i): the kernel's 10-bit instances == the plain version
+    per plane kind on the card, timed against the 8-bit launch at the
+    same shape (the 8-bit samples p >> 2, the same modes, inter map and
+    QP map): intra at cu 16 (8 frames, the searched modes), inter at
+    cu 32 (a real P frame, and a real B frame's L0 / L1 / bi-averaged
+    MC planes), the per-block QP instance at cu 32 (a P frame with a
+    random per-CTU map; a uniform map == the scalar launch), each at
+    832x480, and on one 3840x2160 frame of the 4K clip (the searched
+    modes, a random inter map and the next frame as MC planes; cu 32
+    intra too, which codes the 4K cell's IDR).  The kernel reads int16
+    planes at 10-bit and uint8 / int32 at 8-bit.  Returns the rows by
+    name."""
+    from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         chroma_qp)
+    from kvazaar_tpu_torch.encoder.inter_search import bi_mc_planes
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import (_smem_optin, launch_layout,
+                                                 wavefront_recon_planes)
+
+    rng = np.random.default_rng(14)
+    rows = {}
+    qp_c = chroma_qp(QP)
+
+    def row_of(name, plan, planes, modes, inter=None, qp_ctu=None,
+               ife=None):
+        kw = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+        qmap = cmap = None
+        if qp_ctu is not None:
+            qmap = ife._qp_blk_of(qp_ctu).contiguous()
+            cmap = torch.from_numpy(CHROMA_QP_TAB.astype(np.int32)).to(
+                dev)[qmap.long()]
+        p16 = tuple(p.to(torch.int16) for p in planes)
+        k16 = {k: v if k == "is_inter" else v.to(torch.int16)
+               for k, v in kw.items()}
+        p8 = tuple((p >> 2).to(torch.int32) for p in planes)
+        k8 = {k: v if k == "is_inter" else (v >> 2).to(torch.int32)
+              for k, v in kw.items()}
+
+        def launch(bd=10, qp_map=qmap):
+            pl, k = (p16, k16) if bd == 10 else (p8, k8)
+            return wavefront_recon_planes(*pl, modes, plan, QP, qp_c, bd,
+                                          qp_map=qp_map, **k)
+
+        got = launch()
+        want = []
+
+        def plain():
+            for orig, mc, s, luma, qp, m in (
+                    (p16[0], k16.get("mc_y"), plan.cu_size, True, QP, qmap),
+                    (p16[1], k16.get("mc_cb"), plan.cu_size // 2, False,
+                     qp_c, cmap),
+                    (p16[2], k16.get("mc_cr"), plan.cu_size // 2, False,
+                     qp_c, cmap)):
+                want.extend(wavefront_recon_plain(
+                    orig, modes, plan, s, luma, qp, 10, k16.get("is_inter"),
+                    mc, m))
+
+        # One timed run of the plain version computes the reference
+        # (seconds per run at 3840x2160).
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = max_err(torch, got, want)
+        row = dict(shape=name, cu=plan.cu_size, items=planes[0].shape[0],
+                   variant="intra" if inter is None else "inter",
+                   qp_map=qmap is not None, max_abs_err=err,
+                   rec_max=int(got[0].max()),
+                   ms=cuda_ms(torch, launch, 20), plain_ms=plain_ms,
+                   n_steps=plan.n_steps)
+        # The 8-bit launch stages int32 samples: at cu 32 and 3840 wide
+        # it needs more shared memory than a block may opt in to.
+        smem8 = launch_layout(plan, plan.cu_size, planes[0].shape[2], 8)[2]
+        row["smem_bytes_8bit"] = smem8
+        row["ms_8bit"] = row["ratio_to_8bit"] = None
+        if smem8 <= _smem_optin(torch.cuda.current_device()):
+            row["ms_8bit"] = cuda_ms(torch, lambda: launch(8), 20)
+            row["ratio_to_8bit"] = row["ms"] / row["ms_8bit"]
+        if qmap is not None:
+            row["uniform_equals_scalar"] = max_err(
+                torch, launch(qp_map=torch.full_like(qmap, QP)),
+                launch(qp_map=None)) == 0
+            row["scalar_ms"] = cuda_ms(torch, lambda: launch(qp_map=None),
+                                       20)
+        ring, threads, smem = launch_layout(plan, plan.cu_size,
+                                            planes[0].shape[2], 10)
+        row.update(ring=ring, threads=threads, smem_bytes=smem)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (*p16, modes, *k16.values(),
+             *(m for m in (qmap, cmap) if m is not None), *got),
+            [(planes[0].numel(), plan.cu_size),
+             (2 * planes[1].numel(), plan.cu_size // 2)])
+        log("10-bit kernel vs plain:", json.dumps(row))
+        if err != 0 or not row.get("uniform_equals_scalar", True) or \
+                row["rec_max"] <= 255:
+            raise RuntimeError(f"10-bit kernel != plain at {row}")
+        rows[name] = row
+
+    # Intra, cu 16: the intra cell's batch.
+    ife = IntraFrameEncoder(tenbit_config(W, H), device=dev)
+    planes = ife._upload(ife.host_pack_sources(frames10))
+    modes = torch.stack([search_frame_modes(y, ife.plan, ife.lambda_satd,
+                                            10)[0] for y in planes[0]])
+    row_of("intra cu16 832x480 8 frames", ife.plan, planes, modes)
+
+    # Inter, cu 32: a P frame and a B frame of the fixed grid.
+    ife = IntraFrameEncoder(gop_rc_10bit_config(W, H, bitrate=0),
+                            device=dev)
+    ife.submit_frames([clip10[0]])
+    r0 = ife._dpb
+    r1 = ife.submit_p(*clip10[2], [(0, r0)])[5]
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([clip10[1]]))
+    modes, inter_map, _ref, _mv, mcs = ife._p_predict(ys[0], [r0])
+    one = (inter_map[None], *(m[None] for m in mcs))
+    row_of("inter cu32 832x480 P frame", ife.plan, (ys, cbs, crs),
+           modes[None], one)
+    bmodes, b_inter, dirs, mv0, mv1 = ife._b_predict(ys[0], r0[0], r1[0])
+    bmc = bi_mc_planes(r0, r1, mv0, mv1, dirs, ife.plan, 10)
+    row_of("inter cu32 832x480 B frame", ife.plan, (ys, cbs, crs),
+           bmodes[None], (b_inter[None], *(m[None] for m in bmc)))
+    rows["inter cu32 832x480 B frame"]["dir_share"] = {
+        d: (b_inter & (dirs == k)).float().mean().item()
+        for k, d in enumerate(("l0", "l1", "bi"))}
+
+    # The per-block QP instance, cu 32, on the P frame.
+    cy, cx = -(-ife.coded_h // 64), -(-ife.coded_w // 64)
+    qp_ctu = torch.from_numpy(rng.integers(
+        QP - 6, QP + 7, (1, cy, cx), dtype=np.int32)).to(dev)
+    row_of("qp-map cu32 832x480 P frame", ife.plan, (ys, cbs, crs),
+           modes[None], one, qp_ctu, ife)
+
+    # One 3840x2160 frame of the 4K clip at each instance.
+    big_w, big_h = BIG[1]
+    for cu in (16, 32):
+        ife = IntraFrameEncoder(tenbit_config(big_w, big_h, cu), device=dev)
+        plan = ife.plan
+        planes = ife._upload(ife.host_pack_sources(big10[:1]))
+        modes = search_frame_modes(planes[0][0], plan, ife.lambda_satd,
+                                   10)[0][None]
+        row_of(f"intra cu{cu} {big_w}x{big_h} 1 frame", plan, planes,
+               modes)
+        if cu == 16:
+            continue
+        mcs = ife._upload(ife.host_pack_sources(big10[1:2]))
+        inter = (torch.from_numpy(rng.integers(
+            0, 2, tuple(modes.shape), dtype=np.int32)).to(dev) != 0, *mcs)
+        row_of(f"inter cu32 {big_w}x{big_h} 1 frame", plan, planes, modes,
+               inter)
+        cy, cx = -(-ife.coded_h // 64), -(-ife.coded_w // 64)
+        qp_ctu = torch.from_numpy(rng.integers(
+            QP - 6, QP + 7, (1, cy, cx), dtype=np.int32)).to(dev)
+        row_of(f"qp-map cu32 {big_w}x{big_h} 1 frame", plan, planes, modes,
+               inter, qp_ctu, ife)
+    return rows
+
+
+def run_tenbit_intra_cell(torch, wavefront, frames10, dev):
+    """Phase 14 (ii): the cell intra-10bit-832x480-qp22, the headline
+    configuration at input_bitdepth=10, timed as phase 6 (one warm-up
+    batch, then TIMED_BATCHES batches of the 8-frame clip), with the
+    10-bit launches counted around the timed run.  Returns its summary."""
+    from kvazaar_tpu_torch.api import Encoder
+    enc = Encoder(tenbit_config(W, H), device=dev)
+    list(enc.encode_stream(frames10[:BATCH]))            # warm-up
+    torch.cuda.synchronize()
+    clip = frames10 * TIMED_BATCHES
+    for counts in (wavefront.LAUNCHES, wavefront.LAUNCHES_10BIT):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(clip))
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.LAUNCHES_10BIT)
+    if launches["intra"] == 0 or launches["intra"] != \
+            wavefront.LAUNCHES["intra"]:
+        raise RuntimeError(f"intra-10bit cell: expected 10-bit launches "
+                           f"only, got {launches} / {wavefront.LAUNCHES}")
+    if len(results) != len(clip):
+        raise RuntimeError(f"intra-10bit cell: {len(results)} results for "
+                           f"{len(clip)} frames")
+    bits, psnr_y = check_output(results, "intra-10bit cell")
+    summary = dict(frames=len(clip), batch=BATCH, fps=len(clip) / dt,
+                   bits_per_frame=bits, psnr_y_peak_1023=psnr_y,
+                   kernel_launches_10bit=launches, stage_wall_s=enc.stats)
+    log("intra-10bit-832x480-qp22 encode_stream:", json.dumps(summary))
+    enc.close()
+    return summary
+
+
+def run_tenbit_4k_cell(torch, wavefront, big10, dev):
+    """Phase 14 (iii): the cell gop8-rc-10bit-3840x2160-15mbps, BASELINE
+    config #5 (10-bit, GOP 8, --bitrate 15000000 at 25 fps, fixed cu
+    32, a frame encoder per QP): the IDR and one GOP warm, then one GOP
+    timed, through Encoder.encode_stream, with the 10-bit launches
+    counted around the whole run and the peak device memory.  Returns
+    its summary."""
+    cfg = gop_rc_10bit_config(*BIG[1])
+    for counts in (wavefront.LAUNCHES, wavefront.LAUNCHES_10BIT):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    enc, results, dt = timed_gop(torch, cfg, big10, GOP, dev)
+    launches = dict(wavefront.LAUNCHES_10BIT)
+    if launches["inter"] == 0 or launches["intra"] == 0 or \
+            launches["inter"] != wavefront.LAUNCHES["inter"]:
+        raise RuntimeError(f"4K cell: expected 10-bit launches of both "
+                           f"variants, got {launches} / "
+                           f"{wavefront.LAUNCHES}")
+    summary = gop_summary(results, GOP + 1, dt, "4K cell")
+    bits = [r[1].bits for r in results]
+    qps = [r[1].qp for r in results]
+    summary.update(
+        target_kbps=TENBIT_BITRATE / 1e3,
+        kbps_timed=sum(bits[GOP + 1:]) * TENBIT_FPS
+        / (len(bits) - GOP - 1) / 1e3,
+        kbps_all=sum(bits) * TENBIT_FPS / len(bits) / 1e3,
+        qps=qps, qp_range=[min(qps), max(qps)],
+        frame_encoders=len(enc._encoders) if hasattr(enc, "_encoders")
+        else None,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        kernel_launches_10bit=launches)
+    log("gop8-rc-10bit-3840x2160-15mbps encode_stream:", json.dumps(summary))
+    enc.close()
+    return summary
+
+
+def run_tenbit(torch, wavefront, dev):
+    """Phase 14: 10-bit (Main 10).  The kernel's 10-bit instances == plain
+    (``compare_kernel_10bit``); the cells intra-10bit-832x480-qp22 and
+    gop8-rc-10bit-3840x2160-15mbps; card == CPU bytes and recon at
+    416x240 for four 10-bit streams: superfast --period 1, ultrafast at
+    its default, medium at its default (GOP 8, variable B trees) and
+    Config() with --bitrate (IPPP, a per-CTU QP map, launched with the
+    10-bit per-block QP instance, counted around its card run).  The
+    10-bit clips are the seeded clips shifted up two bits with seeded low
+    bits.  Returns (kernel rows, launches per 10-bit record)."""
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    t0 = time.perf_counter()
+    frames10 = to_10bit(synth_clip_natural(FRAMES, W, H, seed=0), 140)
+    clip10 = to_10bit(synth_clip_natural(3, W, H, seed=4), 141)
+    big10 = to_10bit(synth_clip_natural(2 * GOP + 1, *BIG[1], seed=0), 142)
+    log(f"10-bit clips: {time.perf_counter() - t0:.3f} s")
+    rows = compare_kernel_10bit(torch, frames10, clip10, big10, dev)
+    intra = run_tenbit_intra_cell(torch, wavefront, frames10, dev)
+    big = run_tenbit_4k_cell(torch, wavefront, big10, dev)
+
+    w, h = 416, 240
+    small = to_10bit(synth_clip_natural(GOP + 1, w, h, seed=0), 143)
+    card_equals_cpu(f"10-bit superfast --period 1 {w}x{h}", config_from_preset(
+        "superfast", width=w, height=h, qp=QP, intra_period=1,
+        input_bitdepth=10), small[:2], dev)
+    card_equals_cpu(f"10-bit ultrafast {w}x{h}", config_from_preset(
+        "ultrafast", width=w, height=h, qp=QP, input_bitdepth=10),
+        small[:4], dev)
+    card_equals_cpu(f"10-bit medium {w}x{h}", config_from_preset(
+        "medium", width=w, height=h, qp=QP, input_bitdepth=10), small, dev)
+    for k in wavefront.LAUNCHES_10BIT:
+        wavefront.LAUNCHES_10BIT[k] = 0
+    card_equals_cpu(f"10-bit Config() --bitrate 1000000 {w}x{h}",
+                    rc_config(w, h, bitrate=1_000_000, input_bitdepth=10),
+                    small[:4], dev)
+    qp_map_launches = wavefront.LAUNCHES_10BIT["qp_map"]
+    if qp_map_launches == 0:
+        raise RuntimeError("10-bit --bitrate stream: no 10-bit QP-map "
+                           "launch")
+    launches = dict(intra=intra["kernel_launches_10bit"]["intra"],
+                    intra_cu32=big["kernel_launches_10bit"]["intra"],
+                    inter_cu32=big["kernel_launches_10bit"]["inter"],
+                    qp_map=qp_map_launches)
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1988,7 +2315,7 @@ def main() -> int:
     log("python", sys.version.split()[0], "torch", torch.__version__,
         "cuda", torch.version.cuda)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     wavefront.build(verbose=True)
     log(f"kernel build: {time.perf_counter() - t0:.3f} s")
 
@@ -2037,16 +2364,29 @@ def main() -> int:
     enc._intra.close()
     cpu._intra.close()
 
-    inter_launches = run_ippp(torch, wavefront, clip46, dev)
-    run_var(torch, wavefront, frames, dev)
-    run_superfast(torch, wavefront, frames, dev)
-    run_medium_slower(torch, wavefront, frames, dev)
-    compare_ops(torch, frames, dev)
-    rows32, inter_rows32, joint32, launches32 = run_low_delay(
-        torch, wavefront, clip46, dev)
-    run_var_p(torch, wavefront, clip46, dev)
-    run_gop(torch, wavefront, clip46, dev)
-    qp_rows, qp_launches = run_rate_control(torch, wavefront, clip46, dev)
+    log(f"phases 1-6: {time.perf_counter() - t_start:.1f} s")
+
+    def timed(name, fn, *args):
+        t_phase = time.perf_counter()
+        out = fn(*args)
+        log(f"{name}: {time.perf_counter() - t_phase:.1f} s")
+        return out
+
+    inter_launches = timed("phase 7", run_ippp, torch, wavefront, clip46,
+                           dev)
+    timed("phase 8", run_var, torch, wavefront, frames, dev)
+    timed("phase 9a", run_superfast, torch, wavefront, frames, dev)
+    timed("phase 9b", run_medium_slower, torch, wavefront, frames, dev)
+    timed("phase 9c", compare_ops, torch, frames, dev)
+    rows32, inter_rows32, joint32, launches32 = timed(
+        "phase 10", run_low_delay, torch, wavefront, clip46, dev)
+    timed("phase 11", run_var_p, torch, wavefront, clip46, dev)
+    timed("phase 12", run_gop, torch, wavefront, clip46, dev)
+    qp_rows, qp_launches = timed("phase 13", run_rate_control, torch,
+                                 wavefront, clip46, dev)
+    rows10, launches10 = timed("phase 14", run_tenbit, torch, wavefront,
+                               dev)
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
     qp_cell = next(r for r in qp_rows if r["cu"] == 32
@@ -2064,6 +2404,17 @@ def main() -> int:
                                 if r["cu"] == joint["cu"]),
                 "bound_ms": joint["bound_ms"],
                 "bound_by": joint["bound_by"], "library_ms": None}
+
+    def record10(name, replaces, n, row):
+        """A 10-bit instance at the shape of the path that runs it; the
+        error over every 10-bit row (all are 0 or the phase failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"] for r in rows10.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
 
     log(json.dumps({"kernels": [
         record("wavefront_recon", "kvazaar_tpu/ops/wavefront_pallas.py:149",
@@ -2084,7 +2435,20 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in qp_rows),
          "ms": qp_cell["ms"], "plain_ms": qp_cell["plain_ms"],
          "bound_ms": qp_cell["bound_ms"], "bound_by": qp_cell["bound_by"],
-         "library_ms": None}]}))
+         "library_ms": None},
+        *(record10(name, replaces, launches10[key], rows10[shape])
+          for name, replaces, key, shape in (
+              ("wavefront_recon_10bit", "kvazaar_tpu/ops/wavefront_pallas.py"
+               ":149", "intra", "intra cu16 832x480 8 frames"),
+              ("wavefront_recon_cu32_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "intra_cu32",
+               f"intra cu32 {BIG[1][0]}x{BIG[1][1]} 1 frame"),
+              ("wavefront_recon_inter_cu32_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "inter_cu32",
+               f"inter cu32 {BIG[1][0]}x{BIG[1][1]} 1 frame"),
+              ("wavefront_recon_qpmap_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "qp_map",
+               "qp-map cu32 832x480 P frame")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

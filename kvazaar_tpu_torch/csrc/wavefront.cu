@@ -40,11 +40,12 @@
 //   groups without a block barrier.
 // - Wavefront state in shared memory: the bottom row (hrow) and right
 //   column (vcol) of every block of the last K block rows, the TPU
-//   kernel's hrow/vcol edge buffers, as a uint8 ring indexed by block
-//   row modulo K.  The wrapper derives K from the schedule (the smallest
-//   depth at which no block overwrites an edge before its last reader's
-//   step).  Reference builds read only this ring; the reconstructed
-//   plane in global memory is written and never read.
+//   kernel's hrow/vcol edge buffers, as a ring of samples (uint8, or
+//   16-bit at 10-bit) indexed by block row modulo K.  The wrapper
+//   derives K from the schedule (the smallest depth at which no block
+//   overwrites an edge before its last reader's step).  Reference
+//   builds read only this ring; the reconstructed plane in global
+//   memory is written and never read.
 // - Step-independent inputs off the chain: the schedule, modes, inter
 //   flags and availability are packed into one word per block, in step
 //   order, once per launch (a global table of the thread block's own);
@@ -72,6 +73,15 @@
 //   reference filter for every mode but DC, 10 and 26
 //   (intraHorVerDistThres 0) and no boundary fixups; the JAX package
 //   applies no strong intra smoothing, and nor does this kernel.
+// - 10-bit (Main 10) samples are an instance of their own at every CU
+//   size, QP map or not (the TPU kernel is 8-bit only; the JAX package
+//   reconstructs 10-bit frames with its XLA scan): 16-bit samples in the
+//   edge ring and rec, int16 source and MC planes staged as 2-byte
+//   samples (which keeps a 3840-wide cu 32 launch inside the opt-in
+//   shared memory, where int32 staging would not fit), mid-grey 512,
+//   clip 1023, forward shift log2 S + 1, inverse shift 10 and the
+//   quantizer's shifts at bitdepth 10 (without a QpBdOffset, as the
+//   JAX package quantizes).
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -79,12 +89,15 @@
 // inputs and loads this library with ctypes.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 // One plane kind of a launch: nb items (frames) of (h, w) samples at
-// block size s.  orig and mc hold uint8 or int32 samples (orig_bytes,
-// mc_bytes); mc is null for the intra variant.  qp, where set, holds
+// block size s.  orig and mc hold uint8 or int32 samples at 8-bit and
+// int16 samples at 10-bit (orig_bytes, mc_bytes); rec holds uint8
+// samples at 8-bit and 16-bit ones at 10-bit; mc is null for the intra
+// variant.  qp, where set, holds
 // each block's QP (0..51, this plane's: the chroma planes' are mapped
 // through Table 8-10), shared by the items like the modes; the blocks
 // then quantize at their own QP, and q_scale, q_bits, q_offset,
@@ -92,7 +105,7 @@
 struct KttPlane {
   const void* orig;
   const void* mc;
-  uint8_t* rec;       // (nb, h, w)
+  void* rec;          // (nb, h, w)
   int16_t* levels;    // (nb, nblk, s, s)
   const int32_t* qp;  // (bm, nblk) or null
   int nb, s, h, w, luma, orig_bytes, mc_bytes;
@@ -101,7 +114,18 @@ struct KttPlane {
 
 namespace {
 
-constexpr int kMid = 128, kMaxV = 255;  // 8-bit samples
+// Sample depth of an instance: 8-bit (uint8 samples in the edge ring and
+// rec) or, HBD, 10-bit (16-bit samples; the TPU kernel stops at 8-bit and
+// the JAX package reconstructs 10-bit frames with its XLA scan).  SB is
+// the bytes of one staged source or MC sample: int32 or uint8 planes at
+// 8-bit (a stage slot holds int32), int16 planes at 10-bit.
+template <bool HBD>
+struct Depth {
+  using Pix = std::conditional_t<HBD, uint16_t, uint8_t>;
+  static constexpr int BITS = HBD ? 10 : 8;
+  static constexpr int MID = 1 << (BITS - 1), MAXV = (1 << BITS) - 1;
+  static constexpr int SB = HBD ? 2 : 4;
+};
 
 // HEVC transform matrix for nTbS = 32 (8.6.4.2); the S-point matrix is
 // rows k * (32 / S), columns 0..S-1.
@@ -209,14 +233,21 @@ struct Params {
                                        // the step offsets start at 0
 };
 
+// Words of one S x S block of staged samples of sb bytes each.
+template <int S>
+__host__ __device__ constexpr int block_words(int sb) {
+  return S * S * sb / 4;
+}
+
 // Words of one slot group's shared memory, a multiple of 4: a double
 // buffer of the source and MC samples of the group's block (S x S each,
-// int32 or uint8), the reference and filtered reference vectors (4S+1,
+// sb bytes a sample), the reference and filtered reference vectors (4S+1,
 // padded to 4S+2), the extended main reference of the angular modes
 // (indices -S..2S+1) and two S x (S+1) transform buffers.
 template <int S>
-__host__ __device__ constexpr int group_words() {
-  return (4 * S * S + 2 * (4 * S + 2) + (3 * S + 2) + 2 * S * (S + 1) + 3) /
+__host__ __device__ constexpr int group_words(int sb) {
+  return (4 * block_words<S>(sb) + 2 * (4 * S + 2) + (3 * S + 2) +
+          2 * S * (S + 1) + 3) /
          4 * 4;
 }
 
@@ -383,50 +414,62 @@ __device__ __forceinline__ bool filter_flag(int mode) {
   return dist > (S == 8 ? 7 : (S == 16 ? 1 : 0));
 }
 
-// Copies the S x S samples of a block (origin off, row stride w) of a
-// uint8 or int32 plane into dst (rows of S samples), with the L lanes of
+// Copies the S x S samples of SB bytes each of a block (origin off, row
+// stride w) of a plane into dst (rows of S samples), with the L lanes of
 // a group, in copies of at most 16 bytes.
-template <int S>
-__device__ __forceinline__ void stage_block(void* dst, const void* plane,
-                                            int bytes, size_t off, int w,
-                                            int lane) {
+template <int S, int SB>
+__device__ __forceinline__ void copy_block(void* dst, const void* plane,
+                                           size_t off, int w, int lane) {
   constexpr int L = Shape<S>::L;
-  if (bytes == 4) {
-    constexpr int CPR = S / 4;  // 16-byte chunks per row
-    for (int c = lane; c < S * CPR; c += L) {
-      const int r = c / CPR, k = c % CPR;
-      cp_async<16>(static_cast<int32_t*>(dst) + r * S + 4 * k,
-                   static_cast<const int32_t*>(plane) + off +
-                       (size_t)r * w + 4 * k);
-    }
-  } else {
-    constexpr int B = S < 16 ? S : 16, CPR = S / B;
-    for (int c = lane; c < S * CPR; c += L) {
-      const int r = c / CPR, k = c % CPR;
-      cp_async<B>(static_cast<uint8_t*>(dst) + r * S + B * k,
-                  static_cast<const uint8_t*>(plane) + off + (size_t)r * w +
-                      B * k);
-    }
+  constexpr int B = SB * S < 16 ? SB * S : 16, CPR = SB * S / B;
+  for (int c = lane; c < S * CPR; c += L) {
+    const int r = c / CPR, k = c % CPR;
+    cp_async<B>(static_cast<uint8_t*>(dst) + SB * r * S + B * k,
+                static_cast<const uint8_t*>(plane) +
+                    SB * (off + (size_t)r * w) + B * k);
   }
 }
 
-// Sample (y, x) of a staged block of uint8 or int32 samples.
-template <int S>
+// Stages a block of a plane: int16 samples at HBD, else uint8 or int32
+// (bytes).  The sample type is fixed per instance, so that the 8-bit
+// instances keep their code (and registers) as they were.
+template <int S, bool HBD>
+__device__ __forceinline__ void stage_block(void* dst, const void* plane,
+                                            int bytes, size_t off, int w,
+                                            int lane) {
+  if constexpr (HBD)
+    copy_block<S, 2>(dst, plane, off, w, lane);
+  else if (bytes == 4)
+    copy_block<S, 4>(dst, plane, off, w, lane);
+  else
+    copy_block<S, 1>(dst, plane, off, w, lane);
+}
+
+// Sample (y, x) of a staged block: int16 samples at HBD, else uint8 or
+// int32 (bytes).
+template <int S, bool HBD>
 __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
                                       int x) {
-  return bytes == 1 ? reinterpret_cast<const uint8_t*>(buf)[y * S + x]
-                    : buf[y * S + x];
+  if constexpr (HBD)
+    return reinterpret_cast<const int16_t*>(buf)[y * S + x];
+  else
+    return bytes == 1 ? reinterpret_cast<const uint8_t*>(buf)[y * S + x]
+                      : buf[y * S + x];
 }
 
 // One plane item (one frame of one plane kind) in thread block order;
 // QP: the planes carry per-block QP maps (a separate instance, so that
-// the scalar path keeps its registers).
-template <int S, bool QP>
+// the scalar path keeps its registers); HBD: 10-bit samples.
+template <int S, bool QP, bool HBD>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                           unsigned char* smem) {
   using Sh = Shape<S>;
+  using D = Depth<HBD>;
+  using Pix = typename D::Pix;
   constexpr int L = Sh::L, O = Sh::O, M = Sh::M, LOG2S = Sh::LOG2;
   constexpr int R = 4 * S + 1, RP = 4 * S + 2, SP = S + 1;
+  constexpr int kMid = D::MID, kMaxV = D::MAXV;
+  constexpr int BW = block_words<S>(D::SB);
   // Groups past the last slot find no block in any step and only join
   // the step barriers.
   const int groups = min((int)blockDim.x / L, p.n_slots);
@@ -447,14 +490,14 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 
   const uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
   const int* steps = reinterpret_cast<const int*>(smem);
-  uint8_t* hrow = smem + p.off_ring;
-  uint8_t* vcol = hrow + p.ring * p.ring_w;
+  Pix* hrow = reinterpret_cast<Pix*>(smem + p.off_ring);
+  Pix* vcol = hrow + p.ring * p.ring_w;
   const int* coef = reinterpret_cast<const int*>(smem + p.off_coef);
   const int* cf = coef + q * O * (S / 2);
   const int* ci = coef + Sh::P * O * (S / 2) + q * M * S;
   int* stage = reinterpret_cast<int*>(smem + p.off_groups) +
-               g * group_words<S>();
-  int* ref = stage + 4 * S * S;
+               g * group_words<S>(D::SB);
+  int* ref = stage + 4 * BW;
   int* flt = ref + RP;
   int* mref = flt + RP;  // mref[S + k], k = -S..2S+1
   int* buf_a = mref + 3 * S + 2;
@@ -466,11 +509,11 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
   const void* mc = pl.mc ? static_cast<const uint8_t*>(pl.mc) +
                                item * plane * pl.mc_bytes
                          : nullptr;
-  uint8_t* rec = pl.rec + item * plane;
+  Pix* rec = static_cast<Pix*>(pl.rec) + item * plane;
   int16_t* levels = pl.levels + (size_t)item * p.nblk * S * S;
   const int w = pl.w, ring = p.ring, ring_w = p.ring_w;
   const bool luma = pl.luma != 0;
-  const int shift1 = LOG2S - 1;  // LOG2S + bitdepth - 9
+  constexpr int shift1 = LOG2S + D::BITS - 9;
   const int sgn = 1 - 2 * (q & 1);
   const uint32_t m_bx = reciprocal(p.blocks_x), m_ring = reciprocal(ring);
   [[maybe_unused]] const int32_t* qp_row =
@@ -483,10 +526,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     const int bid = e & kPosMask;
     const int by = div_by(bid, p.blocks_x, m_bx);
     const size_t off = ((size_t)by * w + bid - by * p.blocks_x) * S;
-    int* dst = stage + buf * 2 * S * S;
-    stage_block<S>(dst, orig, pl.orig_bytes, off, w, lane);
+    int* dst = stage + buf * 2 * BW;
+    stage_block<S, HBD>(dst, orig, pl.orig_bytes, off, w, lane);
     if (mc != nullptr && ((e >> kInterBit) & 1))
-      stage_block<S>(dst + S * S, mc, pl.mc_bytes, off, w, lane);
+      stage_block<S, HBD>(dst + BW, mc, pl.mc_bytes, off, w, lane);
   };
 
   auto process = [&](uint32_t e, const int* src) {
@@ -498,7 +541,8 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     const int x0 = bx * S, y0 = by * S;
     const int rc = by - div_by(by, ring, m_ring) * ring;
     // The block's quantizer: the plane's, or from its own QP (qbits =
-    // 14 + QP / 6 + 15 - bitdepth - log2 S).  The load has no use before
+    // 14 + QP / 6 + 15 - bitdepth - log2 S; no QpBdOffset, as in the JAX
+    // package's quant_params).  The load has no use before
     // the quantization, so its latency hides behind the prediction and
     // the forward transform.
     int q_scale = pl.q_scale, q_bits = pl.q_bits, dq_mult = pl.dq_mult;
@@ -506,7 +550,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     if constexpr (QP) {
       const int qp = qp_row[bid], per = qp / 6, rem = qp - 6 * per;
       q_scale = kQuantScale[rem];
-      q_bits = 21 - LOG2S + per;
+      q_bits = 29 - D::BITS - LOG2S + per;
       q_offset = (inter ? 85 : 171) << (q_bits - 9);
       dq_mult = kInvQuantScale[rem] << per;
     }
@@ -515,7 +559,8 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     if (inter) {
 #pragma unroll
       for (int i = 0; i < O; ++i)
-        pred[i] = staged<S>(src + S * S, pl.mc_bytes, y, owned_col<S>(q, i));
+        pred[i] =
+            staged<S, HBD>(src + BW, pl.mc_bytes, y, owned_col<S>(q, i));
     } else {
       const int ra = rc == 0 ? ring - 1 : rc - 1;
       const int rb = rc + 1 == ring ? 0 : rc + 1;
@@ -628,7 +673,8 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 #pragma unroll
     for (int i = 0; i < O; ++i)
       buf_a[y * SP + owned_col<S>(q, i)] =
-          staged<S>(src, pl.orig_bytes, y, owned_col<S>(q, i)) - pred[i];
+          staged<S, HBD>(src, pl.orig_bytes, y, owned_col<S>(q, i)) -
+          pred[i];
     group_sync();
 #pragma unroll
     for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
@@ -676,19 +722,20 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 #pragma unroll
     for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
     inv_part<S>(v, ci, lo, hi);
+    constexpr int shift2 = 20 - D::BITS;
     int px[O];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      px[i] = clamp_int(pred[i] + clamp_int(round_shift(lo[i], 12), -32768,
-                                            32767), 0, kMaxV);
+      px[i] = clamp_int(pred[i] + clamp_int(round_shift(lo[i], shift2),
+                                            -32768, 32767), 0, kMaxV);
       px[M + i] = clamp_int(
-          pred[M + i] + clamp_int(round_shift(hi[i], 12), -32768, 32767), 0,
-          kMaxV);
+          pred[M + i] + clamp_int(round_shift(hi[i], shift2), -32768, 32767),
+          0, kMaxV);
     }
-    uint8_t* rec_row = rec + (size_t)(y0 + y) * w + x0;
-    uint8_t* edge_row = hrow + rc * ring_w + x0;
+    Pix* rec_row = rec + (size_t)(y0 + y) * w + x0;
+    Pix* edge_row = hrow + rc * ring_w + x0;
     const int a = q * M, b = S - q * M - M;  // the two column runs
-    if constexpr (M % 4 == 0) {
+    if constexpr (!HBD && M % 4 == 0) {
 #pragma unroll
       for (int t = 0; t < M; t += 4) {
         const uint32_t wa = px[t] | px[t + 1] << 8 | px[t + 2] << 16 |
@@ -705,16 +752,16 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     } else {
 #pragma unroll
       for (int t = 0; t < M; ++t) {
-        rec_row[a + t] = px[t];
-        rec_row[b + t] = px[2 * M - 1 - t];
+        rec_row[a + t] = (Pix)px[t];
+        rec_row[b + t] = (Pix)px[2 * M - 1 - t];
         if (y == S - 1) {
-          edge_row[a + t] = px[t];
-          edge_row[b + t] = px[2 * M - 1 - t];
+          edge_row[a + t] = (Pix)px[t];
+          edge_row[b + t] = (Pix)px[2 * M - 1 - t];
         }
       }
     }
     // Column S-1 is lane part 0's first mirrored sample.
-    if (q == 0) vcol[rc * ring_w + x0 + y] = px[M];
+    if (q == 0) vcol[rc * ring_w + x0 + y] = (Pix)px[M];
   };
 
   // Thread-block-wide step loop.  Each group's first block of step t + 1
@@ -753,7 +800,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
           cp_async_wait<0>();
         }
         group_sync();
-        process(e, stage + buf * 2 * S * S);
+        process(e, stage + buf * 2 * BW);
       }
     }
     cur = nxt;
@@ -779,31 +826,33 @@ constexpr int coef_words() {
 
 constexpr long long align16(long long n) { return (n + 15) / 16 * 16; }
 
-// Launch layout of the kernel of CU size CU: threads (a group of lanes
-// per slot of the widest step, up to max_threads, whole warps) and
-// dynamic shared memory in 16-byte aligned parts, in bytes: the step
-// offsets (int32) at 0, the edge ring (hrow and vcol, ring rows of ring_w
-// bytes each), the coefficient tables of block size CU (the larger
-// table) and the slot groups' buffers of whichever block size needs
-// more.  bytes is -1 past INT_MAX.
+// Launch layout of the kernel of CU size CU at sample depth HBD: threads
+// (a group of lanes per slot of the widest step, up to max_threads, whole
+// warps) and dynamic shared memory in 16-byte aligned parts, in bytes:
+// the step offsets (int32) at 0, the edge ring (hrow and vcol, ring rows
+// of ring_w samples each), the coefficient tables of block size CU (the
+// larger table) and the slot groups' buffers of whichever block size
+// needs more.  bytes is -1 past INT_MAX.
 struct Layout {
   int threads, off_ring, off_coef, off_groups, bytes;
 };
 
-template <int CU>
+template <int CU, bool HBD>
 Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
-  constexpr int L = Shape<CU>::L, LC = Shape<CU / 2>::L;
+  constexpr int L = Shape<CU>::L, LC = Shape<CU / 2>::L, SB = Depth<HBD>::SB;
   Layout l{};
   const int groups =
       n_slots < max_threads(CU) / L ? n_slots : max_threads(CU) / L;
   l.threads = (groups * L + 31) / 32 * 32;
   const int g_lo = n_slots < l.threads / LC ? n_slots : l.threads / LC;
   const long long buffers =
-      4LL * (groups * group_words<CU>() > g_lo * group_words<CU / 2>()
-                 ? groups * group_words<CU>()
-                 : g_lo * group_words<CU / 2>());
+      4LL * (groups * group_words<CU>(SB) > g_lo * group_words<CU / 2>(SB)
+                 ? groups * group_words<CU>(SB)
+                 : g_lo * group_words<CU / 2>(SB));
   const long long off_ring = align16(4LL * (n_steps + 1));
-  const long long off_coef = off_ring + align16(2LL * ring * ring_w);
+  const long long off_coef =
+      off_ring + align16(2LL * ring * ring_w *
+                         (long long)sizeof(typename Depth<HBD>::Pix));
   const long long off_groups = off_coef + 4 * coef_words<CU>();
   const long long bytes = off_groups + buffers;
   if (bytes > 0x7fffffffLL) {
@@ -817,16 +866,24 @@ Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
   return l;
 }
 
-Layout layout_for(int s_max, int n_steps, int n_slots, int ring,
+template <bool HBD>
+Layout layout_at(int s_max, int n_steps, int n_slots, int ring, int ring_w) {
+  return s_max == 32 ? layout_of<32, HBD>(n_steps, n_slots, ring, ring_w)
+         : s_max == 16
+             ? layout_of<16, HBD>(n_steps, n_slots, ring, ring_w)
+             : layout_of<8, HBD>(n_steps, n_slots, ring, ring_w);
+}
+
+Layout layout_for(int s_max, bool hbd, int n_steps, int n_slots, int ring,
                   int ring_w) {
-  return s_max == 32   ? layout_of<32>(n_steps, n_slots, ring, ring_w)
-         : s_max == 16 ? layout_of<16>(n_steps, n_slots, ring, ring_w)
-                       : layout_of<8>(n_steps, n_slots, ring, ring_w);
+  return hbd ? layout_at<true>(s_max, n_steps, n_slots, ring, ring_w)
+             : layout_at<false>(s_max, n_steps, n_slots, ring, ring_w);
 }
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
-// CU / 2 (chroma); QP: the planes carry per-block QP maps.
-template <int CU, bool QP>
+// CU / 2 (chroma); QP: the planes carry per-block QP maps; HBD: 10-bit
+// samples.
+template <int CU, bool QP, bool HBD>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -859,37 +916,45 @@ __global__ void __launch_bounds__(max_threads(CU))
   __syncthreads();
 
   if (pl.s == CU)
-    run_plane<CU, QP>(p, pl, item, smem);
+    run_plane<CU, QP, HBD>(p, pl, item, smem);
   else
-    run_plane<CU / 2, QP>(p, pl, item, smem);
+    run_plane<CU / 2, QP, HBD>(p, pl, item, smem);
 }
 
 // The kernel instance of CU size cu (32, 16 or 8), with or without QP
-// maps.
+// maps, at 8 or 10 bits.
 using KernelFn = void (*)(const Params);
 
-KernelFn kernel_for(int cu, bool qp) {
+template <bool HBD>
+KernelFn kernel_at(int cu, bool qp) {
   if (cu == 32)
-    return qp ? wavefront_kernel<32, true> : wavefront_kernel<32, false>;
+    return qp ? wavefront_kernel<32, true, HBD>
+              : wavefront_kernel<32, false, HBD>;
   if (cu == 16)
-    return qp ? wavefront_kernel<16, true> : wavefront_kernel<16, false>;
-  return qp ? wavefront_kernel<8, true> : wavefront_kernel<8, false>;
+    return qp ? wavefront_kernel<16, true, HBD>
+              : wavefront_kernel<16, false, HBD>;
+  return qp ? wavefront_kernel<8, true, HBD> : wavefront_kernel<8, false, HBD>;
+}
+
+KernelFn kernel_for(int cu, bool qp, bool hbd) {
+  return hbd ? kernel_at<true>(cu, qp) : kernel_at<false>(cu, qp);
 }
 
 }  // namespace
 
 // Threads and dynamic shared memory (bytes) of a launch whose largest
-// block size is s_max (32, 16, 8 or 4), on a plan of n_steps steps of at most
-// n_slots blocks with an edge ring of `ring` rows of ring_w samples.
-// Returns a cudaError_t.
-extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
-                                    int ring, int ring_w, int* threads,
-                                    int* smem_bytes) {
+// block size is s_max (32, 16, 8 or 4) at bitdepth 8 or 10, on a plan of
+// n_steps steps of at most n_slots blocks with an edge ring of `ring`
+// rows of ring_w samples.  Returns a cudaError_t.
+extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
+                                    int n_slots, int ring, int ring_w,
+                                    int* threads, int* smem_bytes) {
   if ((s_max != 4 && s_max != 8 && s_max != 16 && s_max != 32) ||
-      n_steps < 1 ||
-      n_slots < 1 || ring < 1 || ring_w < 1)
+      (bitdepth != 8 && bitdepth != 10) || n_steps < 1 || n_slots < 1 ||
+      ring < 1 || ring_w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout l = layout_for(s_max, n_steps, n_slots, ring, ring_w);
+  const Layout l =
+      layout_for(s_max, bitdepth == 10, n_steps, n_slots, ring, ring_w);
   *threads = l.threads;
   *smem_bytes = l.bytes;
   return l.bytes < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
@@ -902,26 +967,34 @@ extern "C" int ktt_wavefront_layout(int s_max, int n_steps, int n_slots,
 // plane's mc are all null (intra variant) or all set (inter); so are the
 // planes' qp, which hold values in 0..51.  entries
 // is scratch of (items, nblk) uint32 on the device.  ring is the edge
-// ring's depth and ring_w the width of the widest plane.  Returns a
-// cudaError_t; a layout the device cannot give is refused by
-// cudaFuncSetAttribute.
+// ring's depth and ring_w the width of the widest plane.  bitdepth 8
+// takes uint8 or int32 orig and mc and writes uint8 rec; 10 takes int16
+// orig and mc and writes 16-bit rec.  Returns a cudaError_t; a layout
+// the device cannot give is refused by cudaFuncSetAttribute.
 extern "C" int ktt_wavefront_recon(
-    const KttPlane* planes, int n_planes, const uint32_t* blk_info,
-    const int32_t* step_start, const int32_t* modes, const uint8_t* inter,
-    uint32_t* entries, int bm, int blocks_x, int nblk, int n_steps,
-    int n_slots, int ring, int ring_w, void* stream) {
+    const KttPlane* planes, int n_planes, int bitdepth,
+    const uint32_t* blk_info, const int32_t* step_start,
+    const int32_t* modes, const uint8_t* inter, uint32_t* entries, int bm,
+    int blocks_x, int nblk, int n_steps, int n_slots, int ring, int ring_w,
+    void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
-      bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1)
+      bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1 ||
+      (bitdepth != 8 && bitdepth != 10))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool hbd = bitdepth == 10;
   Params p{};
   int items = 0, s_max = 0;
   const bool qp = planes[0].qp != nullptr;
   for (int i = 0; i < n_planes; ++i) {
     const KttPlane& pl = planes[i];
+    const bool bytes_ok =
+        hbd ? pl.orig_bytes == 2 && (pl.mc == nullptr || pl.mc_bytes == 2)
+            : (pl.orig_bytes == 1 || pl.orig_bytes == 4) &&
+                  (pl.mc == nullptr || pl.mc_bytes == 1 || pl.mc_bytes == 4);
     if ((pl.s != 4 && pl.s != 8 && pl.s != 16 && pl.s != 32) ||
         (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w ||
-        qp != (pl.qp != nullptr))
+        qp != (pl.qp != nullptr) || !bytes_ok)
       return static_cast<int>(cudaErrorInvalidValue);
     s_max = pl.s > s_max ? pl.s : s_max;
     p.plane[i] = pl;
@@ -932,7 +1005,7 @@ extern "C" int ktt_wavefront_recon(
   for (int i = 0; i < n_planes; ++i)
     if (planes[i].s != cu && planes[i].s != cu / 2)
       return static_cast<int>(cudaErrorInvalidValue);
-  const Layout l = layout_for(s_max, n_steps, n_slots, ring, ring_w);
+  const Layout l = layout_for(s_max, hbd, n_steps, n_slots, ring, ring_w);
   if (l.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (items == 0) return 0;
   p.n_planes = n_planes;
@@ -951,7 +1024,7 @@ extern "C" int ktt_wavefront_recon(
   p.off_ring = l.off_ring;
   p.off_coef = l.off_coef;
   p.off_groups = l.off_groups;
-  const KernelFn kernel = kernel_for(cu, qp);
+  const KernelFn kernel = kernel_for(cu, qp, hbd);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

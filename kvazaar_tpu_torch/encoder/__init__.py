@@ -22,3 +22,22 @@ def plan_cached(fn):
         return hit[1]
 
     return wrapper
+
+
+def pix_dtype(bitdepth: int):
+    """Device dtype of reconstructed sample planes: uint8 at 8-bit,
+    int16 above (0..1023 at 10-bit; torch.uint16 has almost no
+    kernels)."""
+    import torch
+
+    return torch.uint8 if bitdepth <= 8 else torch.int16
+
+
+def host_pixels(t):
+    """A device sample plane on the host as numpy: uint8 at 8-bit, the
+    int16 planes of higher bit depths viewed as uint16 (their samples
+    are never negative), the JAX package's recon dtypes; None stays."""
+    if t is None:
+        return None
+    a = t.cpu().numpy()
+    return a.view("<u2") if a.dtype == "int16" else a

@@ -62,6 +62,7 @@ from kvazaar_tpu_torch.config import Config
 from kvazaar_tpu_torch.constants import (CHROMA_QP_TAB, NAL_IDR_W_RADL,
                                          NAL_TRAIL_R, SLICE_B, SLICE_I,
                                          SLICE_P)
+from kvazaar_tpu_torch.encoder import host_pixels, pix_dtype
 from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.bitstream import native
 from kvazaar_tpu_torch.encoder.inter_cands import (
@@ -173,8 +174,6 @@ def unsupported(cfg: Config) -> list:
     if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
         out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
                    "ported; 64 inside a variable tree)")
-    if cfg.input_bitdepth != 8:
-        out.append("bit depths other than 8")
     if cfg.rd >= 3:
         out.append("--rd 3 (chroma-mode RDO)")
     elif cfg.rd == 2 and not var_tree(cfg):
@@ -378,7 +377,7 @@ class PFrameMixin:
         the references' (y, cb, cr) planes; qp_ctu: (Cy, Cx) int32
         per-CTU QP on the device (the search stays at the config's QP).
         Returns (modes uint8, inter map bool, ref_sel int32, mv int32
-        (By, Bx, 2), levels (y, cb, cr), deblocked recon uint8 (y, cb,
+        (By, Bx, 2), levels (y, cb, cr), deblocked recon uint8/int16 (y, cb,
         cr), sses float32 (3,)), on the device."""
         plan = self.plan
         modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
@@ -438,7 +437,7 @@ class PFrameMixin:
         want_pixels = need_recon or self.cfg.hash != "none"
         return ((tuple(host(lv) for lv in levels), host(modes),
                  host(inter_map), host(ref_sel), host(mv), host(sses)),
-                tuple(host(r) for r in recs) if want_pixels
+                tuple(host_pixels(r) for r in recs) if want_pixels
                 else (None, None, None), recs)
 
     def finalize_p_downloaded(self, downloaded, poc: int, ref_pocs,
@@ -718,7 +717,7 @@ class PFrameMixin:
         planes and each list's reference (y, cb, cr) planes.  The CUs'
         L0 / L1 / bi-averaged MC planes go into the wavefront kernel's
         inter variant.  Returns (modes uint8, inter map, dirs, mv0, mv1,
-        levels (y, cb, cr), deblocked recon uint8 (y, cb, cr), sses
+        levels (y, cb, cr), deblocked recon uint8/int16 (y, cb, cr), sses
         float32 (3,)), on the device."""
         plan = self.plan
         modes, inter_map, dirs, mv0, mv1 = self._b_predict(yp, ref0[0],
@@ -842,7 +841,7 @@ class PFrameMixin:
         fd = self._assemble_b_frame_data(
             host(modes), inter_map, dirs, emv0, emv1, mvd0, mvd1, mvp0,
             mvp1, merge_idx, *(host(lv) for lv in levels))
-        rec_np = tuple(host(r) for r in recs)
+        rec_np = tuple(host_pixels(r) for r in recs)
         nal = self._with_hash(self._serialize_b(fd, poc, poc - poc0,
                                                 poc1 - poc), rec_np)
         return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
@@ -872,6 +871,7 @@ class IntraFrameEncoder(PFrameMixin):
         # carries the P frames of a variable-tree config.
         self.cu = min(cfg.intra_max_cu, 32)
         self.bitdepth = cfg.input_bitdepth
+        self.pix = pix_dtype(self.bitdepth)
         self.coded_w = -(-cfg.width // self.cu) * self.cu
         self.coded_h = -(-cfg.height // self.cu) * self.cu
         self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
@@ -932,7 +932,7 @@ class IntraFrameEncoder(PFrameMixin):
 
     def _encode_from_planes(self, ys, cbs, crs, qp_ctu=None):
         """Device program for a (B, H, W) batch: returns (modes uint8
-        (B, By, Bx), levels int16 (y, cb, cr), recon uint8 (y, cb, cr),
+        (B, By, Bx), levels int16 (y, cb, cr), recon uint8/int16 (y, cb, cr),
         sses float32 (B, 3)), all on the encoder's device.  qp_ctu: a
         one-frame batch's (1, Cy, Cx) per-CTU QP on the device: the
         search stays at the config's QP, the reconstruction takes each
@@ -989,7 +989,7 @@ class IntraFrameEncoder(PFrameMixin):
         """Deblock a (B, H, W) batch of reconstructions (bs: the (bs_v,
         bs_h) maps of a P frame, None = all-intra; qp_map: a one-frame
         batch's (By, Bx) per-block QP, None = the config's QP) and take
-        each frame's SSE against its source.  Returns (recon uint8 (y,
+        each frame's SSE against its source.  Returns (recon uint8/int16 (y,
         cb, cr), sses float32 (B, 3))."""
         ys, cbs, crs = srcs
         rec_y, rec_cb, rec_cr = recs
@@ -1002,10 +1002,10 @@ class IntraFrameEncoder(PFrameMixin):
                                          self.cfg.qp, self.cu,
                                          self.bitdepth, bs_v=bs_v,
                                          bs_h=bs_h, qp_map=qp_map)
-            rec_y = dy.to(torch.uint8)
+            rec_y = dy.to(self.pix)
             if rec_cb is not None:
-                rec_cb = dcb.to(torch.uint8)
-                rec_cr = dcr.to(torch.uint8)
+                rec_cb = dcb.to(self.pix)
+                rec_cr = dcr.to(self.pix)
 
         # Distortion over the conformance window only: padded rows and
         # columns reconstruct near-perfectly and would inflate PSNR.
@@ -1027,22 +1027,32 @@ class IntraFrameEncoder(PFrameMixin):
         return (rec_y, rec_cb, rec_cr), sses
 
     def host_pack_sources(self, frames):
-        """(y, cb, cr) list -> padded (B, H, W) uint8 host planes."""
+        """(y, cb, cr) list -> padded (B, H, W) host planes: uint8 at
+        8-bit, uint16 above."""
         s = self.cu
-        ys = np.stack([pad_to_multiple(np.asarray(f[0], np.uint8), s)
+        sdt = np.uint8 if self.bitdepth <= 8 else np.uint16
+        if self.bitdepth <= 8 and any(
+                np.asarray(p).dtype == np.uint16 for f in frames
+                for p in f if p is not None):
+            raise ValueError("uint16 pictures need input_bitdepth=10 (the "
+                             "encoder is 8-bit)")
+        ys = np.stack([pad_to_multiple(np.asarray(f[0], sdt), s)
                        for f in frames])
         cbs = crs = None
         if self.chroma:
-            cbs = np.stack([pad_to_multiple(np.asarray(f[1], np.uint8),
+            cbs = np.stack([pad_to_multiple(np.asarray(f[1], sdt),
                                             s // 2) for f in frames])
-            crs = np.stack([pad_to_multiple(np.asarray(f[2], np.uint8),
+            crs = np.stack([pad_to_multiple(np.asarray(f[2], sdt),
                                             s // 2) for f in frames])
         return ys, cbs, crs
 
     def _upload(self, planes):
-        """Host (B, H, W) uint8 planes -> int32 tensors on the device."""
+        """Host (B, H, W) uint8 or uint16 planes -> int32 tensors on the
+        device (uint16 crosses as int16: torch has no uint16 copies,
+        and samples below 2^15 keep their value)."""
         return tuple(None if a is None else
-                     torch.from_numpy(a).to(self.device).to(torch.int32)
+                     torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16
+                                      else a).to(self.device).to(torch.int32)
                      for a in planes)
 
     def submit_frames(self, frames):
@@ -1069,7 +1079,7 @@ class IntraFrameEncoder(PFrameMixin):
 
         want_pixels = need_recon or self.cfg.hash != "none"
         return (nframes, host(modes), [host(lv) for lv in levels],
-                [host(r) for r in recs] if want_pixels
+                [host_pixels(r) for r in recs] if want_pixels
                 else [None, None, None], host(sses), host(sao))
 
     def finalize_downloaded(self, downloaded) -> list[FrameResult]:
@@ -1227,7 +1237,7 @@ class IntraFrameEncoder(PFrameMixin):
 
     def var_recon(self, sched):
         """Device reconstruction + deblocking of a planned tree: returns
-        (recon uint8 (y, cb, cr), levels int16 (y, cb, cr)) planes."""
+        (recon uint8/int16 (y, cb, cr), levels int16 (y, cb, cr)) planes."""
         cfg = self.cfg
         recs, levels = reconstruct_frame_var(
             sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
@@ -1241,7 +1251,7 @@ class IntraFrameEncoder(PFrameMixin):
             ry, rcb, rcr = deblock_frame(ry, rcb, rcr, self.cfg.qp, 8,
                                          self.bitdepth, bs_v=sched["bs_v"],
                                          bs_h=sched["bs_h"])
-        return tuple(None if r is None else r.to(torch.uint8)
+        return tuple(None if r is None else r.to(self.pix)
                      for r in (ry, rcb, rcr))
 
     def var_sao(self, planes, recs, lam=None):
@@ -1297,7 +1307,7 @@ class IntraFrameEncoder(PFrameMixin):
         def host(t):
             return None if t is None else t.cpu().numpy()
 
-        rec_np = [host(r) for r in recs]
+        rec_np = [host_pixels(r) for r in recs]
         fd = self.var_frame_data(size8, sched_size8, mode_maps,
                                  [host(lv) for lv in levels])
         _set_sao(fd, host(sao))
@@ -1437,7 +1447,7 @@ class IntraFrameEncoder(PFrameMixin):
 
     def var_recon_p(self, sched, refs, ql=None):
         """MC of the cell motion field from the reference planes, then
-        ``_var_recon_inter``.  Returns (deblocked recon uint8 (y, cb,
+        ``_var_recon_inter``.  Returns (deblocked recon uint8/int16 (y, cb,
         cr), levels int16 (y, cb, cr))."""
         mcs = mc_planes_cells(*refs, sched["mv_cells"], self.bitdepth)
         return self._var_recon_inter(sched, mcs, ql)
@@ -1463,7 +1473,7 @@ class IntraFrameEncoder(PFrameMixin):
                                      dirs8=sched.get("dirs8"))
             ry, rcb, rcr = deblock_frame(ry, rcb, rcr, qp, 8, self.bitdepth,
                                          bs_v=bs_v, bs_h=bs_h)
-        return tuple(None if r is None else r.to(torch.uint8)
+        return tuple(None if r is None else r.to(self.pix)
                      for r in (ry, rcb, rcr)), levels
 
     def var_p_frame_data(self, size8, sched_size8, mode_maps, inter8,
@@ -1498,7 +1508,7 @@ class IntraFrameEncoder(PFrameMixin):
         def host(t):
             return None if t is None else t.cpu().numpy()
 
-        return recs, [host(r) for r in recs], host(sao)
+        return recs, [host_pixels(r) for r in recs], host(sao)
 
     def encode_frame_var_p(self, y, cb=None, cr=None, poc: int = 1,
                            ref_poc: int = 0, qp=None,
@@ -1694,9 +1704,9 @@ class IntraFrameEncoder(PFrameMixin):
 
     def encode_frame(self, y: np.ndarray, cb=None, cr=None, qp_ctu=None,
                      nal_type=None, poc: int = 0) -> FrameResult:
-        """y: (H, W) uint8 source luma; cb/cr half size (4:2:0).  qp_ctu:
-        (Cy, Cx) per-CTU QP map (LCU rate control, ROI, AQ; fixed grid),
-        coded with cu_qp_delta.  nal_type / poc: the CRA of an open GOP
+        """y: (H, W) uint8 (uint16 above 8-bit) source luma; cb/cr half
+        size (4:2:0).  qp_ctu: (Cy, Cx) per-CTU QP map (LCU rate
+        control, ROI, AQ; fixed grid), coded with cu_qp_delta.  nal_type / poc: the CRA of an open GOP
         (it codes its POC); by default an IDR at POC 0."""
         self._islice = None if nal_type is None else (nal_type, poc)
         try:
@@ -1720,7 +1730,8 @@ class IntraFrameEncoder(PFrameMixin):
             return None if t is None else t[0].cpu().numpy()
 
         return self._host_finalize(host(modes), *(host(t) for t in levels),
-                                   *(host(r) for r in recs), sao=host(sao),
+                                   *(host_pixels(None if r is None else r[0])
+                                     for r in recs), sao=host(sao),
                                    qp_ctu=qp_ctu)
 
     def close(self) -> None:

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
-from kvazaar_tpu_torch.encoder import plan_cached
+from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
 from kvazaar_tpu_torch.ops.intra import predict_modes
 from kvazaar_tpu_torch.ops.quant import (dequantize, quantize,
                                          quantize_rdoq, sign_hide)
@@ -175,7 +175,7 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                               mc_flat, qp_items)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
-    return (rec_flat[:, :h * w].reshape(nb, h, w).to(torch.uint8),
+    return (rec_flat[:, :h * w].reshape(nb, h, w).to(pix_dtype(bitdepth)),
             levels[:, :nblk])
 
 
@@ -190,7 +190,8 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
     qp_map: (B, By, Bx) int per-block luma QP (clipped to 0..51, chroma
     through Table 8-10), replacing qp and qp_c.  Returns (recon_y,
     levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon (B, H, W)
-    uint8, levels (B, N_blocks, S, S) int16 in raster block order."""
+    uint8 at 8-bit, int16 above (``pix_dtype``), levels (B, N_blocks, S,
+    S) int16 in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
     return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
                                   bitdepth, is_inter, mc_y, mc_cb, mc_cr,

@@ -2,8 +2,9 @@
 
 ``wavefront_recon_planes`` reconstructs the luma and chroma planes of a
 batch of frames, all-intra or, given an inter mask and MC planes, as P
-frames, at one QP or with a per-block QP map; ``wavefront_recon``
-reconstructs one plane kind.  For CUDA
+frames, at one QP or with a per-block QP map, at 8 or 10 bits (the
+kernel's 10-bit instance takes int16 planes and writes int16 recon);
+``wavefront_recon`` reconstructs one plane kind.  For CUDA
 tensors both launch the hand-written kernel once (or raise); for CPU
 tensors they run the kernel's plain PyTorch version, the per-step loop
 of encoder/intra_recon.py, once per plane kind.  There is no fallback
@@ -17,8 +18,9 @@ and the depth of the shared-memory edge ring) are derived here, once per
 plan and device; the launch's threads and shared memory come from the
 library (``ktt_wavefront_layout``), and a plan that needs more shared
 memory than the device gives raises here.  ``LAUNCHES`` counts the
-kernel launches of this process, intra and inter variants apart, and
-``QP_MAP_LAUNCHES`` those of them that took a per-block QP map.
+kernel launches of this process, intra and inter variants apart,
+``QP_MAP_LAUNCHES`` those of them that took a per-block QP map, and
+``LAUNCHES_10BIT`` those of the 10-bit instances.
 """
 
 from __future__ import annotations
@@ -37,20 +39,23 @@ import torch
 
 from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
-from kvazaar_tpu_torch.encoder import plan_cached
+from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
 from kvazaar_tpu_torch.ops.quant import int32_table, quant_params
 
 # Kernel launches made by this module (only here, after a launch), per
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
-# among them.
+# among them, LAUNCHES_10BIT the 10-bit ones ("qp_map": those of them
+# with a QP map).
 LAUNCHES = {"intra": 0, "inter": 0}
 QP_MAP_LAUNCHES = {"intra": 0, "inter": 0}
+LAUNCHES_10BIT = {"intra": 0, "inter": 0, "qp_map": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _SIZES = (4, 8, 16, 32)
+_BITDEPTHS = (8, 10)
 # blk_info holds a block's step-order position in its low _POS_BITS bits
 # and its availability mask above them (kAvailShift in the kernel).
 _POS_BITS = 20
@@ -121,11 +126,11 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     fn = lib.ktt_wavefront_recon
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int]
+    fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     lib.ktt_wavefront_layout.restype = ctypes.c_int
-    lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 5
+    lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.ktt_wavefront_smem_optin.restype = ctypes.c_int
     lib.ktt_wavefront_smem_optin.argtypes = [ctypes.c_int,
@@ -226,14 +231,16 @@ def ring_depth(plan: IntraFramePlan) -> int:
 
 
 @plan_cached
-def launch_layout(plan: IntraFramePlan, s_max: int, width: int):
+def launch_layout(plan: IntraFramePlan, s_max: int, width: int,
+                  bitdepth: int = 8):
     """(ring depth, threads, dynamic shared memory in bytes) of a launch
     whose largest block size is s_max on a plan whose widest plane is
-    ``width`` samples, the layout as the kernel's library computes it."""
+    ``width`` samples at ``bitdepth``, the layout as the kernel's
+    library computes it."""
     ring = ring_depth(plan)
     threads, nbytes = ctypes.c_int(0), ctypes.c_int(0)
     err = _library().ktt_wavefront_layout(
-        s_max, plan.n_steps, plan.n_slots, ring, width,
+        s_max, bitdepth, plan.n_steps, plan.n_slots, ring, width,
         ctypes.byref(threads), ctypes.byref(nbytes))
     if err != 0:
         raise ValueError(f"wavefront kernel: no launch layout for the plan "
@@ -256,14 +263,15 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                     qp_map=None):
     """Reconstruct a batch of planes of one kind.
 
-    orig: (NB, H, W) uint8 or int32 coded-size planes (H, W = the
-    plan's luma size, or half of it for chroma); modes: (Bm, By, Bx)
-    int32 with NB % Bm == 0 — item i uses modes[i % Bm].  P frames add
-    is_inter (Bm, By, Bx) bool, shared like modes, and mc (NB, H, W)
-    uint8 or int32 MC prediction planes in [0, 255]: inter blocks take
-    mc and the inter rounding.  qp_map: (Bm, By, Bx) int32 per-block QPs
-    of this plane kind in 0..51, shared like modes, replacing qp.
-    Returns (rec (NB, H, W) uint8, levels (NB, By*Bx, S, S) int16 in
+    orig: (NB, H, W) coded-size planes (H, W = the plan's luma size, or
+    half of it for chroma), uint8 or int32 at 8-bit, int16 at 10-bit;
+    modes: (Bm, By, Bx) int32 with NB % Bm == 0 — item i uses
+    modes[i % Bm].  P frames add is_inter (Bm, By, Bx) bool, shared like
+    modes, and mc (NB, H, W) MC prediction planes of orig's dtypes, in
+    [0, 2^bitdepth - 1]: inter blocks take mc and the inter rounding.
+    qp_map: (Bm, By, Bx) int32 per-block QPs of this plane kind in
+    0..51, shared like modes, replacing qp.  Returns (rec (NB, H, W)
+    uint8 at 8-bit, int16 at 10-bit, levels (NB, By*Bx, S, S) int16 in
     raster block order)."""
     if orig.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
@@ -275,7 +283,7 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                          f"{orig.device}")
     _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map)
     return _launch([(orig, mc, s, luma, qp, qp_map)], modes, plan,
-                   is_inter)
+                   is_inter, bitdepth)
 
 
 def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
@@ -285,8 +293,10 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     """Reconstruct the luma and (where cbs is given) chroma planes of a
     batch of frames in one launch.
 
-    ys (B, H, W), cbs/crs (B, H/2, W/2) or None, uint8 or int32; modes
-    (Bm, By, Bx) int32, shared by the three planes.  P frames add
+    ys (B, H, W), cbs/crs (B, H/2, W/2) or None, uint8 or int32 at
+    8-bit, int16 or int32 at 10-bit (int32 planes are narrowed to int16
+    for the kernel there); modes (Bm, By, Bx) int32, shared by the three
+    planes.  P frames add
     is_inter (Bm, By, Bx) bool and the MC planes mc_y/mc_cb/mc_cr of
     the shapes of ys/cbs/crs.  qp_map: (Bm, By, Bx) per-block luma QPs,
     shared like modes, replacing qp and qp_c: clipped to 0..51, and
@@ -318,26 +328,31 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     if ys.device.type != "cuda":
         raise ValueError(f"wavefront_recon_planes: unsupported device "
                          f"{ys.device}")
+    if bitdepth > 8:
+        ys, cbs, crs, mc_y, mc_cb, mc_cr = (
+            t if t is None or t.dtype != torch.int32 else t.to(torch.int16)
+            for t in (ys, cbs, crs, mc_y, mc_cb, mc_cr))
     planes = [(ys, mc_y, s, True, qp, qp_y)]
     if cbs is not None:
         planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map),
                    (crs, mc_cr, s // 2, False, qp_c, qp_c_map)]
     for orig, mc, ps, luma, _, qm in planes:
         _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc, qm)
-    out = _launch(planes, modes, plan, is_inter)
+    out = _launch(planes, modes, plan, is_inter, bitdepth)
     if cbs is None:
         return (*out, None, None, None, None)
     return out
 
 
-def _launch(planes, modes, plan: IntraFramePlan, is_inter):
+def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8):
     """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
     plane kinds; returns (rec, levels) per kind, flattened."""
     lib = _library()
     dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
     width = planes[0][0].shape[2]
-    ring, _, nbytes = launch_layout(plan, max(p[2] for p in planes), width)
+    ring, _, nbytes = launch_layout(plan, max(p[2] for p in planes), width,
+                                    bitdepth)
     limit = _smem_optin(dev.index if dev.index is not None
                         else torch.cuda.current_device())
     if nbytes > limit:
@@ -354,11 +369,11 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
                           dtype=torch.int32, device=dev)
     for st, (orig, mc, s, luma, qp, qp_map) in zip(structs, planes):
         nb, h, w = orig.shape
-        rec = torch.empty((nb, h, w), dtype=torch.uint8, device=dev)
+        rec = torch.empty((nb, h, w), dtype=pix_dtype(bitdepth), device=dev)
         levels = torch.empty((nb, nblk, s, s), dtype=torch.int16,
                              device=dev)
         scale, qbits, inv_scale, inv_shift = quant_params(
-            qp, s.bit_length() - 1, 8)
+            qp, s.bit_length() - 1, bitdepth)
         st.orig, st.rec, st.levels = (orig.data_ptr(), rec.data_ptr(),
                                       levels.data_ptr())
         st.mc = None if mc is None else mc.data_ptr()
@@ -374,7 +389,7 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ktt_wavefront_recon(
-            structs, len(planes), blk_info.data_ptr(),
+            structs, len(planes), bitdepth, blk_info.data_ptr(),
             step_start.data_ptr(), modes.data_ptr(),
             None if is_inter is None else is_inter.data_ptr(),
             entries.data_ptr(), modes.shape[0], plan.blocks_x, nblk,
@@ -386,14 +401,21 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter):
     LAUNCHES[variant] += 1
     if planes[0][5] is not None:
         QP_MAP_LAUNCHES[variant] += 1
+    if bitdepth == 10:
+        LAUNCHES_10BIT[variant] += 1
+        LAUNCHES_10BIT["qp_map"] += planes[0][5] is not None
     return tuple(outs)
 
 
 def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
            qp_map=None):
     """Validate what the kernel takes; returns (NB, H, W)."""
-    if bitdepth != 8:
-        raise ValueError("wavefront kernel: 8-bit only")
+    if bitdepth not in _BITDEPTHS:
+        raise ValueError(f"wavefront kernel: bit depth {bitdepth} (8 and "
+                         "10 are built)")
+    sample_dtypes = ((torch.uint8, torch.int32) if bitdepth == 8
+                     else (torch.int16,))
+    names = " or ".join(str(d).replace("torch.", "") for d in sample_dtypes)
     if s not in _SIZES or s != (plan.cu_size if luma
                                 else plan.cu_size // 2):
         raise ValueError(f"wavefront kernel: block size {s} does not fit "
@@ -403,9 +425,9 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
         raise ValueError(f"wavefront kernel: a plane of {plan.blocks_x}x"
                          f"{plan.blocks_y} blocks is too large (at most "
                          f"2^{_POS_BITS} blocks, blocks x columns < 2^32)")
-    if orig.dtype not in (torch.uint8, torch.int32) or orig.dim() != 3:
-        raise ValueError("wavefront kernel: orig must be (NB, H, W) "
-                         "uint8 or int32")
+    if orig.dtype not in sample_dtypes or orig.dim() != 3:
+        raise ValueError(f"wavefront kernel: orig must be (NB, H, W) "
+                         f"{names} at {bitdepth}-bit")
     if modes.device != orig.device or modes.dtype != torch.int32:
         raise ValueError("wavefront kernel: modes must be int32 on the "
                          "device of orig")
@@ -428,9 +450,10 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
                              "with the shape of modes on the device of "
                              "orig")
         if (mc.device != orig.device or mc.shape != orig.shape
-                or mc.dtype not in (torch.uint8, torch.int32)):
-            raise ValueError("wavefront kernel: mc must be uint8 or int32 "
-                             "with the shape of orig on its device")
+                or mc.dtype not in sample_dtypes):
+            raise ValueError(f"wavefront kernel: mc must be {names} at "
+                             f"{bitdepth}-bit with the shape of orig on "
+                             "its device")
     if qp_map is not None and (
             qp_map.device != orig.device or qp_map.dtype != torch.int32
             or qp_map.shape != modes.shape or not qp_map.is_contiguous()):

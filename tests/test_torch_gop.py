@@ -68,6 +68,10 @@ from test_var_vec import random_fields, random_tree
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 # Stream A: variable trees, open GOP; stream B: the fixed grid.
 STREAM_A = dict(width=128, height=64, qp=32, gop_len=4, intra_period=8,
                 hash="md5")

@@ -28,6 +28,10 @@ from kvazaar_tpu_torch.ops import inter as tinter
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

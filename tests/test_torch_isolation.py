@@ -28,6 +28,10 @@ import torch
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX = r"""
@@ -100,7 +104,7 @@ print("NO_JAX_OK")
 
 
 def test_port_runs_without_importing_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)

@@ -60,6 +60,10 @@ from test_torch_slice import _clip, _jit_whole, oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 QP = 27
 
 # name -> (width, height, frames, config fields, preset or None).  The

@@ -32,6 +32,10 @@ from test_spec_models import np_deblock_luma_vertical, np_dequant
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -14,6 +14,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from kvazaar_tpu.config import Config as JaxConfig
 from kvazaar_tpu.encoder.frame_encoder import \
@@ -24,6 +25,10 @@ from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
 from test_torch_slice import _clip, oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
+
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
 
 CASES = {"cu16": (128, 64, 16, 22), "cu8": (64, 48, 8, 30)}
 

@@ -51,6 +51,10 @@ from test_torch_slice import oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 # name -> (width, height, frame maker, config fields)
 CASES = {
     "8-32": (96, 64, lambda: _mixed_frame(96, 64),

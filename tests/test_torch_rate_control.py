@@ -59,6 +59,10 @@ from test_torch_slice import _clip, _jit_whole, oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

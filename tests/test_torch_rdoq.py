@@ -33,6 +33,10 @@ from kvazaar_tpu_torch.ops import quant as tquant
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 QPS = (22, 27, 37)
 
 

@@ -48,6 +48,10 @@ from test_torch_slice import _clip, oracle_decode
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 # The one frame shape of every JAX SAO program run here.
 W, H = 96, 96
 

@@ -23,6 +23,7 @@ import inspect
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kvazaar_tpu.bitstream.decoder import decode_stream
 from kvazaar_tpu.config import Config as JaxConfig
@@ -33,6 +34,10 @@ from kvazaar_tpu_torch.api import Encoder
 from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
+
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
 
 CASES = {"cu16": (128, 64, 16, 22), "cu8": (64, 48, 8, 30)}
 

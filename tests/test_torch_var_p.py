@@ -70,6 +70,10 @@ from test_var_vec import random_fields, random_tree
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 # name -> (width, height, clip seed, config fields, the case whose JAX
 # programs it reuses and which of them)
 CASES = {

@@ -36,6 +36,10 @@ from test_torch_slice import _jit_whole
 
 pytestmark = [pytest.mark.smoke, pytest.mark.torch_port]
 
+# Small CPU shapes: one intra-op thread each, so that the xdist
+# workers sharing the cores do not oversubscribe them.
+torch.set_num_threads(1)
+
 NAMES = ("rec_y", "lv_y", "rec_cb", "lv_cb", "rec_cr", "lv_cr")
 
 
@@ -160,7 +164,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     plan = make_intra_plan(32, 32, 16, chroma=True)
     modes = torch.zeros((1, 2, 2), dtype=torch.int32)
     orig = torch.zeros((1, 32, 32), dtype=torch.int32)
-    with pytest.raises(ValueError, match="8-bit"):
+    with pytest.raises(ValueError, match="bit depth 12"):
+        wavefront._check(orig, modes, plan, 16, True, 12)
+    with pytest.raises(ValueError, match="int16 at 10-bit"):
         wavefront._check(orig, modes, plan, 16, True, 10)
     with pytest.raises(ValueError, match="block size"):
         wavefront._check(orig, modes, plan, 8, True, 8)
