@@ -14,9 +14,10 @@ preset, the CLI's default, and ``Config()``, whose fixed cu 32 grid runs
 the kernel at luma S=32), variable P trees with one reference (the
 medium preset's IPPP point), B pyramids (GOP 8 on the fixed grid and
 the medium preset's default, variable B trees), and rate control with a
-per-CTU QP map (``--bitrate`` on ``Config()``), and 10-bit (Main 10)
+per-CTU QP map (``--bitrate`` on ``Config()``), 10-bit (Main 10)
 streams up to BASELINE config #5 (a 10-bit 3840x2160 GOP-8 stream with
-``--bitrate``).
+``--bitrate``), and lossless coding (transquant bypass, implicit
+RDPCM).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -47,7 +48,7 @@ Any failed phase raises, so the script exits nonzero:
    counts read around the run (this path runs no hand kernel: its
    var-tree wavefront is plain PyTorch); each timed frame's wavefront
    depth, their CU-size histogram and per-stage split (phase 9b counts
-   the device kernels and ATen ops of a var recon); the first 2
+   the ATen ops of a var recon); the first 2
    frames again on the CPU, byte-identical; one frame at intra 8..64,
    rd 2, on the card and the CPU, byte-identical;
 9. every preset's all-intra operating point: the ``superfast`` preset
@@ -132,7 +133,25 @@ Any failed phase raises, so the script exits nonzero:
    peak 1023 and the peak device memory); and card == CPU bytes and
    recon at 416x240 for 10-bit superfast --period 1, ultrafast, medium
    (GOP 8, variable B trees) and Config() with --bitrate (a per-CTU QP
-   map).
+   map);
+15. lossless (``run_lossless``): the kernel's transquant-bypass
+   instances == plain, max abs error 0, with the recon equal to the
+   source (line ``bypass kernel vs plain``, each timed against the
+   non-bypass launch at the same shape, with the bound): intra at cu 8,
+   16 and 32 and inter at cu 16 and 32 (a real P frame of a lossless
+   stream, and a random inter map with random MC planes) at 832x480,
+   RDPCM off and on, the searched modes and random modes rich in 10 and
+   26; 10-bit intra cu 16 and inter cu 32 at 832x480; 3840x2160 10-bit
+   cu 32 compare-only; the cell ``lossless-832x480`` (the headline
+   configuration with lossless=True, which turns deblocking off; a
+   2-frame warm-up batch, then one timed batch of 8 through
+   Encoder.encode_stream: fps, bits a frame, recon == source, the
+   bypass launches, and a stage split with the Python CABAC's share);
+   the pipelined FrameInfo of 128x128 noise at QP 51 (SSEs above 2^24)
+   card == CPU, all-intra and IPPP; and card == CPU bytes and recon at
+   416x240 for lossless streams: RDPCM all-intra cu 16, Config() cu 32
+   all-intra, RDPCM IPPP cu 16, 10-bit RDPCM all-intra, the medium
+   preset at --gop 0 and a fixed-grid GOP 4.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -642,12 +661,10 @@ def run_ippp(torch, wavefront, frames, dev):
     return launches["inter"]
 
 
-def count_launches(torch, fn, device=True):
-    """(device kernels and copies, ATen ops dispatched) of one call of
-    fn; the first is None when the profiler records no device event, or
-    without ``device`` (the profiler's window over a var recon takes a
-    minute or more)."""
-    from torch.profiler import ProfilerActivity, profile
+def count_aten_ops(torch, fn):
+    """ATen ops dispatched by one call of fn (a torch.profiler window
+    over a var recon, which would count its device kernels, takes a
+    minute or more of the run's time limit)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -660,18 +677,7 @@ def count_launches(torch, fn, device=True):
     with Count():
         fn()
     torch.cuda.synchronize()
-    if not device:
-        return None, Count.n
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = sum(e.count for e in prof.key_averages()
-              if e.device_type.name == "CUDA")
-    log(f"count_launches: {Count.n} ATen ops, profiled in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return (dev or None), Count.n
+    return Count.n
 
 
 def var_stage_split(torch, ife, frames, count=True):
@@ -679,8 +685,8 @@ def var_stage_split(torch, ife, frames, count=True):
     frame by the host clock between synchronizes (the device stages are
     host-bound, so this is also their device span), averaged over the
     frames; each frame's wavefront depth, the CU-size histogram over
-    the frames, and (count) the device kernels and ATen ops of the first
-    frame's reconstruction.  The stages are encode_frame_var's, with
+    the frames, and (count) the ATen ops of the first frame's
+    reconstruction.  The stages are encode_frame_var's, with
     the config's RDOQ, sign hiding and SAO."""
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
     from kvazaar_tpu_torch.encoder.quadtree import reconstruct_frame_var
@@ -736,13 +742,12 @@ def var_stage_split(torch, ife, frames, count=True):
         for sz, c in zip(sizes, cells):
             cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
         if i == 0 and count:
-            first = count_launches(torch, recon)
+            aten = count_aten_ops(torch, recon)
     out = {k: v / len(frames) for k, v in totals.items()}
     out["frame_ms"] = sum(v for k, v in out.items()
                           if k != "build_var_plan_ms")
     if count:
-        (out["recon_device_kernels_and_copies"],
-         out["recon_aten_ops"]) = first
+        out["recon_aten_ops"] = aten
     return out, depths, cus
 
 
@@ -1163,9 +1168,8 @@ def var_p_stage_split(torch, ife, frames):
     also their device span): the coarse motion search, each size's
     intra and inter candidates, the whole search, tree and plan, merge
     RD, the cell MC, the direct inter pass alone, the whole var recon
-    (with the ATen ops of one call; phase 9b profiles a var recon's
-    device kernels), deblocking, SAO, the downloads, merge/AMVP + skip
-    flags and CABAC, all in ms."""
+    (with the ATen ops of one call), deblocking, SAO, the downloads,
+    merge/AMVP + skip flags and CABAC, all in ms."""
     from kvazaar_tpu_torch.encoder import quadtree as qt
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
     from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
@@ -1262,7 +1266,7 @@ def var_p_stage_split(torch, ife, frames):
         "sao_ms", "d2h_ms", "merge_amvp_skip_ms", "cabac_ms") if k in out)
     out["n_steps_real"] = vp.n_steps_real
     out["inter_share"] = float(inter8.mean())
-    out["recon_aten_ops"] = count_launches(torch, recon, device=False)[1]
+    out["recon_aten_ops"] = count_aten_ops(torch, recon)
     return out
 
 
@@ -2294,6 +2298,352 @@ def run_tenbit(torch, wavefront, dev):
     return rows, launches
 
 
+LOSSLESS_TIMED_BATCHES = 1            # phase 15's cell: timed batches
+LOSSLESS_WARM = 2                     # ... after a warm-up batch of 2
+
+
+def lossless_config(width, height, cu=16, **kw):
+    """The headline configuration with lossless=True (the encoder turns
+    deblocking off)."""
+    cfg = headline_config(width, height, cu)
+    cfg.lossless = True
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def modes_10_26(torch, rng, shape, dev):
+    """Seeded intra modes, about 60 % of them 10 or 26 (the RDPCM
+    modes)."""
+    m = np.where(rng.random(shape) < 0.6, rng.choice([10, 26], shape),
+                 rng.integers(0, 35, shape)).astype(np.int32)
+    return torch.from_numpy(m).to(dev)
+
+
+def compare_kernel_bypass(torch, frames, frames10, big10, dev):
+    """Phase 15 (i): the kernel's transquant-bypass instances == the plain
+    version per plane kind on the card (max abs error 0, the recon equal
+    to the source), at 832x480: intra at cu 16 (the cell's 8 frames), cu
+    8 and cu 32 (2 frames), each with the searched modes and with random
+    modes rich in 10 and 26; inter at cu 16 and 32 on a real P frame of
+    a lossless stream (the DPB is the source) and on a random inter map
+    with random MC planes; RDPCM off and on; at 10-bit intra cu 16 and
+    inter cu 32; and one 3840x2160 10-bit frame at cu 32 (intra and a
+    random inter map, compare-only).  The timed rows also time the
+    non-bypass launch at the same shape (``ms_transform``).  Returns the
+    rows by name."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import (IntraFrameEncoder,
+                                                         chroma_qp)
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import (launch_layout,
+                                                 wavefront_recon_planes)
+
+    rng = np.random.default_rng(15)
+    rows = {}
+    qp_c = chroma_qp(QP)
+
+    def row_of(name, plan, planes, modes, bd=8, rdpcm=False, inter=None,
+               timed=True):
+        kw = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+
+        def launch(lossless=True):
+            return wavefront_recon_planes(*planes, modes, plan, QP, qp_c,
+                                          bd, lossless=lossless,
+                                          rdpcm=rdpcm and lossless, **kw)
+
+        got = launch()
+        want = []
+
+        def plain():
+            for orig, mc, s, luma, qp in (
+                    (planes[0], kw.get("mc_y"), plan.cu_size, True, QP),
+                    (planes[1], kw.get("mc_cb"), plan.cu_size // 2, False,
+                     qp_c),
+                    (planes[2], kw.get("mc_cr"), plan.cu_size // 2, False,
+                     qp_c)):
+                want.extend(wavefront_recon_plain(
+                    orig, modes, plan, s, luma, qp, bd, kw.get("is_inter"),
+                    mc, None, True, rdpcm))
+
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = max_err(torch, got, want)
+        src_err = max_err(torch, got[0::2], planes)
+        row = dict(shape=name, cu=plan.cu_size, bitdepth=bd, rdpcm=rdpcm,
+                   items=planes[0].shape[0],
+                   variant="intra" if inter is None else "inter",
+                   max_abs_err=err, max_abs_rec_minus_source=src_err,
+                   plain_ms=plain_ms, n_steps=plan.n_steps)
+        if inter is not None:
+            row["inter_share"] = inter[0].float().mean().item()
+        else:
+            row["rdpcm_mode_share"] = ((modes == 10) | (modes == 26)
+                                       ).float().mean().item()
+        if timed:
+            row["ms"] = cuda_ms(torch, launch, 20)
+            row["ms_transform"] = cuda_ms(torch, lambda: launch(False), 20)
+            row["ratio_to_transform"] = row["ms"] / row["ms_transform"]
+            ring, threads, smem = launch_layout(plan, plan.cu_size,
+                                                planes[0].shape[2], bd)
+            row.update(ms_per_step=row["ms"] / plan.n_steps, ring=ring,
+                       threads=threads, smem_bytes=smem)
+            # The bypass does no transform: about 20 operations a
+            # sample (prediction, residual, DPCM).
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                (*planes, modes, *kw.values(), *got),
+                [(planes[0].numel() + 2 * planes[1].numel(), 0)])
+        log("bypass kernel vs plain:", json.dumps(row))
+        if err != 0 or src_err != 0:
+            raise RuntimeError(f"bypass kernel != plain or source at {row}")
+        rows[name] = row
+
+    def searched(ife, planes, bd=8):
+        return torch.stack([search_frame_modes(y, ife.plan, ife.lambda_satd,
+                                               bd)[0] for y in planes[0]])
+
+    # Intra at cu 16 (the cell's batch), cu 8 and cu 32.
+    for cu, n in ((16, BATCH), (8, 2), (32, 2)):
+        ife = IntraFrameEncoder(lossless_config(W, H, cu), device=dev)
+        planes = ife._upload(ife.host_pack_sources(frames[:n]))
+        modes = searched(ife, planes)
+        for rdpcm in (False, True):
+            row_of(f"intra cu{cu} 832x480 {n} frames rdpcm={rdpcm}",
+                   ife.plan, planes, modes, rdpcm=rdpcm)
+        row_of(f"intra cu{cu} 832x480 {n} frames, random modes 10/26",
+               ife.plan, planes, modes_10_26(torch, rng, tuple(modes.shape),
+                                             dev), rdpcm=True, timed=False)
+
+    # Inter at cu 16 and 32: a real P frame of a lossless IPPP stream
+    # (searched against frame 0, whose recon is its source), and random
+    # inputs.
+    for cu in (16, 32):
+        ife = IntraFrameEncoder(lossless_config(W, H, cu, intra_period=0),
+                                device=dev)
+        ife.submit_frames([frames[0]])
+        ys, cbs, crs = ife._upload(ife.host_pack_sources([frames[1]]))
+        modes, inter_map, _ref, _mv, mcs = ife._p_predict(ys[0], [ife._dpb])
+        real = (inter_map[None], *(m[None] for m in mcs))
+        for rdpcm in (False, True):
+            row_of(f"inter cu{cu} 832x480 P frame rdpcm={rdpcm}", ife.plan,
+                   (ys, cbs, crs), modes[None], rdpcm=rdpcm, inter=real)
+        rand_inter = (torch.from_numpy(rng.random(
+            (1, *inter_map.shape)) < 0.5).to(dev),
+            *(torch.from_numpy(rng.integers(0, 256, tuple(p.shape),
+                                            dtype=np.int32)).to(dev)
+              for p in (ys, cbs, crs)))
+        row_of(f"inter cu{cu} 832x480 random", ife.plan, (ys, cbs, crs),
+               modes_10_26(torch, rng, (1, *inter_map.shape), dev),
+               rdpcm=True, inter=rand_inter, timed=False)
+
+    # 10-bit: intra cu 16 over the 8-frame batch, inter cu 32 on a real
+    # P frame, RDPCM on.
+    ife = IntraFrameEncoder(lossless_config(W, H, 16, input_bitdepth=10),
+                            device=dev)
+    p10 = ife._upload(ife.host_pack_sources(frames10))
+    p16 = tuple(p.to(torch.int16) for p in p10)
+    row_of("10-bit intra cu16 832x480 8 frames", ife.plan, p16,
+           searched(ife, p10, 10), bd=10, rdpcm=True)
+    ife = IntraFrameEncoder(lossless_config(W, H, 32, input_bitdepth=10,
+                                            intra_period=0), device=dev)
+    ife.submit_frames([frames10[0]])
+    ys, cbs, crs = ife._upload(ife.host_pack_sources([frames10[1]]))
+    modes, inter_map, _ref, _mv, mcs = ife._p_predict(ys[0], [ife._dpb])
+    row_of("10-bit inter cu32 832x480 P frame", ife.plan,
+           tuple(p.to(torch.int16) for p in (ys, cbs, crs)), modes[None],
+           bd=10, rdpcm=True, inter=(inter_map[None],
+                                     *(m[None].to(torch.int16)
+                                       for m in mcs)))
+
+    # One 3840x2160 10-bit frame at cu 32: intra and a random inter map.
+    big_w, big_h = BIG[1]
+    ife = IntraFrameEncoder(lossless_config(big_w, big_h, 32,
+                                            input_bitdepth=10), device=dev)
+    planes = tuple(p.to(torch.int16) for p in
+                   ife._upload(ife.host_pack_sources(big10[:1])))
+    modes = modes_10_26(torch, rng, (1, ife.plan.blocks_y,
+                                     ife.plan.blocks_x), dev)
+    row_of(f"10-bit intra cu32 {big_w}x{big_h} 1 frame", ife.plan, planes,
+           modes, bd=10, rdpcm=True, timed=False)
+    mcs = tuple(p.to(torch.int16) for p in
+                ife._upload(ife.host_pack_sources(big10[1:2])))
+    row_of(f"10-bit inter cu32 {big_w}x{big_h} 1 frame", ife.plan, planes,
+           modes, bd=10, rdpcm=True, timed=False,
+           inter=(torch.from_numpy(rng.random(tuple(modes.shape)) < 0.5
+                                   ).to(dev), *mcs))
+    return rows
+
+
+def run_lossless_cell(torch, wavefront, frames, dev):
+    """Phase 15 (ii): the cell lossless-832x480, the headline
+    configuration with lossless=True: one warm-up batch of LOSSLESS_WARM
+    frames (the Python CABAC takes about 5 s a frame and has nothing to
+    warm), then LOSSLESS_TIMED_BATCHES batches of the 8-frame clip
+    through Encoder.encode_stream (with the recon, to check it against the
+    source), with the bypass launches counted around the timed run; and
+    a stage split: the device's search and bypass reconstruction of one
+    batch (CUDA events), its download, and the Python CABAC of one frame
+    (wall clock), per frame.  Returns its summary."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    enc = Encoder(lossless_config(W, H), device=dev)
+    if enc.cfg.deblock or not enc._intra.params.transquant_bypass:
+        raise RuntimeError("lossless cell: deblocking on or no bypass")
+    list(enc.encode_stream(frames[:LOSSLESS_WARM]))      # warm-up
+    torch.cuda.synchronize()
+    clip = frames[:BATCH] * LOSSLESS_TIMED_BATCHES
+    for counts in (wavefront.LAUNCHES, wavefront.BYPASS_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(clip, need_recon=True))
+    dt = time.perf_counter() - t0
+    launches = dict(wavefront.BYPASS_LAUNCHES)
+    if launches["intra"] < LOSSLESS_TIMED_BATCHES or launches["intra"] != \
+            wavefront.LAUNCHES["intra"]:
+        raise RuntimeError(f"lossless cell: expected one bypass launch a "
+                           f"batch, got {launches} / {wavefront.LAUNCHES}")
+    if len(results) != len(clip):
+        raise RuntimeError(f"lossless cell: {len(results)} results for "
+                           f"{len(clip)} frames")
+    exact = all(np.array_equal(r, s) for (_c, _i, rec), f in
+                zip(results, clip) for r, s in zip(rec, f))
+    psnr = {r[1].psnr_y for r in results}
+    if not exact or psnr != {999.99}:
+        raise RuntimeError(f"lossless cell: recon != source ({exact}) or "
+                           f"PSNR-Y {psnr}")
+    bits = [r[1].bits for r in results]
+    summary = dict(frames=len(clip), batch=BATCH, fps=len(clip) / dt,
+                   bits_per_frame=sum(bits) / len(bits),
+                   recon_equals_source=exact, psnr_y=psnr.pop(),
+                   kernel_launches_bypass=launches,
+                   stage_wall_s=enc.stats)
+    log("lossless-832x480 encode_stream:", json.dumps(summary))
+
+    ife = enc._intra
+    ys, cbs, crs = ife._upload(ife.host_pack_sources(frames[:BATCH]))
+    box = {}
+
+    def search():
+        box["modes"] = torch.stack([search_frame_modes(
+            y, ife.plan, ife.lambda_satd, 8, True)[0] for y in ys])
+
+    def recon():
+        reconstruct_frames(ys, cbs, crs, box["modes"], ife.plan, QP,
+                           ife.qp_c, lossless=True)
+
+    split = {}
+    for name, fn in (("search", search), ("recon_bypass", recon)):
+        fn()
+        split[name + "_ms"] = cuda_ms(torch, fn, 3) / BATCH
+    handle = ife.submit_frames(frames[:BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, modes, lv, rec, _sses, sao = ife.download_frames(handle)
+    split["d2h_ms"] = 1000 * (time.perf_counter() - t0) / BATCH
+    t0 = time.perf_counter()
+    ife._host_finalize(modes[0], lv[0][0], lv[1][0], lv[2][0], None,
+                       None, None)
+    split["cabac_python_ms"] = 1000 * (time.perf_counter() - t0)
+    split["cabac_share"] = split["cabac_python_ms"] / sum(split.values())
+    log("lossless-832x480 stage split (ms/frame):", json.dumps(split))
+    summary["split"] = split
+    enc.close()
+    return summary
+
+
+def sse_card_equals_cpu(torch, dev):
+    """Phase 15 (iii): the pipelined FrameInfo (PSNR from the device
+    SSEs, summed in the JAX package's float32 order) of 128x128 noise at
+    QP 51, whose SSEs pass 2^24: card == CPU for all-intra (8 frames) and
+    IPPP (IDR + 3 P), bytes and every field."""
+    import dataclasses
+    from kvazaar_tpu_torch.api import Encoder
+    rng = np.random.default_rng(150)
+    w = h = 128
+    clip = [tuple(rng.integers(0, 256, s).astype(np.uint8)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+            for _ in range(BATCH)]
+    for period, n in ((1, BATCH), (0, 4)):
+        cfg = headline_config(w, h)
+        cfg.qp, cfg.intra_period = 51, period
+        out = []
+        for d in (dev, "cpu"):
+            enc = Encoder(cfg, device=d)
+            out.append(list(enc.encode_stream(clip[:n])))
+            enc.close()
+        card, host = out
+        if [c for c, _, _ in card] != [c for c, _, _ in host] or [
+                dataclasses.astuple(i) for _, i, _ in card] != [
+                dataclasses.astuple(i) for _, i, _ in host]:
+            raise RuntimeError(f"pipelined FrameInfo card != CPU (period "
+                               f"{period})")
+        log(f"128x128 QP 51 period {period}: card == CPU bytes and "
+            f"FrameInfo over {n} frames (PSNR-Y "
+            f"{[i.psnr_y for _, i, _ in card]})")
+
+
+def run_lossless(torch, wavefront, dev):
+    """Phase 15: lossless (transquant bypass) and implicit RDPCM.  The
+    bypass instances == plain (``compare_kernel_bypass``); the cell
+    lossless-832x480; the pipelined FrameInfo above 2^24, card == CPU;
+    card == CPU bytes and recon at 416x240 for lossless streams with the
+    bypass launches counted around the card runs.  Returns (kernel rows,
+    launches per bypass record)."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    frames = synth_clip_natural(FRAMES, W, H, seed=0)
+    frames10 = to_10bit(frames, 150)
+    big10 = to_10bit(synth_clip_natural(2, *BIG[1], seed=0), 151)
+    rows = compare_kernel_bypass(torch, frames, frames10, big10, dev)
+    cell = run_lossless_cell(torch, wavefront, frames, dev)
+    sse_card_equals_cpu(torch, dev)
+
+    w, h = 416, 240
+    small = synth_clip_natural(5, w, h, seed=0)
+    small10 = to_10bit(small[:1], 152)
+    counted = {}
+
+    def streams(key, *cases):
+        for k in wavefront.BYPASS_LAUNCHES:
+            wavefront.BYPASS_LAUNCHES[k] = 0
+        for name, cfg, clip in cases:
+            card_equals_cpu(name, cfg, clip, dev)
+        counted[key] = dict(wavefront.BYPASS_LAUNCHES)
+
+    streams("intra",
+            (f"lossless RDPCM --period 1 cu 16 {w}x{h}",
+             lossless_config(w, h, implicit_rdpcm=True), small[:1]))
+    streams("cu32",
+            (f"lossless Config() --period 1 {w}x{h}",
+             Config(width=w, height=h, qp=QP, lossless=True,
+                    intra_period=1), small[:2]))
+    streams("inter",
+            (f"lossless RDPCM IPPP cu 16 {w}x{h}",
+             lossless_config(w, h, implicit_rdpcm=True, intra_period=0),
+             small[:3]),
+            (f"lossless fixed GOP 4 {w}x{h}",
+             lossless_config(w, h, gop_len=4, intra_period=0), small))
+    streams("10bit",
+            (f"10-bit lossless RDPCM --period 1 {w}x{h}",
+             lossless_config(w, h, implicit_rdpcm=True, input_bitdepth=10),
+             small10))
+    card_equals_cpu(f"lossless medium --gop 0 {w}x{h}", config_from_preset(
+        "medium", width=w, height=h, qp=QP, lossless=True, rdoq=False,
+        sao=False, intra_period=0, gop_len=1, ref_frames=1), small[:2], dev)
+    if not (counted["intra"]["rdpcm"] and counted["cu32"]["intra"]
+            and counted["inter"]["inter"] and counted["10bit"]["10bit"]):
+        raise RuntimeError(f"lossless streams: missing bypass launches "
+                           f"{counted}")
+    launches = dict(cu16=cell["kernel_launches_bypass"]["intra"],
+                    cu32=counted["cu32"]["intra"],
+                    inter=counted["inter"]["inter"],
+                    tenbit=counted["10bit"]["intra"])
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2386,6 +2736,8 @@ def main() -> int:
                                  wavefront, clip46, dev)
     rows10, launches10 = timed("phase 14", run_tenbit, torch, wavefront,
                                dev)
+    rows_ll, launches_ll = timed("phase 15", run_lossless, torch,
+                                 wavefront, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -2412,6 +2764,18 @@ def main() -> int:
                 "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
                 "replaces": replaces, "launches": n,
                 "max_abs_err": max(r["max_abs_err"] for r in rows10.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
+
+    def bypass_record(name, replaces, n, row):
+        """A bypass instance at the shape of the path that runs it; the
+        error over every bypass row (all are 0 or the phase failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_ll.values()),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None}
@@ -2448,7 +2812,21 @@ def main() -> int:
                f"inter cu32 {BIG[1][0]}x{BIG[1][1]} 1 frame"),
               ("wavefront_recon_qpmap_10bit",
                "kvazaar_tpu/ops/wavefront_pallas.py:283", "qp_map",
-               "qp-map cu32 832x480 P frame")))]}))
+               "qp-map cu32 832x480 P frame"))),
+        *(bypass_record(name, replaces, launches_ll[key], rows_ll[shape])
+          for name, replaces, key, shape in (
+              ("wavefront_recon_bypass",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "cu16",
+               "intra cu16 832x480 8 frames rdpcm=False"),
+              ("wavefront_recon_bypass_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "cu32",
+               "intra cu32 832x480 2 frames rdpcm=False"),
+              ("wavefront_recon_bypass_inter",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "inter",
+               "inter cu16 832x480 P frame rdpcm=True"),
+              ("wavefront_recon_bypass_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "tenbit",
+               "10-bit intra cu16 832x480 8 frames")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,6 +82,18 @@
 //   clip 1023, forward shift log2 S + 1, inverse shift 10 and the
 //   quantizer's shifts at bitdepth 10 (without a QpBdOffset, as the
 //   JAX package quantizes).
+// - Lossless coding (transquant bypass) is an instance of its own at
+//   every CU size and sample depth, without QP maps (the TPU kernel has
+//   none; the JAX package reconstructs lossless frames with its XLA
+//   scan): the forward and inverse transforms and the quantizers are
+//   compiled out, a block's levels are its residual (source minus the
+//   intra or MC prediction) and its reconstruction is its source.  With
+//   implicit RDPCM, a run-time flag of that instance only, an intra block
+//   of mode 10 codes the horizontal and one of mode 26 the vertical
+//   differences of its residual (luma and chroma, through the shared
+//   mode; inter blocks never), the lanes reading their neighbours'
+//   residuals through the group's transform buffer, and luma predicts
+//   without the DC / 10 / 26 boundary fixups.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -231,6 +243,10 @@ struct Params {
   int ring, ring_w;          // ring depth K and row stride (luma width)
   int off_ring, off_coef, off_groups;  // shared memory offsets (bytes);
                                        // the step offsets start at 0
+  // Implicit RDPCM (the bypass instance only).  Last, so that the
+  // fields before it keep their offsets: placed after ring_w, it made
+  // the other cu 16 instances 4 % slower on an H100.
+  int rdpcm;
 };
 
 // Words of one S x S block of staged samples of sb bytes each.
@@ -459,8 +475,9 @@ __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
 
 // One plane item (one frame of one plane kind) in thread block order;
 // QP: the planes carry per-block QP maps (a separate instance, so that
-// the scalar path keeps its registers); HBD: 10-bit samples.
-template <int S, bool QP, bool HBD>
+// the scalar path keeps its registers); HBD: 10-bit samples; LL:
+// lossless (transquant bypass).
+template <int S, bool QP, bool HBD, bool LL>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                           unsigned char* smem) {
   using Sh = Shape<S>;
@@ -513,6 +530,9 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
   int16_t* levels = pl.levels + (size_t)item * p.nblk * S * S;
   const int w = pl.w, ring = p.ring, ring_w = p.ring_w;
   const bool luma = pl.luma != 0;
+  // The luma boundary fixups (DC, modes 10 and 26), which implicit RDPCM
+  // turns off.
+  const bool fixups = luma && !(LL && p.rdpcm);
   constexpr int shift1 = LOG2S + D::BITS - 9;
   const int sgn = 1 - 2 * (q & 1);
   const uint32_t m_bx = reciprocal(p.blocks_x), m_ring = reciprocal(ring);
@@ -619,10 +639,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
         for (int i = 0; i < O; ++i) {
           const int x = owned_col<S>(q, i);
           int v = dc;
-          if (luma && S < 32 && y == 0)
+          if (fixups && S < 32 && y == 0)
             v = x == 0 ? (LEFT(ref, 0) + 2 * dc + TOP(ref, 0) + 2) >> 2
                        : (TOP(ref, x) + 3 * dc + 2) >> 2;
-          else if (luma && S < 32 && x == 0)
+          else if (fixups && S < 32 && x == 0)
             v = (LEFT(ref, y) + 3 * dc + 2) >> 2;
           pred[i] = v;
         }
@@ -654,10 +674,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
           const int at = S + (vertical ? x : y) + (ta >> 5) + 1;
           const int f = ta & 31;
           int v = ((32 - f) * mref[at] + f * mref[at + 1] + 16) >> 5;
-          if (luma && S < 32 && mode == 10 && y == 0)
+          if (fixups && S < 32 && mode == 10 && y == 0)
             v = clamp_int(LEFT(ref, 0) + ((TOP(ref, x) - corner) >> 1), 0,
                           kMaxV);
-          if (luma && S < 32 && mode == 26 && x == 0)
+          if (fixups && S < 32 && mode == 26 && x == 0)
             v = clamp_int(TOP(ref, 0) + ((LEFT(ref, y) - corner) >> 1), 0,
                           kMaxV);
           pred[i] = v;
@@ -667,70 +687,95 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 #undef TOP
     }
 
-    int v[S], out[O];
-    // Residual; forward stage 1 (columns): E[k][m] = sum_n T[k][n]
-    // X[n][m], lane (m, q) computing the part's k.
-#pragma unroll
-    for (int i = 0; i < O; ++i)
-      buf_a[y * SP + owned_col<S>(q, i)] =
-          staged<S, HBD>(src, pl.orig_bytes, y, owned_col<S>(q, i)) -
-          pred[i];
-    group_sync();
-#pragma unroll
-    for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
-    fwd_part<S>(v, cf, sgn, out);
-#pragma unroll
-    for (int i = 0; i < O; ++i)
-      buf_b[fwd_out<S>(q, i) * SP + y] = round_shift(out[i], shift1);
-    // Forward stage 2 (rows): C[k][l] = sum_m T[l][m] E[k][m], lane
-    // (k, q); flat quantization and dequantization.
-    group_sync();
-#pragma unroll
-    for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
-    fwd_part<S>(v, cf, sgn, out);
-    int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-      const int l = fwd_out<S>(q, i);
-      const int c = round_shift(out[i], LOG2S + 6);
-      const int mag = c < 0 ? -c : c;
-      int lv = (mag * q_scale + q_offset) >> q_bits;
-      lv = lv > 32767 ? 32767 : lv;
-      lv = c < 0 ? -lv : lv;
-      lv_row[l] = (int16_t)lv;
-      buf_a[y * SP + l] = clamp_int(
-          (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
-          -32768, 32767);
-    }
-    // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
-    // clipped, lane (m, q) computing n = q*M.. and their mirrors.
-    group_sync();
-    int lo[M], hi[M];
-#pragma unroll
-    for (int k = 0; k < S; ++k) v[k] = buf_a[k * SP + y];
-    inv_part<S>(v, ci, lo, hi);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      buf_b[(q * M + i) * SP + y] =
-          clamp_int(round_shift(lo[i], 7), -32768, 32767);
-      buf_b[(S - 1 - q * M - i) * SP + y] =
-          clamp_int(round_shift(hi[i], 7), -32768, 32767);
-    }
-    // Inverse stage 2 (rows): r[n][l] = sum_m T[m][l] E[n][m], lane
-    // (n, q) computing its own columns; reconstruct.
-    group_sync();
-#pragma unroll
-    for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
-    inv_part<S>(v, ci, lo, hi);
-    constexpr int shift2 = 20 - D::BITS;
     int px[O];
+    if constexpr (LL) {
+      // Transquant bypass: the residual, or its DPCM along the mode's
+      // direction, is the level array; the reconstruction is the source.
+      // The residual goes through buf_a, where each lane reads its left
+      // (mode 10) or upper (mode 26) neighbour.
+      int res[O];
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      px[i] = clamp_int(pred[i] + clamp_int(round_shift(lo[i], shift2),
-                                            -32768, 32767), 0, kMaxV);
-      px[M + i] = clamp_int(
-          pred[M + i] + clamp_int(round_shift(hi[i], shift2), -32768, 32767),
-          0, kMaxV);
+      for (int i = 0; i < O; ++i) {
+        px[i] = staged<S, HBD>(src, pl.orig_bytes, y, owned_col<S>(q, i));
+        res[i] = px[i] - pred[i];
+        buf_a[y * SP + owned_col<S>(q, i)] = res[i];
+      }
+      const int dpcm = p.rdpcm && !inter ? mode : -1;
+      group_sync();
+      int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const int x = owned_col<S>(q, i);
+        int lv = res[i];
+        if (dpcm == 10 && x > 0) lv -= buf_a[y * SP + x - 1];
+        if (dpcm == 26 && y > 0) lv -= buf_a[(y - 1) * SP + x];
+        lv_row[x] = (int16_t)lv;
+      }
+    } else {
+      int v[S], out[O];
+      // Residual; forward stage 1 (columns): E[k][m] = sum_n T[k][n]
+      // X[n][m], lane (m, q) computing the part's k.
+#pragma unroll
+      for (int i = 0; i < O; ++i)
+        buf_a[y * SP + owned_col<S>(q, i)] =
+            staged<S, HBD>(src, pl.orig_bytes, y, owned_col<S>(q, i)) -
+            pred[i];
+      group_sync();
+#pragma unroll
+      for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
+      fwd_part<S>(v, cf, sgn, out);
+#pragma unroll
+      for (int i = 0; i < O; ++i)
+        buf_b[fwd_out<S>(q, i) * SP + y] = round_shift(out[i], shift1);
+      // Forward stage 2 (rows): C[k][l] = sum_m T[l][m] E[k][m], lane
+      // (k, q); flat quantization and dequantization.
+      group_sync();
+#pragma unroll
+      for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
+      fwd_part<S>(v, cf, sgn, out);
+      int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const int l = fwd_out<S>(q, i);
+        const int c = round_shift(out[i], LOG2S + 6);
+        const int mag = c < 0 ? -c : c;
+        int lv = (mag * q_scale + q_offset) >> q_bits;
+        lv = lv > 32767 ? 32767 : lv;
+        lv = c < 0 ? -lv : lv;
+        lv_row[l] = (int16_t)lv;
+        buf_a[y * SP + l] = clamp_int(
+            (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+            -32768, 32767);
+      }
+      // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
+      // clipped, lane (m, q) computing n = q*M.. and their mirrors.
+      group_sync();
+      int lo[M], hi[M];
+#pragma unroll
+      for (int k = 0; k < S; ++k) v[k] = buf_a[k * SP + y];
+      inv_part<S>(v, ci, lo, hi);
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        buf_b[(q * M + i) * SP + y] =
+            clamp_int(round_shift(lo[i], 7), -32768, 32767);
+        buf_b[(S - 1 - q * M - i) * SP + y] =
+            clamp_int(round_shift(hi[i], 7), -32768, 32767);
+      }
+      // Inverse stage 2 (rows): r[n][l] = sum_m T[m][l] E[n][m], lane
+      // (n, q) computing its own columns; reconstruct.
+      group_sync();
+#pragma unroll
+      for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
+      inv_part<S>(v, ci, lo, hi);
+      constexpr int shift2 = 20 - D::BITS;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        px[i] = clamp_int(pred[i] + clamp_int(round_shift(lo[i], shift2),
+                                              -32768, 32767), 0, kMaxV);
+        px[M + i] = clamp_int(
+            pred[M + i] + clamp_int(round_shift(hi[i], shift2), -32768, 32767),
+            0, kMaxV);
+      }
     }
     Pix* rec_row = rec + (size_t)(y0 + y) * w + x0;
     Pix* edge_row = hrow + rc * ring_w + x0;
@@ -882,8 +927,8 @@ Layout layout_for(int s_max, bool hbd, int n_steps, int n_slots, int ring,
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
 // CU / 2 (chroma); QP: the planes carry per-block QP maps; HBD: 10-bit
-// samples.
-template <int CU, bool QP, bool HBD>
+// samples; LL: lossless (transquant bypass, never with QP maps).
+template <int CU, bool QP, bool HBD, bool LL>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -916,28 +961,31 @@ __global__ void __launch_bounds__(max_threads(CU))
   __syncthreads();
 
   if (pl.s == CU)
-    run_plane<CU, QP, HBD>(p, pl, item, smem);
+    run_plane<CU, QP, HBD, LL>(p, pl, item, smem);
   else
-    run_plane<CU / 2, QP, HBD>(p, pl, item, smem);
+    run_plane<CU / 2, QP, HBD, LL>(p, pl, item, smem);
 }
 
-// The kernel instance of CU size cu (32, 16 or 8), with or without QP
-// maps, at 8 or 10 bits.
+// The kernel instance of CU size cu (32, 16 or 8) at 8 or 10 bits: with
+// or without QP maps, or lossless.
 using KernelFn = void (*)(const Params);
 
-template <bool HBD>
-KernelFn kernel_at(int cu, bool qp) {
-  if (cu == 32)
-    return qp ? wavefront_kernel<32, true, HBD>
-              : wavefront_kernel<32, false, HBD>;
-  if (cu == 16)
-    return qp ? wavefront_kernel<16, true, HBD>
-              : wavefront_kernel<16, false, HBD>;
-  return qp ? wavefront_kernel<8, true, HBD> : wavefront_kernel<8, false, HBD>;
+template <int CU, bool HBD>
+KernelFn kernel_of(bool qp, bool ll) {
+  return ll ? wavefront_kernel<CU, false, HBD, true>
+            : (qp ? wavefront_kernel<CU, true, HBD, false>
+                  : wavefront_kernel<CU, false, HBD, false>);
 }
 
-KernelFn kernel_for(int cu, bool qp, bool hbd) {
-  return hbd ? kernel_at<true>(cu, qp) : kernel_at<false>(cu, qp);
+template <bool HBD>
+KernelFn kernel_at(int cu, bool qp, bool ll) {
+  return cu == 32   ? kernel_of<32, HBD>(qp, ll)
+         : cu == 16 ? kernel_of<16, HBD>(qp, ll)
+                    : kernel_of<8, HBD>(qp, ll);
+}
+
+KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll) {
+  return hbd ? kernel_at<true>(cu, qp, ll) : kernel_at<false>(cu, qp, ll);
 }
 
 }  // namespace
@@ -965,7 +1013,8 @@ extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
 // others 32 or 16), 16 (the others 16 or 8) or at most 8 (the others 8
 // or 4).  inter and every
 // plane's mc are all null (intra variant) or all set (inter); so are the
-// planes' qp, which hold values in 0..51.  entries
+// planes' qp, which hold values in 0..51.  lossless (transquant bypass)
+// takes no qp; rdpcm (implicit RDPCM) needs lossless.  entries
 // is scratch of (items, nblk) uint32 on the device.  ring is the edge
 // ring's depth and ring_w the width of the widest plane.  bitdepth 8
 // takes uint8 or int32 orig and mc and writes uint8 rec; 10 takes int16
@@ -976,11 +1025,12 @@ extern "C" int ktt_wavefront_recon(
     const uint32_t* blk_info, const int32_t* step_start,
     const int32_t* modes, const uint8_t* inter, uint32_t* entries, int bm,
     int blocks_x, int nblk, int n_steps, int n_slots, int ring, int ring_w,
-    void* stream) {
+    int lossless, int rdpcm, void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
       bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1 ||
-      (bitdepth != 8 && bitdepth != 10))
+      (bitdepth != 8 && bitdepth != 10) || (rdpcm && !lossless) ||
+      (lossless && planes[0].qp != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool hbd = bitdepth == 10;
   Params p{};
@@ -1021,10 +1071,11 @@ extern "C" int ktt_wavefront_recon(
   p.n_slots = n_slots;
   p.ring = ring;
   p.ring_w = ring_w;
+  p.rdpcm = rdpcm != 0;
   p.off_ring = l.off_ring;
   p.off_coef = l.off_coef;
   p.off_groups = l.off_groups;
-  const KernelFn kernel = kernel_for(cu, qp, hbd);
+  const KernelFn kernel = kernel_for(cu, qp, hbd, lossless != 0);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

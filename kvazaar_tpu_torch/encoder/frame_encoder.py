@@ -89,6 +89,7 @@ from kvazaar_tpu_torch.ops.deblock import deblock_frame
 from kvazaar_tpu_torch.ops.quant import int32_table
 from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
                                        sao_decide_frame_device, sao_stats)
+from kvazaar_tpu_torch.ops.sse import FrameSse, PlaneSse
 
 
 def chroma_qp(qp: int) -> int:
@@ -187,8 +188,6 @@ def unsupported(cfg: Config) -> list:
                      ("sign hiding on the fixed CU grid",
                       cfg.signhide and fixed_grid),
                      ("transform skip", cfg.transform_skip),
-                     ("lossless", cfg.lossless),
-                     ("implicit RDPCM", cfg.implicit_rdpcm),
                      ("scaling lists", cfg.scaling_list != "off"),
                      ("intra TU split (--tr-depth-intra)",
                       cfg.tr_depth_intra > 0),
@@ -378,7 +377,7 @@ class PFrameMixin:
         per-CTU QP on the device (the search stays at the config's QP).
         Returns (modes uint8, inter map bool, ref_sel int32, mv int32
         (By, Bx, 2), levels (y, cb, cr), deblocked recon uint8/int16 (y, cb,
-        cr), sses float32 (3,)), on the device."""
+        cr), the one-frame batch's FrameSse), on the device."""
         plan = self.plan
         modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
             self._p_predict(yp, refs)
@@ -391,7 +390,8 @@ class PFrameMixin:
             yp[None], one(cbp), one(crp), modes[None], plan, self.cfg.qp,
             self.qp_c, self.bitdepth, is_inter=inter_map[None],
             mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr),
-            qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu))
+            qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu),
+            lossless=self.cfg.lossless)
         bs = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
@@ -406,7 +406,7 @@ class PFrameMixin:
 
         return (modes.to(torch.uint8), inter_map, ref_sel, mv,
                 (lv_y[0], first(lv_cb), first(lv_cr)),
-                tuple(first(r) for r in recs), sses[0])
+                tuple(first(r) for r in recs), sses)
 
     def submit_p(self, y, cb, cr, refs, qp_ctu=None):
         """Upload one frame and queue its P program (asynchronous on a
@@ -436,7 +436,7 @@ class PFrameMixin:
 
         want_pixels = need_recon or self.cfg.hash != "none"
         return ((tuple(host(lv) for lv in levels), host(modes),
-                 host(inter_map), host(ref_sel), host(mv), host(sses)),
+                 host(inter_map), host(ref_sel), host(mv), sses.host()[0]),
                 tuple(host_pixels(r) for r in recs) if want_pixels
                 else (None, None, None), recs)
 
@@ -580,11 +580,18 @@ class PFrameMixin:
                 np.ones((c8, c8), np.int32)).astype(np.uint8)
         return fd
 
+    def _native_cabac(self) -> bool:
+        """The native CABAC codes the slice data: where its library
+        builds, and not for lossless streams, which the JAX package codes
+        with the Python serializer (the native library's bypass mode is
+        not bound)."""
+        return native.available() and not self.params.transquant_bypass
+
     def _slice_data(self, fd, slice_type: int, qp: int, nref: int = 1):
-        """P or B slice data: native CABAC (WPP substreams) where the
-        library builds, else the Python serializer.  Returns (bytes,
+        """P or B slice data: native CABAC (WPP substreams) where
+        ``_native_cabac``, else the Python serializer.  Returns (bytes,
         substream sizes)."""
-        if native.available():
+        if self._native_cabac():
             return native.encode_slice_data_native_p(
                 self.params, fd, qp, self.params.wpp, slice_type=slice_type,
                 nthreads=self.cfg.threads or 4, nref_l0=nref)
@@ -717,8 +724,8 @@ class PFrameMixin:
         planes and each list's reference (y, cb, cr) planes.  The CUs'
         L0 / L1 / bi-averaged MC planes go into the wavefront kernel's
         inter variant.  Returns (modes uint8, inter map, dirs, mv0, mv1,
-        levels (y, cb, cr), deblocked recon uint8/int16 (y, cb, cr), sses
-        float32 (3,)), on the device."""
+        levels (y, cb, cr), deblocked recon uint8/int16 (y, cb, cr), the
+        one-frame batch's FrameSse), on the device."""
         plan = self.plan
         modes, inter_map, dirs, mv0, mv1 = self._b_predict(yp, ref0[0],
                                                            ref1[0])
@@ -731,7 +738,8 @@ class PFrameMixin:
         rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr = reconstruct_frames(
             yp[None], one(cbp), one(crp), modes[None], plan, self.cfg.qp,
             self.qp_c, self.bitdepth, is_inter=inter_map[None],
-            mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr))
+            mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr),
+            lossless=self.cfg.lossless)
         bs = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
@@ -745,7 +753,7 @@ class PFrameMixin:
 
         return (modes.to(torch.uint8), inter_map, dirs, mv0, mv1,
                 (lv_y[0], first(lv_cb), first(lv_cr)),
-                tuple(first(r) for r in recs), sses[0])
+                tuple(first(r) for r in recs), sses)
 
     def _merge_amvp_b(self, inter_map, dirs, mv0, mv1, poc, ref_pocs):
         """Scalar loop in decode order over a fixed-grid B frame's inter
@@ -847,7 +855,7 @@ class PFrameMixin:
         return FrameResult(nals=nal, recon_y=rec_np[0], recon_cb=rec_np[1],
                            recon_cr=rec_np[2], frame_data=fd,
                            bits=len(nal) * 8,
-                           sse=tuple(float(v) for v in host(sses))), recs
+                           sse=tuple(float(v) for v in sses.host()[0])), recs
 
 
 class IntraFrameEncoder(PFrameMixin):
@@ -876,6 +884,11 @@ class IntraFrameEncoder(PFrameMixin):
         self.coded_h = -(-cfg.height // self.cu) * self.cu
         self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
                                     self.chroma, tiles=(1, 1))
+        if cfg.lossless:
+            # Deblocking would change the bypassed samples; as in the JAX
+            # package (and the reference's --lossless), the encoder turns
+            # it off in the config it was given.
+            cfg.deblock = False
         self.params = StreamParams(
             width=self.coded_w, height=self.coded_h,
             bitdepth=self.bitdepth,
@@ -883,6 +896,8 @@ class IntraFrameEncoder(PFrameMixin):
             qp=cfg.qp,
             deblock_enabled=cfg.deblock,
             sao_enabled=cfg.sao,
+            transquant_bypass=cfg.lossless,
+            implicit_rdpcm=cfg.implicit_rdpcm,
             source_scan_type=cfg.source_scan_type,
             sign_hiding=cfg.signhide and not cfg.lossless,
             wpp=cfg.wpp,
@@ -933,7 +948,7 @@ class IntraFrameEncoder(PFrameMixin):
     def _encode_from_planes(self, ys, cbs, crs, qp_ctu=None):
         """Device program for a (B, H, W) batch: returns (modes uint8
         (B, By, Bx), levels int16 (y, cb, cr), recon uint8/int16 (y, cb, cr),
-        sses float32 (B, 3)), all on the encoder's device.  qp_ctu: a
+        FrameSse), all on the encoder's device.  qp_ctu: a
         one-frame batch's (1, Cy, Cx) per-CTU QP on the device: the
         search stays at the config's QP, the reconstruction takes each
         block's QP and deblocking the effective map."""
@@ -945,7 +960,8 @@ class IntraFrameEncoder(PFrameMixin):
          lv_cr) = reconstruct_frames(
              ys, cbs, crs, modes, self.plan, self.cfg.qp, self.qp_c,
              self.bitdepth,
-             qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu))
+             qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu),
+             lossless=self.cfg.lossless, rdpcm=self.cfg.implicit_rdpcm)
         recs, sses = self._deblock_sse(
             (ys, cbs, crs), (rec_y, rec_cb, rec_cr),
             qp_map=self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)))
@@ -990,7 +1006,8 @@ class IntraFrameEncoder(PFrameMixin):
         bs_h) maps of a P frame, None = all-intra; qp_map: a one-frame
         batch's (By, Bx) per-block QP, None = the config's QP) and take
         each frame's SSE against its source.  Returns (recon uint8/int16 (y,
-        cb, cr), sses float32 (B, 3))."""
+        cb, cr), the SSEs as an ops.sse.FrameSse, whose ``host()`` gives
+        them as (B, 3) float32 in the JAX package's summation order)."""
         ys, cbs, crs = srcs
         rec_y, rec_cb, rec_cr = recs
         if self.cfg.deblock:
@@ -1012,19 +1029,13 @@ class IntraFrameEncoder(PFrameMixin):
         tw, th = self.cfg.width, self.cfg.height
 
         def sse(a, b):
+            if b is None:
+                return None
             f = a.shape[1] * 2 // self.coded_h     # 2=luma, 1=chroma
-            hh, ww = th * f // 2, tw * f // 2
-            d = (a[:, :hh, :ww].to(torch.float32)
-                 - b[:, :hh, :ww].to(torch.float32))
-            return torch.sum(d * d, dim=(1, 2))
+            return PlaneSse(a, b, th * f // 2, tw * f // 2)
 
-        zeros = torch.zeros(ys.shape[0], dtype=torch.float32,
-                            device=ys.device)
-        sses = torch.stack(
-            [sse(rec_y, ys),
-             sse(rec_cb, cbs) if cbs is not None else zeros,
-             sse(rec_cr, crs) if crs is not None else zeros], dim=1)
-        return (rec_y, rec_cb, rec_cr), sses
+        return (rec_y, rec_cb, rec_cr), FrameSse(
+            [sse(rec_y, ys), sse(rec_cb, cbs), sse(rec_cr, crs)])
 
     def host_pack_sources(self, frames):
         """(y, cb, cr) list -> padded (B, H, W) host planes: uint8 at
@@ -1080,7 +1091,7 @@ class IntraFrameEncoder(PFrameMixin):
         want_pixels = need_recon or self.cfg.hash != "none"
         return (nframes, host(modes), [host(lv) for lv in levels],
                 [host_pixels(r) for r in recs] if want_pixels
-                else [None, None, None], host(sses), host(sao))
+                else [None, None, None], sses.host(), host(sao))
 
     def finalize_downloaded(self, downloaded) -> list[FrameResult]:
         """Host CABAC + NAL framing of a downloaded batch, one frame per
@@ -1126,11 +1137,11 @@ class IntraFrameEncoder(PFrameMixin):
     def _serialize_i(self, fd, rec_y, rec_cb, rec_cr) -> FrameResult:
         """I slice NAL of one I frame's FrameData (an IDR at POC 0, or
         the open-GOP CRA that encode_frame names): native CABAC (WPP
-        substreams) where the library builds, else the Python
-        serializer; then the slice header and the picture hash SEI."""
+        substreams) where ``_native_cabac``, else the Python serializer;
+        then the slice header and the picture hash SEI."""
         # Slice data first (entry-point offsets go into the header).
         sizes = []
-        if native.available():
+        if self._native_cabac():
             if self.params.wpp:
                 data, sizes = native.encode_slice_data_native_wpp(
                     self.params, fd, self.cfg.qp)
@@ -1242,7 +1253,7 @@ class IntraFrameEncoder(PFrameMixin):
         recs, levels = reconstruct_frame_var(
             sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
             self.chroma, self.bitdepth, signhide=cfg.signhide,
-            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp))
+            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp), lossless=cfg.lossless)
         return self.var_deblock(sched, recs), levels
 
     def var_deblock(self, sched, recs):
@@ -1463,7 +1474,7 @@ class IntraFrameEncoder(PFrameMixin):
         recs, levels, cbf8 = reconstruct_frame_var(
             sched, qp, chroma_qp(qp), self.coded_w, self.coded_h,
             self.chroma, self.bitdepth, signhide=cfg.signhide,
-            rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs)
+            rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs, lossless=cfg.lossless)
         ry, rcb, rcr = recs
         if cfg.deblock:
             bs_v, bs_h = var_bs_maps(sched["inter8"], cbf8,

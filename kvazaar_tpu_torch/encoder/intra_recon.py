@@ -3,9 +3,12 @@
 Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra and P
 frames at one QP or with a per-block QP map (LCU rate control, ROI and
 AQ: each block quantizes at its own QP, chroma at the QP that Table 8-10
-maps it to), without scaling lists, RDOQ, transform skip or explicit
-chroma modes (the TU roundtrip ``_tu_roundtrip`` also takes RDOQ and
-sign hiding, which the variable-tree reconstruction uses).  On P frames
+maps it to), or lossless (transquant bypass: the levels are the
+residual, or with implicit RDPCM its DPCM along a horizontal or vertical
+intra mode, and the reconstruction is the source), without scaling
+lists, RDOQ, transform skip or explicit chroma modes (the TU roundtrip
+``_tu_roundtrip`` also takes RDOQ and sign hiding, which the
+variable-tree reconstruction uses).  On P frames
 an inter block takes its motion-compensated
 prediction (computed for the whole frame beforehand: it has no
 wavefront dependency) and the inter quantizer rounding 85/512, and
@@ -77,12 +80,28 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
 
 
 def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
-                  rdoq=False, lam=0.0):
+                  rdoq=False, lam=0.0, lossless=False, rdpcm_modes=None):
     """Flat TU roundtrip: (levels int16, reconstruction int32).  qp: an
     int or a per-block int tensor (N,); intra: bool, or a per-block bool
     tensor (N,); scan_sel: the (N,) scanIdx
     of each block when sign hiding is on, else None; rdoq: RDOQ at
-    lambda lam instead of the scalar quantizer."""
+    lambda lam instead of the scalar quantizer.  lossless: transquant
+    bypass, the residual is the level array and the reconstruction the
+    source; rdpcm_modes: (N,) modes under implicit RDPCM, where a block
+    of mode 10 codes its residual's horizontal differences and one of
+    mode 26 its vertical ones (-1 for blocks without DPCM)."""
+    if lossless:
+        resid = orig.to(torch.int32) - pred
+        levels = resid
+        if rdpcm_modes is not None:
+            dx = torch.cat([resid[..., :, :1],
+                            resid[..., :, 1:] - resid[..., :, :-1]], dim=-1)
+            dy = torch.cat([resid[..., :1, :],
+                            resid[..., 1:, :] - resid[..., :-1, :]], dim=-2)
+            m = rdpcm_modes[:, None, None]
+            levels = torch.where(m == 10, dx, torch.where(m == 26, dy,
+                                                          resid))
+        return levels.to(torch.int16), orig.to(torch.int32)
     coeff = forward_transform(orig - pred, s, bitdepth)
     if rdoq:
         levels = quantize_rdoq(coeff, qp, s, bitdepth, intra=intra, lam=lam)
@@ -108,27 +127,33 @@ def _scan_sel(modes: torch.Tensor, s: int, luma: bool) -> torch.Tensor:
 
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
                 bitdepth, luma, inter_items=None, mc_flat=None,
-                qp_items=None):
+                qp_items=None, lossless=False, rdpcm=False):
     """One wavefront step for every slot of every item (qp_items: the
-    items' per-block QPs, else every block at qp).  Returns the step's
+    items' per-block QPs, else every block at qp; lossless / rdpcm:
+    transquant bypass, with implicit RDPCM on the intra blocks, which
+    also turns the luma boundary fixups off).  Returns the step's
     (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
     gidx, noref, sidx, bids = tables
     nb = rec_flat.shape[0]
     refs = build_refs(rec_flat, gidx[step], noref[step], bitdepth)
     k = refs.shape[1]
-    modes = modes_items[:, bids[step]]                    # (NB, slots)
+    modes = modes_items[:, bids[step]].reshape(-1)        # (NB*slots,)
     orig = orig_flat[:, sidx[step]].reshape(nb * k, s, s)
-    pred = predict_modes(refs.reshape(nb * k, -1), modes.reshape(-1), s,
-                         luma=luma, bitdepth=bitdepth)
+    pred = predict_modes(refs.reshape(nb * k, -1), modes, s, luma=luma,
+                         bitdepth=bitdepth, fixups=not (rdpcm and luma))
     intra = True
+    rdpcm_modes = modes if rdpcm else None
     if inter_items is not None:
         inter = inter_items[:, bids[step]].reshape(-1)    # (NB*slots,)
         mc = mc_flat[:, sidx[step]].reshape(nb * k, s, s)
         pred = torch.where(inter[:, None, None], mc, pred)
         intra = ~inter
+        if rdpcm:
+            rdpcm_modes = torch.where(inter, -1, modes)
     if qp_items is not None:
         qp = qp_items[:, bids[step]].reshape(-1)          # (NB*slots,)
-    levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra)
+    levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra,
+                                lossless=lossless, rdpcm_modes=rdpcm_modes)
     return levels.reshape(nb, k, s, s), rec.reshape(nb, k, s * s)
 
 
@@ -151,7 +176,8 @@ def _flat(planes: torch.Tensor) -> torch.Tensor:
 def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           plan: IntraFramePlan, s: int, luma: bool,
                           qp: int, bitdepth: int = 8, is_inter=None,
-                          mc=None, qp_map=None):
+                          mc=None, qp_map=None, lossless=False,
+                          rdpcm=False):
     """Plain PyTorch version of the wavefront kernel, on any device;
     same contract as ops.wavefront.wavefront_recon."""
     nb, h, w = orig.shape
@@ -172,7 +198,7 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     for step in range(plan.n_steps):
         lv, rec = _plane_pass(rec_flat, orig_flat, modes_items, tables,
                               step, s, qp, bitdepth, luma, inter_items,
-                              mc_flat, qp_items)
+                              mc_flat, qp_items, lossless, rdpcm)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
     return (rec_flat[:, :h * w].reshape(nb, h, w).to(pix_dtype(bitdepth)),
@@ -181,18 +207,21 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
 
 def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                        qp_c: int, bitdepth: int = 8, is_inter=None,
-                       mc_y=None, mc_cb=None, mc_cr=None, qp_map=None):
+                       mc_y=None, mc_cb=None, mc_cr=None, qp_map=None,
+                       lossless=False, rdpcm=False):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
     (B, By, Bx) int32.  P frames also pass is_inter (B, By, Bx) bool and
     the motion-compensated prediction planes mc_y (B, H, W) (+ chroma).
     qp_map: (B, By, Bx) int per-block luma QP (clipped to 0..51, chroma
-    through Table 8-10), replacing qp and qp_c.  Returns (recon_y,
-    levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon (B, H, W)
-    uint8 at 8-bit, int16 above (``pix_dtype``), levels (B, N_blocks, S,
-    S) int16 in raster block order."""
+    through Table 8-10), replacing qp and qp_c.  lossless: transquant
+    bypass; rdpcm: implicit RDPCM on the intra blocks of lossless planes
+    (chroma through the DM mode), the luma boundary fixups off.  Returns
+    (recon_y, levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon
+    (B, H, W) uint8 at 8-bit, int16 above (``pix_dtype``), levels (B,
+    N_blocks, S, S) int16 in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
     return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
                                   bitdepth, is_inter, mc_y, mc_cb, mc_cr,
-                                  qp_map)
+                                  qp_map, lossless, rdpcm)

@@ -671,11 +671,11 @@ def _edge_positions(s: int, dev) -> torch.Tensor:
 
 
 def _class_pass(d, t, n, s, bitdepth, luma, signhide=False, rdoq=False,
-                lam=0.0):
+                lam=0.0, lossless=False):
     """One wavefront step of one CU-size class: its first n slots (the
     plan fills a step's slots from 0).  Writes the slots' edges into the
     class's edge buffer and returns (levels (n*comps, S, S) int16, rec
-    (n*comps, S*S) int32)."""
+    (n*comps, S*S) int32); lossless: transquant bypass."""
     comps = d["ref"].shape[2]
     refs = d["ebuf"][d["ref"][t, :n]].reshape(n * comps, -1)
     modes = d["modes"][t, :n * comps]
@@ -683,7 +683,7 @@ def _class_pass(d, t, n, s, bitdepth, luma, signhide=False, rdoq=False,
     levels, rec = _tu_roundtrip(
         d["origs"][t, :n].reshape(n * comps, s, s), pred, s, d["qp"],
         bitdepth, scan_sel=_scan_sel(modes, s, luma) if signhide else None,
-        rdoq=rdoq, lam=lam)
+        rdoq=rdoq, lam=lam, lossless=lossless)
     rec = rec.reshape(n * comps, s * s)
     d["ebuf"][d["wr"][t, :n].reshape(-1)] = rec[:, d["edge"]].reshape(-1)
     return levels, rec
@@ -711,13 +711,13 @@ def _mark_cells(cbf8, x0, y0, s: int, cbf):
 
 def _direct_pass(batches, planes, mcs, pw: int, ph: int, qp: int,
                  bitdepth: int, signhide: bool, rdoq: bool, lam: float,
-                 rec, lv, cbf8=None):
+                 rec, lv, cbf8=None, lossless: bool = False):
     """Reconstruct the inter CUs of a variable P tree outside the
     wavefront: their prediction is motion-compensated, so each size's
     CUs (batches: size -> (x0, y0) on this plane) run one batched TU
     roundtrip with the inter quantizer.  Writes the flat recon and level
     outputs (components plane after plane) and, for luma (cbf8 given),
-    the TBs' coded flags."""
+    the TBs' coded flags.  lossless: transquant bypass."""
     comps = len(planes)
     for s, (x0, y0) in sorted(batches.items()):
         n = x0.numel()
@@ -733,7 +733,7 @@ def _direct_pass(batches, planes, mcs, pw: int, ph: int, qp: int,
         levels, r = _tu_roundtrip(origs.reshape(comps * n, s, s),
                                   pred.reshape(comps * n, s, s), s, qp,
                                   bitdepth, intra=False, scan_sel=scan_sel,
-                                  rdoq=rdoq, lam=lam)
+                                  rdoq=rdoq, lam=lam, lossless=lossless)
         rec[out] = r.reshape(-1)
         lv[out] = levels.reshape(-1)
         if cbf8 is not None:
@@ -757,14 +757,18 @@ def _prefill_edges(ebuf, base: int, rec, comps: int, pw: int, ph: int,
 def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
                           height: int, chroma: bool, bitdepth: int = 8,
                           signhide: bool = False, rdoq: bool = False,
-                          lam: float = 0.0, mc_planes=None):
+                          lam: float = 0.0, mc_planes=None,
+                          lossless: bool = False):
     """sched: the frame's schedule on the device (see the frame
     encoder's ``var_sched_arrays``): 'luma' / 'chroma': size -> {x0,
     y0, avail, corner_h, modes} (T, K[, R]) over the real steps,
     'counts': (kind, size) -> the host's (T,) numpy slot counts,
     'n_real': T, and the source planes 'plane_y', 'plane_cb', 'plane_cr'
     (int32).  signhide / rdoq: sign-data hiding and RDOQ at lambda lam
-    (the same lambda for luma and chroma, as the JAX package passes).
+    (the same lambda for luma and chroma, as the JAX package passes);
+    lossless: transquant bypass (the levels are the residual and the
+    reconstruction the source; the trees code no implicit RDPCM, which
+    the config refuses with them).
 
     P trees (mc_planes: the (H, W) MC prediction planes (y, cb, cr) of
     the frame's motion field) add 'iluma' / 'ichroma': size -> (x0, y0)
@@ -804,7 +808,7 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
         if inter:
             _direct_pass(direct, planes, mcs, pw, ph, kqp, bitdepth,
                          signhide, rdoq, lam, rec, lv,
-                         cbf8 if kind == "luma" else None)
+                         cbf8 if kind == "luma" else None, lossless)
             _prefill_edges(ebuf, base, rec, comps, pw, ph, gran)
         for s in sorted(sched[kind]):
             cs = sched[kind][s]
@@ -825,7 +829,7 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
             if n == 0:
                 continue
             lv, rec = _class_pass(d, t, n, s, bitdepth, luma, signhide,
-                                  rdoq, lam)
+                                  rdoq, lam, lossless)
             out = d["out"][t, :n].reshape(-1)
             rec_out[out] = rec.reshape(-1)
             lv_out[out] = lv.reshape(-1)

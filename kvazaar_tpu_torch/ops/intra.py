@@ -147,15 +147,20 @@ def _refs2(refs: torch.Tensor, n: int, luma: bool) -> torch.Tensor:
 
 
 def predict_all_modes(refs: torch.Tensor, n: int, luma: bool = True,
-                      bitdepth: int = 8) -> torch.Tensor:
+                      bitdepth: int = 8,
+                      fixups: bool = True) -> torch.Tensor:
     """refs: (B, 4N+1) int32 substituted reference vectors (unfiltered).
-    Returns (B, 35, N, N) int32 predictions of every mode."""
+    Returns (B, 35, N, N) int32 predictions of every mode; fixups=False
+    leaves out the luma boundary filters (lossless with implicit RDPCM,
+    as the reference's filter_boundary)."""
     w, shifts = _weights(n, luma, refs.device)
     raw = matmul_exact(_refs2(refs, n, luma),
                        w.reshape(35 * n * n, -1).mT).reshape(-1, 35, n * n)
     pred = (raw + (1 << (shifts - 1))[None, :, None]) \
         >> shifts[None, :, None]
     pred = pred.reshape(pred.shape[0], 35, n, n)
+    if not fixups:
+        return pred
     return _apply_fixups(pred, refs, n, luma, bitdepth)
 
 
@@ -200,10 +205,12 @@ def _apply_fixups(pred, refs, n, luma, bitdepth):
 
 
 def predict_modes(refs: torch.Tensor, modes: torch.Tensor, n: int,
-                  luma: bool = True, bitdepth: int = 8) -> torch.Tensor:
+                  luma: bool = True, bitdepth: int = 8,
+                  fixups: bool = True) -> torch.Tensor:
     """Predict one chosen mode per block.
 
-    refs: (B, 4N+1) int32; modes: (B,) integer. Returns (B, N, N) int32.
+    refs: (B, 4N+1) int32; modes: (B,) integer. Returns (B, N, N) int32
+    (fixups as in predict_all_modes).
     """
     w, shifts = _weights(n, luma, refs.device)
     modes = modes.to(torch.int64)
@@ -211,7 +218,7 @@ def predict_modes(refs: torch.Tensor, modes: torch.Tensor, n: int,
     raw = matmul_exact(w[modes], _refs2(refs, n, luma)[..., None])[..., 0]
     pred = (raw + (1 << (ssel - 1))[:, None]) >> ssel[:, None]
     pred = pred.reshape(pred.shape[0], n, n)
-    if not luma or n >= 32:
+    if not luma or n >= 32 or not fixups:
         return pred
     p_dc, p10, p26 = _fixup_planes(pred, (pred, pred), refs, n, bitdepth)
     pred = torch.where((modes == 1)[:, None, None], p_dc, pred)

@@ -2,8 +2,9 @@
 
 ``wavefront_recon_planes`` reconstructs the luma and chroma planes of a
 batch of frames, all-intra or, given an inter mask and MC planes, as P
-frames, at one QP or with a per-block QP map, at 8 or 10 bits (the
-kernel's 10-bit instance takes int16 planes and writes int16 recon);
+frames, at one QP or with a per-block QP map, or lossless (transquant
+bypass, with or without implicit RDPCM), at 8 or 10 bits (the kernel's
+10-bit instance takes int16 planes and writes int16 recon);
 ``wavefront_recon`` reconstructs one plane kind.  For CUDA
 tensors both launch the hand-written kernel once (or raise); for CPU
 tensors they run the kernel's plain PyTorch version, the per-step loop
@@ -19,8 +20,9 @@ plan and device; the launch's threads and shared memory come from the
 library (``ktt_wavefront_layout``), and a plan that needs more shared
 memory than the device gives raises here.  ``LAUNCHES`` counts the
 kernel launches of this process, intra and inter variants apart,
-``QP_MAP_LAUNCHES`` those of them that took a per-block QP map, and
-``LAUNCHES_10BIT`` those of the 10-bit instances.
+``QP_MAP_LAUNCHES`` those of them that took a per-block QP map,
+``LAUNCHES_10BIT`` those of the 10-bit instances and ``BYPASS_LAUNCHES``
+those of the lossless (transquant bypass) instances.
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ from kvazaar_tpu_torch.ops.quant import int32_table, quant_params
 # Kernel launches made by this module (only here, after a launch), per
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
 # among them, LAUNCHES_10BIT the 10-bit ones ("qp_map": those of them
-# with a QP map).
+# with a QP map), BYPASS_LAUNCHES the lossless ones ("rdpcm": those of
+# them with implicit RDPCM, "10bit": those at 10-bit).
 LAUNCHES = {"intra": 0, "inter": 0}
 QP_MAP_LAUNCHES = {"intra": 0, "inter": 0}
 LAUNCHES_10BIT = {"intra": 0, "inter": 0, "qp_map": 0}
+BYPASS_LAUNCHES = {"intra": 0, "inter": 0, "rdpcm": 0, "10bit": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -127,7 +131,7 @@ def _library():
     fn = lib.ktt_wavefront_recon
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     lib.ktt_wavefront_layout.restype = ctypes.c_int
     lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
@@ -260,7 +264,7 @@ def _plan_tables(plan: IntraFramePlan, device: torch.device):
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                     plan: IntraFramePlan, s: int, luma: bool, qp: int,
                     bitdepth: int = 8, is_inter=None, mc=None,
-                    qp_map=None):
+                    qp_map=None, lossless=False, rdpcm=False):
     """Reconstruct a batch of planes of one kind.
 
     orig: (NB, H, W) coded-size planes (H, W = the plan's luma size, or
@@ -270,26 +274,32 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
     modes, and mc (NB, H, W) MC prediction planes of orig's dtypes, in
     [0, 2^bitdepth - 1]: inter blocks take mc and the inter rounding.
     qp_map: (Bm, By, Bx) int32 per-block QPs of this plane kind in
-    0..51, shared like modes, replacing qp.  Returns (rec (NB, H, W)
+    0..51, shared like modes, replacing qp.  lossless: transquant
+    bypass (no qp_map), the levels the residual and rec the source;
+    rdpcm: implicit RDPCM on the intra blocks of a lossless plane, the
+    luma boundary fixups off.  Returns (rec (NB, H, W)
     uint8 at 8-bit, int16 at 10-bit, levels (NB, By*Bx, S, S) int16 in
     raster block order)."""
     if orig.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         return wavefront_recon_plain(orig, modes, plan, s, luma, qp,
-                                     bitdepth, is_inter, mc, qp_map)
+                                     bitdepth, is_inter, mc, qp_map,
+                                     lossless, rdpcm)
     if orig.device.type != "cuda":
         raise ValueError(f"wavefront_recon: unsupported device "
                          f"{orig.device}")
-    _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map)
+    _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map,
+           lossless, rdpcm)
     return _launch([(orig, mc, s, luma, qp, qp_map)], modes, plan,
-                   is_inter, bitdepth)
+                   is_inter, bitdepth, lossless, rdpcm)
 
 
 def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                            qp: int, qp_c: int, bitdepth: int = 8,
                            is_inter=None, mc_y=None, mc_cb=None,
-                           mc_cr=None, qp_map=None):
+                           mc_cr=None, qp_map=None, lossless=False,
+                           rdpcm=False):
     """Reconstruct the luma and (where cbs is given) chroma planes of a
     batch of frames in one launch.
 
@@ -300,9 +310,10 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     is_inter (Bm, By, Bx) bool and the MC planes mc_y/mc_cb/mc_cr of
     the shapes of ys/cbs/crs.  qp_map: (Bm, By, Bx) per-block luma QPs,
     shared like modes, replacing qp and qp_c: clipped to 0..51, and
-    mapped through Table 8-10 for Cb and Cr, on the device.  Returns
-    (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr), the chroma entries None
-    without chroma."""
+    mapped through Table 8-10 for Cb and Cr, on the device.  lossless /
+    rdpcm: as in wavefront_recon (Cb and Cr take the DPCM of the shared
+    mode).  Returns (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr), the
+    chroma entries None without chroma."""
     s = plan.cu_size
     qp_y = qp_c_map = None
     if qp_map is not None:
@@ -314,7 +325,8 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         rec_y, lv_y = wavefront_recon_plain(ys, modes, plan, s, True, qp,
-                                            bitdepth, is_inter, mc_y, qp_y)
+                                            bitdepth, is_inter, mc_y, qp_y,
+                                            lossless, rdpcm)
         if cbs is None:
             return rec_y, lv_y, None, None, None, None
         # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
@@ -323,7 +335,7 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         rec_c, lv_c = wavefront_recon_plain(torch.cat([cbs, crs]), modes,
                                             plan, s // 2, False, qp_c,
                                             bitdepth, is_inter, mc_c,
-                                            qp_c_map)
+                                            qp_c_map, lossless, rdpcm)
         return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
     if ys.device.type != "cuda":
         raise ValueError(f"wavefront_recon_planes: unsupported device "
@@ -337,14 +349,16 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map),
                    (crs, mc_cr, s // 2, False, qp_c, qp_c_map)]
     for orig, mc, ps, luma, _, qm in planes:
-        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc, qm)
-    out = _launch(planes, modes, plan, is_inter, bitdepth)
+        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc, qm,
+               lossless, rdpcm)
+    out = _launch(planes, modes, plan, is_inter, bitdepth, lossless, rdpcm)
     if cbs is None:
         return (*out, None, None, None, None)
     return out
 
 
-def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8):
+def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
+            lossless=False, rdpcm=False):
     """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
     plane kinds; returns (rec, levels) per kind, flattened."""
     lib = _library()
@@ -393,7 +407,8 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8):
             step_start.data_ptr(), modes.data_ptr(),
             None if is_inter is None else is_inter.data_ptr(),
             entries.data_ptr(), modes.shape[0], plan.blocks_x, nblk,
-            plan.n_steps, plan.n_slots, ring, width, stream)
+            plan.n_steps, plan.n_slots, ring, width, int(lossless),
+            int(rdpcm), stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
@@ -404,15 +419,24 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8):
     if bitdepth == 10:
         LAUNCHES_10BIT[variant] += 1
         LAUNCHES_10BIT["qp_map"] += planes[0][5] is not None
+    if lossless:
+        BYPASS_LAUNCHES[variant] += 1
+        BYPASS_LAUNCHES["rdpcm"] += bool(rdpcm)
+        BYPASS_LAUNCHES["10bit"] += bitdepth == 10
     return tuple(outs)
 
 
 def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
-           qp_map=None):
+           qp_map=None, lossless=False, rdpcm=False):
     """Validate what the kernel takes; returns (NB, H, W)."""
     if bitdepth not in _BITDEPTHS:
         raise ValueError(f"wavefront kernel: bit depth {bitdepth} (8 and "
                          "10 are built)")
+    if rdpcm and not lossless:
+        raise ValueError("wavefront kernel: implicit RDPCM needs lossless")
+    if lossless and qp_map is not None:
+        raise ValueError("wavefront kernel: a lossless launch takes no QP "
+                         "map")
     sample_dtypes = ((torch.uint8, torch.int32) if bitdepth == 8
                      else (torch.int16,))
     names = " or ".join(str(d).replace("torch.", "") for d in sample_dtypes)

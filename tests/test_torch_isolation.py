@@ -5,8 +5,9 @@
   all-intra points with SAO and RDOQ, the defaults: the ultrafast
   preset's low-delay GOP and Config()'s cu 32 IPPP, and the medium
   preset's variable P trees at --gop 0 with a set_base_qp /
-  reset_stream step, a fixed-grid GOP-4 B pyramid, and rate control:
-  --bitrate on Config()'s IPPP and ROI + AQ) never imports jax
+  reset_stream step, a fixed-grid GOP-4 B pyramid, rate control:
+  --bitrate on Config()'s IPPP and ROI + AQ, and lossless all-intra
+  with implicit RDPCM and lossless IPPP) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -96,6 +97,16 @@ with tempfile.TemporaryDirectory() as tmp:
                  intra_period=0)
     out = list(Encoder(cfg, device="cpu").encode_stream(frames))
 assert [o[1].slice_type for o in out] == [2, 1, 1]
+# Lossless: implicit RDPCM on the fixed grid's all-intra batches and
+# transquant bypass on an IPPP stream (Python CABAC), exact to the source.
+for period, rdpcm in ((1, True), (0, False)):
+    cfg = Config(width=48, height=32, qp=27, intra_min_cu=16,
+                 intra_max_cu=16, intra_period=period, lossless=True,
+                 implicit_rdpcm=rdpcm)
+    out = list(Encoder(cfg, device="cpu").encode_stream(frames,
+                                                         need_recon=True))
+    assert all((r == s).all() for (_c, _i, rec), f in zip(out, frames)
+               for r, s in zip(rec, f))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked

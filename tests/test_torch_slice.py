@@ -224,13 +224,13 @@ def test_unported_configs_raise(change):
 def test_unported_structures_raise():
     """Low-delay P frames and B pyramids are ported (one or more
     references on the fixed grid, variable trees with one per list);
-    scaling lists and lossless coding on a B pyramid (fixed grid,
-    variable trees),
+    scaling lists and slices on a B pyramid (fixed grid, variable
+    trees),
     SMP, TMVP and selective encryption still raise."""
     for change, match in ((dict(gop_len=8, scaling_list="default"),
                            "scaling lists"),
-                          (dict(inter_min_cu=8, gop_len=8, lossless=True),
-                           "lossless"),
+                          (dict(inter_min_cu=8, gop_len=8, slices="wpp"),
+                           "slices"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(crypto="k"), "selective encryption")):
@@ -261,7 +261,8 @@ def test_cli_writes_the_api_stream(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--preset", "medium", "--crypto",
                                     "k"],
-                                   ["--period", "1", "--lossless"],
+                                   ["--preset", "medium", "--period",
+                                    "1", "--tr-depth-intra", "1"],
                                    ["--period", "1", "--slices", "wpp"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):
     from kvazaar_tpu_torch import cli

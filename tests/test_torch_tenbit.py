@@ -24,7 +24,7 @@ SAO program (``jax_sao_program_10``).  Both packages quantize 10-bit
 samples without a QpBdOffset and cap SAO offsets at 7 (ROADMAP §3): the
 bytes equal, and the oracle decoder, which dequantizes the same way,
 decodes them.  Cheap cases pin the gates: every structure accepts 10-bit,
-lossless and RDPCM still raise, an 8-bit encoder refuses uint16
+lossless and RDPCM among them, an 8-bit encoder refuses uint16
 pictures, and the CLI reads and writes 16-bit files.
 """
 
@@ -200,9 +200,17 @@ def test_10bit_passes_the_gates(name):
     (dict(lossless=True, implicit_rdpcm=True, intra_period=1),
      "implicit RDPCM")])
 def test_lossless_and_rdpcm_still_raise_at_10bit(change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Encoder(Config(width=W, height=H, input_bitdepth=10, **change),
-                device="cpu")
+    """Lossless and implicit RDPCM were the last features the 10-bit
+    gates named; they are ported now (tests/test_torch_lossless.py holds
+    their streams against the JAX package's): no gate names them, and a
+    10-bit picture comes back exact."""
+    cfg = Config(width=W, height=H, input_bitdepth=10, **change)
+    assert not any(match in name for name in tfe.unsupported(cfg))
+    frame = clip10(1, W, H, seed=28)[0]
+    (_c, info, rec), = Encoder(cfg, device="cpu").encode(*frame)
+    for r, src in zip(rec, frame):
+        np.testing.assert_array_equal(r, src)
+    assert info.psnr_y == 999.99
 
 
 def test_8bit_encoder_refuses_uint16_pictures():
