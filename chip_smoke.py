@@ -16,8 +16,9 @@ medium preset's IPPP point), B pyramids (GOP 8 on the fixed grid and
 the medium preset's default, variable B trees), and rate control with a
 per-CTU QP map (``--bitrate`` on ``Config()``), 10-bit (Main 10)
 streams up to BASELINE config #5 (a 10-bit 3840x2160 GOP-8 stream with
-``--bitrate``), and lossless coding (transquant bypass, implicit
-RDPCM).
+``--bitrate``), lossless coding (transquant bypass, implicit RDPCM),
+and tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
+1920x1080).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -142,7 +143,7 @@ Any failed phase raises, so the script exits nonzero:
    stream, and a random inter map with random MC planes) at 832x480,
    RDPCM off and on, the searched modes and random modes rich in 10 and
    26; 10-bit intra cu 16 and inter cu 32 at 832x480; 3840x2160 10-bit
-   cu 32 compare-only; the cell ``lossless-832x480`` (the headline
+   cu 32, intra and inter, timed; the cell ``lossless-832x480`` (the headline
    configuration with lossless=True, which turns deblocking off; a
    2-frame warm-up batch, then one timed batch of 8 through
    Encoder.encode_stream: fps, bits a frame, recon == source, the
@@ -151,7 +152,24 @@ Any failed phase raises, so the script exits nonzero:
    card == CPU, all-intra and IPPP; and card == CPU bytes and recon at
    416x240 for lossless streams: RDPCM all-intra cu 16, Config() cu 32
    all-intra, RDPCM IPPP cu 16, 10-bit RDPCM all-intra, the medium
-   preset at --gop 0 and a fixed-grid GOP 4.
+   preset at --gop 0 and a fixed-grid GOP 4;
+16. tiles and slices (``run_tiles``): the kernel's tiled instances (a
+   thread block per tile, each with its own edge ring) == plain, max
+   abs error 0, at 1920x1088 3x3, cu 16 and 32, 8- and 10-bit, intra and
+   inter, and 3840x2176 3x3 cu 32 10-bit (line ``tiled kernel vs
+   plain``, each timed against the untiled launch on the same frame,
+   with the tile's steps, ring, threads and shared memory and the
+   bound); the cells ``tiles3x3-ippp-1920x1080-qp22`` (BASELINE config
+   #4 on the package defaults: Config() with tiles 3x3; IDR + 1 P warm,
+   4 timed P frames) and ``tiles3x3-intra-1920x1080-qp22`` (the
+   headline configuration on a 3x3 grid, pipelined; a 2-frame warm-up
+   batch, one timed batch of 4), each with its tiled launches counted
+   (``wavefront.TILE_LAUNCHES``) and a stage split with the Python
+   CABAC's share (``cabac_python_ms``); and card == CPU bytes and recon
+   at 416x240 for tiles 3x3 + WPP IPPP (Config()), --slices tiles
+   all-intra, --slices wpp on the medium preset at --gop 0, superfast
+   at --period 1 with tiles 2x2 (the host SAO decision) and a
+   fixed-grid GOP 4 with tiles 2x2.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -2464,11 +2482,11 @@ def compare_kernel_bypass(torch, frames, frames10, big10, dev):
     modes = modes_10_26(torch, rng, (1, ife.plan.blocks_y,
                                      ife.plan.blocks_x), dev)
     row_of(f"10-bit intra cu32 {big_w}x{big_h} 1 frame", ife.plan, planes,
-           modes, bd=10, rdpcm=True, timed=False)
+           modes, bd=10, rdpcm=True)
     mcs = tuple(p.to(torch.int16) for p in
                 ife._upload(ife.host_pack_sources(big10[1:2])))
     row_of(f"10-bit inter cu32 {big_w}x{big_h} 1 frame", ife.plan, planes,
-           modes, bd=10, rdpcm=True, timed=False,
+           modes, bd=10, rdpcm=True,
            inter=(torch.from_numpy(rng.random(tuple(modes.shape)) < 0.5
                                    ).to(dev), *mcs))
     return rows
@@ -2644,6 +2662,229 @@ def run_lossless(torch, wavefront, dev):
     return rows, launches
 
 
+TILES = (3, 3)                        # phase 16: the tile grid of BASELINE #4
+TILE_SHAPES = ((1920, 1088), (3840, 2176))   # ... its kernel rows' frames
+TILE_W, TILE_H = 1920, 1080           # ... and its cells' frames
+TILE_INTRA_WARM, TILE_INTRA_TIMED = 2, 4     # ... all-intra batches
+TILE_P_TIMED = 4                      # ... P frames after IDR + 1 P
+
+
+def tiles_config(width, height, cu=16, **kw):
+    """The headline configuration (cu 16, rd 1, deblocking, WPP) on a
+    3x3 tile grid."""
+    cfg = headline_config(width, height, cu)
+    cfg.tiles_x, cfg.tiles_y = TILES
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def compare_kernel_tiles(torch, dev):
+    """Phase 16 (i): the kernel on tiled plans (a thread block per tile)
+    == the plain version per plane kind on the card, max abs error 0, at
+    1920x1088 3x3, cu 16 and cu 32, 8- and 10-bit, intra (the searched
+    modes of the seeded natural clip, 4 frames at 8-bit cu 16, the
+    all-intra cell's batch, else 1) and inter (a random inter map, the
+    next frame as the MC planes), and at 3840x2176 3x3 cu 32 10-bit.
+    Each row is timed against the launch on the same inputs and the
+    untiled plan of the frame (``untiled_ms``), with the tile's steps,
+    ring, threads, shared memory and the bound.  Returns the rows by
+    name."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import (launch_layout, tile_shape,
+                                                 wavefront_recon_planes)
+
+    rng = np.random.default_rng(16)
+    rows = {}
+
+    def row_of(name, ife, planes, modes, bd, inter=None):
+        plan = ife.plan
+        flat = make_intra_plan(plan.width, plan.height, plan.cu_size,
+                               True)
+        kw = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+
+        def launch(p=plan):
+            return wavefront_recon_planes(*planes, modes, p, QP, ife.qp_c,
+                                          bd, **kw)
+
+        got = launch()
+        want = []
+
+        def plain():
+            for orig, mc, s, luma, qp in (
+                    (planes[0], kw.get("mc_y"), plan.cu_size, True, QP),
+                    (planes[1], kw.get("mc_cb"), plan.cu_size // 2, False,
+                     ife.qp_c),
+                    (planes[2], kw.get("mc_cr"), plan.cu_size // 2, False,
+                     ife.qp_c)):
+                want.extend(wavefront_recon_plain(
+                    orig, modes, plan, s, luma, qp, bd, kw.get("is_inter"),
+                    mc))
+
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = max_err(torch, got, want)
+        if err != 0:
+            raise RuntimeError(f"tiled kernel != plain at {name}")
+        ms = cuda_ms(torch, launch, 20)
+        untiled = cuda_ms(torch, lambda: launch(flat), 20)
+        ring, threads, smem = launch_layout(plan, plan.cu_size,
+                                            planes[0].shape[2], bd)
+        n_steps, n_slots, _, tile_bw, _ = tile_shape(plan)
+        row = dict(shape=name, cu=plan.cu_size, bitdepth=bd,
+                   tiles=list(plan.tiles), items=planes[0].shape[0],
+                   variant="intra" if inter is None else "inter",
+                   max_abs_err=err, ms=ms, untiled_ms=untiled,
+                   ratio_to_untiled=ms / untiled, plain_ms=plain_ms,
+                   tile_steps=n_steps, untiled_steps=flat.n_steps,
+                   tile_slots=n_slots, tile_width_blocks=tile_bw,
+                   ring=ring, untiled_ring=launch_layout(
+                       flat, plan.cu_size, planes[0].shape[2], bd)[0],
+                   threads=threads, smem_bytes=smem,
+                   thread_blocks=3 * planes[0].shape[0] * plan.tiles[0]
+                   * plan.tiles[1])
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (*planes, modes, *kw.values(), *got),
+            [(planes[0].numel(), plan.cu_size),
+             (2 * planes[1].numel(), plan.cu_size // 2)])
+        log("tiled kernel vs plain:", json.dumps(row))
+        rows[name] = row
+
+    clips = {}
+    for (w, h), cu, bd in ((TILE_SHAPES[0], 16, 8), (TILE_SHAPES[0], 16, 10),
+                           (TILE_SHAPES[0], 32, 8), (TILE_SHAPES[0], 32, 10),
+                           (TILE_SHAPES[1], 32, 10)):
+        if (w, h) not in clips:
+            n = TILE_INTRA_TIMED if w == TILE_SHAPES[0][0] else 1
+            clips[w, h] = synth_clip_natural(n + 1, w, h, seed=16)
+        clip = clips[w, h] if bd == 8 else to_10bit(clips[w, h], 160)
+        n = len(clip) - 1 if (cu, bd) == (16, 8) else 1
+        ife = IntraFrameEncoder(tiles_config(w, h, cu, input_bitdepth=bd),
+                                device=dev)
+        up = ife._upload(ife.host_pack_sources(clip))
+        modes = torch.stack([search_frame_modes(y, ife.plan, ife.lambda_satd,
+                                                bd, True)[0]
+                             for y in up[0][:n]])
+        if bd == 10:
+            up = tuple(p.to(torch.int16) for p in up)
+        planes = tuple(p[:n] for p in up)
+        row_of(f"intra cu{cu} {w}x{h} 3x3 {bd}-bit {n} frames", ife,
+               planes, modes, bd)
+        inter_map = torch.from_numpy(rng.random(
+            (1, ife.plan.blocks_y, ife.plan.blocks_x)) < 0.5).to(dev)
+        row_of(f"inter cu{cu} {w}x{h} 3x3 {bd}-bit", ife,
+               tuple(p[:1] for p in up), modes[:1], bd,
+               (inter_map, *(p[-1:] for p in up)))
+    return rows
+
+
+def tiles_streams_card_equals_cpu(wavefront, dev):
+    """Phase 16 (ii): card == CPU bytes and recon at 416x240 for tiles
+    3x3 + WPP IPPP (Config(), cu 32), --slices tiles all-intra (tiles
+    2x2, WPP off), --slices wpp on the medium preset at --gop 0 (a
+    variable-tree I frame and a variable P frame), the superfast preset
+    at --period 1 with tiles 2x2 (SAO's host decision; inter CUs fixed
+    at 16, as tiles need) and a fixed-grid GOP 4 with tiles 2x2; the
+    tiled launches counted around the card runs."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+    w, h = 416, 240
+    small = synth_clip_natural(5, w, h, seed=0)
+    for k in wavefront.TILE_LAUNCHES:
+        wavefront.TILE_LAUNCHES[k] = 0
+    card_equals_cpu(f"tiles 3x3 + WPP IPPP Config() {w}x{h}",
+                    Config(width=w, height=h, qp=QP, intra_period=0,
+                           tiles_x=3, tiles_y=3), small[:3], dev)
+    card_equals_cpu(f"--slices tiles all-intra tiles 2x2 {w}x{h}",
+                    tiles_config(w, h, tiles_x=2, tiles_y=2, wpp=False,
+                                 slices="tiles"), small[:2], dev)
+    card_equals_cpu(f"--slices wpp medium --gop 0 {w}x{h}",
+                    config_from_preset("medium", width=w, height=h, qp=QP,
+                                       intra_period=0, gop_len=1,
+                                       ref_frames=1, slices="wpp"),
+                    small[:2], dev)
+    card_equals_cpu(f"superfast --period 1 tiles 2x2 {w}x{h}",
+                    config_from_preset("superfast", width=w, height=h,
+                                       qp=QP, intra_period=1, tiles_x=2,
+                                       tiles_y=2, inter_min_cu=16),
+                    small[:2], dev)
+    card_equals_cpu(f"fixed GOP 4 tiles 2x2 {w}x{h}",
+                    tiles_config(w, h, tiles_x=2, tiles_y=2, gop_len=4,
+                                 intra_period=0), small, dev)
+    if min(wavefront.TILE_LAUNCHES.values()) == 0:
+        raise RuntimeError(f"tiled streams: no tiled launch of a variant "
+                           f"({wavefront.TILE_LAUNCHES})")
+
+
+def run_tiles(torch, wavefront, dev):
+    """Phase 16: tiles and slices.  The kernel on tiled plans == plain
+    (``compare_kernel_tiles``); the cell
+    ``tiles3x3-ippp-1920x1080-qp22`` (BASELINE config #4 on the package
+    defaults: Config() with tiles 3x3, fixed cu 32, rd 1, one reference,
+    WPP; IDR + 1 P warm, then TILE_P_TIMED P frames of a seeded 1080p
+    motion clip) and ``tiles3x3-intra-1920x1080-qp22`` (the headline
+    all-intra configuration on a 3x3 grid, pipelined: a warm-up batch of
+    TILE_INTRA_WARM frames, then one timed batch of TILE_INTRA_TIMED),
+    each with its tiled launches and a stage split with the Python
+    CABAC's share; and card == CPU for the tile and slice streams.
+    Returns (kernel rows, tiled launches per record)."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+
+    rows = compare_kernel_tiles(torch, dev)
+    clip = synth_clip_natural(2 + TILE_P_TIMED, TILE_W, TILE_H, seed=4)
+    for k in wavefront.TILE_LAUNCHES:
+        wavefront.TILE_LAUNCHES[k] = 0
+    results, summary = timed_stream(
+        torch, wavefront, "tiles3x3-ippp-1920x1080-qp22",
+        Config(width=TILE_W, height=TILE_H, qp=QP, tiles_x=TILES[0],
+               tiles_y=TILES[1]), clip, 2, dev)
+    launches = dict(p_intra=wavefront.TILE_LAUNCHES["intra"],
+                    p_inter=wavefront.TILE_LAUNCHES["inter"])
+    if (launches["p_intra"], launches["p_inter"]) != (1, len(clip) - 1):
+        raise RuntimeError(f"tiles3x3-ippp: expected one tiled launch a "
+                           f"frame, got {wavefront.TILE_LAUNCHES}")
+    ife = IntraFrameEncoder(Config(width=TILE_W, height=TILE_H, qp=QP,
+                                   tiles_x=TILES[0], tiles_y=TILES[1]),
+                            device=dev)
+    # The slice data of a tiled frame is the Python serializer's.
+    split = p_stage_split(torch, ife, clip)
+    split["cabac_python_ms"] = split.pop("cabac_ms")
+    split["cabac_share"] = split["cabac_python_ms"] / sum(split.values())
+    log("tiles3x3-ippp stage split (ms, one P frame):", json.dumps(split))
+    ife.close()
+
+    enc = Encoder(tiles_config(TILE_W, TILE_H), device=dev)
+    list(enc.encode_stream(clip[:TILE_INTRA_WARM]))      # warm-up
+    torch.cuda.synchronize()
+    for k in wavefront.TILE_LAUNCHES:
+        wavefront.TILE_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(clip[:TILE_INTRA_TIMED]))
+    dt = time.perf_counter() - t0
+    launches["intra"] = wavefront.TILE_LAUNCHES["intra"]
+    if launches["intra"] != 1:
+        raise RuntimeError(f"tiles3x3-intra: expected one tiled launch, "
+                           f"got {wavefront.TILE_LAUNCHES}")
+    bits, psnr_y = check_output(results, "tiles3x3-intra")
+    log("tiles3x3-intra-1920x1080-qp22 encode_stream:", json.dumps(dict(
+        frames=len(results), batch=TILE_INTRA_TIMED,
+        fps=len(results) / dt, bits_per_frame=bits, psnr_y=psnr_y,
+        tiled_launches=launches["intra"], stage_wall_s=enc.stats)))
+    split = stage_split(torch, enc._intra, clip[:1])
+    split["cabac_python_ms"] = split.pop("cabac_ms")
+    split["cabac_share"] = split["cabac_python_ms"] / sum(split.values())
+    log("tiles3x3-intra stage split (ms, one frame):", json.dumps(split))
+    enc.close()
+
+    tiles_streams_card_equals_cpu(wavefront, dev)
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2738,6 +2979,7 @@ def main() -> int:
                                dev)
     rows_ll, launches_ll = timed("phase 15", run_lossless, torch,
                                  wavefront, dev)
+    rows_t, launches_t = timed("phase 16", run_tiles, torch, wavefront, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -2780,6 +3022,20 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None}
 
+    def tile_record(name, replaces, n, row):
+        """The kernel on a tiled plan at the shape of the path that runs
+        it; the error over every tiled row (all are 0 or the phase
+        failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_t.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
+
+    big_t = f"{TILE_SHAPES[0][0]}x{TILE_SHAPES[0][1]} 3x3"
     log(json.dumps({"kernels": [
         record("wavefront_recon", "kvazaar_tpu/ops/wavefront_pallas.py:149",
                launches, joint_rows[0], rows),
@@ -2826,7 +3082,18 @@ def main() -> int:
                "inter cu16 832x480 P frame rdpcm=True"),
               ("wavefront_recon_bypass_10bit",
                "kvazaar_tpu/ops/wavefront_pallas.py:149", "tenbit",
-               "10-bit intra cu16 832x480 8 frames")))]}))
+               "10-bit intra cu16 832x480 8 frames"))),
+        *(tile_record(name, replaces, launches_t[key], rows_t[shape])
+          for name, replaces, key, shape in (
+              ("wavefront_recon_tiles",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "intra",
+               f"intra cu16 {big_t} 8-bit {TILE_INTRA_TIMED} frames"),
+              ("wavefront_recon_tiles_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "p_intra",
+               f"intra cu32 {big_t} 8-bit 1 frames"),
+              ("wavefront_recon_inter_tiles_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "p_inter",
+               f"inter cu32 {big_t} 8-bit")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,6 +94,15 @@
 //   mode; inter blocks never), the lanes reading their neighbours'
 //   residuals through the group's transform buffer, and luma predicts
 //   without the DC / 10 / 26 boundary fixups.
+// - Tiles (a uniform tile grid, --tiles) cut every prediction dependency,
+//   so every tile of an item is a thread block of its own, with its own
+//   step range and an edge ring over its own rows, ring_w its width and K
+//   its own depth (3 for the tiles of a 1920x1088 or 3840x2176 3x3 grid,
+//   where one ring over the whole frame would need K = 12..16 and more
+//   shared memory than a block may have).  A 1080p frame at 3x3 then
+//   runs on 9 SMs per plane.  Tiled plans have instances of their own
+//   (without QP maps, which the configuration refuses under tiles), so
+//   that the untiled ones keep their code and registers.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -232,21 +241,33 @@ struct Params {
   KttPlane plane[3];
   int item_end[3];          // cumulative item counts of the planes
   int n_planes;
-  const uint32_t* blk_info;  // (nblk) step-order position | mask << 20
-  const int32_t* step_start; // (n_steps + 1) first position of each step
+  const uint32_t* blk_info;  // (nblk) position in its tile's step order
+                             // | mask << 20
+  const int32_t* step_start; // (n_tiles, n_steps + 1): per tile, the first
+                             // position of each of its steps, then its
+                             // block count (repeated past its last step)
   const int32_t* modes;      // (bm, nblk); item i uses row i % bm
   const uint8_t* inter;      // (bm, nblk) bool, shared like modes; null
                              // for the intra variant
-  uint32_t* entries;         // (items, nblk) packed words in step order,
-                             // written by the kernel
-  int bm, blocks_x, nblk, n_steps, n_slots;
-  int ring, ring_w;          // ring depth K and row stride (luma width)
+  uint32_t* entries;         // (items x tiles, tile_blocks) packed words
+                             // in step order, written by the kernel
+  int bm, blocks_x, nblk, n_steps, n_slots;  // steps and slots: the most
+                                             // of any tile (a tile with
+                                             // fewer runs empty steps)
+  int ring, ring_w;          // ring depth K and row stride (the widest
+                             // tile's width in the widest plane)
   int off_ring, off_coef, off_groups;  // shared memory offsets (bytes);
                                        // the step offsets start at 0
   // Implicit RDPCM (the bypass instance only).  Last, so that the
   // fields before it keep their offsets: placed after ring_w, it made
   // the other cu 16 instances 4 % slower on an H100.
   int rdpcm;
+  // Tiles: (n_tiles, 4) ints, each tile's first block column and row,
+  // width and height in blocks; one thread block per (item, tile), every
+  // tile from step 0 (tiles cut every prediction dependency);
+  // tile_blocks: the most blocks of any tile.
+  const int4* tile_info;
+  int n_tiles, tile_blocks;
 };
 
 // Words of one S x S block of staged samples of sb bytes each.
@@ -473,13 +494,17 @@ __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
                       : buf[y * S + x];
 }
 
-// One plane item (one frame of one plane kind) in thread block order;
-// QP: the planes carry per-block QP maps (a separate instance, so that
-// the scalar path keeps its registers); HBD: 10-bit samples; LL:
-// lossless (transquant bypass).
-template <int S, bool QP, bool HBD, bool LL>
+// One tile of one plane item (one frame of one plane kind) in thread
+// block order; QP: the planes carry per-block QP maps (a separate
+// instance, so that the scalar path keeps its registers); HBD: 10-bit
+// samples; LL: lossless (transquant bypass); TILED: a tile of a tiled
+// plan.  The edge ring holds the tile's own columns (ring column x -
+// tile_x0, tile_x0 the tile's first sample column) of K block rows (ring
+// row by mod K; K is the tile's depth, which only differences of rows
+// decide).
+template <int S, bool QP, bool HBD, bool LL, bool TILED>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
-                          unsigned char* smem) {
+                          int tile_x0, unsigned char* smem) {
   using Sh = Shape<S>;
   using D = Depth<HBD>;
   using Pix = typename D::Pix;
@@ -505,9 +530,13 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       __syncwarp(mask);
   };
 
-  const uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
+  const uint32_t* entries =
+      p.entries + (size_t)blockIdx.x * (TILED ? p.tile_blocks : p.nblk);
   const int* steps = reinterpret_cast<const int*>(smem);
   Pix* hrow = reinterpret_cast<Pix*>(smem + p.off_ring);
+  // Under tiles the ring's base shifts by the tile's first column, so
+  // that blocks index it by their plane column.
+  if constexpr (TILED) hrow -= tile_x0;
   Pix* vcol = hrow + p.ring * p.ring_w;
   const int* coef = reinterpret_cast<const int*>(smem + p.off_coef);
   const int* cf = coef + q * O * (S / 2);
@@ -927,32 +956,52 @@ Layout layout_for(int s_max, bool hbd, int n_steps, int n_slots, int ring,
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
 // CU / 2 (chroma); QP: the planes carry per-block QP maps; HBD: 10-bit
-// samples; LL: lossless (transquant bypass, never with QP maps).
-template <int CU, bool QP, bool HBD, bool LL>
+// samples; LL: lossless (transquant bypass, never with QP maps); TILED:
+// a tiled plan, a thread block per (item, tile) (never with QP maps, which
+// the configuration refuses under tiles; a separate instance, so that the
+// untiled ones keep their registers: in them the tile code made ptxas
+// spill).
+template <int CU, bool QP, bool HBD, bool LL, bool TILED>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // Thread block = (item of all planes, tile): `all` counts the items of
+  // every plane kind, t the tile.
+  const int all = TILED ? blockIdx.x / p.n_tiles : blockIdx.x;
+  const int t = TILED ? blockIdx.x - all * p.n_tiles : 0;
   int k = 0;
-  while (k + 1 < p.n_planes && (int)blockIdx.x >= p.item_end[k]) ++k;
-  const int item = blockIdx.x - (k ? p.item_end[k - 1] : 0);
+  while (k + 1 < p.n_planes && all >= p.item_end[k]) ++k;
+  const int item = all - (k ? p.item_end[k - 1] : 0);
   const KttPlane& pl = p.plane[k];
+  // The tile's (bx0, by0, width, height) in blocks; an untiled plan's
+  // one tile is the plane.
+  const int4 ta = TILED ? p.tile_info[t] : make_int4(0, 0, 0, 0);
 
-  // Pack the schedule, modes and inter flags of this item once, in step
-  // order, into this thread block's rows of the entries table.
-  uint32_t* entries = p.entries + (size_t)blockIdx.x * p.nblk;
+  // Pack the schedule, modes and inter flags of this tile once, in step
+  // order, into this thread block's row of the entries table.
+  uint32_t* entries =
+      p.entries + (size_t)blockIdx.x * (TILED ? p.tile_blocks : p.nblk);
   int* steps = reinterpret_cast<int*>(smem);
   const int row = item % p.bm;
   const int32_t* modes = p.modes + (size_t)row * p.nblk;
   const uint8_t* inter = p.inter ? p.inter + (size_t)row * p.nblk : nullptr;
-  for (int b = threadIdx.x; b < p.nblk; b += blockDim.x) {
+  auto pack = [&](int b) {
     const uint32_t info = p.blk_info[b];
     uint32_t e = (uint32_t)b | (info & ~kPosMask) |
                  ((uint32_t)(modes[b] & 63) << kModeShift);
     if (inter != nullptr && inter[b]) e |= 1u << kInterBit;
     entries[info & kPosMask] = e;
+  };
+  if constexpr (TILED) {
+    for (int i = threadIdx.x; i < ta.z * ta.w; i += blockDim.x) {
+      const int r = i / ta.z;
+      pack((ta.y + r) * p.blocks_x + ta.x + i - r * ta.z);
+    }
+  } else {
+    for (int b = threadIdx.x; b < p.nblk; b += blockDim.x) pack(b);
   }
   for (int i = threadIdx.x; i <= p.n_steps; i += blockDim.x)
-    steps[i] = p.step_start[i];
+    steps[i] = p.step_start[t * (p.n_steps + 1) + i];
   int* coef = reinterpret_cast<int*>(smem + p.off_coef);
   if (pl.s == CU)
     fill_coefs<CU>(coef);
@@ -961,31 +1010,39 @@ __global__ void __launch_bounds__(max_threads(CU))
   __syncthreads();
 
   if (pl.s == CU)
-    run_plane<CU, QP, HBD, LL>(p, pl, item, smem);
+    run_plane<CU, QP, HBD, LL, TILED>(p, pl, item, ta.x * CU, smem);
   else
-    run_plane<CU / 2, QP, HBD, LL>(p, pl, item, smem);
+    run_plane<CU / 2, QP, HBD, LL, TILED>(p, pl, item, ta.x * (CU / 2),
+                                          smem);
 }
 
 // The kernel instance of CU size cu (32, 16 or 8) at 8 or 10 bits: with
-// or without QP maps, or lossless.
+// or without QP maps, or lossless; untiled or, without QP maps, tiled.
 using KernelFn = void (*)(const Params);
 
-template <int CU, bool HBD>
+template <int CU, bool HBD, bool TILED>
 KernelFn kernel_of(bool qp, bool ll) {
-  return ll ? wavefront_kernel<CU, false, HBD, true>
-            : (qp ? wavefront_kernel<CU, true, HBD, false>
-                  : wavefront_kernel<CU, false, HBD, false>);
+  if constexpr (TILED)
+    return ll ? wavefront_kernel<CU, false, HBD, true, true>
+              : wavefront_kernel<CU, false, HBD, false, true>;
+  else
+    return ll ? wavefront_kernel<CU, false, HBD, true, false>
+              : (qp ? wavefront_kernel<CU, true, HBD, false, false>
+                    : wavefront_kernel<CU, false, HBD, false, false>);
 }
 
-template <bool HBD>
+template <bool HBD, bool TILED>
 KernelFn kernel_at(int cu, bool qp, bool ll) {
-  return cu == 32   ? kernel_of<32, HBD>(qp, ll)
-         : cu == 16 ? kernel_of<16, HBD>(qp, ll)
-                    : kernel_of<8, HBD>(qp, ll);
+  return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll)
+         : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll)
+                    : kernel_of<8, HBD, TILED>(qp, ll);
 }
 
-KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll) {
-  return hbd ? kernel_at<true>(cu, qp, ll) : kernel_at<false>(cu, qp, ll);
+KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled) {
+  return tiled ? (hbd ? kernel_at<true, true>(cu, qp, ll)
+                      : kernel_at<false, true>(cu, qp, ll))
+               : (hbd ? kernel_at<true, false>(cu, qp, ll)
+                      : kernel_at<false, false>(cu, qp, ll));
 }
 
 }  // namespace
@@ -1008,15 +1065,20 @@ extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
   return l.bytes < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
 
-// Launch over n_planes plane kinds (1..3): one thread block per item,
-// the planes' items in order.  Block sizes: the largest s is 32 (the
+// Launch over n_planes plane kinds (1..3): one thread block per item and
+// tile, the planes' items in order, an item's tiles in a row.  tile_info
+// is the device table of n_tiles tiles (Params::tile_info, 16-byte
+// aligned) and tile_bw the widest tile's width in blocks; n_steps and
+// n_slots are the most steps and slots of any tile, step_start has
+// n_steps + 1 entries per tile.  Block sizes: the largest s is 32 (the
 // others 32 or 16), 16 (the others 16 or 8) or at most 8 (the others 8
 // or 4).  inter and every
 // plane's mc are all null (intra variant) or all set (inter); so are the
 // planes' qp, which hold values in 0..51.  lossless (transquant bypass)
 // takes no qp; rdpcm (implicit RDPCM) needs lossless.  entries
-// is scratch of (items, nblk) uint32 on the device.  ring is the edge
-// ring's depth and ring_w the width of the widest plane.  bitdepth 8
+// is scratch of (items x n_tiles, tile_blocks) uint32 on the device,
+// tile_blocks the most blocks of any tile.  ring is the edge
+// ring's depth and ring_w at least tile_bw times the largest s.  bitdepth 8
 // takes uint8 or int32 orig and mc and writes uint8 rec; 10 takes int16
 // orig and mc and writes 16-bit rec.  Returns a cudaError_t; a layout
 // the device cannot give is refused by cudaFuncSetAttribute.
@@ -1025,9 +1087,14 @@ extern "C" int ktt_wavefront_recon(
     const uint32_t* blk_info, const int32_t* step_start,
     const int32_t* modes, const uint8_t* inter, uint32_t* entries, int bm,
     int blocks_x, int nblk, int n_steps, int n_slots, int ring, int ring_w,
-    int lossless, int rdpcm, void* stream) {
+    int lossless, int rdpcm, const int4* tile_info, int n_tiles,
+    int tile_bw, int tile_blocks, void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
+      tile_info == nullptr || n_tiles < 1 || n_tiles > nblk ||
+      tile_bw < 1 || tile_bw > blocks_x || tile_blocks < 1 ||
+      tile_blocks > nblk || (n_tiles > 1 && planes[0].qp != nullptr) ||
+      (n_tiles == 1 && tile_blocks != nblk) ||
       bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1 ||
       (bitdepth != 8 && bitdepth != 10) || (rdpcm && !lossless) ||
       (lossless && planes[0].qp != nullptr))
@@ -1043,7 +1110,7 @@ extern "C" int ktt_wavefront_recon(
             : (pl.orig_bytes == 1 || pl.orig_bytes == 4) &&
                   (pl.mc == nullptr || pl.mc_bytes == 1 || pl.mc_bytes == 4);
     if ((pl.s != 4 && pl.s != 8 && pl.s != 16 && pl.s != 32) ||
-        (inter == nullptr) != (pl.mc == nullptr) || pl.w > ring_w ||
+        (inter == nullptr) != (pl.mc == nullptr) || pl.s * tile_bw > ring_w ||
         qp != (pl.qp != nullptr) || !bytes_ok)
       return static_cast<int>(cudaErrorInvalidValue);
     s_max = pl.s > s_max ? pl.s : s_max;
@@ -1058,6 +1125,8 @@ extern "C" int ktt_wavefront_recon(
   const Layout l = layout_for(s_max, hbd, n_steps, n_slots, ring, ring_w);
   if (l.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (items == 0) return 0;
+  if ((long long)items * n_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   p.n_planes = n_planes;
   p.blk_info = blk_info;
   p.step_start = step_start;
@@ -1075,14 +1144,17 @@ extern "C" int ktt_wavefront_recon(
   p.off_ring = l.off_ring;
   p.off_coef = l.off_coef;
   p.off_groups = l.off_groups;
-  const KernelFn kernel = kernel_for(cu, qp, hbd, lossless != 0);
+  p.tile_info = tile_info;
+  p.n_tiles = n_tiles;
+  p.tile_blocks = tile_blocks;
+  const KernelFn kernel = kernel_for(cu, qp, hbd, lossless != 0, n_tiles > 1);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<items, l.threads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  kernel<<<items * n_tiles, l.threads, l.bytes,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

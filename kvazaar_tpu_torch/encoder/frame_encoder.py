@@ -17,12 +17,16 @@ the encoder's device, with the fixed grid's reconstruction in the CUDA
 kernel on a card; the host picks a variable tree and plans its
 wavefront, runs the merge RD of a P tree, decides merge/AMVP signalling,
 serializes slice data with the native CABAC (WPP substreams) and frames
-the NAL units.
+the NAL units.  Tiles (a uniform grid: the plan's decode order becomes
+tile-major and prediction stops at tile boundaries) and --slices (CTU
+rows as dependent slice segments, or a slice per tile) go to the Python
+serializer, as in the JAX package.
 
 SAO runs on the device right after deblocking (statistics, decision and
 filter, ``_sao_stage``) on I frames and variable-tree P frames; only the
 packed per-CTU parameters come back, and the filtered reconstruction is
-the reference of the next P frame.  Fixed-grid P frames run no SAO
+the reference of the next P frame; under tiles the decision runs on the
+host (its merges stop at tile boundaries).  Fixed-grid P frames run no SAO
 stage and code every CTU's SAO as off, as the JAX package's do.  The
 per-frame SSEs are taken before SAO, as the JAX package takes them on
 its pipelined path.
@@ -87,7 +91,7 @@ from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
 from kvazaar_tpu_torch.ops.quant import int32_table
-from kvazaar_tpu_torch.ops.sao import (apply_sao_plane,
+from kvazaar_tpu_torch.ops.sao import (apply_sao_plane, sao_decide_frame,
                                        sao_decide_frame_device, sao_stats)
 from kvazaar_tpu_torch.ops.sse import FrameSse, PlaneSse
 
@@ -191,8 +195,6 @@ def unsupported(cfg: Config) -> list:
                      ("scaling lists", cfg.scaling_list != "off"),
                      ("intra TU split (--tr-depth-intra)",
                       cfg.tr_depth_intra > 0),
-                     ("tiles", (cfg.tiles_x, cfg.tiles_y) != (1, 1)),
-                     ("slices", cfg.slices != "none"),
                      ("mesh sharding", cfg.mesh_tiles > 1),
                      ("selective encryption", cfg.crypto is not None),
                      ("field (interlaced) sources",
@@ -582,10 +584,33 @@ class PFrameMixin:
 
     def _native_cabac(self) -> bool:
         """The native CABAC codes the slice data: where its library
-        builds, and not for lossless streams, which the JAX package codes
-        with the Python serializer (the native library's bypass mode is
-        not bound)."""
-        return native.available() and not self.params.transquant_bypass
+        builds, and not for lossless streams, tiles or --slices, which the
+        JAX package codes with the Python serializer (the native library
+        has no tile mode, and its bypass mode is not bound)."""
+        return (native.available() and not self.params.transquant_bypass
+                and self.params.slices == "none"
+                and not self.params.tiles_enabled)
+
+    def _python_slice_data(self, fd, slice_type: int, qp: int,
+                           nref: int = 1):
+        """Slice data from the Python serializer: a substream per tile
+        (per CTU row of each tile under WPP), per CTU row under WPP, or
+        one.  Returns (bytes, substream sizes)."""
+        p = self.params
+        dw = BitWriter()
+        enc = SliceDataEncoder(p, fd, Contexts(slice_type, qp),
+                               CabacEncoder(dw), nref_l0=nref)
+        sizes = []
+        if p.tiles_enabled and p.wpp:
+            sizes = enc.encode_slice_data_tiles_wpp()
+        elif p.tiles_enabled:
+            sizes = enc.encode_slice_data_tiles()
+        elif p.wpp:
+            sizes = enc.encode_slice_data_wpp()
+        else:
+            enc.encode_slice_data()
+            dw.align_zero()
+        return dw.get_bytes(), sizes
 
     def _slice_data(self, fd, slice_type: int, qp: int, nref: int = 1):
         """P or B slice data: native CABAC (WPP substreams) where
@@ -595,16 +620,33 @@ class PFrameMixin:
             return native.encode_slice_data_native_p(
                 self.params, fd, qp, self.params.wpp, slice_type=slice_type,
                 nthreads=self.cfg.threads or 4, nref_l0=nref)
-        sizes = []
-        dw = BitWriter()
+        return self._python_slice_data(fd, slice_type, qp, nref)
+
+    def _slice_nals(self, fd, slice_type: int, nal_type: int, hdr_kwargs,
+                    nref_l0: int = 1, qp=None) -> bytes:
+        """--slices: one NAL per slice segment.  wpp: the CTU rows as
+        dependent segments of one slice; tiles: an independent slice per
+        tile, whose slice_segment_address counts CTBs in tile scan
+        (7.4.7.1: the CTBs of the tiles before it)."""
+        qp = self.cfg.qp if qp is None else qp
         enc = SliceDataEncoder(self.params, fd, Contexts(slice_type, qp),
-                               CabacEncoder(dw), nref_l0=nref)
-        if self.params.wpp:
-            sizes = enc.encode_slice_data_wpp()
+                               CabacEncoder(BitWriter()), nref_l0=nref_l0)
+        if self.params.slices == "wpp":
+            segs = enc.encode_row_slices()
+            addrs = [r * self.params.width_in_ctus for r in range(len(segs))]
+            dep = True
         else:
-            enc.encode_slice_data()
-            dw.align_zero()
-        return dw.get_bytes(), sizes
+            segs = enc.encode_tile_slices()
+            addrs = np.cumsum([0] + [len(c) for c in enc._tile_ctus[:-1]])
+            dep = False
+        out = b""
+        for i, (seg, a) in enumerate(zip(segs, addrs)):
+            w = BitWriter()
+            write_slice_header(w, self.params, slice_type, nal_type, qp,
+                               first_seg=i == 0, dependent=dep and i > 0,
+                               seg_address=int(a), **hdr_kwargs)
+            out += nal_unit(w.get_bytes() + seg, nal_type)
+        return out
 
     def _serialize_p(self, fd, poc, ref_poc_diff, ref_list_l0=None,
                      retained_l0=(), tmvp: bool = False, qp=None):
@@ -615,6 +657,12 @@ class PFrameMixin:
         deltas."""
         qp = self.cfg.qp if qp is None else qp
         nref = 1 if ref_list_l0 is None else len(ref_list_l0)
+        if self.params.slices != "none":
+            return self._slice_nals(
+                fd, SLICE_P, NAL_TRAIL_R,
+                dict(poc=poc, ref_poc_diff=ref_poc_diff,
+                     ref_list_l0=ref_list_l0, retained_l0=retained_l0,
+                     tmvp=tmvp), nref_l0=nref, qp=qp)
         data, sizes = self._slice_data(fd, SLICE_P, qp, nref)
         w = BitWriter()
         write_slice_header(w, self.params, SLICE_P, NAL_TRAIL_R, qp,
@@ -631,6 +679,11 @@ class PFrameMixin:
         rpd1 ahead) at slice QP qp; nal_type RASL_R for the leading
         pictures of an open-GOP CRA."""
         qp = self.cfg.qp if qp is None else qp
+        if self.params.slices != "none":
+            return self._slice_nals(
+                fd, SLICE_B, nal_type,
+                dict(poc=poc, ref_poc_diff=rpd0, ref_poc_diff_l1=rpd1),
+                qp=qp)
         data, sizes = self._slice_data(fd, SLICE_B, qp)
         w = BitWriter()
         write_slice_header(w, self.params, SLICE_B, nal_type, qp, poc=poc,
@@ -882,8 +935,11 @@ class IntraFrameEncoder(PFrameMixin):
         self.pix = pix_dtype(self.bitdepth)
         self.coded_w = -(-cfg.width // self.cu) * self.cu
         self.coded_h = -(-cfg.height // self.cu) * self.cu
+        # Tiles (uniform spacing) make the plan's decode order
+        # tile-major and cut availability at tile boundaries.
+        self.tiles = (cfg.tiles_x, cfg.tiles_y)
         self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
-                                    self.chroma, tiles=(1, 1))
+                                    self.chroma, tiles=self.tiles)
         if cfg.lossless:
             # Deblocking would change the bypassed samples; as in the JAX
             # package (and the reference's --lossless), the encoder turns
@@ -905,7 +961,7 @@ class IntraFrameEncoder(PFrameMixin):
                       self.coded_h - cfg.height),
             tmvp_enabled=cfg.tmvp,
             amp=cfg.amp,
-            tiles=(1, 1),
+            tiles=self.tiles,
             framerate=(cfg.framerate_num, cfg.framerate_denom),
             sar=(cfg.sar_width, cfg.sar_height),
             overscan=cfg.overscan, videoformat=cfg.videoformat,
@@ -914,6 +970,7 @@ class IntraFrameEncoder(PFrameMixin):
             chroma_loc=cfg.chromaloc,
             tier=1 if cfg.tier == "high" else 0,
             cu_qp_delta=cfg.cu_qp_delta_active,
+            slices=cfg.slices,
             level_idc=int(round(float(cfg.level) * 30))
             if cfg.level is not None else compute_level_idc(
                 self.coded_w, self.coded_h,
@@ -975,20 +1032,25 @@ class IntraFrameEncoder(PFrameMixin):
         the deblocked reconstruction against the source, the decision
         (each CTU's own choice, then the merge wavefront) and the
         filter, at lambda lam (default the config QP's; a GOP layer
-        passes its own).  Returns (the filtered recon
-        uint8 (y, cb, cr), the packed parameters int32 (B, Cy, Cx, 20):
-        merge, type (luma, chroma), edge class (luma, chroma), band
-        position (y, cb, cr), offsets (y, cb, cr) x 4)."""
+        passes its own).  Under tiles the statistics come to the host
+        (one download each) for the JAX package's host decision, whose
+        merges stop at tile boundaries (``_sao_decide_tiles``).  Returns
+        (the filtered recon uint8 (y, cb, cr), the packed parameters
+        int32 (B, Cy, Cx, 20): merge, type (luma, chroma), edge class
+        (luma, chroma), band position (y, cb, cr), offsets (y, cb, cr)
+        x 4)."""
         ys, cbs, crs = srcs
         ry, rcb, rcr = recs
         bd = self.bitdepth
+        lam = qp_to_lambda(self.cfg.qp) if lam is None else lam
         stats_c = None
         if cbs is not None:
             stats_c = (sao_stats(cbs, rcb, 32, bd),
                        sao_stats(crs, rcr, 32, bd))
-        p = sao_decide_frame_device(
-            sao_stats(ys, ry, 64, bd), stats_c,
-            qp_to_lambda(self.cfg.qp) if lam is None else lam)
+        stats_y = sao_stats(ys, ry, 64, bd)
+        decide = (self._sao_decide_tiles if self.params.tiles_enabled
+                  else sao_decide_frame_device)
+        p = decide(stats_y, stats_c, lam)
         t, eo, bp, off = p["type"], p["eo"], p["bp"], p["off"]
         ry = apply_sao_plane(ry, t[..., 0], eo[..., 0], bp[..., 0],
                              off[..., 0, :], 64, bd)
@@ -1000,6 +1062,38 @@ class IntraFrameEncoder(PFrameMixin):
         packed = torch.cat([p["merge"][..., None], t, eo, bp,
                             off.flatten(-2)], dim=-1)
         return (ry, rcb, rcr), packed
+
+    def _sao_decide_tiles(self, stats_y, stats_c, lam):
+        """The host SAO decision of a tiled batch (the JAX package's
+        ``sao_decide_frame`` per frame, with each CTU's tile column and
+        row from the plan's bounds), in ``sao_decide_frame_device``'s
+        form: the device statistics come down once per tensor, the
+        parameters go back up in one int32 tensor."""
+        def host(stats):
+            return [a.cpu().numpy() for a in stats]
+
+        s_y = host(stats_y)
+        s_c = None if stats_c is None else (host(stats_c[0]),
+                                            host(stats_c[1]))
+        tcol = np.searchsorted(self.plan.tile_col_bounds[1:],
+                               np.arange(self.params.width_in_ctus), "right")
+        trow = np.searchsorted(self.plan.tile_row_bounds[1:],
+                               np.arange(self.params.height_in_ctus),
+                               "right")
+        out = []
+        for i in range(s_y[0].shape[0]):
+            st_c = None if s_c is None else tuple(
+                [a[i] for a in c] for c in s_c)
+            d = sao_decide_frame([a[i] for a in s_y], st_c, lam,
+                                 tile_col=tcol, tile_row=trow)
+            out.append(np.concatenate(
+                [d["merge"][..., None], d["type"], d["eo"], d["bp"],
+                 d["off"].reshape(*d["off"].shape[:2], 12)],
+                axis=-1).astype(np.int32))
+        packed = torch.from_numpy(np.stack(out)).to(stats_y[0].device)
+        return dict(merge=packed[..., 0], type=packed[..., 1:3],
+                    eo=packed[..., 3:5], bp=packed[..., 5:8],
+                    off=packed[..., 8:20].unflatten(-1, (3, 4)))
 
     def _deblock_sse(self, srcs, recs, bs=None, qp_map=None):
         """Deblock a (B, H, W) batch of reconstructions (bs: the (bs_v,
@@ -1137,35 +1231,31 @@ class IntraFrameEncoder(PFrameMixin):
     def _serialize_i(self, fd, rec_y, rec_cb, rec_cr) -> FrameResult:
         """I slice NAL of one I frame's FrameData (an IDR at POC 0, or
         the open-GOP CRA that encode_frame names): native CABAC (WPP
-        substreams) where ``_native_cabac``, else the Python serializer;
-        then the slice header and the picture hash SEI."""
-        # Slice data first (entry-point offsets go into the header).
-        sizes = []
-        if self._native_cabac():
-            if self.params.wpp:
+        substreams) where ``_native_cabac``, else the Python serializer
+        (one NAL per slice segment under --slices); then the slice
+        header and the picture hash SEI."""
+        nal_type, poc = self._islice or (NAL_IDR_W_RADL, 0)
+        if self.params.slices != "none":
+            nal = self._slice_nals(fd, SLICE_I, nal_type,
+                                   dict(poc=poc, ref_list_l0=[]))
+        else:
+            # Slice data first (entry-point offsets go into the header).
+            sizes = []
+            if not self._native_cabac():
+                data, sizes = self._python_slice_data(fd, SLICE_I,
+                                                      self.cfg.qp)
+            elif self.params.wpp:
                 data, sizes = native.encode_slice_data_native_wpp(
                     self.params, fd, self.cfg.qp)
             else:
                 data = native.encode_slice_data_native(self.params, fd,
                                                        self.cfg.qp)
-        else:
-            dw = BitWriter()
-            enc = SliceDataEncoder(self.params, fd,
-                                   Contexts(SLICE_I, self.cfg.qp),
-                                   CabacEncoder(dw))
-            if self.params.wpp:
-                sizes = enc.encode_slice_data_wpp()
-            else:
-                enc.encode_slice_data()
-                dw.align_zero()
-            data = dw.get_bytes()
-        nal_type, poc = self._islice or (NAL_IDR_W_RADL, 0)
-        w = BitWriter()
-        write_slice_header(w, self.params, SLICE_I, nal_type,
-                           self.cfg.qp, poc=poc, ref_list_l0=[],
-                           num_entry_points=max(len(sizes) - 1, 0),
-                           entry_point_offsets=sizes[:-1])
-        nal = nal_unit(w.get_bytes() + data, nal_type)
+            w = BitWriter()
+            write_slice_header(w, self.params, SLICE_I, nal_type,
+                               self.cfg.qp, poc=poc, ref_list_l0=[],
+                               num_entry_points=max(len(sizes) - 1, 0),
+                               entry_point_offsets=sizes[:-1])
+            nal = nal_unit(w.get_bytes() + data, nal_type)
         if rec_y is not None:
             nal = self._with_hash(nal, (rec_y, rec_cb, rec_cr))
         return FrameResult(nals=nal, recon_y=rec_y, recon_cb=rec_cb,

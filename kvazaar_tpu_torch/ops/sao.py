@@ -12,9 +12,13 @@ upper neighbours' resolved parameters, one diagonal earlier).
 
 Conventions: type 0 = off, 1 = band, 2 = edge; edge offsets are stored
 signed (+, +, -, -) as applied; band_position is the first of 4
-consecutive bands (the window wraps).  The host decision of the JAX
-package (``sao_decide_frame``, with tile-aware merges) is not ported:
-tiles are not.
+consecutive bands (the window wraps).
+
+Under tiles the decision runs on the host instead (``sao_decide_frame``
+and its helpers, numpy copies of the JAX package's host functions, the
+colliding names suffixed ``_np``): a CTU's merge candidates must stay
+inside its tile (7.3.8.3), which the device's merge wavefront does not
+see.
 
 The decision's costs are float32 ``ddist + lam * bits`` and are formed
 as the JAX package's CPU backend forms them (one fused multiply-add,
@@ -373,3 +377,300 @@ def apply_sao_plane(rec: torch.Tensor, sao_type: torch.Tensor,
     out = torch.where(t_map == 2, p + eo_off,
                       torch.where(t_map == 1, p + b_off, p))
     return torch.clamp(out, 0, (1 << bitdepth) - 1).to(rec.dtype)
+
+
+# ---- Host decision (tiles): numpy copies of the JAX package's host
+# functions (kvazaar_tpu/ops/sao.py:106-396). ----
+
+
+def _best_offset_np(cnt, acc, sign):
+    """Closed-form offset choice per category (the reference's
+    sao_calc_offset + dist model): offset = clamp(round(acc/cnt)) with
+    spec sign constraint; returns (offset, ddist) where ddist =
+    cnt*off^2 - 2*off*acc (negative = improvement)."""
+    cnt = cnt.astype(np.int64)
+    acc = acc.astype(np.int64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        off = np.where(cnt > 0,
+                       np.round(acc / np.maximum(cnt, 1)), 0)
+    off = np.clip(off, -7, 7).astype(np.int64)
+    if sign > 0:
+        off = np.maximum(off, 0)
+    elif sign < 0:
+        off = np.minimum(off, 0)
+    # refine +-1 around the rounded value (the quadratic is exact)
+    best_off = np.zeros_like(off)
+    best_d = np.zeros_like(off)
+    for delta in (-1, 0, 1):
+        o = np.clip(off + delta, -7, 7)
+        if sign > 0:
+            o = np.maximum(o, 0)
+        elif sign < 0:
+            o = np.minimum(o, 0)
+        d = cnt * o * o - 2 * o * acc
+        take = d < best_d
+        best_off = np.where(take, o, best_off)
+        best_d = np.where(take, d, best_d)
+    return best_off, best_d
+
+
+def _offset_bits_np(off, edge: bool):
+    """Approximate signalling bits of one offset (TR cMax 7 bypass +
+    sign for band)."""
+    a = np.abs(off)
+    bits = np.minimum(a + 1, 7)
+    if not edge:
+        bits = bits + (a > 0)
+    return bits
+
+
+def choose_sao_params(e_cnt, e_sum, b_cnt, b_sum, lam: float):
+    """Per-CTU parameter selection for one component from device stats
+    (numpy).  Returns dict with arrays over (Cy, Cx): type (0/1/2),
+    eo_class, band_pos, offsets (4,) signed, cost (RD of the choice;
+    OFF has cost 0 baseline + ~1 bit)."""
+    _, _, cy, cx = e_cnt.shape
+    best_type = np.zeros((cy, cx), np.int8)
+    best_eo = np.zeros((cy, cx), np.int8)
+    best_bp = np.zeros((cy, cx), np.int8)
+    best_off = np.zeros((cy, cx, 4), np.int8)
+    # OFF: ddist 0, ~1 bit for type.
+    best_cost = np.full((cy, cx), lam * 1.0)
+
+    for cls in range(4):
+        offs = np.zeros((cy, cx, 4), np.int64)
+        dd = np.zeros((cy, cx), np.int64)
+        bits = np.full((cy, cx), 4.0)   # type(2) + eo_class(2)
+        for k, sign in zip(range(1, 5), (1, 1, -1, -1)):
+            o, d = _best_offset_np(e_cnt[cls, k], e_sum[cls, k], sign)
+            offs[:, :, k - 1] = o
+            dd += d
+            bits += _offset_bits_np(o, True)
+        cost = dd + lam * bits
+        take = cost < best_cost
+        best_cost = np.where(take, cost, best_cost)
+        best_type = np.where(take, 2, best_type)
+        best_eo = np.where(take, cls, best_eo)
+        best_off = np.where(take[..., None], offs, best_off)
+
+    # Band: best 4-consecutive-band window.
+    boffs = np.zeros((32, cy, cx), np.int64)
+    bdd = np.zeros((32, cy, cx), np.int64)
+    for k in range(32):
+        o, d = _best_offset_np(b_cnt[k], b_sum[k], 0)
+        boffs[k] = o
+        bdd[k] = d
+    for bp in range(32):
+        # The 4-band window wraps (8.7.3: bandTable[(bp + i) & 31]).
+        idx = [(bp + i) & 31 for i in range(4)]
+        dd = sum(bdd[i] for i in idx)
+        obits = sum(_offset_bits_np(boffs[i], False) for i in idx)
+        cost = dd + lam * (2.0 + 5.0 + obits)
+        take = cost < best_cost
+        if not take.any():
+            continue
+        best_cost = np.where(take, cost, best_cost)
+        best_type = np.where(take, 1, best_type)
+        best_bp = np.where(take, bp, best_bp)
+        woff = np.stack([boffs[i] for i in idx], axis=-1)
+        best_off = np.where(take[..., None], woff, best_off)
+
+    return dict(type=best_type, eo_class=best_eo, band_pos=best_bp,
+                offsets=best_off.astype(np.int8), cost=best_cost)
+
+
+def _dd_edge(e_cnt, e_sum, cls, offs, cy, cx):
+    dd = np.zeros((cy, cx), np.int64)
+    for k in range(1, 5):
+        o = offs[..., k - 1].astype(np.int64)
+        dd += e_cnt[cls, k] * o * o - 2 * o * e_sum[cls, k]
+    return dd
+
+
+def _dd_band(b_cnt, b_sum, bp, offs, cy, cx):
+    dd = np.zeros((cy, cx), np.int64)
+    for i in range(4):
+        idx = (bp + i) & 31
+        o = offs[..., i].astype(np.int64)
+        cnt = np.take_along_axis(b_cnt, idx[None], axis=0)[0]
+        sm = np.take_along_axis(b_sum, idx[None], axis=0)[0]
+        dd += cnt * o * o - 2 * o * sm
+    return dd
+
+
+def sao_decide_frame(stats_y, stats_c, lam: float,
+                     tile_col=None, tile_row=None):
+    """Full SAO parameter decision for one frame from device stats.
+
+    stats_y: (e_cnt, e_sum, b_cnt, b_sum) luma; stats_c: ((cb...),
+    (cr...)) or None.  Returns the FrameData-style arrays: merge
+    (Cy,Cx), type (Cy,Cx,2), eo (Cy,Cx,2), bp (Cy,Cx,3),
+    off (Cy,Cx,3,4) — resolved post-merge values (reference analogue:
+    sao_search_best_mode + merge evaluation, src/sao.c:467-646)."""
+    e_cnt, e_sum, b_cnt, b_sum = [np.asarray(a) for a in stats_y]
+    _, _, cy, cx = e_cnt.shape
+    luma = choose_sao_params(e_cnt, e_sum, b_cnt, b_sum, lam)
+    chroma = stats_c is not None
+    if chroma:
+        scb = [np.asarray(a) for a in stats_c[0]]
+        scr = [np.asarray(a) for a in stats_c[1]]
+        cpar = _choose_chroma_np(scb, scr, lam)
+
+    n_t = np.zeros((cy, cx, 2), np.uint8)
+    n_eo = np.zeros((cy, cx, 2), np.uint8)
+    n_bp = np.zeros((cy, cx, 3), np.uint8)
+    n_off = np.zeros((cy, cx, 3, 4), np.int8)
+    n_merge = np.zeros((cy, cx), np.uint8)
+    n_t[:, :, 0] = luma["type"]
+    n_eo[:, :, 0] = luma["eo_class"]
+    n_bp[:, :, 0] = luma["band_pos"]
+    n_off[:, :, 0] = luma["offsets"]
+    own_cost = luma["cost"].copy()
+    if chroma:
+        n_t[:, :, 1] = cpar["type"]
+        n_eo[:, :, 1] = cpar["eo_class"]
+        n_bp[:, :, 1] = cpar["bp_cb"]
+        n_bp[:, :, 2] = cpar["bp_cr"]
+        n_off[:, :, 1] = cpar["off_cb"]
+        n_off[:, :, 2] = cpar["off_cr"]
+        own_cost = own_cost + cpar["cost"]
+
+    def cost_with(params, yy, xx):
+        """RD of applying (t, eo, bp, off) params at CTU (yy, xx)."""
+        t2, eo2, bp2, off2 = params
+        c = 0.0
+        comps = [(0, e_cnt, e_sum, b_cnt, b_sum)]
+        if chroma:
+            comps += [(1, scb[0], scb[1], scb[2], scb[3]),
+                      (2, scr[0], scr[1], scr[2], scr[3])]
+        for (ci, ec, es, bc, bs) in comps:
+            t = int(t2[0 if ci == 0 else 1])
+            offs = off2[ci].astype(np.int64)
+            if t == 2:
+                cls = int(eo2[0 if ci == 0 else 1])
+                dd = 0
+                for k in range(1, 5):
+                    o = int(offs[k - 1])
+                    dd += int(ec[cls, k, yy, xx]) * o * o \
+                        - 2 * o * int(es[cls, k, yy, xx])
+                c += dd
+            elif t == 1:
+                bp = int(bp2[ci])
+                dd = 0
+                for i in range(4):
+                    idx = (bp + i) & 31
+                    o = int(offs[i])
+                    dd += int(bc[idx, yy, xx]) * o * o \
+                        - 2 * o * int(bs[idx, yy, xx])
+                c += dd
+        return c
+
+    # Greedy raster merge decisions (exact RD on the stats).
+    # Merge flags exist only toward neighbors in the SAME tile
+    # (7.3.8.3 conditions; tile_col/tile_row: tile id per CTU axis).
+    def left_ok(yy, xx):
+        return xx > 0 and (tile_col is None
+                           or tile_col[xx - 1] == tile_col[xx])
+
+    def up_ok(yy, xx):
+        return yy > 0 and (tile_row is None
+                           or tile_row[yy - 1] == tile_row[yy])
+
+    for yy in range(cy):
+        for xx in range(cx):
+            best = own_cost[yy, xx] + lam * (left_ok(yy, xx)
+                                             + up_ok(yy, xx))
+            choice = 0
+            if left_ok(yy, xx):
+                p = (n_t[yy, xx - 1], n_eo[yy, xx - 1],
+                     n_bp[yy, xx - 1], n_off[yy, xx - 1])
+                cm = cost_with(p, yy, xx) + lam * 1.0
+                if cm < best:
+                    best, choice = cm, 1
+            if up_ok(yy, xx):
+                p = (n_t[yy - 1, xx], n_eo[yy - 1, xx],
+                     n_bp[yy - 1, xx], n_off[yy - 1, xx])
+                cm = cost_with(p, yy, xx) + lam * (left_ok(yy, xx)
+                                                   + 1.0)
+                if cm < best:
+                    best, choice = cm, 2
+            if choice:
+                sy, sx = (yy, xx - 1) if choice == 1 else (yy - 1, xx)
+                n_t[yy, xx] = n_t[sy, sx]
+                n_eo[yy, xx] = n_eo[sy, sx]
+                n_bp[yy, xx] = n_bp[sy, sx]
+                n_off[yy, xx] = n_off[sy, sx]
+                n_merge[yy, xx] = choice
+    return dict(merge=n_merge, type=n_t, eo=n_eo, bp=n_bp, off=n_off)
+
+
+def _choose_chroma_np(scb, scr, lam):
+    """Joint cb+cr choice: shared type and eo_class (7.3.8.3),
+    separate offsets and band positions."""
+    ecb, esb, bcb, bsb = scb
+    ecr, esr, bcr, bsr = scr
+    _, _, cy, cx = ecb.shape
+    best = dict(type=np.zeros((cy, cx), np.uint8),
+                eo_class=np.zeros((cy, cx), np.uint8),
+                bp_cb=np.zeros((cy, cx), np.uint8),
+                bp_cr=np.zeros((cy, cx), np.uint8),
+                off_cb=np.zeros((cy, cx, 4), np.int8),
+                off_cr=np.zeros((cy, cx, 4), np.int8),
+                cost=np.full((cy, cx), lam * 1.0))
+    for cls in range(4):
+        offs_b = np.zeros((cy, cx, 4), np.int64)
+        offs_r = np.zeros((cy, cx, 4), np.int64)
+        dd = np.zeros((cy, cx), np.int64)
+        bits = np.full((cy, cx), 4.0)
+        for k, sign in zip(range(1, 5), (1, 1, -1, -1)):
+            ob, db = _best_offset_np(ecb[cls, k], esb[cls, k], sign)
+            orr, dr = _best_offset_np(ecr[cls, k], esr[cls, k], sign)
+            offs_b[:, :, k - 1] = ob
+            offs_r[:, :, k - 1] = orr
+            dd += db + dr
+            bits += _offset_bits_np(ob, True) + _offset_bits_np(orr, True)
+        cost = dd + lam * bits
+        take = cost < best["cost"]
+        best["cost"] = np.where(take, cost, best["cost"])
+        best["type"] = np.where(take, 2, best["type"])
+        best["eo_class"] = np.where(take, cls, best["eo_class"])
+        best["off_cb"] = np.where(take[..., None], offs_b,
+                                  best["off_cb"]).astype(np.int8)
+        best["off_cr"] = np.where(take[..., None], offs_r,
+                                  best["off_cr"]).astype(np.int8)
+
+    def band_best(bc, bs):
+        boffs = np.zeros((32, cy, cx), np.int64)
+        bdd = np.zeros((32, cy, cx), np.int64)
+        for k in range(32):
+            o, d = _best_offset_np(bc[k], bs[k], 0)
+            boffs[k] = o
+            bdd[k] = d
+        bcost = np.full((cy, cx), np.inf)
+        bbp = np.zeros((cy, cx), np.uint8)
+        boff = np.zeros((cy, cx, 4), np.int64)
+        for bp in range(32):
+            idx = [(bp + i) & 31 for i in range(4)]
+            dd = sum(bdd[i] for i in idx)
+            bits = 5.0 + sum(_offset_bits_np(boffs[i], False) for i in idx)
+            cost = dd + lam * bits
+            take = cost < bcost
+            bcost = np.where(take, cost, bcost)
+            bbp = np.where(take, bp, bbp)
+            w = np.stack([boffs[i] for i in idx], axis=-1)
+            boff = np.where(take[..., None], w, boff)
+        return bcost, bbp, boff
+
+    cb_cost, cb_bp, cb_off = band_best(bcb, bsb)
+    cr_cost, cr_bp, cr_off = band_best(bcr, bsr)
+    cost = cb_cost + cr_cost + lam * 2.0
+    take = cost < best["cost"]
+    best["cost"] = np.where(take, cost, best["cost"])
+    best["type"] = np.where(take, 1, best["type"])
+    best["bp_cb"] = np.where(take, cb_bp, best["bp_cb"]).astype(np.uint8)
+    best["bp_cr"] = np.where(take, cr_bp, best["bp_cr"]).astype(np.uint8)
+    best["off_cb"] = np.where(take[..., None], cb_off,
+                              best["off_cb"]).astype(np.int8)
+    best["off_cr"] = np.where(take[..., None], cr_off,
+                              best["off_cr"]).astype(np.int8)
+    return best

@@ -14,15 +14,18 @@ from the card to the plain version.
 The kernel is compiled with ``nvcc`` for sm_90a into a shared library
 with a plain C interface at first use (``build/kernels/`` under the
 repository root, keyed by the source's hash) and loaded with ctypes.
-Its per-plan tables (the schedule packed per block, the step offsets
-and the depth of the shared-memory edge ring) are derived here, once per
-plan and device; the launch's threads and shared memory come from the
-library (``ktt_wavefront_layout``), and a plan that needs more shared
-memory than the device gives raises here.  ``LAUNCHES`` counts the
+Its per-plan tables (the schedule packed per block, the step offsets,
+the tile table and the depth of the shared-memory edge ring) are
+derived here, once per plan and device: each tile of a tiled plan runs
+as a thread block of its own, with a ring over its own rows (tiles cut
+every prediction dependency).  The launch's threads and shared memory
+come from the library (``ktt_wavefront_layout``), and a plan that needs
+more shared memory than the device gives raises here.  ``LAUNCHES`` counts the
 kernel launches of this process, intra and inter variants apart,
 ``QP_MAP_LAUNCHES`` those of them that took a per-block QP map,
-``LAUNCHES_10BIT`` those of the 10-bit instances and ``BYPASS_LAUNCHES``
-those of the lossless (transquant bypass) instances.
+``LAUNCHES_10BIT`` those of the 10-bit instances, ``BYPASS_LAUNCHES``
+those of the lossless (transquant bypass) instances and
+``TILE_LAUNCHES`` those on a tiled plan.
 """
 
 from __future__ import annotations
@@ -48,20 +51,25 @@ from kvazaar_tpu_torch.ops.quant import int32_table, quant_params
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
 # among them, LAUNCHES_10BIT the 10-bit ones ("qp_map": those of them
 # with a QP map), BYPASS_LAUNCHES the lossless ones ("rdpcm": those of
-# them with implicit RDPCM, "10bit": those at 10-bit).
+# them with implicit RDPCM, "10bit": those at 10-bit), TILE_LAUNCHES
+# those on a plan of more than one tile.
 LAUNCHES = {"intra": 0, "inter": 0}
 QP_MAP_LAUNCHES = {"intra": 0, "inter": 0}
 LAUNCHES_10BIT = {"intra": 0, "inter": 0, "qp_map": 0}
 BYPASS_LAUNCHES = {"intra": 0, "inter": 0, "rdpcm": 0, "10bit": 0}
+TILE_LAUNCHES = {"intra": 0, "inter": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# --split-compile=0: nvcc optimizes the kernel instances in parallel, on
+# every core of the host.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC"]
 _SIZES = (4, 8, 16, 32)
 _BITDEPTHS = (8, 10)
-# blk_info holds a block's step-order position in its low _POS_BITS bits
-# and its availability mask above them (kAvailShift in the kernel).
+# blk_info holds a block's position in its tile's step order in its low
+# _POS_BITS bits and its availability mask above them (kAvailShift in the
+# kernel).
 _POS_BITS = 20
 
 _F_L, _F_A, _F_AR, _F_BL, _F_AL = 1, 2, 4, 8, 16
@@ -132,6 +140,7 @@ def _library():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     lib.ktt_wavefront_layout.restype = ctypes.c_int
     lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
@@ -182,19 +191,44 @@ _SCAN_ORDER = (3, 0, 4, 1, 2)
 
 
 def step_tables(plan: IntraFramePlan):
-    """The kernel's schedule without pad slots: (blk_info (N_blocks,)
-    int32 = position of the block in step order | availability mask in
-    scan order << _POS_BITS, step_start (n_steps + 1,) int32 = first
-    position of each step)."""
+    """The kernel's schedule without pad slots, tile by tile: tiles cut
+    every prediction dependency, so each tile runs as a thread block of
+    its own from step 0 (an untiled plan is one tile).  Returns
+    (blk_info (N_blocks,) int32 = position of the block in its tile's
+    step order | availability mask in scan order << _POS_BITS;
+    step_start (tiles, n + 1) int32, n the most steps of any tile = per
+    tile, the first position of each of its steps, then its block count
+    (repeated past its last step: a tile with fewer steps runs empty
+    ones); tile_info (tiles, 4) int32 = first block column and row,
+    width and height in blocks)."""
     order = plan.block_of_slot[plan.block_of_slot >= 0]   # step order
     avail = plan.avail.reshape(-1, 5)
     mask = sum(avail[:, j].astype(np.int32) << bit
                for bit, j in enumerate(_SCAN_ORDER))
+    # The tiles' column and row bounds in blocks: the plan's CTU bounds,
+    # cut to the grid.
+    k = 64 // plan.cu_size
+    cols = np.minimum(np.asarray(plan.tile_col_bounds) * k, plan.blocks_x)
+    rows = np.minimum(np.asarray(plan.tile_row_bounds) * k, plan.blocks_y)
+    tcol = np.searchsorted(cols[1:], np.arange(plan.blocks_x), "right")
+    trow = np.searchsorted(rows[1:], np.arange(plan.blocks_y), "right")
+    tile_of = (trow[:, None] * (len(cols) - 1) + tcol[None, :]).ravel()
+    order = order[np.argsort(tile_of[order], kind="stable")]
+    first = np.searchsorted(tile_of[order], tile_of[order])  # tile's start
     blk_info = np.zeros(len(order), np.int32)
-    blk_info[order] = np.arange(len(order)) | (mask[order] << _POS_BITS)
-    counts = (plan.block_of_slot >= 0).sum(axis=1)
-    step_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return blk_info, step_start
+    blk_info[order] = ((np.arange(len(order)) - first)
+                       | (mask[order] << _POS_BITS))
+    step = plan.step_of_block.ravel()
+    counts = [np.bincount(step[tile_of == t])
+              for t in range((len(cols) - 1) * (len(rows) - 1))]
+    n = max(map(len, counts))
+    starts = np.zeros((len(counts), n + 1), np.int32)
+    for t, c in enumerate(counts):
+        starts[t] = np.cumsum(np.concatenate([[0], c, np.zeros(n - len(c))]))
+    info = [(cols[tx], rows[ty], cols[tx + 1] - cols[tx],
+             rows[ty + 1] - rows[ty]) for ty in range(len(rows) - 1)
+            for tx in range(len(cols) - 1)]
+    return blk_info, starts, np.asarray(info, np.int32)
 
 
 def _last_reader_step(plan: IntraFramePlan) -> np.ndarray:
@@ -209,14 +243,22 @@ def _last_reader_step(plan: IntraFramePlan) -> np.ndarray:
     return last
 
 
-def ring_depth(plan: IntraFramePlan) -> int:
-    """Depth K of the kernel's edge ring: block (bx, by) keeps its edges
-    in ring row by % K.  The smallest K for which no block writes a ring
-    entry from the step at which another block's edges were written there
-    up to the step of their last reader (a write in the reader's own step
-    would race with the read)."""
+def ring_depth(plan: IntraFramePlan, bounds=None) -> int:
+    """Depth K of the kernel's edge ring over the whole plan or, given
+    bounds = (first row, end row, first column, end column) in blocks,
+    over one tile of it: block (bx, by) keeps its edges in ring row
+    by % K (of its tile's ring).  The smallest K for which no block
+    writes a ring entry from the step at which another block's edges
+    were written there up to the step of their last reader (a write in
+    the reader's own step would race with the read).  Tiles run their
+    wavefronts at once, so one ring over a tiled plan needs K about the
+    tile rows' block rows (16 at 1920x1088 3x3, cu 16); a tile's own is
+    3."""
     w = plan.step_of_block.astype(np.int64)
     last = _last_reader_step(plan)
+    if bounds is not None:
+        y0, y1, x0, x1 = bounds
+        w, last = w[y0:y1, x0:x1], last[y0:y1, x0:x1]
     by_n = w.shape[0]
     for k in range(1, by_n):
         clash = False
@@ -235,17 +277,31 @@ def ring_depth(plan: IntraFramePlan) -> int:
 
 
 @plan_cached
+def tile_shape(plan: IntraFramePlan):
+    """(steps, slots, ring depth, width in blocks, blocks) of the plan's
+    largest tile on each count: what a thread block of the kernel must
+    hold."""
+    _, step_start, info = step_tables(plan)
+    ring = max(ring_depth(plan, (by0, by0 + bh, bx0, bx0 + bw))
+               for bx0, by0, bw, bh in info.tolist())
+    return (step_start.shape[1] - 1, int(np.diff(step_start).max()), ring,
+            int(info[:, 2].max()), int(step_start[:, -1].max()))
+
+
+@plan_cached
 def launch_layout(plan: IntraFramePlan, s_max: int, width: int,
                   bitdepth: int = 8):
     """(ring depth, threads, dynamic shared memory in bytes) of a launch
     whose largest block size is s_max on a plan whose widest plane is
     ``width`` samples at ``bitdepth``, the layout as the kernel's
-    library computes it."""
-    ring = ring_depth(plan)
+    library computes it for the plan's largest tile (its ring is as
+    wide as the widest tile)."""
+    n_steps, n_slots, ring, tile_bw, _ = tile_shape(plan)
     threads, nbytes = ctypes.c_int(0), ctypes.c_int(0)
     err = _library().ktt_wavefront_layout(
-        s_max, bitdepth, plan.n_steps, plan.n_slots, ring, width,
-        ctypes.byref(threads), ctypes.byref(nbytes))
+        s_max, bitdepth, n_steps, n_slots, ring,
+        width // plan.blocks_x * tile_bw, ctypes.byref(threads),
+        ctypes.byref(nbytes))
     if err != 0:
         raise ValueError(f"wavefront kernel: no launch layout for the plan "
                          f"(CUDA error {err})")
@@ -254,11 +310,9 @@ def launch_layout(plan: IntraFramePlan, s_max: int, width: int,
 
 @plan_cached
 def _plan_tables(plan: IntraFramePlan, device: torch.device):
-    """Per-block schedule words and step offsets on the device, once per
-    (plan, device)."""
-    blk_info, step_start = step_tables(plan)
-    return (torch.from_numpy(blk_info).to(device),
-            torch.from_numpy(step_start).to(device))
+    """Per-block schedule words, step offsets and the tile table on the
+    device, once per (plan, device)."""
+    return tuple(torch.from_numpy(a).to(device) for a in step_tables(plan))
 
 
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
@@ -372,14 +426,16 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
     if nbytes > limit:
         raise ValueError(f"wavefront kernel: the plan needs {nbytes} bytes "
                          f"of shared memory, the device gives {limit}")
-    blk_info, step_start = _plan_tables(plan, dev)
+    blk_info, step_start, tile_info = _plan_tables(plan, dev)
+    n_steps, n_slots, _, tile_bw, tile_blocks = tile_shape(plan)
     modes = modes.contiguous()
     if is_inter is not None:
         is_inter = is_inter.contiguous()
     structs = (_Plane * len(planes))()
     outs = []
-    # The kernel packs each item's schedule words here.
-    entries = torch.empty(sum(p[0].shape[0] for p in planes) * nblk,
+    # The kernel packs each (item, tile)'s schedule words here.
+    entries = torch.empty(sum(p[0].shape[0] for p in planes)
+                          * tile_info.shape[0] * tile_blocks,
                           dtype=torch.int32, device=dev)
     for st, (orig, mc, s, luma, qp, qp_map) in zip(structs, planes):
         nb, h, w = orig.shape
@@ -407,8 +463,9 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             step_start.data_ptr(), modes.data_ptr(),
             None if is_inter is None else is_inter.data_ptr(),
             entries.data_ptr(), modes.shape[0], plan.blocks_x, nblk,
-            plan.n_steps, plan.n_slots, ring, width, int(lossless),
-            int(rdpcm), stream)
+            n_steps, n_slots, ring, width // plan.blocks_x * tile_bw,
+            int(lossless), int(rdpcm), tile_info.data_ptr(),
+            tile_info.shape[0], tile_bw, tile_blocks, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
@@ -423,6 +480,8 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
         BYPASS_LAUNCHES[variant] += 1
         BYPASS_LAUNCHES["rdpcm"] += bool(rdpcm)
         BYPASS_LAUNCHES["10bit"] += bitdepth == 10
+    if tile_info.shape[0] > 1:
+        TILE_LAUNCHES[variant] += 1
     return tuple(outs)
 
 
@@ -437,6 +496,8 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
     if lossless and qp_map is not None:
         raise ValueError("wavefront kernel: a lossless launch takes no QP "
                          "map")
+    if qp_map is not None and plan.tiles != (1, 1):
+        raise ValueError("wavefront kernel: a tiled launch takes no QP map")
     sample_dtypes = ((torch.uint8, torch.int32) if bitdepth == 8
                      else (torch.int16,))
     names = " or ".join(str(d).replace("torch.", "") for d in sample_dtypes)

@@ -7,7 +7,8 @@
   preset's variable P trees at --gop 0 with a set_base_qp /
   reset_stream step, a fixed-grid GOP-4 B pyramid, rate control:
   --bitrate on Config()'s IPPP and ROI + AQ, and lossless all-intra
-  with implicit RDPCM and lossless IPPP) never imports jax
+  with implicit RDPCM and lossless IPPP, and Config()'s IPPP on a 2x1
+  tile grid with WPP) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -107,6 +108,15 @@ for period, rdpcm in ((1, True), (0, False)):
                                                          need_recon=True))
     assert all((r == s).all() for (_c, _i, rec), f in zip(out, frames)
                for r, s in zip(rec, f))
+# Tiles: Config()'s IPPP (cu 32, WPP) on a 2x1 tile grid, its slice data
+# in tile substreams from the Python serializer.
+tiled = [tuple(rng.integers(0, 256, s, dtype=np.uint8)
+               for s in ((64, 128), (32, 64), (32, 64))) for _ in range(3)]
+enc = Encoder(Config(width=128, height=64, qp=27, tiles_x=2, tiles_y=1),
+              device="cpu")
+out = list(enc.encode_stream(tiled))
+assert [o[1].slice_type for o in out] == [2, 1, 1]
+assert enc._intra.plan.tiles == (2, 1) and enc._intra.params.tiles_enabled
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
@@ -130,11 +140,13 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_kernel_times.py")
 
 
 def test_port_sources_import_no_kvazaar_tpu():
-    """Syntax-tree check of every import in the port and chip_smoke.py:
-    only kvazaar_tpu_torch, never kvazaar_tpu or jax."""
+    """Syntax-tree check of every import in the port, chip_smoke.py and
+    chip_kernel_times.py: only kvazaar_tpu_torch, never kvazaar_tpu or
+    jax."""
     bad = []
     n_files = 0
     for path in _port_sources():

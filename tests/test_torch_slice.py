@@ -223,14 +223,14 @@ def test_unported_configs_raise(change):
 
 def test_unported_structures_raise():
     """Low-delay P frames and B pyramids are ported (one or more
-    references on the fixed grid, variable trees with one per list);
-    scaling lists and slices on a B pyramid (fixed grid, variable
-    trees),
-    SMP, TMVP and selective encryption still raise."""
+    references on the fixed grid, variable trees with one per list), and
+    so are tiles and slices; scaling lists and the intra TU split on a B
+    pyramid (fixed grid, variable trees), SMP, TMVP and selective
+    encryption still raise."""
     for change, match in ((dict(gop_len=8, scaling_list="default"),
                            "scaling lists"),
-                          (dict(inter_min_cu=8, gop_len=8, slices="wpp"),
-                           "slices"),
+                          (dict(intra_min_cu=8, inter_min_cu=8, gop_len=8,
+                                tr_depth_intra=1), "intra TU split"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(crypto="k"), "selective encryption")):
@@ -263,7 +263,8 @@ def test_cli_writes_the_api_stream(tmp_path):
                                     "k"],
                                    ["--preset", "medium", "--period",
                                     "1", "--tr-depth-intra", "1"],
-                                   ["--period", "1", "--slices", "wpp"]])
+                                   ["--period", "1", "--scaling-list",
+                                    "default"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):
     from kvazaar_tpu_torch import cli
     src = tmp_path / "in.yuv"

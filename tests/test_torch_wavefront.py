@@ -245,24 +245,38 @@ def test_ring_depth_matches_brute_force(w, h, cu, tiles):
 
 
 def test_step_tables_follow_the_schedule():
-    """blk_info / step_start list exactly the schedule's blocks, in step
-    order, with their availability in the scan order below-left, left,
-    above-left, above, above-right (the schedule's flag bits L=1, A=2,
-    AR=4, BL=8, AL=16)."""
+    """blk_info / step_start list exactly the schedule's blocks, tile by
+    tile and in step order within a tile, with their availability in the
+    scan order below-left, left, above-left, above, above-right (the
+    schedule's flag bits L=1, A=2, AR=4, BL=8, AL=16); tile_info names
+    each tile's blocks, and step_start holds a row of steps per tile."""
     plan = make_intra_plan(96, 64, 8, chroma=True, tiles=(2, 1))
     sched = wavefront.schedule_np(plan)
-    blk_info, step_start = wavefront.step_tables(plan)
+    blk_info, step_start, tile_info = wavefront.step_tables(plan)
     bits = wavefront._POS_BITS
     pos, mask = blk_info & ((1 << bits) - 1), blk_info >> bits
-    for st in range(plan.n_steps):
-        real = sched[st][sched[st, :, 0] < len(blk_info)]
-        np.testing.assert_array_equal(
-            np.sort(pos[real[:, 0]]), np.arange(step_start[st],
-                                                step_start[st + 1]))
-        scan = sum(((real[:, 1] >> b) & 1) << r
-                   for r, b in enumerate((3, 0, 4, 1, 2)))
-        np.testing.assert_array_equal(mask[real[:, 0]], scan)
-    assert step_start[-1] == len(blk_info) == plan.blocks_x * plan.blocks_y
+    # Tile columns are whole CTUs: 64 and 32 samples.
+    np.testing.assert_array_equal(tile_info, [[0, 0, 8, 8], [8, 0, 4, 8]])
+    assert step_start.shape == (2, plan.n_steps + 1)
+    seen = 0
+    for (bx0, by0, bw, bh), starts in zip(tile_info, step_start):
+        yy, xx = np.mgrid[by0:by0 + bh, bx0:bx0 + bw]
+        mine = set((yy * plan.blocks_x + xx).ravel().tolist())
+        n_steps = plan.step_of_block[yy, xx].max() + 1
+        # Past its last step a tile runs empty steps.
+        assert (starts[n_steps:] == starts[-1]).all()
+        for st in range(n_steps):
+            real = sched[st][np.isin(sched[st, :, 0], list(mine))]
+            np.testing.assert_array_equal(
+                np.sort(pos[real[:, 0]]),
+                np.arange(starts[st], starts[st + 1]))
+            scan = sum(((real[:, 1] >> b) & 1) << r
+                       for r, b in enumerate((3, 0, 4, 1, 2)))
+            np.testing.assert_array_equal(mask[real[:, 0]], scan)
+            seen += len(real)
+    # Positions count from 0 in each tile.
+    assert seen == step_start[:, -1].sum() == len(blk_info) == \
+        plan.blocks_x * plan.blocks_y
 
 
 @pytest.mark.parametrize("cu", [16, 8])
