@@ -12,8 +12,12 @@ with a JSON object: the card's name, the tag and the mean time in ms of
 20 joint launches (luma + Cb + Cr, CUDA events) for the all-intra
 batch of 8 frames at cu 16 and cu 32, one P frame at cu 16 and cu 32,
 and the 10-bit all-intra batch at cu 16, all at 832x480 on
-``chip_smoke.py``'s seeded clip.  Without a CUDA device it exits
-nonzero.
+``chip_smoke.py``'s seeded clip.  With ``--cells N`` it then times
+the headline cell and its 10-bit twin (832x480 QP 22 all-intra, cu 16,
+batches of 8) through ``Encoder.encode_stream``: one warm-up batch, then
+N runs of ``chip_smoke.py``'s timed batches each, and prints one line
+``cell times:`` with each run's fps, host stage seconds
+(``Encoder.stats``) and the CPU seconds of the process's threads.  Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ def main() -> int:
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--cells", type=int, default=0)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -77,7 +82,37 @@ def main() -> int:
         launch()
         out[name] = cs.cuda_ms(torch, launch, 20)
     print("kernel times:", json.dumps(out), flush=True)
+    if args.cells:
+        print("cell times:", json.dumps(cell_times(torch, cs, frames,
+                                                   args.cells, args.tag)),
+              flush=True)
     return 0
+
+
+def cell_times(torch, cs, frames, runs, tag):
+    """fps, host stage seconds and process CPU seconds of ``runs`` timed
+    passes of the headline cell and its 10-bit twin through
+    ``Encoder.encode_stream``."""
+    import time
+    from kvazaar_tpu_torch.api import Encoder
+    out = {"device": torch.cuda.get_device_name(0), "tag": tag}
+    for name, cfg, clip in (
+            ("headline", cs.headline_config(cs.W, cs.H), frames),
+            ("intra-10bit", cs.tenbit_config(cs.W, cs.H),
+             cs.to_10bit(frames, 140))):
+        enc = Encoder(cfg, device="cuda")
+        list(enc.encode_stream(clip[:cs.BATCH]))
+        torch.cuda.synchronize()
+        fps, stages, cpu = [], [], []
+        for _ in range(runs):
+            c0, t0 = time.process_time(), time.perf_counter()
+            n = len(list(enc.encode_stream(clip * cs.TIMED_BATCHES)))
+            fps.append(n / (time.perf_counter() - t0))
+            cpu.append(time.process_time() - c0)
+            stages.append(dict(enc.stats))
+        enc.close()
+        out[name] = {"fps": fps, "stage_wall_s": stages, "cpu_s": cpu}
+    return out
 
 
 if __name__ == "__main__":

@@ -17,8 +17,9 @@ the medium preset's default, variable B trees), and rate control with a
 per-CTU QP map (``--bitrate`` on ``Config()``), 10-bit (Main 10)
 streams up to BASELINE config #5 (a 10-bit 3840x2160 GOP-8 stream with
 ``--bitrate``), lossless coding (transquant bypass, implicit RDPCM),
-and tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
-1920x1080).
+tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
+1920x1080), and RDOQ, sign hiding and --rd 2 / 3 on the fixed grid
+(``--preset slower --gop lp-g4d4t1``, all-intra at rd 3).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -33,8 +34,9 @@ Any failed phase raises, so the script exits nonzero:
 5. the joint launch (luma and Cb, Cr of a batch in one launch, as the
    encoder calls it) vs the plain version at the all-intra and the P
    path's shapes, timed against the luma launch alone; and a
-   compare-only check of 1920x1088 and 3840x2160 frames at cu 16 and
-   cu 8, both variants, random inputs, with the launch's shared memory;
+   compare-only check of 1920x1088 frames at cu 16 and cu 8 and
+   3840x2160 frames at cu 16, both variants, random inputs, with the
+   launch's shared memory;
 6. all-intra: encode a seeded video-like clip on the card, timed after
    one warm-up batch, with the kernel's launch counts read around the
    run; a per-stage split of one batch; the first 2 frames again on the
@@ -75,7 +77,7 @@ Any failed phase raises, so the script exits nonzero:
    veryfast preset (SAO on the I frame), each with a stage split of one
    P frame against 2 references; and card == CPU bytes and recon at
    416x240 for ultrafast, superfast, veryfast, faster and fast at their
-   defaults, Config() and 3 references at cu 16 (IDR + 5 P frames; fast
+   defaults, Config() and 3 references at cu 16 (IDR + 3 P frames; fast
    IDR + 2 P);
 11. variable P trees with one reference (``run_var_p``): the medium
    preset's IPPP point (--gop 0, intra CUs 8..32, inter CUs 8..64,
@@ -100,9 +102,10 @@ Any failed phase raises, so the script exits nonzero:
    the same way with one timed GOP (line ``gop8-medium encode_stream:``
    plus the CU-size histogram and inter share per frame) and a stage
    split of one B frame; card == CPU bytes and recon for the fixed-grid
-   GOP 8 (9 frames) and medium's GOP 8 (9 frames and a 2-frame tail) at
-   416x240, and an open GOP with CRA anchors and RASL B pictures (GOP 4,
-   period 4, variable trees) at 256x128; and a set_base_qp +
+   GOP 8 (9 frames) at 416x240, medium's GOP 8 (9 frames and a 2-frame
+   tail) at 256x128, and an open GOP with CRA anchors and RASL B
+   pictures (GOP 4, period 4, variable trees) at 256x128; and a
+   set_base_qp +
    reset_stream ladder (QP 22 -> 27 -> 22) on a GOP-8 medium encoder
    against fresh encoders;
 13. rate control and per-CTU QP (``run_rate_control``): the joint launch
@@ -117,9 +120,10 @@ Any failed phase raises, so the script exits nonzero:
    (fps, achieved kbit/s against 2000, slice, frame and CTU QP range;
    exactly one QP-map launch per frame) and a stage split of one of its
    P frames (``rc-ippp stage split``); and card == CPU bytes and
-   recon at 416x240 for ROI + AQ all-intra, the medium preset with
-   --bitrate 1000000 (GOP 8, variable B trees, the GOP allocation and
-   a 2-frame tail) and the ultrafast preset with --bitrate 1000000;
+   recon for ROI + AQ all-intra (416x240), the medium preset with
+   --bitrate 400000 (256x128; GOP 8, variable B trees, the GOP
+   allocation and a 2-frame tail) and the ultrafast preset with
+   --bitrate 1000000 (416x240);
 14. 10-bit (``run_tenbit``): the kernel's 10-bit instances == plain
    (line ``10-bit kernel vs plain``, timed against the 8-bit launch at
    the same shape): intra cu 16 over the intra cell's 8 frames, inter
@@ -132,9 +136,9 @@ Any failed phase raises, so the script exits nonzero:
    GOP 8, --bitrate 15000000, fixed cu 32; the IDR and one GOP warm,
    one GOP timed: fps, kbit/s against 15000, the QP range, PSNR-Y at
    peak 1023 and the peak device memory); and card == CPU bytes and
-   recon at 416x240 for 10-bit superfast --period 1, ultrafast, medium
-   (GOP 8, variable B trees) and Config() with --bitrate (a per-CTU QP
-   map);
+   recon at 416x240 for 10-bit superfast --period 1, ultrafast and
+   Config() with --bitrate (a per-CTU QP map), and medium (GOP 8,
+   variable B trees) at 256x128;
 15. lossless (``run_lossless``): the kernel's transquant-bypass
    instances == plain, max abs error 0, with the recon equal to the
    source (line ``bypass kernel vs plain``, each timed against the
@@ -150,7 +154,7 @@ Any failed phase raises, so the script exits nonzero:
    bypass launches, and a stage split with the Python CABAC's share);
    the pipelined FrameInfo of 128x128 noise at QP 51 (SSEs above 2^24)
    card == CPU, all-intra and IPPP; and card == CPU bytes and recon at
-   416x240 for lossless streams: RDPCM all-intra cu 16, Config() cu 32
+   256x128 for lossless streams: RDPCM all-intra cu 16, Config() cu 32
    all-intra, RDPCM IPPP cu 16, 10-bit RDPCM all-intra, the medium
    preset at --gop 0 and a fixed-grid GOP 4;
 16. tiles and slices (``run_tiles``): the kernel's tiled instances (a
@@ -169,7 +173,28 @@ Any failed phase raises, so the script exits nonzero:
    at 416x240 for tiles 3x3 + WPP IPPP (Config()), --slices tiles
    all-intra, --slices wpp on the medium preset at --gop 0, superfast
    at --period 1 with tiles 2x2 (the host SAO decision) and a
-   fixed-grid GOP 4 with tiles 2x2.
+   fixed-grid GOP 4 with tiles 2x2;
+17. RDOQ, sign hiding, --rd 2 and --rd 3 on the fixed grid
+   (``run_tools``): the kernel's RDOQ / sign-hiding instances and its
+   explicit chroma modes == plain, max abs error 0 (line ``tools kernel
+   vs plain``: RDOQ, sign hiding, both, RDOQ with a per-block QP map,
+   both with random chroma modes; 832x480 cu 8 / 16 / 32 intra with
+   random modes over every scanIdx and inter on a real cu 32 P frame
+   and random cu 8 / 16 ones, 10-bit intra cu 16 and inter cu 32,
+   1920x1088 3x3 tiled cu 16 intra and cu 32 inter, and 3840x2176 cu 32
+   10-bit compare-only; each timed against the same launch without the
+   tool, with the bound counting the tools' operations); the cells
+   ``intra-rd3-rdoq-sh-832x480-qp22`` (the headline configuration at rd
+   3 with RDOQ and sign hiding, timed as phase 6) and
+   ``ld-slower-832x480-qp22`` (``--preset slower --gop lp-g4d4t1``: one
+   warm pass over the 8-frame clip, then 8 timed P frames on the fixed
+   cu 32 grid with RDOQ and sign hiding), each with its tool launches
+   (``wavefront.TOOL_LAUNCHES``, ``CMODE_LAUNCHES``) and a stage split;
+   and card == CPU bytes and recon at 416x240 for medium --gop
+   lp-g4d4t1, medium --gop 0 --ref 2, placebo --gop 0 --ref 3,
+   Config(rdoq=True) with --bitrate, Config() with RDOQ, sign hiding and
+   tiles 2x2, a 10-bit fixed-grid GOP 8 with RDOQ and sign hiding, and
+   medium --period 1 --rd 3.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -487,7 +512,10 @@ def joint_launch(torch, frames, clip46, dev, cu=16, big=BIG,
 
     from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
     rng = np.random.default_rng(3)
-    for (big_w, big_h), cu in ((wh, c) for wh in big for c in big_cus):
+    # Not 3840x2160 at cu 8: its plain version's 2316 steps took a large
+    # share of the whole run; 1920x1088 covers cu 8.
+    for (big_w, big_h), cu in ((wh, c) for wh in big for c in big_cus
+                               if c != 8 or wh[0] < 3840):
         plan = make_intra_plan(big_w, big_h, cu, chroma=True)
 
         def rand(shape, hi, dtype=np.uint8):
@@ -516,9 +544,13 @@ def joint_launch(torch, frames, clip46, dev, cu=16, big=BIG,
 
 def stage_split(torch, ife, frames):
     """Per-stage times of one batch (device stages by CUDA events, the
-    host stages by wall clock)."""
+    host stages by wall clock); the search and the reconstruction as the
+    config runs them (rd 2's re-rank, rd 3's chroma-mode search, RDOQ and
+    sign hiding)."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import qp_to_lambda
     from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
-    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.encoder.intra_search import (search_chroma_modes,
+                                                        search_frame_modes)
     from kvazaar_tpu_torch.ops.deblock import deblock_frame
 
     def up(a):
@@ -529,15 +561,26 @@ def stage_split(torch, ife, frames):
     out = {}
     box = {}
 
+    cfg = ife.cfg
+    lam = qp_to_lambda(cfg.qp)
+
     def search():
         box["modes"] = torch.stack([
             search_frame_modes(y, ife.plan, ife.lambda_satd, 8,
-                               ife.cfg.rd >= 1)[0]
+                               cfg.rd >= 1, rdo=cfg.rd >= 2, qp=cfg.qp,
+                               lam_rd=lam)[0]
             for y in ys])
+
+    def chroma_search():
+        box["cmodes"] = torch.stack([
+            search_chroma_modes(cb, cr, m, ife.plan, ife.qp_c, lam)
+            for cb, cr, m in zip(cbs, crs, box["modes"])])
 
     def recon():
         box["rec"] = reconstruct_frames(ys, cbs, crs, box["modes"],
-                                        ife.plan, QP, ife.qp_c)
+                                        ife.plan, QP, ife.qp_c,
+                                        cmodes=box.get("cmodes"),
+                                        **ife._recon_tools())
 
     def deblock():
         r = box["rec"]
@@ -547,8 +590,10 @@ def stage_split(torch, ife, frames):
     def sao():
         ife._sao_stage((ys, cbs, crs), box["dbk"])
 
-    stages = [("search", search), ("recon_kernel", recon),
-              ("deblock", deblock)]
+    stages = [("search", search)]
+    if cfg.rd >= 3 and cbs is not None:
+        stages.append(("chroma_search", chroma_search))
+    stages += [("recon_kernel", recon), ("deblock", deblock)]
     if ife.cfg.sao:
         stages.append(("sao", sao))
     for name, fn in stages:
@@ -595,7 +640,7 @@ def p_stage_split(torch, ife, frames):
         box["rec"] = reconstruct_frames(
             ys, cbs, crs, modes[None], plan, QP, ife.qp_c,
             is_inter=inter_map[None], mc_y=mcs[0][None],
-            mc_cb=mcs[1][None], mc_cr=mcs[2][None])
+            mc_cb=mcs[1][None], mc_cr=mcs[2][None], **ife._recon_tools())
 
     def deblock():
         rec = box["rec"]
@@ -726,7 +771,7 @@ def var_stage_split(torch, ife, frames, count=True):
         planes = timed("upload_ms", lambda: tuple(
             a[0] for a in ife._upload(ife.host_pack_sources([frame]))))
         found = timed("search_ms", lambda: ife.var_search(planes[0]))
-        size8, sched_size8, mode_maps, vp = timed(
+        size8, sched_size8, mode_maps, vp, _cmodes = timed(
             "tree_and_plan_ms", lambda: ife.var_tree_plan(*found))
         timed("build_var_plan_ms", lambda: build_var_plan(
             sched_size8, mode_maps, ife.coded_w, ife.coded_h, True))
@@ -1007,7 +1052,10 @@ def ld_p_split(torch, cfg, frames, dev, nref=2):
     from kvazaar_tpu_torch.ops.deblock import deblock_frame
 
     ife = IntraFrameEncoder(cfg, device=dev)
-    ife.submit_frames([frames[0]])
+    if ife.var:
+        ife.encode_frame(*frames[0])        # a variable-tree I frame
+    else:
+        ife.submit_frames([frames[0]])
     refs = [ife._dpb]
     for k in range(1, nref):
         refs.insert(0, ife.submit_p(*frames[k], [(k - 1, refs[0])])[5])
@@ -1020,7 +1068,7 @@ def ld_p_split(torch, cfg, frames, dev, nref=2):
         box["rec"] = reconstruct_frames(
             ys, cbs, crs, modes[None], plan, ife.cfg.qp, ife.qp_c,
             is_inter=inter_map[None], mc_y=mcs[0][None],
-            mc_cb=mcs[1][None], mc_cr=mcs[2][None])
+            mc_cb=mcs[1][None], mc_cr=mcs[2][None], **ife._recon_tools())
 
     def deblock():
         rec = box["rec"]
@@ -1139,7 +1187,7 @@ def run_low_delay(torch, wavefront, clip46, dev):
             json.dumps(ld_p_split(torch, cfg, clip8, dev)))
 
     w, h = 416, 240
-    small = synth_clip_natural(6, w, h, seed=0)
+    small = synth_clip_natural(4, w, h, seed=0)
     checks = [(p, config_from_preset(p, width=w, height=h, qp=QP))
               for p in ("ultrafast", "superfast", "veryfast", "faster",
                         "fast")]
@@ -1704,9 +1752,12 @@ def run_gop(torch, wavefront, clip46, dev):
     ife.close()
 
     w, h = 416, 240
-    small = synth_clip_natural(11, w, h, seed=0)
     card_equals_cpu(f"gop8-fixed16 {w}x{h}", gop_fixed_config(w, h),
-                    small[:9], dev)
+                    synth_clip_natural(9, w, h, seed=0), dev)
+    # The variable B trees' checks at 256x128: at 416x240 the CPU's
+    # var-tree encodes took most of the phase.
+    w, h = 256, 128
+    small = synth_clip_natural(11, w, h, seed=0)
     card = card_equals_cpu(f"gop8-medium {w}x{h}", gop_medium_config(w, h),
                            small, dev)
     cra = card_equals_cpu("open-gop4-medium 256x128", gop_medium_config(
@@ -1917,11 +1968,11 @@ def run_rate_control(torch, wavefront, clip46, dev):
     (Config() at QP 22 with --bitrate 2000000: LCU rate control through
     cu_qp_delta, fixed cu 32, one reference) through Encoder.encode_stream,
     IDR + 5 P frames warm and 40 P frames timed, one kernel launch with a
-    QP map per P frame; card == CPU bytes and recon at 416x240 for ROI +
-    AQ all-intra, the medium preset with --bitrate (GOP 8, variable B
-    trees, the GOP allocation; a GOP and a 2-frame tail) and the
-    ultrafast preset with --bitrate (low-delay GOP, frame-level rate
-    control).  Returns (kernel rows, the cell's QP-map launches)."""
+    QP map per P frame; card == CPU bytes and recon for ROI + AQ
+    all-intra (416x240), the medium preset with --bitrate (256x128; GOP
+    8, variable B trees, the GOP allocation; a GOP and a 2-frame tail)
+    and the ultrafast preset with --bitrate (416x240; low-delay GOP,
+    frame-level rate control).  Returns (kernel rows, the cell's QP-map launches)."""
     from kvazaar_tpu_torch.api import Encoder
     from kvazaar_tpu_torch.config import config_from_preset
 
@@ -2004,8 +2055,11 @@ def run_rate_control(torch, wavefront, clip46, dev):
         f.write("3 2\n-4 2 0\n3 -2 1\n")
     card_equals_cpu(f"roi-aq all-intra {w}x{h}", rc_config(
         w, h, bitrate=0, intra_period=1, roi=roi, aq=1.0), small[:3], dev)
-    card_equals_cpu(f"medium --bitrate 1000000 {w}x{h}", config_from_preset(
-        "medium", width=w, height=h, qp=QP, bitrate=1_000_000), small, dev)
+    # At 256x128: at 416x240 the CPU's var-tree encode took half the
+    # phase.
+    card_equals_cpu("medium --bitrate 400000 256x128", config_from_preset(
+        "medium", width=256, height=128, qp=QP, bitrate=400_000),
+        synth_clip_natural(11, 256, 128, seed=0), dev)
     card_equals_cpu(f"ultrafast --bitrate 1000000 {w}x{h}",
                     config_from_preset("ultrafast", width=w, height=h,
                                        qp=QP, bitrate=1_000_000),
@@ -2272,9 +2326,9 @@ def run_tenbit_4k_cell(torch, wavefront, big10, dev):
 def run_tenbit(torch, wavefront, dev):
     """Phase 14: 10-bit (Main 10).  The kernel's 10-bit instances == plain
     (``compare_kernel_10bit``); the cells intra-10bit-832x480-qp22 and
-    gop8-rc-10bit-3840x2160-15mbps; card == CPU bytes and recon at
-    416x240 for four 10-bit streams: superfast --period 1, ultrafast at
-    its default, medium at its default (GOP 8, variable B trees) and
+    gop8-rc-10bit-3840x2160-15mbps; card == CPU bytes and recon for four
+    10-bit streams: superfast --period 1, ultrafast at its default,
+    medium at its default (GOP 8, variable B trees; 256x128) and
     Config() with --bitrate (IPPP, a per-CTU QP map, launched with the
     10-bit per-block QP instance, counted around its card run).  The
     10-bit clips are the seeded clips shifted up two bits with seeded low
@@ -2298,8 +2352,9 @@ def run_tenbit(torch, wavefront, dev):
     card_equals_cpu(f"10-bit ultrafast {w}x{h}", config_from_preset(
         "ultrafast", width=w, height=h, qp=QP, input_bitdepth=10),
         small[:4], dev)
-    card_equals_cpu(f"10-bit medium {w}x{h}", config_from_preset(
-        "medium", width=w, height=h, qp=QP, input_bitdepth=10), small, dev)
+    card_equals_cpu("10-bit medium 256x128", config_from_preset(
+        "medium", width=256, height=128, qp=QP, input_bitdepth=10),
+        to_10bit(synth_clip_natural(GOP + 1, 256, 128, seed=0), 143), dev)
     for k in wavefront.LAUNCHES_10BIT:
         wavefront.LAUNCHES_10BIT[k] = 0
     card_equals_cpu(f"10-bit Config() --bitrate 1000000 {w}x{h}",
@@ -2558,7 +2613,7 @@ def run_lossless_cell(torch, wavefront, frames, dev):
     handle = ife.submit_frames(frames[:BATCH])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n, modes, lv, rec, _sses, sao = ife.download_frames(handle)
+    n, modes, lv, rec, _sses, sao, _cmodes = ife.download_frames(handle)
     split["d2h_ms"] = 1000 * (time.perf_counter() - t0) / BATCH
     t0 = time.perf_counter()
     ife._host_finalize(modes[0], lv[0][0], lv[1][0], lv[2][0], None,
@@ -2606,7 +2661,7 @@ def run_lossless(torch, wavefront, dev):
     """Phase 15: lossless (transquant bypass) and implicit RDPCM.  The
     bypass instances == plain (``compare_kernel_bypass``); the cell
     lossless-832x480; the pipelined FrameInfo above 2^24, card == CPU;
-    card == CPU bytes and recon at 416x240 for lossless streams with the
+    card == CPU bytes and recon at 256x128 for lossless streams with the
     bypass launches counted around the card runs.  Returns (kernel rows,
     launches per bypass record)."""
     from kvazaar_tpu_torch import Config
@@ -2619,7 +2674,9 @@ def run_lossless(torch, wavefront, dev):
     cell = run_lossless_cell(torch, wavefront, frames, dev)
     sse_card_equals_cpu(torch, dev)
 
-    w, h = 416, 240
+    # At 256x128: at 416x240 both sides' Python CABAC took most of these
+    # checks' time.
+    w, h = 256, 128
     small = synth_clip_natural(5, w, h, seed=0)
     small10 = to_10bit(small[:1], 152)
     counted = {}
@@ -2885,6 +2942,326 @@ def run_tiles(torch, wavefront, dev):
     return rows, launches
 
 
+TOOL_FRAMES = 8                       # phase 17: the intra rows' batch
+TOOLS_BIG = (3840, 2176)              # ... its compare-only 4K frame
+
+
+def tools_config(width, height, cu=16, **kw):
+    """The headline configuration at rd 3 with RDOQ and sign hiding: the
+    rd 2 re-rank, the chroma-mode search and the kernel's RDOQ /
+    sign-hiding instance with explicit chroma modes."""
+    cfg = headline_config(width, height, cu)
+    cfg.rd, cfg.rdoq, cfg.signhide = 3, True, True
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def compare_kernel_tools(torch, clip46, dev):
+    """Phase 17 (i): the kernel's RDOQ / sign-hiding instances and its
+    explicit chroma modes == the plain version on the card, max abs
+    error 0: RDOQ, sign hiding, both, RDOQ with a per-block QP map and
+    (intra) both with random explicit chroma modes, at 832x480 cu 16
+    and 32 (cu 8, whose plain version is the slowest: intra both with
+    chroma modes, inter both; 10-bit: both (intra with chroma modes) and
+    RDOQ with a QP map), intra (random modes over all 35, so every scanIdx; 8 frames
+    at cu 16, the intra cell's batch, else 1) and inter (cu 32: a real P
+    frame of the ld-slower cell's grid; cu 8 and 16: a random inter map,
+    the next frame as the MC planes), 8-bit; 10-bit intra cu 16 and
+    inter cu 32; the tiled plans of 1920x1088 3x3 (cu 16 intra, cu 32
+    inter); and 3840x2176 cu 32 10-bit compare-only (intra, every tool
+    with a QP map and chroma modes).  Each row is timed against the same launch without
+    the tool (``ms_without``), with the bound counted from the code
+    (``tools_bound_ms``).  Returns the rows by name."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
+
+    rng = np.random.default_rng(17)
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    rows = {}
+
+    def rand_modes(plan, n):
+        return torch.from_numpy(rng.integers(
+            0, 35, (n, plan.blocks_y, plan.blocks_x)).astype(np.int32)).to(
+                dev)
+
+    def row_of(name, plan, planes, modes, bd, qp_c, variants, inter=None):
+        kw0 = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+        cu = plan.cu_size
+        for var in variants:
+            kw = dict(kw0, rdoq="rdoq" in var, signhide="sh" in var,
+                      lam=lam)
+            if "qpmap" in var:
+                kw["qp_map"] = torch.from_numpy(rng.integers(
+                    QP - 6, QP + 7, tuple(modes.shape)).astype(
+                        np.int32)).to(dev)
+            if "cmodes" in var:
+                kw["cmodes"] = rand_modes(plan, modes.shape[0])
+
+            def launch(kw=kw):
+                return wavefront_recon_planes(*planes, modes, plan, QP, qp_c,
+                                              bd, **kw)
+
+            got = launch()
+            want = []
+            qpm = kw.get("qp_map")
+            qpm_c = None if qpm is None else torch.from_numpy(
+                CHROMA_QP_TAB.astype(np.int32)).to(dev)[qpm.long()]
+
+            def plain():
+                for orig, mc, s, luma, qp, m, qm in (
+                        (planes[0], kw.get("mc_y"), cu, True, QP, modes,
+                         qpm),
+                        (planes[1], kw.get("mc_cb"), cu // 2, False, qp_c,
+                         kw.get("cmodes", modes), qpm_c),
+                        (planes[2], kw.get("mc_cr"), cu // 2, False, qp_c,
+                         kw.get("cmodes", modes), qpm_c)):
+                    want.extend(wavefront_recon_plain(
+                        orig, m, plan, s, luma, qp, bd, kw.get("is_inter"),
+                        mc, qm, rdoq=kw["rdoq"], lam=lam,
+                        signhide=kw["signhide"]))
+
+            plain_ms = cuda_ms(torch, plain, 1)
+            err = max_err(torch, got, want)
+            if err != 0:
+                raise RuntimeError(f"tools kernel != plain at {name} {var}")
+            row = dict(shape=name, variant=var, cu=cu, bitdepth=bd,
+                       kind="intra" if inter is None else "inter",
+                       items=planes[0].shape[0], tiles=list(plan.tiles),
+                       max_abs_err=err, plain_ms=plain_ms,
+                       n_steps=plan.n_steps)
+            if not name.startswith("compare-only"):
+                base = {k: v for k, v in kw.items()
+                        if k not in ("rdoq", "signhide", "cmodes")}
+                row["ms"] = cuda_ms(torch, launch, 20)
+                row["ms_without"] = cuda_ms(torch, lambda: launch(base), 20)
+                row["ratio"] = row["ms"] / row["ms_without"]
+            ins = [*planes, modes, *kw0.values(), *got]
+            ins += [kw[k] for k in ("qp_map", "cmodes") if k in kw]
+            work = [(planes[0].numel(), cu), (2 * planes[1].numel(),
+                                               cu // 2)]
+            row["bound_ms"], row["bound_by"] = bound_ms(ins, work)
+            row["tools_bound_ms"], row["tools_bound_by"] = bound_ms_tools(
+                ins, work, kw["rdoq"], kw["signhide"])
+            log("tools kernel vs plain:", json.dumps(row))
+            rows[f"{name} {var}"] = row
+
+    all5 = ("rdoq", "sh", "rdoq+sh", "rdoq+qpmap", "rdoq+sh+cmodes")
+    clip = clip46[:TOOL_FRAMES + 1]
+    for cu in (8, 16, 32):
+        # cu 8's plain version is the slowest (496 steps): one row a
+        # variant there, every variant at cu 16 and 32.
+        intra_v = all5[4:] if cu == 8 else all5
+        inter_v = all5[2:3] if cu == 8 else all5[:4]
+        ife = IntraFrameEncoder(tools_config(W, H, cu), device=dev)
+        up = ife._upload(ife.host_pack_sources(clip))
+        n = TOOL_FRAMES if cu == 16 else 1
+        planes = tuple(p[:n] for p in up)
+        row_of(f"intra cu{cu} {W}x{H} {n} frames", ife.plan, planes,
+               rand_modes(ife.plan, n), 8, ife.qp_c, intra_v)
+        if cu == 32:
+            pife, (ys, cbs, crs), modes, inter_map, mcs = p_frame_inputs(
+                torch, clip46, cu, dev)
+            row_of(f"inter cu{cu} {W}x{H} P frame", pife.plan,
+                   (ys, cbs, crs), modes[None], 8, pife.qp_c, inter_v,
+                   (inter_map[None], *(m[None] for m in mcs)))
+            pife.close()
+        else:
+            inter_map = torch.from_numpy(rng.random(
+                (1, ife.plan.blocks_y, ife.plan.blocks_x)) < 0.5).to(dev)
+            row_of(f"inter cu{cu} {W}x{H} random", ife.plan,
+                   tuple(p[:1] for p in up), rand_modes(ife.plan, 1), 8,
+                   ife.qp_c, inter_v,
+                   (inter_map, *(p[1:2] for p in up)))
+        ife.close()
+
+    clip10 = to_10bit(clip, 170)
+    for cu, kind in ((16, "intra"), (32, "inter")):
+        ife = IntraFrameEncoder(tools_config(W, H, cu, input_bitdepth=10),
+                                device=dev)
+        up = tuple(p.to(torch.int16) for p in ife._upload(
+            ife.host_pack_sources(clip10[:2])))
+        inter = None if kind == "intra" else (
+            torch.from_numpy(rng.random((1, ife.plan.blocks_y,
+                                         ife.plan.blocks_x)) < 0.5).to(dev),
+            *(p[1:] for p in up))
+        row_of(f"{kind} cu{cu} {W}x{H} 10-bit", ife.plan,
+               tuple(p[:1] for p in up), rand_modes(ife.plan, 1), 10,
+               ife.qp_c, ("rdoq+sh+cmodes" if kind == "intra" else "rdoq+sh",
+                          "rdoq+qpmap"), inter)
+        ife.close()
+
+    (tw, th), big = TILE_SHAPES[0], synth_clip_natural(2, *TILE_SHAPES[0],
+                                                       seed=17)
+    for cu, kind in ((16, "intra"), (32, "inter")):
+        ife = IntraFrameEncoder(tools_config(tw, th, cu, tiles_x=TILES[0],
+                                             tiles_y=TILES[1]), device=dev)
+        up = ife._upload(ife.host_pack_sources(big))
+        inter = None if kind == "intra" else (
+            torch.from_numpy(rng.random((1, ife.plan.blocks_y,
+                                         ife.plan.blocks_x)) < 0.5).to(dev),
+            *(p[1:] for p in up))
+        row_of(f"{kind} cu{cu} {tw}x{th} 3x3", ife.plan,
+               tuple(p[:1] for p in up), rand_modes(ife.plan, 1), 8,
+               ife.qp_c, ("rdoq+sh",), inter)
+        ife.close()
+
+    bw, bh = TOOLS_BIG
+    plan = make_intra_plan(bw, bh, 32, True)
+    big10 = to_10bit(synth_clip_natural(1, bw, bh, seed=18), 171)
+    planes = [torch.from_numpy(np.stack([f[k] for f in big10]).astype(
+        np.int16)).to(dev) for k in range(3)]
+    row_of(f"compare-only intra cu32 {bw}x{bh} 10-bit", plan, planes,
+           rand_modes(plan, 1), 10, int(CHROMA_QP_TAB[QP]),
+           ("rdoq+sh+qpmap+cmodes",))
+    return rows
+
+
+def bound_ms_tools(tensors, work, rdoq, signhide):
+    """``bound_ms`` with RDOQ's and sign hiding's operations per sample
+    counted from the kernel's code (csrc/wavefront.cu,
+    ``quantize_tools``): RDOQ about 60 (the round-half level, three
+    candidates' dequantization, distortion and rate, two double-precision
+    multiply-adds, the argmin, and a sixteenth of a group's two sums of
+    16 and its test), sign hiding about 12 (a sixteenth of a group's
+    scan of 16 coefficients, 12 operations each), on top of the 8 S + 20
+    of the transform and the rest."""
+    extra = (60 if rdoq else 0) + (12 if signhide else 0)
+    return bound_ms(tensors, [(n * (8 * s + 20 + extra) / (8 * s + 20), s)
+                              for n, s in work])
+
+
+def tools_streams_card_equals_cpu(wavefront, dev):
+    """Phase 17 (iii): card == CPU bytes and recon at 416x240 for
+    ``medium --gop lp-g4d4t1``, ``medium --gop 0 --ref 2``, ``placebo
+    --gop 0 --ref 3``, Config(rdoq=True) with --bitrate (per-CTU QP),
+    Config() with RDOQ, sign hiding and tiles 2x2, a 10-bit fixed-grid
+    GOP 8 with RDOQ and sign hiding, and ``medium --period 1 --rd 3``
+    (variable trees with chroma modes); the RDOQ / sign-hiding launches
+    counted around the card runs."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+    w, h = 416, 240
+    small = synth_clip_natural(9, w, h, seed=0)
+    for k in wavefront.TOOL_LAUNCHES:
+        wavefront.TOOL_LAUNCHES[k] = 0
+
+    def preset(name, **kw):
+        return config_from_preset(name, width=w, height=h, qp=QP, **kw)
+
+    card_equals_cpu(f"medium --gop lp-g4d4t1 {w}x{h}",
+                    preset("medium", lp_gop=(4, 4, 1), gop_len=0),
+                    small[:5], dev)
+    card_equals_cpu(f"medium --gop 0 --ref 2 {w}x{h}",
+                    preset("medium", gop_len=0, ref_frames=2), small[:3],
+                    dev)
+    card_equals_cpu(f"placebo --gop 0 --ref 3 {w}x{h}",
+                    preset("placebo", gop_len=0, ref_frames=3), small[:3],
+                    dev)
+    card_equals_cpu(f"Config(rdoq) --bitrate 1000000 {w}x{h}",
+                    Config(width=w, height=h, qp=QP, rdoq=True,
+                           bitrate=1_000_000, intra_period=0), small[:3],
+                    dev)
+    card_equals_cpu(f"Config(rdoq, signhide) tiles 2x2 {w}x{h}",
+                    Config(width=w, height=h, qp=QP, rdoq=True,
+                           signhide=True, tiles_x=2, tiles_y=2), small[:3],
+                    dev)
+    card_equals_cpu(f"10-bit fixed GOP 8 RDOQ + sign hiding {w}x{h}",
+                    Config(width=w, height=h, qp=QP, input_bitdepth=10,
+                           gop_len=8, intra_period=0, rdoq=True,
+                           signhide=True),
+                    to_10bit(small, 172), dev)
+    card_equals_cpu(f"medium --period 1 --rd 3 {w}x{h}",
+                    preset("medium", intra_period=1, rd=3), small[:2], dev)
+    t = dict(wavefront.TOOL_LAUNCHES)
+    if min(t["intra"], t["inter"], t["signhide"], t["qp_map"], t["10bit"],
+           t["tiled"]) == 0:
+        raise RuntimeError(f"tools streams: an instance was not launched "
+                           f"({t})")
+    return t
+
+
+def run_tools(torch, wavefront, clip46, dev):
+    """Phase 17: RDOQ, sign hiding, --rd 2 and --rd 3 on the fixed grid.
+    The kernel's RDOQ / sign-hiding instances and explicit chroma modes
+    == plain (``compare_kernel_tools``); the cell
+    ``intra-rd3-rdoq-sh-832x480-qp22`` (the headline configuration at rd
+    3 with RDOQ and sign hiding; batches and timing as the headline) and
+    ``ld-slower-832x480-qp22`` (``--preset slower --gop lp-g4d4t1``: a
+    variable-tree I frame, then fixed cu 32 P frames with RDOQ and sign
+    hiding at a QP per position; one warm pass over the 8-frame clip,
+    then 8 timed P frames), each with its tool launches counted and a
+    stage split; and card == CPU for seven streams at 416x240.  Returns
+    (kernel rows, launches per record)."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    rows = compare_kernel_tools(torch, clip46, dev)
+    frames = clip46[:FRAMES]
+    launches = {}
+    enc = Encoder(tools_config(W, H), device=dev)
+    list(enc.encode_stream(frames[:BATCH]))                 # warm-up
+    torch.cuda.synchronize()
+    for k in wavefront.TOOL_LAUNCHES:
+        wavefront.TOOL_LAUNCHES[k] = 0
+    wavefront.CMODE_LAUNCHES["intra"] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(frames * TIMED_BATCHES))
+    dt = time.perf_counter() - t0
+    launches["intra"] = wavefront.TOOL_LAUNCHES["intra"]
+    launches["cmodes"] = wavefront.CMODE_LAUNCHES["intra"]
+    if launches["intra"] == 0 or launches["cmodes"] != launches["intra"]:
+        raise RuntimeError(f"intra-rd3: expected RDOQ / sign-hiding launches "
+                           f"with chroma modes, got {wavefront.TOOL_LAUNCHES}"
+                           f" / {wavefront.CMODE_LAUNCHES}")
+    bits, psnr_y = check_output(results, "intra-rd3")
+    log("intra-rd3-rdoq-sh-832x480-qp22 encode_stream:", json.dumps(dict(
+        frames=len(results), batch=BATCH, fps=len(results) / dt,
+        bits_per_frame=bits, psnr_y=psnr_y, tool_launches=launches["intra"],
+        stage_wall_s=enc.stats)))
+    split = stage_split(torch, enc._intra, frames[:BATCH])
+    log("intra-rd3 stage split (ms/frame, one batch of 8):",
+        json.dumps(split))
+    enc.close()
+
+    cfg = config_from_preset("slower", width=W, height=H, qp=QP,
+                             lp_gop=(4, 4, 1), gop_len=0)
+    clip8 = synth_clip_natural(8, W, H, seed=4)
+    enc = Encoder(cfg, device=dev)
+    results = []
+    for res in enc.encode_stream(clip8 * 2):
+        results.append(res)
+        if len(results) == len(clip8):
+            torch.cuda.synchronize()
+            for k in wavefront.TOOL_LAUNCHES:
+                wavefront.TOOL_LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches["inter"] = wavefront.TOOL_LAUNCHES["inter"]
+    timed = results[len(clip8):]
+    if (launches["inter"] != len(timed)
+            or any(r[1].slice_type != 1 for r in timed)):
+        raise RuntimeError(f"ld-slower: expected one RDOQ / sign-hiding P "
+                           f"launch a P frame, got {wavefront.TOOL_LAUNCHES}")
+    bits, psnr_y = check_output(timed, "ld-slower")
+    log("ld-slower-832x480-qp22 encode_stream:", json.dumps(dict(
+        frames=len(results), timed=len(timed), fps=len(timed) / dt,
+        bits_per_frame=bits, idr_bits=results[0][1].bits, psnr_y=psnr_y,
+        qps=sorted({r[1].qp for r in results}),
+        tool_launches=launches["inter"])))
+    enc.close()
+    log("ld-slower stage split (ms, one P frame, 1 reference):",
+        json.dumps(ld_p_split(torch, cfg, clip8, dev, nref=1)))
+
+    streams = tools_streams_card_equals_cpu(wavefront, dev)
+    launches.update({k: streams[k] for k in ("qp_map", "10bit", "tiled")})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2980,6 +3357,8 @@ def main() -> int:
     rows_ll, launches_ll = timed("phase 15", run_lossless, torch,
                                  wavefront, dev)
     rows_t, launches_t = timed("phase 16", run_tiles, torch, wavefront, dev)
+    rows_q, launches_q = timed("phase 17", run_tools, torch, wavefront,
+                               clip46, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -3034,6 +3413,19 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None}
+
+    def tool_record(name, replaces, n, row):
+        """An RDOQ / sign-hiding instance at the shape of the path that
+        runs it (its bound with the tools' operations); the error over
+        every tools row (all are 0 or the phase failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_q.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["tools_bound_ms"],
+                "bound_by": row["tools_bound_by"], "library_ms": None}
 
     big_t = f"{TILE_SHAPES[0][0]}x{TILE_SHAPES[0][1]} 3x3"
     log(json.dumps({"kernels": [
@@ -3093,7 +3485,24 @@ def main() -> int:
                f"intra cu32 {big_t} 8-bit 1 frames"),
               ("wavefront_recon_inter_tiles_cu32",
                "kvazaar_tpu/ops/wavefront_pallas.py:283", "p_inter",
-               f"inter cu32 {big_t} 8-bit")))]}))
+               f"inter cu32 {big_t} 8-bit"))),
+        *(tool_record(name, replaces, launches_q[key], rows_q[shape])
+          for name, replaces, key, shape in (
+              ("wavefront_recon_rdoq_sh_cmodes",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "intra",
+               f"intra cu16 {W}x{H} {TOOL_FRAMES} frames rdoq+sh+cmodes"),
+              ("wavefront_recon_inter_rdoq_sh_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "inter",
+               f"inter cu32 {W}x{H} P frame rdoq+sh"),
+              ("wavefront_recon_rdoq_qpmap_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "qp_map",
+               f"inter cu32 {W}x{H} P frame rdoq+qpmap"),
+              ("wavefront_recon_rdoq_sh_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "10bit",
+               f"inter cu32 {W}x{H} 10-bit rdoq+sh"),
+              ("wavefront_recon_rdoq_sh_tiles",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "tiled",
+               f"inter cu32 {big_t} rdoq+sh")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,7 +94,8 @@ def available() -> bool:
 
 
 def _frame_args(params, fd):
-    """Contiguous buffers of the intra FrameData fields (the caller
+    """Contiguous buffers of the intra FrameData fields, the explicit
+    chroma modes (--rd 3) None where every cell takes DM (the caller
     keeps them alive across the native call)."""
     chroma = 1 if params.chroma_format_idc else 0
     return (np.ascontiguousarray(fd.depth8, np.uint8),
@@ -102,7 +103,9 @@ def _frame_args(params, fd):
             np.ascontiguousarray(fd.coeff_y, np.int32),
             np.ascontiguousarray(fd.coeff_cb, np.int32) if chroma else None,
             np.ascontiguousarray(fd.coeff_cr, np.int32) if chroma else None,
-            chroma)
+            chroma,
+            np.ascontiguousarray(fd.cmode4, np.uint8)
+            if fd.cmode4 is not None and (fd.cmode4 != 255).any() else None)
 
 
 def _ptr(a):
@@ -142,10 +145,12 @@ def _read_back(fd, qpc) -> None:
 
 
 def encode_slice_data_native(params, fd, qp: int) -> bytes:
-    """CABAC slice data + final alignment of an I slice without explicit
-    chroma modes (with per-CTU QP where params.cu_qp_delta is set and
-    fd.qp_ctu holds it; fd.qp_ctu becomes the effective map)."""
-    depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
+    """CABAC slice data + final alignment of an I slice (explicit chroma
+    modes where fd.cmode4 holds them; per-CTU QP where params.cu_qp_delta
+    is set and fd.qp_ctu holds it; fd.qp_ctu becomes the effective
+    map)."""
+    depth8, mode4, cy, ccb, ccr, chroma, cmode4 = _frame_args(params,
+                                                              fd)
     cap = cy.nbytes * 2 + 65536
     out = np.empty(cap, np.uint8)
     sao = _sao_blob(params, fd)
@@ -155,7 +160,7 @@ def encode_slice_data_native(params, fd, qp: int) -> bytes:
         params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap,
-        1 if params.sign_hiding else 0, _ptr(sao), _ptr(qpc), None)
+        1 if params.sign_hiding else 0, _ptr(sao), _ptr(qpc), _ptr(cmode4))
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     _read_back(fd, qpc)
@@ -164,7 +169,8 @@ def encode_slice_data_native(params, fd, qp: int) -> bytes:
 
 def encode_slice_data_native_wpp(params, fd, qp: int):
     """WPP variant: returns (bytes, per-substream byte sizes)."""
-    depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
+    depth8, mode4, cy, ccb, ccr, chroma, cmode4 = _frame_args(params,
+                                                              fd)
     cap = cy.nbytes * 2 + 65536
     out = np.empty(cap, np.uint8)
     sizes = np.zeros(params.height_in_ctus + 1, np.int64)
@@ -177,7 +183,7 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
         depth8.ctypes.data, mode4.ctypes.data, cy.ctypes.data,
         _ptr(ccb), _ptr(ccr), out.ctypes.data, cap, sizes.ctypes.data,
         nss.ctypes.data, 1 if params.sign_hiding else 0, _ptr(sao),
-        _ptr(qpc), None)
+        _ptr(qpc), _ptr(cmode4))
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     _read_back(fd, qpc)
@@ -187,14 +193,15 @@ def encode_slice_data_native_wpp(params, fd, qp: int):
 def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
                                slice_type: int = 1, nthreads: int = 1,
                                nref_l0: int = 1):
-    """P or B slice (slice_type 1 or 0; no partitions or explicit chroma
-    modes; per-CTU QP as in ``encode_slice_data_native``).  A P slice
+    """P or B slice (slice_type 1 or 0; no partitions; explicit chroma
+    modes and per-CTU QP as in ``encode_slice_data_native``).  A P slice
     has nref_l0 active L0 references, whose ref_idx comes from fd.ref8;
     a B slice has one reference per list and reads fd.dir8, fd.mvp8_l1
     and fd.mvd8_l1.  Returns (bytes,
     per-substream byte sizes), the sizes empty when wpp is off.
     nthreads > 1 encodes the WPP substreams on that many threads."""
-    depth8, mode4, cy, ccb, ccr, chroma = _frame_args(params, fd)
+    depth8, mode4, cy, ccb, ccr, chroma, cmode4 = _frame_args(params,
+                                                              fd)
     inter8 = np.ascontiguousarray(fd.inter8, np.uint8)
     skip8 = np.ascontiguousarray(fd.skip8, np.uint8)
     merge8 = np.ascontiguousarray(fd.merge8, np.int8)
@@ -222,7 +229,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
         out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
         (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
         _ptr(sao), _ptr(ref8), int(nref_l0), None,
-        1 if params.amp else 0, _ptr(qpc), None)
+        1 if params.amp else 0, _ptr(qpc), _ptr(cmode4))
     if n < 0:
         raise RuntimeError("native slice buffer overflow")
     _read_back(fd, qpc)

@@ -103,6 +103,28 @@
 //   runs on 9 SMs per plane.  Tiled plans have instances of their own
 //   (without QP maps, which the configuration refuses under tiles), so
 //   that the untiled ones keep their code and registers.
+// - RDOQ and sign-data hiding (the JAX package sends both past its TPU
+//   kernel to its XLA scan) are the run-time flags of instances of their
+//   own (TQ), at every CU size, sample depth, QP map or tile plan, so that
+//   the other instances keep their code and registers.  RDOQ is the JAX
+//   package's vectorized form: each coefficient takes the cheapest of
+//   {0, l - 1, l} (l its round-half level) by pixel-domain distortion
+//   plus lambda times a static rate (the remainder bits from the
+//   wrapper's table, the plain version's), then each 4x4 group whose
+//   zeroed distortion is below its kept cost plus lambda is zeroed; its
+//   float32 arithmetic rounds exactly where the plain version's does (no
+//   contraction into FMA: explicit _rn intrinsics, the fused multiply-add
+//   of the plain version in double).  Sign hiding then fixes the parity
+//   of each 4x4 group in the block's scan (scanIdx by the plane's mode:
+//   mode-dependent for luma S <= 8 and chroma S = 4, diagonal otherwise
+//   and for inter blocks).  Levels, best costs and zeroed costs pass
+//   through the group's transform buffers and its consumed source buffer,
+//   and one lane per 4x4 group makes the group decisions.
+// - Explicit chroma modes (--rd 3): the chroma planes of a launch may take
+//   their own mode table (Params::cmodes), read only when the schedule is
+//   packed, by the TQ and the lossless instances (a lossy launch with
+//   chroma modes and neither tool runs the TQ instance with both flags
+//   off), so that the other instances keep their code.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -228,6 +250,13 @@ __constant__ int kInvAngle[15] = {
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
 __constant__ int kInvQuantScale[6] = {40, 45, 51, 57, 64, 72};
 
+// Position in the scan of each raster position (y * 4 + x) of a 4x4
+// group, per scanIdx (0 diagonal, 1 horizontal, 2 vertical; ops/scan.py).
+__constant__ int kScan4Pos[3][16] = {
+    {0, 2, 5, 9, 1, 4, 8, 12, 3, 7, 11, 14, 6, 10, 13, 15},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
+    {0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15}};
+
 // Packed per-block word: block id, availability mask, coded mode, inter
 // flag.  Bit r of the mask is set when reference region r is available,
 // in the substitution scan order of 8.4.4.2.2: 0 below-left, 1 left, 2
@@ -268,6 +297,16 @@ struct Params {
   // tile_blocks: the most blocks of any tile.
   const int4* tile_info;
   int n_tiles, tile_blocks;
+  // Explicit chroma modes (bm, nblk), shared like modes, or null: the
+  // chroma planes then take modes (DM).
+  const int32_t* cmodes;
+  // RDOQ and sign hiding (the TQ instances only): the flags, lambda
+  // rounded to float32, the all-zero candidate's rate term
+  // float32(lambda * 0.15f) and the remainder-bits table (32768 floats,
+  // ops/quant.rem_bits_np).
+  const float* rem_bits;
+  float lam, zero_cost;
+  int rdoq, signhide;
 };
 
 // Words of one S x S block of staged samples of sb bytes each.
@@ -494,15 +533,140 @@ __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
                       : buf[y * S + x];
 }
 
+// float32 a + lam * b rounded once, as the plain version forms it (the
+// product of two floats is exact in double).
+__device__ __forceinline__ float fma_like(float a, float lam, float b) {
+  return __double2float_rn(
+      __dadd_rn((double)a, __dmul_rn((double)lam, (double)b)));
+}
+
+// RDOQ or the flat quantizer, then sign hiding, of a lane's coefficients
+// out[] (row y, columns fwd_out(q, i)) in a TQ instance: leaves the final
+// levels in la (row stride S + 1).  best_c (the block's staged source,
+// consumed by the residual; at least S * S words) takes each
+// coefficient's best cost and lb (stride S + 1) its zeroed cost; one lane
+// per 4x4 group then zeroes groups (RDOQ) and fixes parities (sign
+// hiding).  sync is the group's barrier.
+template <int S, bool HBD, typename Sync>
+__device__ __forceinline__ void quantize_tools(
+    const Params& p, int dq_shift, int* la, int* lb, float* best_c,
+    const int* out, int y, int q, int lane, bool luma, bool inter, int mode,
+    int q_scale, int q_bits, int q_offset, int dq_mult, Sync sync) {
+  using Sh = Shape<S>;
+  constexpr int O = Sh::O, L = Sh::L, LOG2S = Sh::LOG2, SP = S + 1;
+  float* zero_c = reinterpret_cast<float*>(lb);
+  constexpr float kInvGain =
+      1.0f / (float)(1 << (2 * (15 - Depth<HBD>::BITS - LOG2S)));
+  auto dist = [&](int lv, int mag) -> float {
+    const int d = clamp_int(
+        (lv * dq_mult + (1 << (dq_shift - 1))) >> dq_shift, -32768, 32767);
+    const float e = __int2float_rn(d - mag);
+    return __fmul_rn(__fmul_rn(e, e), kInvGain);
+  };
+  auto rate = [&](int lv) -> float {
+    return lv > 0 ? __fadd_rn(lv > 1 ? 4.0f : 3.0f, p.rem_bits[lv]) : 0.15f;
+  };
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const int l = fwd_out<S>(q, i);
+    const int c = round_shift(out[i], LOG2S + 6);
+    const int mag = c < 0 ? -c : c;
+    int lv;
+    if (p.rdoq) {
+      // Candidates 0, max(l1 - 1, 0) and l1, l1 the round-half level;
+      // the first of the cheapest.
+      const int l1 =
+          min((mag * q_scale + (1 << (q_bits - 1))) >> q_bits, 32767);
+      const int l0 = l1 > 0 ? l1 - 1 : 0;
+      const float d0 = dist(0, mag);
+      float best = __fadd_rn(d0, p.zero_cost);
+      lv = 0;
+      const float c1 = fma_like(dist(l0, mag), p.lam, rate(l0));
+      if (c1 < best) {
+        best = c1;
+        lv = l0;
+      }
+      const float c2 = fma_like(dist(l1, mag), p.lam, rate(l1));
+      if (c2 < best) {
+        best = c2;
+        lv = l1;
+      }
+      best_c[y * S + l] = best;
+      zero_c[y * SP + l] = d0;
+    } else {
+      lv = min((mag * q_scale + q_offset) >> q_bits, 32767);
+    }
+    la[y * SP + l] = c < 0 ? -lv : lv;
+  }
+  sync();
+  // scanIdx of the block (7.4.9.11): the plane's mode for intra blocks of
+  // luma S <= 8 and chroma S = 4.
+  int sidx = 0;
+  if (!inter && (luma ? S <= 8 : S == 4))
+    sidx = mode >= 6 && mode <= 14 ? 2 : (mode >= 22 && mode <= 30);
+  constexpr int NSB = S / 4;
+  for (int gi = lane; gi < NSB * NSB; gi += L) {
+    const int gy = gi / NSB, gx = gi - gy * NSB;
+    int* gl = la + 4 * gy * SP + 4 * gx;
+    if (p.rdoq) {
+      // Group sums in the plain version's order: each row left to right,
+      // then (row 0 + row 2) + (row 1 + row 3).
+      float kr[4], zr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* b = best_c + (4 * gy + r) * S + 4 * gx;
+        const float* z = zero_c + (4 * gy + r) * SP + 4 * gx;
+        kr[r] = __fadd_rn(__fadd_rn(__fadd_rn(b[0], b[1]), b[2]), b[3]);
+        zr[r] = __fadd_rn(__fadd_rn(__fadd_rn(z[0], z[1]), z[2]), z[3]);
+      }
+      const float keep =
+          __fadd_rn(__fadd_rn(kr[0], kr[2]), __fadd_rn(kr[1], kr[3]));
+      const float zero =
+          __fadd_rn(__fadd_rn(zr[0], zr[2]), __fadd_rn(zr[1], zr[3]));
+      if (zero < __fadd_rn(keep, p.lam)) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gl[r * SP + k] = 0;
+      }
+    }
+    if (p.signhide) {
+      // The first nonzero coefficient in scan order grows by one in
+      // magnitude where the group's parity disagrees with its sign and
+      // its first and last nonzero are more than 3 apart.
+      int first = 16, last = -1, sum = 0, fv = 0, fat = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int v = gl[r * SP + k];
+          if (v != 0) {
+            const int pos = kScan4Pos[sidx][r * 4 + k];
+            if (pos < first) {
+              first = pos;
+              fv = v;
+              fat = r * SP + k;
+            }
+            last = pos > last ? pos : last;
+            sum += v < 0 ? -v : v;
+          }
+        }
+      if (last - first > 3 && (sum & 1) != (fv < 0))
+        gl[fat] += fv < 0 ? -1 : 1;
+    }
+  }
+  sync();
+}
+
 // One tile of one plane item (one frame of one plane kind) in thread
 // block order; QP: the planes carry per-block QP maps (a separate
 // instance, so that the scalar path keeps its registers); HBD: 10-bit
 // samples; LL: lossless (transquant bypass); TILED: a tile of a tiled
-// plan.  The edge ring holds the tile's own columns (ring column x -
+// plan; TQ: RDOQ and sign hiding as run-time flags (never with LL).  The edge ring holds the tile's own columns (ring column x -
 // tile_x0, tile_x0 the tile's first sample column) of K block rows (ring
 // row by mod K; K is the tile's depth, which only differences of rows
 // decide).
-template <int S, bool QP, bool HBD, bool LL, bool TILED>
+template <int S, bool QP, bool HBD, bool LL, bool TILED, bool TQ>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                           int tile_x0, unsigned char* smem) {
   using Sh = Shape<S>;
@@ -761,20 +925,39 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       group_sync();
 #pragma unroll
       for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
+      // The TQ instances keep the zeroed costs in buf_b: its row peers
+      // must have read it first.
+      if constexpr (TQ) group_sync();
       fwd_part<S>(v, cf, sgn, out);
       int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
+      if constexpr (TQ) {
+        quantize_tools<S, HBD>(p, pl.dq_shift, buf_a, buf_b,
+                               reinterpret_cast<float*>(const_cast<int*>(src)),
+                               out, y, q, lane, luma, inter, mode, q_scale,
+                               q_bits, q_offset, dq_mult, group_sync);
 #pragma unroll
-      for (int i = 0; i < O; ++i) {
-        const int l = fwd_out<S>(q, i);
-        const int c = round_shift(out[i], LOG2S + 6);
-        const int mag = c < 0 ? -c : c;
-        int lv = (mag * q_scale + q_offset) >> q_bits;
-        lv = lv > 32767 ? 32767 : lv;
-        lv = c < 0 ? -lv : lv;
-        lv_row[l] = (int16_t)lv;
-        buf_a[y * SP + l] = clamp_int(
-            (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
-            -32768, 32767);
+        for (int i = 0; i < O; ++i) {
+          const int l = fwd_out<S>(q, i);
+          const int lv = buf_a[y * SP + l];
+          lv_row[l] = (int16_t)lv;
+          buf_a[y * SP + l] = clamp_int(
+              (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+              -32768, 32767);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < O; ++i) {
+          const int l = fwd_out<S>(q, i);
+          const int c = round_shift(out[i], LOG2S + 6);
+          const int mag = c < 0 ? -c : c;
+          int lv = (mag * q_scale + q_offset) >> q_bits;
+          lv = lv > 32767 ? 32767 : lv;
+          lv = c < 0 ? -lv : lv;
+          lv_row[l] = (int16_t)lv;
+          buf_a[y * SP + l] = clamp_int(
+              (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+              -32768, 32767);
+        }
       }
       // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
       // clipped, lane (m, q) computing n = q*M.. and their mirrors.
@@ -961,7 +1144,7 @@ Layout layout_for(int s_max, bool hbd, int n_steps, int n_slots, int ring,
 // the configuration refuses under tiles; a separate instance, so that the
 // untiled ones keep their registers: in them the tile code made ptxas
 // spill).
-template <int CU, bool QP, bool HBD, bool LL, bool TILED>
+template <int CU, bool QP, bool HBD, bool LL, bool TILED, bool TQ>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -983,7 +1166,11 @@ __global__ void __launch_bounds__(max_threads(CU))
       p.entries + (size_t)blockIdx.x * (TILED ? p.tile_blocks : p.nblk);
   int* steps = reinterpret_cast<int*>(smem);
   const int row = item % p.bm;
-  const int32_t* modes = p.modes + (size_t)row * p.nblk;
+  // Explicit chroma modes: the TQ and lossless instances (the wrapper
+  // sends any other launch with them to TQ, with its tools off).
+  const int32_t* modes =
+      ((TQ || LL) && !pl.luma && p.cmodes != nullptr ? p.cmodes : p.modes) +
+      (size_t)row * p.nblk;
   const uint8_t* inter = p.inter ? p.inter + (size_t)row * p.nblk : nullptr;
   auto pack = [&](int b) {
     const uint32_t info = p.blk_info[b];
@@ -1010,39 +1197,47 @@ __global__ void __launch_bounds__(max_threads(CU))
   __syncthreads();
 
   if (pl.s == CU)
-    run_plane<CU, QP, HBD, LL, TILED>(p, pl, item, ta.x * CU, smem);
+    run_plane<CU, QP, HBD, LL, TILED, TQ>(p, pl, item, ta.x * CU, smem);
   else
-    run_plane<CU / 2, QP, HBD, LL, TILED>(p, pl, item, ta.x * (CU / 2),
-                                          smem);
+    run_plane<CU / 2, QP, HBD, LL, TILED, TQ>(p, pl, item,
+                                              ta.x * (CU / 2), smem);
 }
 
 // The kernel instance of CU size cu (32, 16 or 8) at 8 or 10 bits: with
-// or without QP maps, or lossless; untiled or, without QP maps, tiled.
+// or without QP maps, or lossless; untiled or, without QP maps, tiled;
+// with RDOQ / sign hiding (tq) or not, never lossless.  These are the
+// combinations the configuration accepts.
 using KernelFn = void (*)(const Params);
 
-template <int CU, bool HBD, bool TILED>
-KernelFn kernel_of(bool qp, bool ll) {
+template <int CU, bool HBD, bool TILED, bool TQ>
+KernelFn kernel_tq(bool qp) {
   if constexpr (TILED)
-    return ll ? wavefront_kernel<CU, false, HBD, true, true>
-              : wavefront_kernel<CU, false, HBD, false, true>;
+    return wavefront_kernel<CU, false, HBD, false, true, TQ>;
   else
-    return ll ? wavefront_kernel<CU, false, HBD, true, false>
-              : (qp ? wavefront_kernel<CU, true, HBD, false, false>
-                    : wavefront_kernel<CU, false, HBD, false, false>);
+    return qp ? wavefront_kernel<CU, true, HBD, false, false, TQ>
+              : wavefront_kernel<CU, false, HBD, false, false, TQ>;
+}
+
+template <int CU, bool HBD, bool TILED>
+KernelFn kernel_of(bool qp, bool ll, bool tq) {
+  if (ll) return wavefront_kernel<CU, false, HBD, true, TILED, false>;
+  return tq ? kernel_tq<CU, HBD, TILED, true>(qp)
+            : kernel_tq<CU, HBD, TILED, false>(qp);
 }
 
 template <bool HBD, bool TILED>
-KernelFn kernel_at(int cu, bool qp, bool ll) {
-  return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll)
-         : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll)
-                    : kernel_of<8, HBD, TILED>(qp, ll);
+KernelFn kernel_at(int cu, bool qp, bool ll, bool tq) {
+  return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll, tq)
+         : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll, tq)
+                    : kernel_of<8, HBD, TILED>(qp, ll, tq);
 }
 
-KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled) {
-  return tiled ? (hbd ? kernel_at<true, true>(cu, qp, ll)
-                      : kernel_at<false, true>(cu, qp, ll))
-               : (hbd ? kernel_at<true, false>(cu, qp, ll)
-                      : kernel_at<false, false>(cu, qp, ll));
+KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled,
+                    bool tq) {
+  return tiled ? (hbd ? kernel_at<true, true>(cu, qp, ll, tq)
+                      : kernel_at<false, true>(cu, qp, ll, tq))
+               : (hbd ? kernel_at<true, false>(cu, qp, ll, tq)
+                      : kernel_at<false, false>(cu, qp, ll, tq));
 }
 
 }  // namespace
@@ -1080,15 +1275,21 @@ extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
 // tile_blocks the most blocks of any tile.  ring is the edge
 // ring's depth and ring_w at least tile_bw times the largest s.  bitdepth 8
 // takes uint8 or int32 orig and mc and writes uint8 rec; 10 takes int16
-// orig and mc and writes 16-bit rec.  Returns a cudaError_t; a layout
-// the device cannot give is refused by cudaFuncSetAttribute.
+// orig and mc and writes 16-bit rec.  cmodes (bm, nblk) are the chroma
+// planes' modes, or null for the luma modes.  rdoq and signhide (never
+// with lossless) select the TQ instance; rdoq needs rem_bits (32768
+// floats on the device), lam (float32) and zero_cost = float32(lam *
+// 0.15f).  Returns a cudaError_t; a layout the device cannot give is
+// refused by cudaFuncSetAttribute.
 extern "C" int ktt_wavefront_recon(
     const KttPlane* planes, int n_planes, int bitdepth,
     const uint32_t* blk_info, const int32_t* step_start,
     const int32_t* modes, const uint8_t* inter, uint32_t* entries, int bm,
     int blocks_x, int nblk, int n_steps, int n_slots, int ring, int ring_w,
     int lossless, int rdpcm, const int4* tile_info, int n_tiles,
-    int tile_bw, int tile_blocks, void* stream) {
+    int tile_bw, int tile_blocks, const int32_t* cmodes, int rdoq,
+    int signhide, float lam, float zero_cost, const float* rem_bits,
+    void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
       tile_info == nullptr || n_tiles < 1 || n_tiles > nblk ||
@@ -1097,7 +1298,8 @@ extern "C" int ktt_wavefront_recon(
       (n_tiles == 1 && tile_blocks != nblk) ||
       bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1 ||
       (bitdepth != 8 && bitdepth != 10) || (rdpcm && !lossless) ||
-      (lossless && planes[0].qp != nullptr))
+      (lossless && planes[0].qp != nullptr) ||
+      (lossless && (rdoq || signhide)) || (rdoq && rem_bits == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool hbd = bitdepth == 10;
   Params p{};
@@ -1147,7 +1349,15 @@ extern "C" int ktt_wavefront_recon(
   p.tile_info = tile_info;
   p.n_tiles = n_tiles;
   p.tile_blocks = tile_blocks;
-  const KernelFn kernel = kernel_for(cu, qp, hbd, lossless != 0, n_tiles > 1);
+  p.cmodes = cmodes;
+  p.rem_bits = rem_bits;
+  p.lam = lam;
+  p.zero_cost = zero_cost;
+  p.rdoq = rdoq != 0;
+  p.signhide = signhide != 0;
+  const KernelFn kernel =
+      kernel_for(cu, qp, hbd, lossless != 0, n_tiles > 1,
+                 rdoq || signhide || (cmodes != nullptr && !lossless));
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

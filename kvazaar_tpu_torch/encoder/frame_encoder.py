@@ -4,12 +4,14 @@ Counterpart of kvazaar_tpu/encoder/frame_encoder.py for the fixed grid
 (IntraFrameEncoder at cu 8/16/32, with PFrameMixin's P frames against
 one or more references and B frames against one reference per list),
 for variable CU trees on I frames (``encode_frame_var``: CUs 8..32 or
-8..64, rd 0-2, RDOQ and sign hiding), on P frames with one reference
+8..64, rd 0-3, RDOQ and sign hiding), on P frames with one reference
 (``encode_frame_var_p``) and on B frames (``encode_frame_var_b``), where
 ``var_inter`` holds; the P frames of low-delay GOP structures and of
 more than one reference run on the fixed grid of min(intra_max_cu,
-32).  The P and B frames of a B pyramid take their GOP layer's QP and
-lambda (``frame_lambda``).  The device program (intra mode search; for
+32).  The fixed grid's frames take RDOQ and sign hiding where the config
+sets them (at the lambda of the frame encoder's QP), its I frames rd 2's
+roundtrip re-rank and rd 3's chroma-mode search.  The P and B frames of
+a B pyramid take their GOP layer's QP and lambda (``frame_lambda``).  The device program (intra mode search; for
 P/B frames motion search, the intra/inter decision and motion
 compensation (bi-averaged for BI blocks); wavefront
 reconstruction, deblocking, per-frame SSE; SAO) is plain tensor code on
@@ -79,7 +81,9 @@ from kvazaar_tpu_torch.encoder.inter_search import (
     merge_satd_maps_b, merge_satd_maps_p, search_inter_frame)
 from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
                                                    reconstruct_frames)
-from kvazaar_tpu_torch.encoder.intra_search import _f32, search_frame_modes
+from kvazaar_tpu_torch.encoder.intra_search import (_f32,
+                                                   search_chroma_modes,
+                                                   search_frame_modes)
 from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
                                                 build_cell_fields,
                                                 choose_tree,
@@ -175,23 +179,16 @@ def unsupported(cfg: Config) -> list:
     """Names of the config features the port does not cover yet."""
     out = []
     p_frames = cfg.intra_period != 1
-    var_p = p_frames and var_inter(cfg)
     if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
         out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
                    "ported; 64 inside a variable tree)")
-    if cfg.rd >= 3:
-        out.append("--rd 3 (chroma-mode RDO)")
-    elif cfg.rd == 2 and not var_tree(cfg):
-        out.append("--rd 2 on the fixed CU grid")
-    # RDOQ and sign hiding are ported inside variable trees (the JAX
-    # package sends them past its fixed-grid kernel to an XLA scan); the
-    # fixed grid codes every frame of a fixed-CU config and the P frames
-    # of a variable-tree one.
-    fixed_grid = not var_tree(cfg) or (p_frames and not var_p)
-    for name, on in (("RDOQ on the fixed CU grid", cfg.rdoq and fixed_grid),
-                     ("sign hiding on the fixed CU grid",
-                      cfg.signhide and fixed_grid),
-                     ("transform skip", cfg.transform_skip),
+    # The JAX package's --rd 3 can give a 64 CU's quadrants different
+    # chroma modes while its stream codes one: its decoded picture then
+    # differs from its reconstruction (ROADMAP §3, F3).
+    if (var_tree(cfg) and cfg.intra_max_cu == 64 and cfg.rd >= 3
+            and cfg.chroma_format == 420):
+        out.append("--rd 3 with 64x64 intra CUs")
+    for name, on in (("transform skip", cfg.transform_skip),
                      ("scaling lists", cfg.scaling_list != "off"),
                      ("intra TU split (--tr-depth-intra)",
                       cfg.tr_depth_intra > 0),
@@ -335,6 +332,16 @@ class PFrameMixin:
         return self._qp_blk_of(self._effective_qp_ctu(
             qp_ctu, self._cbf_ctu_of(*levels)))[0]
 
+    def _recon_tools(self) -> dict:
+        """The coding tools of a fixed-grid reconstruction: lossless, or
+        RDOQ and sign hiding where the config sets them, at the lambda of
+        the frame encoder's QP (also under a per-CTU QP map, as the JAX
+        package quantizes)."""
+        cfg = self.cfg
+        return dict(lossless=cfg.lossless,
+                    signhide=cfg.signhide and not cfg.lossless,
+                    rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp))
+
     def _p_predict(self, yp, refs):
         """Search and decision of one P frame: (H, W) int32 source luma
         and the references' (y, cb, cr) planes in L0 order.  Returns
@@ -393,7 +400,7 @@ class PFrameMixin:
             self.qp_c, self.bitdepth, is_inter=inter_map[None],
             mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr),
             qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu),
-            lossless=self.cfg.lossless)
+            **self._recon_tools())
         bs = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
@@ -792,7 +799,7 @@ class PFrameMixin:
             yp[None], one(cbp), one(crp), modes[None], plan, self.cfg.qp,
             self.qp_c, self.bitdepth, is_inter=inter_map[None],
             mc_y=mc_y[None], mc_cb=one(mc_cb), mc_cr=one(mc_cr),
-            lossless=self.cfg.lossless)
+            **self._recon_tools())
         bs = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
@@ -1008,24 +1015,36 @@ class IntraFrameEncoder(PFrameMixin):
         FrameSse), all on the encoder's device.  qp_ctu: a
         one-frame batch's (1, Cy, Cx) per-CTU QP on the device: the
         search stays at the config's QP, the reconstruction takes each
-        block's QP and deblocking the effective map."""
+        block's QP and deblocking the effective map.  --rd 2 re-ranks
+        the modes by a roundtrip at the config's QP; --rd 3 adds the
+        chroma-mode search (cmodes (B, By, Bx) uint8, else None)."""
+        cfg = self.cfg
+        lam = qp_to_lambda(cfg.qp)
         modes = torch.stack([
             search_frame_modes(y, self.plan, self.lambda_satd,
-                               self.bitdepth, self.cfg.rd >= 1)[0]
+                               self.bitdepth, cfg.rd >= 1,
+                               rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=lam)[0]
             for y in ys])
+        cmodes = None
+        if cfg.rd >= 3 and cbs is not None:
+            cmodes = torch.stack([
+                search_chroma_modes(cb, cr, m, self.plan, self.qp_c, lam,
+                                    self.bitdepth)
+                for cb, cr, m in zip(cbs, crs, modes)])
         (rec_y, lv_y, rec_cb, lv_cb, rec_cr,
          lv_cr) = reconstruct_frames(
-             ys, cbs, crs, modes, self.plan, self.cfg.qp, self.qp_c,
+             ys, cbs, crs, modes, self.plan, cfg.qp, self.qp_c,
              self.bitdepth,
              qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu),
-             lossless=self.cfg.lossless, rdpcm=self.cfg.implicit_rdpcm)
+             rdpcm=cfg.implicit_rdpcm, cmodes=cmodes, **self._recon_tools())
         recs, sses = self._deblock_sse(
             (ys, cbs, crs), (rec_y, rec_cb, rec_cr),
             qp_map=self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)))
         sao = None
         if self.cfg.sao:
             recs, sao = self._sao_stage((ys, cbs, crs), recs)
-        return modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao
+        return (modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao,
+                None if cmodes is None else cmodes.to(torch.uint8))
 
     def _sao_stage(self, srcs, recs, lam=None):
         """SAO of a (B, H, W) batch on the device: per-CTU statistics of
@@ -1177,7 +1196,7 @@ class IntraFrameEncoder(PFrameMixin):
     def download_frames(self, handle, need_recon: bool = True):
         """The device->host copies of a submitted batch (one per
         tensor); safe to call from a worker thread."""
-        nframes, (modes, levels, recs, sses, sao) = handle
+        nframes, (modes, levels, recs, sses, sao, cmodes) = handle
 
         def host(t):
             return None if t is None else t.cpu().numpy()
@@ -1185,13 +1204,14 @@ class IntraFrameEncoder(PFrameMixin):
         want_pixels = need_recon or self.cfg.hash != "none"
         return (nframes, host(modes), [host(lv) for lv in levels],
                 [host_pixels(r) for r in recs] if want_pixels
-                else [None, None, None], sses.host(), host(sao))
+                else [None, None, None], sses.host(), host(sao),
+                host(cmodes))
 
     def finalize_downloaded(self, downloaded) -> list[FrameResult]:
         """Host CABAC + NAL framing of a downloaded batch, one frame per
         pool task (the native CABAC releases the GIL)."""
         nframes, modes, (lv_y, lv_cb, lv_cr), (rec_y, rec_cb, rec_cr), \
-            sses, sao = downloaded
+            sses, sao, cmodes = downloaded
         if self._host_pool is None:
             self._host_pool = cf.ThreadPoolExecutor(
                 max_workers=self.cfg.threads or 8)
@@ -1202,18 +1222,24 @@ class IntraFrameEncoder(PFrameMixin):
         futs = [self._host_pool.submit(
             self._host_finalize, modes[i], lv_y[i], pick(lv_cb, i),
             pick(lv_cr, i), pick(rec_y, i), pick(rec_cb, i),
-            pick(rec_cr, i), pick(sao, i)) for i in range(nframes)]
+            pick(rec_cr, i), pick(sao, i), cmodes=pick(cmodes, i))
+            for i in range(nframes)]
         out = [f.result() for f in futs]
         for i, r in enumerate(out):
             r.sse = tuple(float(v) for v in sses[i])
         return out
 
     def _host_finalize(self, modes, lv_y, lv_cb, lv_cr, rec_y, rec_cb,
-                       rec_cr, sao=None, qp_ctu=None) -> FrameResult:
+                       rec_cr, sao=None, qp_ctu=None,
+                       cmodes=None) -> FrameResult:
         s = self.cu
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
         if qp_ctu is not None:
             fd.qp_ctu = np.asarray(qp_ctu, np.int32).copy()
+        if cmodes is not None:
+            # --rd 3 explicit chroma modes, CU grid -> 8x8 cell grid.
+            fd.cmode4[:] = np.kron(cmodes.astype(np.uint8),
+                                   np.ones((s // 8, s // 8), np.uint8))
         fd.depth8[:] = 6 - int(math.log2(s))
         fd.mode4[:] = np.kron(modes, np.ones((s // 4, s // 4), np.uint8))
         fd.coeff_y[:] = blocks_to_plane(lv_y, self.plan, s, self.coded_w,
@@ -1274,20 +1300,41 @@ class IntraFrameEncoder(PFrameMixin):
             cfg.intra_min_cu, cfg.intra_max_cu, cfg.rd >= 1,
             rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp))
 
-    def var_tree_plan(self, costs, modes):
+    def var_tree_plan(self, costs, modes, chroma_planes=None):
         """Host stage: the tree argmin and its wavefront plan.  Returns
         (size8 (H/8, W/8) true CU sizes, sched_size8 (64 CUs as four
-        32 entries), mode_maps size -> (H/s, W/s) numpy modes, VarPlan).
-        """
+        32 entries), mode_maps size -> (H/s, W/s) numpy modes, VarPlan,
+        cmode_maps).  chroma_planes: the (H/2, W/2) source Cb and Cr
+        planes on the device, from which --rd 3 searches the chroma
+        modes that schedule the chroma classes (cmode_maps, size -> grid,
+        ``var_chroma_modes``; None below rd 3, without chroma or without
+        chroma_planes)."""
         costs = {k: v.cpu().numpy() for k, v in costs.items()}
         mode_maps = {k: v.cpu().numpy() for k, v in modes.items()}
         size8 = choose_tree(costs, self.coded_w, self.coded_h,
                             qp_to_lambda(self.cfg.qp), percu_bits=0.0,
                             split_bits=SPLIT_FLAG_BINS)
         sched_size8, mode_maps = _sched_sizes(size8, mode_maps)
+        cmode_maps = None
+        if chroma_planes is not None and self.cfg.rd >= 3 and self.chroma:
+            cmode_maps = self.var_chroma_modes(mode_maps, *chroma_planes)
         vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
-                            self.coded_h, self.chroma)
-        return size8, sched_size8, mode_maps, vp
+                            self.coded_h, self.chroma,
+                            cmode_maps=cmode_maps)
+        return size8, sched_size8, mode_maps, vp, cmode_maps
+
+    def var_chroma_modes(self, mode_maps, cbp, crp) -> dict:
+        """--rd 3 on a variable tree: ``search_chroma_modes`` on each
+        size's fixed grid (the device (H/2, W/2) planes cbp / crp, each
+        size's luma modes of mode_maps).  Trees reach 32x32 CUs here:
+        ``unsupported`` refuses rd 3 with 64x64 ones (ROADMAP §3, F3).
+        Returns size -> (H/s, W/s) numpy chroma modes."""
+        return {s: search_chroma_modes(
+            cbp, crp, torch.from_numpy(np.ascontiguousarray(
+                mode_maps[s], np.int32)).to(self.device),
+            make_intra_plan(self.coded_w, self.coded_h, s, chroma=True),
+            self.qp_c, qp_to_lambda(self.cfg.qp), self.bitdepth).cpu().numpy()
+            for s in sorted(mode_maps)}
 
     def var_sched_arrays(self, vp, planes, sched_size8) -> dict:
         """The schedule reconstruct_frame_var reads, on the device: per
@@ -1367,9 +1414,10 @@ class IntraFrameEncoder(PFrameMixin):
         return tuple(None if r is None else r[0] for r in recs), packed[0]
 
     def var_frame_data(self, size8, sched_size8, mode_maps,
-                       levels) -> FrameData:
-        """Host assembly: depth/mode grids + the coefficient planes
-        (levels: numpy (y, cb, cr) pixel-layout planes)."""
+                       levels, cmode_maps=None) -> FrameData:
+        """Host assembly: depth/mode grids, the --rd 3 chroma modes
+        (cmode_maps, size -> grid) + the coefficient planes (levels:
+        numpy (y, cb, cr) pixel-layout planes)."""
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
         # depth = 6 - log2(size): 64->0, 32->1, 16->2, 8->3.
         fd.depth8[:] = (6 - np.round(np.log2(size8)).astype(np.int32)
@@ -1384,6 +1432,14 @@ class IntraFrameEncoder(PFrameMixin):
             mode4 = np.where(size4 == s, up[:size4.shape[0],
                                             :size4.shape[1]], mode4)
         fd.mode4[:] = mode4
+        if cmode_maps is not None:
+            cm8 = np.full(fd.cmode4.shape, 255, np.uint8)
+            for s, grid in cmode_maps.items():
+                up = np.kron(grid.astype(np.uint8),
+                             np.ones((s // 8, s // 8), np.uint8))
+                cm8 = np.where(sched_size8 == s,
+                               up[:cm8.shape[0], :cm8.shape[1]], cm8)
+            fd.cmode4[:] = cm8
         fd.coeff_y[:] = levels[0]
         if self.chroma:
             fd.coeff_cb[:] = levels[1]
@@ -1396,8 +1452,8 @@ class IntraFrameEncoder(PFrameMixin):
         deblocking, host CABAC."""
         planes = tuple(None if a is None else a[0] for a in self._upload(
             self.host_pack_sources([(y, cb, cr)])))
-        size8, sched_size8, mode_maps, vp = self.var_tree_plan(
-            *self.var_search(planes[0]))
+        size8, sched_size8, mode_maps, vp, cmode_maps = self.var_tree_plan(
+            *self.var_search(planes[0]), chroma_planes=planes[1:])
         recs, levels = self.var_recon(self.var_sched_arrays(vp, planes,
                                                             sched_size8))
         sao = None
@@ -1410,7 +1466,7 @@ class IntraFrameEncoder(PFrameMixin):
 
         rec_np = [host_pixels(r) for r in recs]
         fd = self.var_frame_data(size8, sched_size8, mode_maps,
-                                 [host(lv) for lv in levels])
+                                 [host(lv) for lv in levels], cmode_maps)
         _set_sao(fd, host(sao))
         return self._serialize_i(fd, *rec_np)
 
@@ -1823,7 +1879,7 @@ class IntraFrameEncoder(PFrameMixin):
         block's QP, deblocking at the effective QPs and SAO at the
         config's lambda, then CABAC with cu_qp_delta."""
         ys, cbs, crs = self._upload(self.host_pack_sources([(y, cb, cr)]))
-        modes, levels, recs, _sses, sao = self._encode_from_planes(
+        modes, levels, recs, _sses, sao, cmodes = self._encode_from_planes(
             ys, cbs, crs, self._upload_qp(qp_ctu)[None])
         self._dpb = tuple(None if r is None else r[0] for r in recs)
 
@@ -1833,7 +1889,7 @@ class IntraFrameEncoder(PFrameMixin):
         return self._host_finalize(host(modes), *(host(t) for t in levels),
                                    *(host_pixels(None if r is None else r[0])
                                      for r in recs), sao=host(sao),
-                                   qp_ctu=qp_ctu)
+                                   qp_ctu=qp_ctu, cmodes=host(cmodes))
 
     def close(self) -> None:
         """Stop the host CABAC pool."""

@@ -3,12 +3,11 @@
 Counterpart of kvazaar_tpu/encoder/intra_recon.py for intra and P
 frames at one QP or with a per-block QP map (LCU rate control, ROI and
 AQ: each block quantizes at its own QP, chroma at the QP that Table 8-10
-maps it to), or lossless (transquant bypass: the levels are the
-residual, or with implicit RDPCM its DPCM along a horizontal or vertical
-intra mode, and the reconstruction is the source), without scaling
-lists, RDOQ, transform skip or explicit chroma modes (the TU roundtrip
-``_tu_roundtrip`` also takes RDOQ and sign hiding, which the
-variable-tree reconstruction uses).  On P frames
+maps it to), with RDOQ and sign-data hiding where the config sets them,
+with explicit chroma modes (--rd 3) or DM, or lossless (transquant
+bypass: the levels are the residual, or with implicit RDPCM its DPCM
+along a horizontal or vertical intra mode, and the reconstruction is
+the source), without scaling lists or transform skip.  On P frames
 an inter block takes its motion-compensated
 prediction (computed for the whole frame beforehand: it has no
 wavefront dependency) and the inter quantizer rounding 85/512, and
@@ -115,24 +114,32 @@ def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
     return levels.to(torch.int16), rec
 
 
-def _scan_sel(modes: torch.Tensor, s: int, luma: bool) -> torch.Tensor:
-    """scanIdx per intra block (7.4.9.11): mode-dependent only for 4x4
-    and 8x8 luma TBs and 4x4 chroma TBs, diagonal otherwise."""
+def _scan_sel(modes: torch.Tensor, s: int, luma: bool,
+              is_inter=None) -> torch.Tensor:
+    """scanIdx per block (7.4.9.11): mode-dependent only for the intra
+    blocks of 4x4 and 8x8 luma TBs and 4x4 chroma TBs (``modes`` the
+    plane's own: a chroma plane's come from its chroma modes), diagonal
+    otherwise; is_inter: a bool tensor of modes' shape, whose inter
+    blocks take the diagonal scan."""
     if (luma and s > 8) or (not luma and s > 4):
         return torch.zeros_like(modes, dtype=torch.int32)
-    return torch.where((modes >= 6) & (modes <= 14), 2,
-                       torch.where((modes >= 22) & (modes <= 30), 1, 0)
-                       ).to(torch.int32)
+    sel = torch.where((modes >= 6) & (modes <= 14), 2,
+                      torch.where((modes >= 22) & (modes <= 30), 1, 0))
+    if is_inter is not None:
+        sel = torch.where(is_inter, 0, sel)
+    return sel.to(torch.int32)
 
 
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
                 bitdepth, luma, inter_items=None, mc_flat=None,
-                qp_items=None, lossless=False, rdpcm=False):
+                qp_items=None, lossless=False, rdpcm=False, rdoq=False,
+                lam=0.0, signhide=False):
     """One wavefront step for every slot of every item (qp_items: the
     items' per-block QPs, else every block at qp; lossless / rdpcm:
     transquant bypass, with implicit RDPCM on the intra blocks, which
-    also turns the luma boundary fixups off).  Returns the step's
-    (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
+    also turns the luma boundary fixups off; rdoq: RDOQ at lambda lam;
+    signhide: sign-data hiding by each block's scanIdx).  Returns the
+    step's (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
     gidx, noref, sidx, bids = tables
     nb = rec_flat.shape[0]
     refs = build_refs(rec_flat, gidx[step], noref[step], bitdepth)
@@ -142,6 +149,7 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
     pred = predict_modes(refs.reshape(nb * k, -1), modes, s, luma=luma,
                          bitdepth=bitdepth, fixups=not (rdpcm and luma))
     intra = True
+    inter = None
     rdpcm_modes = modes if rdpcm else None
     if inter_items is not None:
         inter = inter_items[:, bids[step]].reshape(-1)    # (NB*slots,)
@@ -152,7 +160,9 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
             rdpcm_modes = torch.where(inter, -1, modes)
     if qp_items is not None:
         qp = qp_items[:, bids[step]].reshape(-1)          # (NB*slots,)
+    scan_sel = _scan_sel(modes, s, luma, inter) if signhide else None
     levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra,
+                                scan_sel=scan_sel, rdoq=rdoq, lam=lam,
                                 lossless=lossless, rdpcm_modes=rdpcm_modes)
     return levels.reshape(nb, k, s, s), rec.reshape(nb, k, s * s)
 
@@ -177,7 +187,8 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           plan: IntraFramePlan, s: int, luma: bool,
                           qp: int, bitdepth: int = 8, is_inter=None,
                           mc=None, qp_map=None, lossless=False,
-                          rdpcm=False):
+                          rdpcm=False, rdoq=False, lam=0.0,
+                          signhide=False):
     """Plain PyTorch version of the wavefront kernel, on any device;
     same contract as ops.wavefront.wavefront_recon."""
     nb, h, w = orig.shape
@@ -198,7 +209,8 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     for step in range(plan.n_steps):
         lv, rec = _plane_pass(rec_flat, orig_flat, modes_items, tables,
                               step, s, qp, bitdepth, luma, inter_items,
-                              mc_flat, qp_items, lossless, rdpcm)
+                              mc_flat, qp_items, lossless, rdpcm, rdoq,
+                              lam, signhide)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
     return (rec_flat[:, :h * w].reshape(nb, h, w).to(pix_dtype(bitdepth)),
@@ -208,7 +220,8 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
 def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                        qp_c: int, bitdepth: int = 8, is_inter=None,
                        mc_y=None, mc_cb=None, mc_cr=None, qp_map=None,
-                       lossless=False, rdpcm=False):
+                       lossless=False, rdpcm=False, signhide=False,
+                       rdoq=False, lam=0.0, cmodes=None):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
@@ -217,11 +230,16 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
     qp_map: (B, By, Bx) int per-block luma QP (clipped to 0..51, chroma
     through Table 8-10), replacing qp and qp_c.  lossless: transquant
     bypass; rdpcm: implicit RDPCM on the intra blocks of lossless planes
-    (chroma through the DM mode), the luma boundary fixups off.  Returns
+    (chroma through its own mode), the luma boundary fixups off.
+    signhide: sign-data hiding; rdoq: RDOQ at lambda lam (every block,
+    whatever its QP); cmodes: (B, By, Bx) int32 explicit chroma
+    prediction modes (--rd 3), else chroma takes the luma modes (DM).
+    Returns
     (recon_y, levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon
     (B, H, W) uint8 at 8-bit, int16 above (``pix_dtype``), levels (B,
     N_blocks, S, S) int16 in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
     return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
                                   bitdepth, is_inter, mc_y, mc_cb, mc_cr,
-                                  qp_map, lossless, rdpcm)
+                                  qp_map, lossless, rdpcm, rdoq=rdoq,
+                                  signhide=signhide, lam=lam, cmodes=cmodes)

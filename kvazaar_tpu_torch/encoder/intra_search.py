@@ -1,13 +1,15 @@
 """Batched intra mode decision — all blocks, all 35 modes at once.
 
-Counterpart of kvazaar_tpu/encoder/intra_search.py for --rd 0/1/2 (not
-the rd 3 chroma-mode search): every mode of every block is predicted
+Counterpart of kvazaar_tpu/encoder/intra_search.py for --rd 0..3: every
+mode of every block is predicted
 from *original* neighbour pixels (open loop, so the search has no
 sequential dependency), Hadamard-SATD costed, then (rd 1) re-ranked
 with MPM-aware signalling bits implied by the pass-1 neighbour
 decisions, or (rd 2) the top four re-ranked by a true transform +
-quantization roundtrip and the modelled coefficient rate.  The
-wavefront reconstruction then honours the exact spec dependencies.
+quantization roundtrip and the modelled coefficient rate; (rd 3)
+``search_chroma_modes`` then picks each CU's chroma mode among the five
+of Table 8-3 by a roundtrip on both chroma planes.  The wavefront
+reconstruction then honours the exact spec dependencies.
 
 Float32 costs are formed as the JAX package forms them on its CPU
 backend, where XLA contracts an elementwise ``a + l * b`` into one
@@ -109,11 +111,13 @@ def mode_bits_table(modes_grid: torch.Tensor, cu_size: int,
 
 
 @plan_cached
-def _gather_maps(plan: IntraFramePlan, device: torch.device):
-    """(N, 4S+1) int64 luma ref gather indices + (N,) no-ref mask."""
-    return (torch.from_numpy(plan_flat_gather(plan, True).astype(np.int64))
+def _gather_maps(plan: IntraFramePlan, device: torch.device,
+                 luma: bool = True):
+    """(N, 4S+1) int64 ref gather indices + (N,) no-ref mask of the luma
+    or the chroma plane."""
+    return (torch.from_numpy(plan_flat_gather(plan, luma).astype(np.int64))
             .to(device),
-            torch.from_numpy(plan_flat_noref(plan, True)).to(device))
+            torch.from_numpy(plan_flat_noref(plan, luma)).to(device))
 
 
 def _ssd_f32(err: torch.Tensor) -> torch.Tensor:
@@ -135,19 +139,21 @@ def _roundtrip_levels(resid, s, qp, bitdepth):
 
 
 def _open_loop_refs(frame: torch.Tensor, plan: IntraFramePlan,
-                    bitdepth: int) -> torch.Tensor:
-    """(N, 4S+1) luma reference vectors from the source frame."""
+                    bitdepth: int, luma: bool = True) -> torch.Tensor:
+    """(N, 4S+1) reference vectors from the source plane (luma, or a
+    chroma plane of the plan)."""
     flat_ext = torch.cat([frame.reshape(-1), frame.new_zeros(1)])
-    gidx, noref = _gather_maps(plan, frame.device)
+    gidx, noref = _gather_maps(plan, frame.device, luma)
     return torch.where(noref[:, None],
                        torch.full_like(gidx, 1 << (bitdepth - 1),
                                        dtype=torch.int32),
                        flat_ext[gidx])
 
 
-def _blocks(frame: torch.Tensor, plan: IntraFramePlan) -> torch.Tensor:
-    """(H, W) -> (N, S, S) raster blocks."""
-    s = plan.cu_size
+def _blocks(frame: torch.Tensor, plan: IntraFramePlan,
+            s: int | None = None) -> torch.Tensor:
+    """(H, W) -> (N, S, S) raster blocks (S the plan's CU size, or s)."""
+    s = s or plan.cu_size
     by, bx = plan.blocks_y, plan.blocks_x
     return frame.reshape(by, s, bx, s).permute(0, 2, 1, 3).reshape(
         by * bx, s, s)
@@ -253,3 +259,59 @@ def modes64_from_satd32(satd32: torch.Tensor, lambda_satd: float,
     cost = _fma_f32(s4, lambda_satd, mode_bits_table(modes1, 64))
     return (torch.argmin(cost, dim=-1).to(torch.int32),
             torch.min(cost, dim=-1).values)
+
+
+CHROMA_CAND_BASE = (0, 26, 10, 1)   # Table 8-3 modeList order
+
+
+def chroma_cand_table(luma_modes: torch.Tensor) -> torch.Tensor:
+    """(...,) luma modes -> (..., 4) the chroma modes that
+    intra_chroma_pred_mode 0..3 select (8.4.3 Table 8-3: the list entry
+    equal to the luma mode becomes angular 34); DM (index 4) is the
+    luma mode itself."""
+    base = torch.tensor(CHROMA_CAND_BASE, dtype=torch.int32,
+                        device=luma_modes.device)
+    cand = base.expand(*luma_modes.shape, 4)
+    return torch.where(cand == luma_modes[..., None].to(torch.int32), 34,
+                       cand)
+
+
+def search_chroma_modes(cbp: torch.Tensor, crp: torch.Tensor,
+                        luma_modes: torch.Tensor, plan: IntraFramePlan,
+                        qp_c: int, lam_rd: float,
+                        bitdepth: int = 8) -> torch.Tensor:
+    """--rd 3 chroma-mode RDO: every CU's four Table 8-3 candidates and
+    DM, each costed by a transform + flat-quant roundtrip of both chroma
+    planes from open-loop source references: SSD + lam_rd * (coefficient
+    rate + intra_chroma_pred_mode bins), first-index argmin.
+
+    cbp / crp: (H/2, W/2) integer source chroma planes (coded size);
+    luma_modes: (By, Bx) int32.  Returns (By, Bx) int32 chroma
+    prediction modes."""
+    s2 = plan.chroma.size
+    by, bx = plan.blocks_y, plan.blocks_x
+    n = by * bx
+    lm = luma_modes.reshape(-1).to(torch.int32)
+    cand = torch.cat([chroma_cand_table(lm), lm[:, None]], dim=1)  # (N, 5)
+
+    def plane_costs(plane):
+        plane = plane.to(torch.int32)
+        refs = _open_loop_refs(plane, plan, bitdepth, luma=False)
+        preds = predict_all_modes(refs, s2, luma=False, bitdepth=bitdepth)
+        sel = torch.take_along_dim(preds, cand[:, :, None, None].long(),
+                                   dim=1)                      # (N,5,S,S)
+        orig = _blocks(plane, plan, s2).reshape(n, 1, s2, s2)
+        levels, ssd = _roundtrip_levels((orig - sel).reshape(n * 5, s2, s2),
+                                        s2, qp_c, bitdepth)
+        return _fma_f32(ssd.reshape(n, 5), lam_rd,
+                        tb_rate_bits(levels).reshape(n, 5))
+
+    # intra_chroma_pred_mode bins (9.3.3.8): DM one context bin, an
+    # explicit mode one context bin and two bypass bins.
+    sig = torch.tensor([3.0, 3.0, 3.0, 3.0, 1.0], dtype=torch.float32,
+                       device=cbp.device)
+    cost = _fma_f32(plane_costs(cbp) + plane_costs(crp), lam_rd,
+                    sig.expand(n, 5))
+    pick = torch.argmin(cost, dim=1)
+    return torch.take_along_dim(cand, pick[:, None], dim=1)[:, 0].reshape(
+        by, bx).to(torch.int32)

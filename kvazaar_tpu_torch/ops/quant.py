@@ -2,8 +2,8 @@
 sign-data hiding, batched.
 
 Counterpart of kvazaar_tpu/ops/quant.py without scaling lists: the
-scalar quantizer takes a frame-level QP or one QP per block (LCU rate
-control, ROI and AQ), RDOQ a frame-level QP.  int32 arithmetic exactly
+scalar quantizer and RDOQ take a frame-level QP or one QP per block
+(LCU rate control, ROI and AQ).  int32 arithmetic exactly
 as the JAX package forms it; the scale tables are copies pinned by a
 test.
 
@@ -206,7 +206,9 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
                   bitdepth: int = 8, intra=True,
                   lam: float = 1.0) -> torch.Tensor:
     """Rate-distortion optimized quantization (the JAX package's
-    vectorized form of the reference's RDOQ, flat scaling list, one QP):
+    vectorized form of the reference's RDOQ, flat scaling list; qp an
+    int, or one QP per block over the leading axes as in ``quantize``,
+    with the caller's lambda for every block):
     every coefficient picks the cheapest of {0, l - 1, l} (l the
     round-half level) by pixel-domain distortion + lam * a static rate
     model, then whole 4x4 groups whose coded cost exceeds their zeroed
@@ -214,12 +216,17 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     signature: both roundings use the half offset.  Returns int32
     levels."""
     del intra
-    if isinstance(qp, torch.Tensor):
-        raise NotImplementedError("RDOQ with a per-block QP (no ported "
-                                  "path combines them)")
     log2n = size.bit_length() - 1
-    scale, qbits, inv_scale, inv_shift = quant_params(qp, log2n, bitdepth)
-    inv_m = inv_scale << (qp // 6)
+    inv_shift = bitdepth + log2n - 5
+    if isinstance(qp, torch.Tensor):
+        scale, qbits, inv_scale = _quant_params_arr(qp, log2n, bitdepth)
+        inv_m = (inv_scale << torch.div(qp.to(torch.int32), 6,
+                                        rounding_mode="floor"))[..., None,
+                                                                None]
+        scale, qbits = scale[..., None, None], qbits[..., None, None]
+    else:
+        scale, qbits, inv_scale, _ = quant_params(qp, log2n, bitdepth)
+        inv_m = inv_scale << (qp // 6)
     c = coeff.to(torch.int32)
     ac = torch.abs(c)
     l1 = torch.clamp((ac * scale + (1 << (qbits - 1))) >> qbits, 0, 32767)

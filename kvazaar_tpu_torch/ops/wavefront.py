@@ -3,8 +3,10 @@
 ``wavefront_recon_planes`` reconstructs the luma and chroma planes of a
 batch of frames, all-intra or, given an inter mask and MC planes, as P
 frames, at one QP or with a per-block QP map, or lossless (transquant
-bypass, with or without implicit RDPCM), at 8 or 10 bits (the kernel's
-10-bit instance takes int16 planes and writes int16 recon);
+bypass, with or without implicit RDPCM), with RDOQ and sign-data hiding
+where asked (the kernel's TQ instances), with explicit chroma modes
+(--rd 3) or DM, at 8 or 10 bits (the kernel's 10-bit instance takes
+int16 planes and writes int16 recon);
 ``wavefront_recon`` reconstructs one plane kind.  For CUDA
 tensors both launch the hand-written kernel once (or raise); for CPU
 tensors they run the kernel's plain PyTorch version, the per-step loop
@@ -24,8 +26,9 @@ more shared memory than the device gives raises here.  ``LAUNCHES`` counts the
 kernel launches of this process, intra and inter variants apart,
 ``QP_MAP_LAUNCHES`` those of them that took a per-block QP map,
 ``LAUNCHES_10BIT`` those of the 10-bit instances, ``BYPASS_LAUNCHES``
-those of the lossless (transquant bypass) instances and
-``TILE_LAUNCHES`` those on a tiled plan.
+those of the lossless (transquant bypass) instances, ``TILE_LAUNCHES``
+those on a tiled plan, ``TOOL_LAUNCHES`` those of the RDOQ / sign-hiding
+instances and ``CMODE_LAUNCHES`` those with explicit chroma modes.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ import torch
 from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
-from kvazaar_tpu_torch.ops.quant import int32_table, quant_params
+from kvazaar_tpu_torch.ops.quant import (_f32, _rem_bits, int32_table,
+                                         quant_params)
 
 # Kernel launches made by this module (only here, after a launch), per
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
@@ -58,6 +62,12 @@ QP_MAP_LAUNCHES = {"intra": 0, "inter": 0}
 LAUNCHES_10BIT = {"intra": 0, "inter": 0, "qp_map": 0}
 BYPASS_LAUNCHES = {"intra": 0, "inter": 0, "rdpcm": 0, "10bit": 0}
 TILE_LAUNCHES = {"intra": 0, "inter": 0}
+# The RDOQ / sign-hiding instances' launches ("rdoq", "signhide": those
+# with each flag; "qp_map", "10bit", "tiled": those with a QP map, at
+# 10-bit, on a tiled plan) and the launches with explicit chroma modes.
+TOOL_LAUNCHES = {"intra": 0, "inter": 0, "rdoq": 0, "signhide": 0,
+                 "qp_map": 0, "10bit": 0, "tiled": 0}
+CMODE_LAUNCHES = {"intra": 0, "inter": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -141,7 +151,8 @@ def _library():
     fn.argtypes = ([ctypes.POINTER(_Plane), ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
     lib.ktt_wavefront_layout.restype = ctypes.c_int
     lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
@@ -318,7 +329,8 @@ def _plan_tables(plan: IntraFramePlan, device: torch.device):
 def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                     plan: IntraFramePlan, s: int, luma: bool, qp: int,
                     bitdepth: int = 8, is_inter=None, mc=None,
-                    qp_map=None, lossless=False, rdpcm=False):
+                    qp_map=None, lossless=False, rdpcm=False, rdoq=False,
+                    lam=0.0, signhide=False):
     """Reconstruct a batch of planes of one kind.
 
     orig: (NB, H, W) coded-size planes (H, W = the plan's luma size, or
@@ -331,7 +343,9 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
     0..51, shared like modes, replacing qp.  lossless: transquant
     bypass (no qp_map), the levels the residual and rec the source;
     rdpcm: implicit RDPCM on the intra blocks of a lossless plane, the
-    luma boundary fixups off.  Returns (rec (NB, H, W)
+    luma boundary fixups off.  rdoq: RDOQ at lambda lam; signhide:
+    sign-data hiding by each block's scanIdx (the modes are this plane
+    kind's, chroma modes for a chroma plane).  Returns (rec (NB, H, W)
     uint8 at 8-bit, int16 at 10-bit, levels (NB, By*Bx, S, S) int16 in
     raster block order)."""
     if orig.device.type == "cpu":
@@ -339,21 +353,22 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
             wavefront_recon_plain
         return wavefront_recon_plain(orig, modes, plan, s, luma, qp,
                                      bitdepth, is_inter, mc, qp_map,
-                                     lossless, rdpcm)
+                                     lossless, rdpcm, rdoq, lam, signhide)
     if orig.device.type != "cuda":
         raise ValueError(f"wavefront_recon: unsupported device "
                          f"{orig.device}")
     _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map,
-           lossless, rdpcm)
+           lossless, rdpcm, rdoq or signhide)
     return _launch([(orig, mc, s, luma, qp, qp_map)], modes, plan,
-                   is_inter, bitdepth, lossless, rdpcm)
+                   is_inter, bitdepth, lossless, rdpcm, rdoq, lam, signhide)
 
 
 def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                            qp: int, qp_c: int, bitdepth: int = 8,
                            is_inter=None, mc_y=None, mc_cb=None,
                            mc_cr=None, qp_map=None, lossless=False,
-                           rdpcm=False):
+                           rdpcm=False, rdoq=False, signhide=False,
+                           lam=0.0, cmodes=None):
     """Reconstruct the luma and (where cbs is given) chroma planes of a
     batch of frames in one launch.
 
@@ -365,9 +380,12 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     the shapes of ys/cbs/crs.  qp_map: (Bm, By, Bx) per-block luma QPs,
     shared like modes, replacing qp and qp_c: clipped to 0..51, and
     mapped through Table 8-10 for Cb and Cr, on the device.  lossless /
-    rdpcm: as in wavefront_recon (Cb and Cr take the DPCM of the shared
-    mode).  Returns (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr), the
-    chroma entries None without chroma."""
+    rdpcm / rdoq / lam / signhide: as in wavefront_recon (Cb and Cr take
+    the DPCM and the scan of their mode).  cmodes: (Bm, By, Bx) int32
+    explicit chroma modes shared like modes (--rd 3), else Cb and Cr
+    take modes.  Returns (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr),
+    the chroma entries None without chroma."""
+    tools = dict(rdoq=rdoq, lam=lam, signhide=signhide)
     s = plan.cu_size
     qp_y = qp_c_map = None
     if qp_map is not None:
@@ -380,16 +398,16 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
             wavefront_recon_plain
         rec_y, lv_y = wavefront_recon_plain(ys, modes, plan, s, True, qp,
                                             bitdepth, is_inter, mc_y, qp_y,
-                                            lossless, rdpcm)
+                                            lossless, rdpcm, **tools)
         if cbs is None:
             return rec_y, lv_y, None, None, None, None
         # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
         b = ys.shape[0]
         mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
-        rec_c, lv_c = wavefront_recon_plain(torch.cat([cbs, crs]), modes,
-                                            plan, s // 2, False, qp_c,
-                                            bitdepth, is_inter, mc_c,
-                                            qp_c_map, lossless, rdpcm)
+        rec_c, lv_c = wavefront_recon_plain(
+            torch.cat([cbs, crs]), modes if cmodes is None else cmodes,
+            plan, s // 2, False, qp_c, bitdepth, is_inter, mc_c, qp_c_map,
+            lossless, rdpcm, **tools)
         return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
     if ys.device.type != "cuda":
         raise ValueError(f"wavefront_recon_planes: unsupported device "
@@ -403,18 +421,22 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map),
                    (crs, mc_cr, s // 2, False, qp_c, qp_c_map)]
     for orig, mc, ps, luma, _, qm in planes:
-        _check(orig, modes, plan, ps, luma, bitdepth, is_inter, mc, qm,
-               lossless, rdpcm)
-    out = _launch(planes, modes, plan, is_inter, bitdepth, lossless, rdpcm)
+        _check(orig, modes if luma or cmodes is None else cmodes, plan, ps,
+               luma, bitdepth, is_inter, mc, qm, lossless, rdpcm,
+               rdoq or signhide)
+    out = _launch(planes, modes, plan, is_inter, bitdepth, lossless, rdpcm,
+                  cmodes=None if cbs is None else cmodes, **tools)
     if cbs is None:
         return (*out, None, None, None, None)
     return out
 
 
 def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
-            lossless=False, rdpcm=False):
+            lossless=False, rdpcm=False, rdoq=False, lam=0.0,
+            signhide=False, cmodes=None):
     """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
-    plane kinds; returns (rec, levels) per kind, flattened."""
+    plane kinds (cmodes: the chroma planes' modes, or None for modes);
+    returns (rec, levels) per kind, flattened."""
     lib = _library()
     dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
@@ -429,8 +451,11 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
     blk_info, step_start, tile_info = _plan_tables(plan, dev)
     n_steps, n_slots, _, tile_bw, tile_blocks = tile_shape(plan)
     modes = modes.contiguous()
+    if cmodes is not None:
+        cmodes = cmodes.contiguous()
     if is_inter is not None:
         is_inter = is_inter.contiguous()
+    rem_bits = _rem_bits(dev) if rdoq else None
     structs = (_Plane * len(planes))()
     outs = []
     # The kernel packs each (item, tile)'s schedule words here.
@@ -465,7 +490,10 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             entries.data_ptr(), modes.shape[0], plan.blocks_x, nblk,
             n_steps, n_slots, ring, width // plan.blocks_x * tile_bw,
             int(lossless), int(rdpcm), tile_info.data_ptr(),
-            tile_info.shape[0], tile_bw, tile_blocks, stream)
+            tile_info.shape[0], tile_bw, tile_blocks,
+            None if cmodes is None else cmodes.data_ptr(), int(rdoq),
+            int(signhide), _f32(lam), _f32(_f32(lam) * _f32(0.15)),
+            None if rem_bits is None else rem_bits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
@@ -482,17 +510,30 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
         BYPASS_LAUNCHES["10bit"] += bitdepth == 10
     if tile_info.shape[0] > 1:
         TILE_LAUNCHES[variant] += 1
+    if rdoq or signhide:
+        TOOL_LAUNCHES[variant] += 1
+        TOOL_LAUNCHES["rdoq"] += bool(rdoq)
+        TOOL_LAUNCHES["signhide"] += bool(signhide)
+        TOOL_LAUNCHES["qp_map"] += planes[0][5] is not None
+        TOOL_LAUNCHES["10bit"] += bitdepth == 10
+        TOOL_LAUNCHES["tiled"] += tile_info.shape[0] > 1
+    if cmodes is not None:
+        CMODE_LAUNCHES[variant] += 1
     return tuple(outs)
 
 
 def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
-           qp_map=None, lossless=False, rdpcm=False):
-    """Validate what the kernel takes; returns (NB, H, W)."""
+           qp_map=None, lossless=False, rdpcm=False, tools=False):
+    """Validate what the kernel takes (tools: RDOQ or sign hiding);
+    returns (NB, H, W)."""
     if bitdepth not in _BITDEPTHS:
         raise ValueError(f"wavefront kernel: bit depth {bitdepth} (8 and "
                          "10 are built)")
     if rdpcm and not lossless:
         raise ValueError("wavefront kernel: implicit RDPCM needs lossless")
+    if lossless and tools:
+        raise ValueError("wavefront kernel: RDOQ and sign hiding need a "
+                         "lossy launch")
     if lossless and qp_map is not None:
         raise ValueError("wavefront kernel: a lossless launch takes no QP "
                          "map")

@@ -18,7 +18,7 @@ backend, jitted) on the same seeded frames, every comparison exact
   RDOQ, sign hiding, SAO) presets at 96x96 QP22, and the JAX oracle
   decoder turning each port stream into the port's recon (post-SAO);
 - ``Encoder.encode_stream`` == ``encode`` and the CLI on a var config;
-  rd 3 and --tr-depth-intra still raise.
+  scaling lists, --tr-depth-intra, cu 4 and TMVP still raise.
 
 Each JAX reference encoder is built and run once per case (cached), so
 each config compiles once; the SAO cases share one compiled JAX SAO
@@ -195,7 +195,7 @@ def test_choose_tree_and_plan_match_jax(name):
     equal field by field."""
     frame, jax_enc, _want, port, _got = _encoded(name)
     planes = _port_planes(port, frame)
-    size8, sched_size8, mode_maps, vp = port.var_tree_plan(
+    size8, sched_size8, mode_maps, vp, _cmodes = port.var_tree_plan(
         *port.var_search(planes[0]))
     costs, _ = _jax_search(jax_enc, planes[0].numpy())
     _eq(size8, jqt.choose_tree(costs, port.coded_w, port.coded_h,
@@ -224,7 +224,7 @@ def test_reconstruct_frame_var_matches_jax(name):
     maps == the JAX program's deblock with a constant QP map."""
     frame, jax_enc, _want, port, _got = _encoded(name)
     planes = _port_planes(port, frame)
-    size8, sched_size8, mode_maps, vp = port.var_tree_plan(
+    size8, sched_size8, mode_maps, vp, _cmodes = port.var_tree_plan(
         *port.var_search(planes[0]))
     sched = port.var_sched_arrays(vp, planes, sched_size8)
     recs, levels = port.var_recon(sched)
@@ -298,12 +298,12 @@ def test_cli_medium_all_intra(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(rd=3), "--rd 3"),
+    (dict(scaling_list="default"), "scaling lists"),
     (dict(tr_depth_intra=1), "tr-depth-intra"),
     (dict(intra_period=0, gop_len=8, crypto="k"), "selective encryption"),
-    (dict(intra_min_cu=32, intra_max_cu=32, rdoq=True),
-     "RDOQ on the fixed CU grid"),
-    (dict(intra_min_cu=16, intra_max_cu=16, rd=2), "--rd 2")])
+    (dict(intra_min_cu=4, intra_max_cu=4, rdoq=False),
+     "fixed CU size 4"),
+    (dict(intra_period=0, tmvp=True), "TMVP")])
 def test_unported_var_options_raise(change, match):
     kw = _kw("8-32")
     kw.update(change)

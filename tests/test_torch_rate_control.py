@@ -119,8 +119,8 @@ def test_array_qp_quant_matches_jax(intra):
                             intra=jflag))
     _eq(tquant.dequantize(lv, _t(qps), 8, 8),
         jquant.dequantize(jnp.asarray(lv.numpy()), jnp.asarray(qps), 8, 8))
-    with pytest.raises(NotImplementedError, match="per-block QP"):
-        tquant.quantize_rdoq(_t(coeff), _t(qps), 8, 8)
+    _eq(tquant.quantize_rdoq(_t(coeff), _t(qps), 8, 8),
+        jquant.quantize_rdoq(jnp.asarray(coeff), jnp.asarray(qps), 8, 8))
 
 
 _JAX_RECON = _jit_whole(jax_reconstruct_frames)

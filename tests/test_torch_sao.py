@@ -16,8 +16,8 @@ its CPU backend, jitted:
   JAX encoder's, and the JAX oracle decoder turning the stream back
   into exactly the port's post-SAO reconstruction;
 - every preset's all-intra operating point passes the port's gates, and
-  what stays unported (fixed-grid RDOQ and sign hiding, SAO on
-  variable-tree P frames) still raises.
+  what stays unported (scaling lists, cu 4, selective encryption)
+  still raises.
 
 The JAX SAO program takes about a minute to compile on the CPU (most of
 it XLA compiling one unrolled program), so it is built once per process
@@ -284,8 +284,8 @@ def test_every_preset_all_intra_is_ported(preset):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(rdoq=True), "RDOQ on the fixed CU grid"),
-    (dict(signhide=True), "sign hiding on the fixed CU grid"),
+    (dict(scaling_list="default"), "scaling lists"),
+    (dict(intra_min_cu=4, intra_max_cu=4), "fixed CU size 4"),
     (dict(sao=True, intra_period=0, lp_gop=None, gop_len=8,
           crypto="k"), "selective encryption")])
 def test_unported_rdoq_sao_raise(change, match):

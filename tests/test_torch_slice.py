@@ -211,8 +211,8 @@ def test_encode_stream_matches_frame_encoder(name):
     dict(tmvp=True, intra_period=0),
     dict(gop_len=8, intra_period=0, crypto="k"),
     dict(intra_min_cu=8, intra_period=0, crypto="k"),
-    dict(inter_min_cu=8, intra_period=0, gop_len=8, rd=3),
-    dict(rdoq=True), dict(rd=2)])
+    dict(inter_min_cu=8, intra_period=0, gop_len=8, scaling_list="default"),
+    dict(scaling_list="default"), dict(intra_min_cu=4, intra_max_cu=4)])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
     for k, v in change.items():
