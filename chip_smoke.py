@@ -18,8 +18,10 @@ per-CTU QP map (``--bitrate`` on ``Config()``), 10-bit (Main 10)
 streams up to BASELINE config #5 (a 10-bit 3840x2160 GOP-8 stream with
 ``--bitrate``), lossless coding (transquant bypass, implicit RDPCM),
 tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
-1920x1080), and RDOQ, sign hiding and --rd 2 / 3 on the fixed grid
-(``--preset slower --gop lp-g4d4t1``, all-intra at rd 3).
+1920x1080), RDOQ, sign hiding and --rd 2 / 3 on the fixed grid
+(``--preset slower --gop lp-g4d4t1``, all-intra at rd 3), and the
+intra-NxN point (fixed CU 4) with transform skip and ``--preset medium
+--tr-depth-intra 1``.
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -149,7 +151,7 @@ Any failed phase raises, so the script exits nonzero:
    26; 10-bit intra cu 16 and inter cu 32 at 832x480; 3840x2160 10-bit
    cu 32, intra and inter, timed; the cell ``lossless-832x480`` (the headline
    configuration with lossless=True, which turns deblocking off; a
-   2-frame warm-up batch, then one timed batch of 8 through
+   2-frame warm-up batch, then one timed batch of 4 through
    Encoder.encode_stream: fps, bits a frame, recon == source, the
    bypass launches, and a stage split with the Python CABAC's share);
    the pipelined FrameInfo of 128x128 noise at QP 51 (SSEs above 2^24)
@@ -166,8 +168,8 @@ Any failed phase raises, so the script exits nonzero:
    bound); the cells ``tiles3x3-ippp-1920x1080-qp22`` (BASELINE config
    #4 on the package defaults: Config() with tiles 3x3; IDR + 1 P warm,
    4 timed P frames) and ``tiles3x3-intra-1920x1080-qp22`` (the
-   headline configuration on a 3x3 grid, pipelined; a 2-frame warm-up
-   batch, one timed batch of 4), each with its tiled launches counted
+   headline configuration on a 3x3 grid, pipelined; a 1-frame warm-up
+   batch, one timed batch of 2), each with its tiled launches counted
    (``wavefront.TILE_LAUNCHES``) and a stage split with the Python
    CABAC's share (``cabac_python_ms``); and card == CPU bytes and recon
    at 416x240 for tiles 3x3 + WPP IPPP (Config()), --slices tiles
@@ -194,7 +196,28 @@ Any failed phase raises, so the script exits nonzero:
    lp-g4d4t1, medium --gop 0 --ref 2, placebo --gop 0 --ref 3,
    Config(rdoq=True) with --bitrate, Config() with RDOQ, sign hiding and
    tiles 2x2, a 10-bit fixed-grid GOP 8 with RDOQ and sign hiding, and
-   medium --period 1 --rd 3.
+   medium --period 1 --rd 3;
+18. the intra-NxN point (fixed CU 4, DST-VII), transform skip and
+   --tr-depth-intra (``run_nxn``): the kernel's cu 4 instances (luma on
+   the plan of 4x4 blocks, transform skip a run-time flag) and the NxN
+   chroma launch of the cu 8 instances on the cu 8 plan == plain, max
+   abs error 0 (line ``cu4 kernel vs plain``: 832x480 over 8 frames with
+   searched and random modes, transform skip off and on, sign hiding,
+   RDOQ with sign hiding, lossless, 10-bit, and a 1920x1088
+   compare-only frame; each timed against the cu 8 joint launch on the
+   same frames, with its threads, shared memory, steps and bounds); the
+   cells ``intra-nxn-tskip-832x480-qp22`` (the headline configuration at
+   cu 4 with transform skip; a 2-frame warm-up batch, one timed batch of
+   4; the cu 4 and transform-skip launches, ``wavefront.CU4_LAUNCHES``
+   and ``TSKIP_LAUNCHES``; a stage split with the Python CABAC,
+   ``cabac_python_ms``) and ``intra-medium-trdepth-832x480-qp22``
+   (``--preset medium --period 1 --tr-depth-intra 1``: 1 warm-up and 1
+   timed frame, the var-tree stage split and the share of 8x8 cells
+   whose CU split its TBs); and card == CPU bytes and recon at 128x64
+   for cu 4 with WPP and sign hiding, with transform skip, 10-bit 4:0:0,
+   with RDOQ and lossless, --tr-depth-intra all-intra, IPPP and a medium
+   GOP 4, and the 128x128 tiled I + P stream with RDOQ and sign hiding
+   that holds F2 (ROADMAP §3).
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -750,13 +773,14 @@ def var_stage_split(torch, ife, frames, count=True):
     frames; each frame's wavefront depth, the CU-size histogram over
     the frames, and (count) the ATen ops of the first frame's
     reconstruction.  The stages are encode_frame_var's, with
-    the config's RDOQ, sign hiding and SAO."""
+    the config's RDOQ, sign hiding, SAO and TU splits (--tr-depth-intra:
+    then also the share of 8x8 cells whose CU split its TBs)."""
     from kvazaar_tpu_torch.encoder.frame_encoder import _set_sao, qp_to_lambda
     from kvazaar_tpu_torch.encoder.quadtree import reconstruct_frame_var
     from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
     cfg = ife.cfg
 
-    totals, depths, cus = {}, [], {}
+    totals, depths, cus, splits = {}, [], {}, []
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -771,7 +795,7 @@ def var_stage_split(torch, ife, frames, count=True):
         planes = timed("upload_ms", lambda: tuple(
             a[0] for a in ife._upload(ife.host_pack_sources([frame]))))
         found = timed("search_ms", lambda: ife.var_search(planes[0]))
-        size8, sched_size8, mode_maps, vp, _cmodes = timed(
+        size8, sched_size8, mode_maps, vp, _cmodes, *trsplit = timed(
             "tree_and_plan_ms", lambda: ife.var_tree_plan(*found))
         timed("build_var_plan_ms", lambda: build_var_plan(
             sched_size8, mode_maps, ife.coded_w, ife.coded_h, True))
@@ -796,11 +820,15 @@ def var_stage_split(torch, ife, frames, count=True):
 
         def cabac():
             fd = ife.var_frame_data(size8, sched_size8, mode_maps, host[1])
+            if trsplit:
+                fd.trsplit8[:] = trsplit[0]
             _set_sao(fd, host[2])
             return ife._serialize_i(fd, *host[0])
 
         timed("cabac_ms", cabac)
         depths.append(vp.n_steps_real)
+        if trsplit:
+            splits.append(float((trsplit[0] != 0).mean()))
         sizes, cells = np.unique(size8, return_counts=True)
         for sz, c in zip(sizes, cells):
             cus[int(sz)] = cus.get(int(sz), 0) + int(c) * 64 // int(sz) ** 2
@@ -811,6 +839,8 @@ def var_stage_split(torch, ife, frames, count=True):
                           if k != "build_var_plan_ms")
     if count:
         out["recon_aten_ops"] = aten
+    if splits:
+        out["trsplit_cell_share"] = sum(splits) / len(splits)
     return out, depths, cus
 
 
@@ -2371,7 +2401,7 @@ def run_tenbit(torch, wavefront, dev):
     return rows, launches
 
 
-LOSSLESS_TIMED_BATCHES = 1            # phase 15's cell: timed batches
+LOSSLESS_TIMED = 4                    # phase 15's cell: one timed batch
 LOSSLESS_WARM = 2                     # ... after a warm-up batch of 2
 
 
@@ -2551,7 +2581,7 @@ def run_lossless_cell(torch, wavefront, frames, dev):
     """Phase 15 (ii): the cell lossless-832x480, the headline
     configuration with lossless=True: one warm-up batch of LOSSLESS_WARM
     frames (the Python CABAC takes about 5 s a frame and has nothing to
-    warm), then LOSSLESS_TIMED_BATCHES batches of the 8-frame clip
+    warm), then one timed batch of LOSSLESS_TIMED frames of the clip
     through Encoder.encode_stream (with the recon, to check it against the
     source), with the bypass launches counted around the timed run; and
     a stage split: the device's search and bypass reconstruction of one
@@ -2565,7 +2595,7 @@ def run_lossless_cell(torch, wavefront, frames, dev):
         raise RuntimeError("lossless cell: deblocking on or no bypass")
     list(enc.encode_stream(frames[:LOSSLESS_WARM]))      # warm-up
     torch.cuda.synchronize()
-    clip = frames[:BATCH] * LOSSLESS_TIMED_BATCHES
+    clip = frames[:LOSSLESS_TIMED]
     for counts in (wavefront.LAUNCHES, wavefront.BYPASS_LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -2573,7 +2603,7 @@ def run_lossless_cell(torch, wavefront, frames, dev):
     results = list(enc.encode_stream(clip, need_recon=True))
     dt = time.perf_counter() - t0
     launches = dict(wavefront.BYPASS_LAUNCHES)
-    if launches["intra"] < LOSSLESS_TIMED_BATCHES or launches["intra"] != \
+    if launches["intra"] != 1 or launches["intra"] != \
             wavefront.LAUNCHES["intra"]:
         raise RuntimeError(f"lossless cell: expected one bypass launch a "
                            f"batch, got {launches} / {wavefront.LAUNCHES}")
@@ -2587,7 +2617,7 @@ def run_lossless_cell(torch, wavefront, frames, dev):
         raise RuntimeError(f"lossless cell: recon != source ({exact}) or "
                            f"PSNR-Y {psnr}")
     bits = [r[1].bits for r in results]
-    summary = dict(frames=len(clip), batch=BATCH, fps=len(clip) / dt,
+    summary = dict(frames=len(clip), batch=len(clip), fps=len(clip) / dt,
                    bits_per_frame=sum(bits) / len(bits),
                    recon_equals_source=exact, psnr_y=psnr.pop(),
                    kernel_launches_bypass=launches,
@@ -2613,7 +2643,8 @@ def run_lossless_cell(torch, wavefront, frames, dev):
     handle = ife.submit_frames(frames[:BATCH])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n, modes, lv, rec, _sses, sao, _cmodes = ife.download_frames(handle)
+    n, modes, lv, rec, _sses, sao, _cmodes, _ts = ife.download_frames(
+        handle)
     split["d2h_ms"] = 1000 * (time.perf_counter() - t0) / BATCH
     t0 = time.perf_counter()
     ife._host_finalize(modes[0], lv[0][0], lv[1][0], lv[2][0], None,
@@ -2722,7 +2753,7 @@ def run_lossless(torch, wavefront, dev):
 TILES = (3, 3)                        # phase 16: the tile grid of BASELINE #4
 TILE_SHAPES = ((1920, 1088), (3840, 2176))   # ... its kernel rows' frames
 TILE_W, TILE_H = 1920, 1080           # ... and its cells' frames
-TILE_INTRA_WARM, TILE_INTRA_TIMED = 2, 4     # ... all-intra batches
+TILE_INTRA_WARM, TILE_INTRA_TIMED = 1, 2     # ... all-intra batches
 TILE_P_TIMED = 4                      # ... P frames after IDR + 1 P
 
 
@@ -3262,6 +3293,355 @@ def run_tools(torch, wavefront, clip46, dev):
     return rows, launches
 
 
+NXN_FRAMES = 8                        # phase 18: the kernel rows' batch
+NXN_BIG = (1920, 1088)                # ... its compare-only frame
+NXN_WARM, NXN_TIMED = 2, 4            # ... the NxN cell's batches
+NXN_SMALL = (128, 64)                 # ... the card == CPU streams
+
+
+def nxn_config(width, height, **kw):
+    """The headline configuration at the intra-NxN point with transform
+    skip: fixed CU 4 (8x8 CUs coded PART_NxN, four 4x4 luma TBs with the
+    DST-VII), rd 1, deblocking, WPP."""
+    cfg = headline_config(width, height, cu=4)
+    cfg.transform_skip = True
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def trdepth_config(width, height, **kw):
+    """``--preset medium --period 1 --tr-depth-intra 1``: variable intra
+    trees 8..32 whose 16 and 32 CUs may split their TBs, RDOQ, SAO."""
+    from kvazaar_tpu_torch.config import config_from_preset
+    return config_from_preset("medium", width=width, height=height, qp=QP,
+                              intra_period=1, tr_depth_intra=1, **kw)
+
+
+def compare_kernel_nxn(torch, clip46, dev):
+    """Phase 18 (i): the kernel's cu 4 instances (luma on the plan of 4x4
+    blocks with the DST-VII and, as a run-time flag, the transform-skip
+    decision) and the chroma-only launch of the cu 8 instances on the
+    NxN point's cu 8 plan == the plain version on the card, max abs
+    error 0 (levels, recon and skip flags): 832x480 over 8 frames with
+    the searched modes and with random modes over all 35, transform skip
+    off and on, sign hiding, RDOQ with sign hiding, lossless, 10-bit with
+    transform skip, and a 1920x1088 compare-only frame.  Each row is
+    timed against the cu 8 joint launch (luma + Cb + Cr) on the same
+    frames (``ms_cu8``), with its layout (threads, shared memory, steps)
+    and its bound (``nxn_bound_ms``: the transform-skip rows count its
+    second roundtrip).  Returns the rows by name."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    from kvazaar_tpu_torch.ops.wavefront import (launch_layout,
+                                                 wavefront_recon_chroma,
+                                                 wavefront_recon_planes)
+
+    rng = np.random.default_rng(18)
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    rows = {}
+
+    def row_of(name, ife, planes, modes, bd, variants, timed=True):
+        plan, plan_c = ife.plan, ife.plan_c
+        ys, cbs, crs = planes
+        dm = modes[:, ::2, ::2].contiguous()
+        for var in variants:
+            tools = dict(rdoq="rdoq" in var, signhide="sh" in var,
+                         lossless="lossless" in var, lam=lam)
+            ts = "tskip" in var
+
+            def luma(tools=tools, ts=ts):
+                return wavefront_recon_planes(ys, None, None, modes, plan,
+                                              QP, ife.qp_c, bd, tskip=ts,
+                                              **tools)
+
+            def chroma(tools=tools):
+                return wavefront_recon_chroma(cbs, crs, dm, plan_c,
+                                              ife.qp_c, bd, **tools)
+
+            got_y = [t for t in luma() if t is not None]
+            got_c = list(chroma())
+            want = {}
+
+            def plain_luma(tools=tools, ts=ts):
+                want["y"] = wavefront_recon_plain(ys, modes, plan, 4, True,
+                                                  QP, bd, tskip=ts, **tools)
+
+            def plain_chroma(tools=tools):
+                rc = wavefront_recon_plain(torch.cat([cbs, crs]), dm,
+                                           plan_c, 4, False, ife.qp_c, bd,
+                                           **tools)
+                b = cbs.shape[0]
+                want["c"] = [rc[0][:b], rc[1][:b], rc[0][b:], rc[1][b:]]
+
+            plain_ms_luma = cuda_ms(torch, plain_luma, 1)
+            plain_ms_chroma = cuda_ms(torch, plain_chroma, 1)
+            # rec_y, lv_y (, the skip flags); rec_cb, lv_cb, rec_cr, lv_cr.
+            err = max(max_err(torch, got_y, want["y"]),
+                      max_err(torch, got_c, want["c"]))
+            if err != 0 or len(got_y) != len(want["y"]):
+                raise RuntimeError(f"cu 4 kernel != plain at {name} {var}")
+            ring, threads, smem = launch_layout(plan, 4, ys.shape[2], bd)
+            ring_c, threads_c, smem_c = launch_layout(plan_c, 4,
+                                                      cbs.shape[2], bd)
+            row = dict(shape=name, variant=var, bitdepth=bd,
+                       items=ys.shape[0], max_abs_err=err,
+                       plain_ms_luma=plain_ms_luma,
+                       plain_ms_chroma=plain_ms_chroma, n_steps=plan.n_steps,
+                       n_steps_chroma=plan_c.n_steps, ring=ring,
+                       threads=threads, smem_bytes=smem,
+                       threads_chroma=threads_c, smem_bytes_chroma=smem_c)
+            if ts:
+                row["skipped_share"] = float(got_y[2].float().mean())
+            if timed:
+                row["ms_luma"] = cuda_ms(torch, luma, 10)
+                row["ms_chroma"] = cuda_ms(torch, chroma, 10)
+                row["ms"] = row["ms_luma"] + row["ms_chroma"]
+                row["ms_cu8"] = ife_cu8_ms(torch, ife, planes, bd, tools)
+                row["ratio_cu8"] = row["ms"] / row["ms_cu8"]
+            # Bounds of each launch: the transform-skip decision runs a
+            # second quantization and roundtrip of every luma sample.
+            for part, ins, work in (
+                    ("luma", [ys, modes, *got_y],
+                     [(ys.numel() * (2 if ts else 1), 4)]),
+                    ("chroma", [cbs, crs, dm, *got_c],
+                     [(2 * cbs.numel(), 4)])):
+                if tools["rdoq"] or tools["signhide"]:
+                    b = bound_ms_tools(ins, work, tools["rdoq"],
+                                       tools["signhide"])
+                else:
+                    b = bound_ms(ins, work)
+                row[f"bound_ms_{part}"], row[f"bound_by_{part}"] = b
+            log("cu4 kernel vs plain:", json.dumps(row))
+            rows[f"{name} {var}"] = row
+
+    def ife_cu8_ms(torch, ife, planes, bd, tools):
+        """The cu 8 joint launch on the same frames, random modes (the
+        tools as the row's, without transform skip)."""
+        plan8 = make_intra_plan(ife.coded_w, ife.coded_h, 8, True)
+        modes8 = torch.from_numpy(rng.integers(0, 35, (
+            planes[0].shape[0], plan8.blocks_y, plan8.blocks_x)).astype(
+                np.int32)).to(dev)
+        return cuda_ms(torch, lambda: wavefront_recon_planes(
+            *planes, modes8, plan8, QP, ife.qp_c, bd, **tools), 10)
+
+    def rand_modes(ife, n):
+        return torch.from_numpy(rng.integers(0, 35, (
+            n, ife.plan.blocks_y, ife.plan.blocks_x)).astype(np.int32)).to(
+                dev)
+
+    clip = clip46[:NXN_FRAMES]
+    ife = IntraFrameEncoder(nxn_config(W, H), device=dev)
+    planes = ife._upload(ife.host_pack_sources(clip))
+    searched = torch.stack([search_frame_modes(
+        y, ife.plan, ife.lambda_satd, 8, True)[0] for y in planes[0]])
+    row_of(f"{W}x{H} {NXN_FRAMES} frames searched", ife, planes, searched,
+           8, ("plain", "tskip", "tskip+sh", "rdoq+sh", "lossless"))
+    row_of(f"{W}x{H} {NXN_FRAMES} frames random", ife, planes,
+           rand_modes(ife, NXN_FRAMES), 8, ("tskip+sh",))
+    ife.close()
+
+    ife = IntraFrameEncoder(nxn_config(W, H, input_bitdepth=10), device=dev)
+    up = tuple(p.to(torch.int16) for p in ife._upload(
+        ife.host_pack_sources(to_10bit(clip[:2], 180))))
+    row_of(f"{W}x{H} 10-bit 2 frames", ife, up, rand_modes(ife, 2), 10,
+           ("tskip", "rdoq+sh"))
+    ife.close()
+
+    bw, bh = NXN_BIG
+    ife = IntraFrameEncoder(nxn_config(bw, bh), device=dev)
+    big = ife._upload(ife.host_pack_sources(
+        synth_clip_natural(1, bw, bh, seed=19)))
+    row_of(f"compare-only {bw}x{bh}", ife, big, rand_modes(ife, 1), 8,
+           ("tskip+sh",), timed=False)
+    ife.close()
+    return rows
+
+
+def run_nxn_cell(torch, wavefront, clip46, dev):
+    """Phase 18 (ii): the cell intra-nxn-tskip-832x480-qp22 (the headline
+    configuration at the intra-NxN point with transform skip): a warm-up
+    batch of NXN_WARM frames, then one timed batch of NXN_TIMED through
+    Encoder.encode_stream, the cu 4 and transform-skip launches counted
+    around it; and a stage split per frame: the device's search, luma
+    (cu 4) and chroma reconstruction of the batch (CUDA events), its
+    download, and the Python CABAC of one frame (wall clock).  Returns
+    its summary."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.encoder.intra_recon import (
+        reconstruct_chroma_frames, reconstruct_frames)
+    from kvazaar_tpu_torch.encoder.intra_search import search_frame_modes
+    enc = Encoder(nxn_config(W, H), device=dev)
+    frames = clip46[:NXN_TIMED]
+    list(enc.encode_stream(clip46[:NXN_WARM]))             # warm-up
+    torch.cuda.synchronize()
+    for counts in (wavefront.CU4_LAUNCHES, wavefront.TSKIP_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(frames))
+    dt = time.perf_counter() - t0
+    cu4, tskip = dict(wavefront.CU4_LAUNCHES), dict(wavefront.TSKIP_LAUNCHES)
+    if cu4["luma"] == 0 or cu4["chroma"] != cu4["luma"] or \
+            tskip["luma"] != cu4["luma"]:
+        raise RuntimeError(f"nxn cell: expected cu 4 launches with "
+                           f"transform skip and a chroma launch each, got "
+                           f"{cu4} / {tskip}")
+    if len(results) != len(frames):
+        raise RuntimeError(f"nxn cell: {len(results)} results for "
+                           f"{len(frames)} frames")
+    bits, psnr_y = check_output(results, "nxn cell")
+    summary = dict(frames=len(frames), fps=len(frames) / dt,
+                   bits_per_frame=bits, psnr_y=psnr_y, cu4_launches=cu4,
+                   tskip_launches=tskip, stage_wall_s=enc.stats)
+    log("intra-nxn-tskip-832x480-qp22 encode_stream:", json.dumps(summary))
+
+    ife = enc._intra
+    ys, cbs, crs = ife._upload(ife.host_pack_sources(frames))
+    box = {}
+
+    def search():
+        box["modes"] = torch.stack([search_frame_modes(
+            y, ife.plan, ife.lambda_satd, 8, True)[0] for y in ys])
+
+    def recon_luma():
+        reconstruct_frames(ys, None, None, box["modes"], ife.plan, QP,
+                           ife.qp_c, tskip=True, **ife._recon_tools())
+
+    def recon_chroma():
+        reconstruct_chroma_frames(cbs, crs,
+                                  box["modes"][:, ::2, ::2].contiguous(),
+                                  ife.plan_c, ife.qp_c, **ife._recon_tools())
+
+    split = {}
+    for name, fn in (("search", search), ("recon_cu4", recon_luma),
+                     ("recon_chroma", recon_chroma)):
+        fn()
+        split[name + "_ms"] = cuda_ms(torch, fn, 3) / len(frames)
+    handle = ife.submit_frames(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, modes, lv, _rec, _sses, _sao, _cmodes, ts = ife.download_frames(
+        handle, need_recon=False)
+    split["d2h_ms"] = 1000 * (time.perf_counter() - t0) / len(frames)
+    t0 = time.perf_counter()
+    ife._host_finalize(modes[0], lv[0][0], lv[1][0], lv[2][0], None, None,
+                       None, ts_y=ts[0])
+    split["cabac_python_ms"] = 1000 * (time.perf_counter() - t0)
+    split["cabac_share"] = split["cabac_python_ms"] / sum(split.values())
+    split["tskip_share"] = float(ts.mean())
+    log("intra-nxn stage split (ms/frame):", json.dumps(split))
+    summary["split"] = split
+    enc.close()
+    return summary
+
+
+def run_trdepth_cell(torch, dev):
+    """Phase 18 (iii): the cell intra-medium-trdepth-832x480-qp22
+    (``trdepth_config``): one warm-up and one timed frame through
+    Encoder.encode_stream; then the stage split of the variable tree
+    (``var_stage_split``, one frame) with the share of 8x8 cells whose CU
+    split its TBs."""
+    from kvazaar_tpu_torch.api import Encoder
+    frames = synth_clip_natural(2, W, H, seed=5)
+    enc = Encoder(trdepth_config(W, H), device=dev)
+    list(enc.encode_stream(frames[:1]))                    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(frames[1:]))
+    dt = time.perf_counter() - t0
+    bits, psnr_y = check_output(results, "trdepth cell")
+    split, depths, cus = var_stage_split(torch, enc._intra, frames[1:],
+                                         count=False)
+    if "trsplit_cell_share" not in split:
+        raise RuntimeError("trdepth cell: the tree took no TU-split costs")
+    summary = dict(frames=len(results), fps=len(results) / dt,
+                   bits_per_frame=bits, psnr_y=psnr_y,
+                   trsplit_cell_share=split["trsplit_cell_share"],
+                   n_steps_real=depths, cu_histogram=cus)
+    log("intra-medium-trdepth-832x480-qp22 encode_stream:",
+        json.dumps(summary))
+    log("intra-medium-trdepth stage split (ms, one frame):",
+        json.dumps(split))
+    enc.close()
+    return summary
+
+
+def nxn_streams_card_equals_cpu(wavefront, dev):
+    """Phase 18 (iv): card == CPU bytes and recon at NXN_SMALL for cu 4
+    with WPP and sign hiding, cu 4 with transform skip, cu 4 10-bit
+    4:0:0, cu 4 with RDOQ, cu 4 lossless, --tr-depth-intra 1 all-intra
+    8..32 at rd 2, the same flag on a variable-tree IPPP stream and on a
+    medium GOP 4, and the tiled I + P stream with RDOQ and sign hiding
+    that holds F2 (ROADMAP §3); the cu 4 launches counted around the
+    card runs.  Returns them."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+    w, h = NXN_SMALL
+    small = synth_clip_natural(3, w, h, seed=6)
+    for counts in (wavefront.CU4_LAUNCHES, wavefront.TSKIP_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+    def nxn(**kw):
+        return Config(**dict(dict(width=w, height=h, qp=QP, intra_min_cu=4,
+                                  intra_max_cu=4, intra_period=1), **kw))
+
+    card_equals_cpu(f"cu 4 WPP + sign hiding {w}x{h}",
+                    nxn(wpp=True, signhide=True), small[:2], dev)
+    card_equals_cpu(f"cu 4 transform skip {w}x{h}",
+                    nxn(transform_skip=True, qp=32), small[:2], dev)
+    card_equals_cpu(f"cu 4 10-bit 4:0:0 {w}x{h}",
+                    nxn(input_bitdepth=10, chroma_format=400),
+                    [(f[0], None, None) for f in to_10bit(small[:1], 181)],
+                    dev)
+    card_equals_cpu(f"cu 4 RDOQ {w}x{h}", nxn(rdoq=True), small[:1], dev)
+    card_equals_cpu(f"cu 4 lossless {w}x{h}", nxn(lossless=True),
+                    small[:1], dev)
+    td = dict(width=w, height=h, qp=QP, intra_min_cu=8, intra_max_cu=32,
+              rd=2, tr_depth_intra=1)
+    card_equals_cpu(f"--tr-depth-intra 1 all-intra {w}x{h}",
+                    Config(intra_period=1, **td), small[:2], dev)
+    card_equals_cpu(f"--tr-depth-intra 1 IPPP {w}x{h}",
+                    Config(intra_period=0, **td), small[:3], dev)
+    card_equals_cpu(f"medium --gop 4 --tr-depth-intra 1 {w}x{h}",
+                    config_from_preset("medium", width=w, height=h, qp=QP,
+                                       gop_len=4, intra_period=0,
+                                       tr_depth_intra=1),
+                    synth_clip_natural(5, w, h, seed=7), dev)
+    card_equals_cpu("F2: Config(rdoq, signhide) tiles 2x2 I + P 128x128",
+                    Config(width=128, height=128, qp=27, tiles_x=2,
+                           tiles_y=2, rdoq=True, signhide=True,
+                           intra_period=2),
+                    synth_clip_natural(2, 128, 128, seed=16), dev)
+    c, t = dict(wavefront.CU4_LAUNCHES), dict(wavefront.TSKIP_LAUNCHES)
+    if min(c["luma"], c["chroma"], c["10bit"], c["tq"], c["lossless"],
+           t["luma"]) == 0:
+        raise RuntimeError(f"nxn streams: an instance was not launched "
+                           f"({c} / {t})")
+    return {**{f"cu4_{k}": v for k, v in c.items()},
+            **{f"tskip_{k}": v for k, v in t.items()}}
+
+
+def run_nxn(torch, wavefront, clip46, dev):
+    """Phase 18: the intra-NxN point (fixed CU 4, DST-VII), transform
+    skip and --tr-depth-intra.  The kernel's cu 4 instances and the
+    NxN chroma launch == plain (``compare_kernel_nxn``); the cells
+    intra-nxn-tskip-832x480-qp22 (``run_nxn_cell``) and
+    intra-medium-trdepth-832x480-qp22 (``run_trdepth_cell``); and card ==
+    CPU for nine streams (``nxn_streams_card_equals_cpu``).  Returns
+    (kernel rows, cell summary, launches per record)."""
+    rows = compare_kernel_nxn(torch, clip46, dev)
+    cell = run_nxn_cell(torch, wavefront, clip46, dev)
+    run_trdepth_cell(torch, dev)
+    launches = nxn_streams_card_equals_cpu(wavefront, dev)
+    launches.update(cell_luma=cell["cu4_launches"]["luma"],
+                    cell_chroma=cell["cu4_launches"]["chroma"])
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3359,6 +3739,8 @@ def main() -> int:
     rows_t, launches_t = timed("phase 16", run_tiles, torch, wavefront, dev)
     rows_q, launches_q = timed("phase 17", run_tools, torch, wavefront,
                                clip46, dev)
+    rows_n, launches_n = timed("phase 18", run_nxn, torch, wavefront,
+                               clip46, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -3427,6 +3809,22 @@ def main() -> int:
                 "bound_ms": row["tools_bound_ms"],
                 "bound_by": row["tools_bound_by"], "library_ms": None}
 
+    def nxn_record(name, n, row, part="luma"):
+        """A cu 4 instance (part "luma") or the NxN chroma launch of the
+        cu 8 instances ("chroma") at the shape of the path that runs it;
+        the error over every phase 18 row (all are 0 or the phase
+        failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": "kvazaar_tpu/ops/wavefront_pallas.py:149",
+                "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_n.values()),
+                "ms": row[f"ms_{part}"], "plain_ms": row[f"plain_ms_{part}"],
+                "bound_ms": row[f"bound_ms_{part}"],
+                "bound_by": row[f"bound_by_{part}"], "library_ms": None}
+
+    nxn_rows = f"{W}x{H} {NXN_FRAMES} frames searched"
     big_t = f"{TILE_SHAPES[0][0]}x{TILE_SHAPES[0][1]} 3x3"
     log(json.dumps({"kernels": [
         record("wavefront_recon", "kvazaar_tpu/ops/wavefront_pallas.py:149",
@@ -3502,7 +3900,17 @@ def main() -> int:
                f"inter cu32 {W}x{H} 10-bit rdoq+sh"),
               ("wavefront_recon_rdoq_sh_tiles",
                "kvazaar_tpu/ops/wavefront_pallas.py:283", "tiled",
-               f"inter cu32 {big_t} rdoq+sh")))]}))
+               f"inter cu32 {big_t} rdoq+sh"))),
+        nxn_record("wavefront_recon_nxn_tskip", launches_n["cell_luma"],
+                   rows_n[f"{nxn_rows} tskip"]),
+        nxn_record("wavefront_recon_nxn_chroma", launches_n["cell_chroma"],
+                   rows_n[f"{nxn_rows} tskip"], "chroma"),
+        nxn_record("wavefront_recon_nxn_rdoq_sh", launches_n["cu4_tq"],
+                   rows_n[f"{nxn_rows} rdoq+sh"]),
+        nxn_record("wavefront_recon_nxn_bypass", launches_n["cu4_lossless"],
+                   rows_n[f"{nxn_rows} lossless"]),
+        nxn_record("wavefront_recon_nxn_10bit", launches_n["cu4_10bit"],
+                   rows_n[f"{W}x{H} 10-bit 2 frames tskip"])]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

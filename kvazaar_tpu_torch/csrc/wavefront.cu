@@ -112,9 +112,11 @@
 //   plus lambda times a static rate (the remainder bits from the
 //   wrapper's table, the plain version's), then each 4x4 group whose
 //   zeroed distortion is below its kept cost plus lambda is zeroed; its
-//   float32 arithmetic rounds exactly where the plain version's does (no
-//   contraction into FMA: explicit _rn intrinsics, the fused multiply-add
-//   of the plain version in double).  Sign hiding then fixes the parity
+//   float32 arithmetic rounds exactly where the plain version's does, in
+//   the orders of the JAX package's fixed-grid programs (explicit _rn
+//   intrinsics, no contraction into FMA: lambda times the rate rounded on
+//   its own, the kept costs' group sums row after row; F2 in
+//   ROADMAP.md).  Sign hiding then fixes the parity
 //   of each 4x4 group in the block's scan (scanIdx by the plane's mode:
 //   mode-dependent for luma S <= 8 and chroma S = 4, diagonal otherwise
 //   and for inter blocks).  Levels, best costs and zeroed costs pass
@@ -125,6 +127,19 @@
 //   packed, by the TQ and the lossless instances (a lossy launch with
 //   chroma modes and neither tool runs the TQ instance with both flags
 //   off), so that the other instances keep their code.
+// - The intra-NxN point (fixed CU 4: 8x8 CUs coded PART_NxN; the JAX
+//   package reconstructs it with its XLA scan) has instances of its own,
+//   CU = 4, 8- and 10-bit, plain, TQ or lossless: luma alone on the plan
+//   of 4x4 blocks, 8 lanes a block, the DST-VII of 8.6.4.2 from a table of
+//   its own (kDst4; it has no even-odd symmetry, so each output is a full
+//   4-term sum), the luma DC / 10 / 26 fixups and no [1 2 1] filter.
+//   Transform skip is a run-time flag of the lossy ones: both roundtrips
+//   run (the skip coefficients through the same quantizer and sign
+//   hiding), and the block keeps the cheaper by the plain version's
+//   float32 cost (an exact integer SSD, the rate terms of the wrapper's
+//   table summed by shuffles in its order, one multiply-add in double),
+//   writing its decision per block.  Its chroma, one 4x4 TB per 8x8 CU, is
+//   a chroma-only launch of the cu 8 instances on the cu 8 plan.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -246,6 +261,14 @@ __constant__ int kInvAngle[15] = {
     -4096, -1638, -910, -630, -482, -390, -315, -256,
     -315, -390, -482, -630, -910, -1638, -4096};
 
+// H.265 8.6.4.2 DST-VII of the 4x4 intra luma TBs (the intra-NxN point's
+// cu 4 instances; a table of its own, so that the other instances keep
+// their coefficient tables and registers).
+__constant__ int kDst4[4][4] = {{29, 55, 74, 84},
+                                {74, 74, 0, -74},
+                                {84, -29, -74, 55},
+                                {55, -84, 74, -29}};
+
 // Quantizer and dequantizer scales per QP % 6 (8.6.3; the flat list).
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
 __constant__ int kInvQuantScale[6] = {40, 45, 51, 57, 64, 72};
@@ -307,6 +330,13 @@ struct Params {
   const float* rem_bits;
   float lam, zero_cost;
   int rdoq, signhide;
+  // Transform skip (the cu 4 instances only, never with RDOQ): the flag,
+  // the (items, nblk) int32 decisions written per block, and the
+  // decision's rate term per level magnitude (32768 floats,
+  // ops/quant.tskip_bits_np).
+  int tskip;
+  int32_t* skip_out;
+  const float* tskip_bits;
 };
 
 // Words of one S x S block of staged samples of sb bytes each.
@@ -480,6 +510,28 @@ __device__ __forceinline__ void inv_part(const int* v, const int* ci,
   }
 }
 
+// DST-VII parts of a lane of a 4x4 block, in fwd_part's and inv_part's
+// roles: forward, out[i] = sum_n D[k_i][n] v[n] for the part's outputs
+// k_i = fwd_out<4>(q, i); inverse, lo = sum_k D[k][q] v[k] (column q)
+// and hi = sum_k D[k][3 - q] v[k] (its mirror).  The DST has no even-odd
+// symmetry, so each output is a full 4-term sum.
+__device__ __forceinline__ void dst_fwd_part(const int* v, int q, int* out) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k = 2 * i + q;
+    out[i] = kDst4[k][0] * v[0] + kDst4[k][1] * v[1] + kDst4[k][2] * v[2] +
+             kDst4[k][3] * v[3];
+  }
+}
+
+__device__ __forceinline__ void dst_inv_part(const int* v, int q, int* lo,
+                                             int* hi) {
+  lo[0] = kDst4[0][q] * v[0] + kDst4[1][q] * v[1] + kDst4[2][q] * v[2] +
+          kDst4[3][q] * v[3];
+  hi[0] = kDst4[0][3 - q] * v[0] + kDst4[1][3 - q] * v[1] +
+          kDst4[2][3 - q] * v[2] + kDst4[3][3 - q] * v[3];
+}
+
 // 8.4.4.2.3 filterFlag for luma (ops/intra.py _filter_flag).
 template <int S>
 __device__ __forceinline__ bool filter_flag(int mode) {
@@ -534,7 +586,8 @@ __device__ __forceinline__ int staged(const int* buf, int bytes, int y,
 }
 
 // float32 a + lam * b rounded once, as the plain version forms it (the
-// product of two floats is exact in double).
+// product of two floats is exact in double): the transform-skip
+// decision's cost.
 __device__ __forceinline__ float fma_like(float a, float lam, float b) {
   return __double2float_rn(
       __dadd_rn((double)a, __dmul_rn((double)lam, (double)b)));
@@ -581,12 +634,14 @@ __device__ __forceinline__ void quantize_tools(
       const float d0 = dist(0, mag);
       float best = __fadd_rn(d0, p.zero_cost);
       lv = 0;
-      const float c1 = fma_like(dist(l0, mag), p.lam, rate(l0));
+      // lambda * rate rounded on its own, then added (the JAX
+      // package's fixed-grid programs: F2 in ROADMAP.md).
+      const float c1 = __fadd_rn(dist(l0, mag), __fmul_rn(rate(l0), p.lam));
       if (c1 < best) {
         best = c1;
         lv = l0;
       }
-      const float c2 = fma_like(dist(l1, mag), p.lam, rate(l1));
+      const float c2 = __fadd_rn(dist(l1, mag), __fmul_rn(rate(l1), p.lam));
       if (c2 < best) {
         best = c2;
         lv = l1;
@@ -609,18 +664,19 @@ __device__ __forceinline__ void quantize_tools(
     const int gy = gi / NSB, gx = gi - gy * NSB;
     int* gl = la + 4 * gy * SP + 4 * gx;
     if (p.rdoq) {
-      // Group sums in the plain version's order: each row left to right,
-      // then (row 0 + row 2) + (row 1 + row 3).
-      float kr[4], zr[4];
+      // Group sums in the plain version's orders (ops/quant.py): the
+      // kept costs row after row, each row's 4 columns reduced as
+      // ((sum + c0) + c2) + (c1 + c3); the zeroed ones each row left to
+      // right, then (row 0 + row 2) + (row 1 + row 3).
+      float keep = 0.0f, zr[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float* b = best_c + (4 * gy + r) * S + 4 * gx;
         const float* z = zero_c + (4 * gy + r) * SP + 4 * gx;
-        kr[r] = __fadd_rn(__fadd_rn(__fadd_rn(b[0], b[1]), b[2]), b[3]);
+        keep = __fadd_rn(__fadd_rn(r ? __fadd_rn(keep, b[0]) : b[0], b[2]),
+                         __fadd_rn(b[1], b[3]));
         zr[r] = __fadd_rn(__fadd_rn(__fadd_rn(z[0], z[1]), z[2]), z[3]);
       }
-      const float keep =
-          __fadd_rn(__fadd_rn(kr[0], kr[2]), __fadd_rn(kr[1], kr[3]));
       const float zero =
           __fadd_rn(__fadd_rn(zr[0], zr[2]), __fadd_rn(zr[1], zr[3]));
       if (zero < __fadd_rn(keep, p.lam)) {
@@ -662,13 +718,17 @@ __device__ __forceinline__ void quantize_tools(
 // block order; QP: the planes carry per-block QP maps (a separate
 // instance, so that the scalar path keeps its registers); HBD: 10-bit
 // samples; LL: lossless (transquant bypass); TILED: a tile of a tiled
-// plan; TQ: RDOQ and sign hiding as run-time flags (never with LL).  The edge ring holds the tile's own columns (ring column x -
+// plan; TQ: RDOQ and sign hiding as run-time flags (never with LL);
+// NXN: the intra-NxN point's luma (the cu 4 instances: S = 4 with the
+// DST-VII, and the transform-skip decision as a run-time flag).  The
+// edge ring holds the tile's own columns (ring column x -
 // tile_x0, tile_x0 the tile's first sample column) of K block rows (ring
 // row by mod K; K is the tile's depth, which only differences of rows
 // decide).
-template <int S, bool QP, bool HBD, bool LL, bool TILED, bool TQ>
+template <int S, bool QP, bool HBD, bool LL, bool TILED, bool TQ, bool NXN>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
                           int tile_x0, unsigned char* smem) {
+  static_assert(!NXN || (S == 4 && !QP && !TILED), "NxN: S = 4 alone");
   using Sh = Shape<S>;
   using D = Depth<HBD>;
   using Pix = typename D::Pix;
@@ -916,7 +976,16 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       group_sync();
 #pragma unroll
       for (int n = 0; n < S; ++n) v[n] = buf_a[n * SP + y];
-      fwd_part<S>(v, cf, sgn, out);
+      // The transform-skip candidate's residual at the lane's coefficient
+      // positions (row y, columns fwd_out(q, i)).
+      [[maybe_unused]] int rs[O];
+      if constexpr (NXN) {
+#pragma unroll
+        for (int i = 0; i < O; ++i) rs[i] = buf_a[y * SP + fwd_out<S>(q, i)];
+        dst_fwd_part(v, q, out);
+      } else {
+        fwd_part<S>(v, cf, sgn, out);
+      }
 #pragma unroll
       for (int i = 0; i < O; ++i)
         buf_b[fwd_out<S>(q, i) * SP + y] = round_shift(out[i], shift1);
@@ -928,44 +997,54 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       // The TQ instances keep the zeroed costs in buf_b: its row peers
       // must have read it first.
       if constexpr (TQ) group_sync();
-      fwd_part<S>(v, cf, sgn, out);
+      if constexpr (NXN)
+        dst_fwd_part(v, q, out);
+      else
+        fwd_part<S>(v, cf, sgn, out);
       int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
-      if constexpr (TQ) {
-        quantize_tools<S, HBD>(p, pl.dq_shift, buf_a, buf_b,
-                               reinterpret_cast<float*>(const_cast<int*>(src)),
-                               out, y, q, lane, luma, inter, mode, q_scale,
-                               q_bits, q_offset, dq_mult, group_sync);
+      // Quantization of the lane's coefficients out[] (round_shift(out,
+      // log2 S + 6) each) into lvq[], their dequantized values into
+      // buf_a, and the levels into lv_row.
+      int lvq[O];
+      auto quantize_lane = [&]() {
+        if constexpr (TQ) {
+          quantize_tools<S, HBD>(
+              p, pl.dq_shift, buf_a, buf_b,
+              reinterpret_cast<float*>(const_cast<int*>(src)), out, y, q,
+              lane, luma, inter, mode, q_scale, q_bits, q_offset, dq_mult,
+              group_sync);
+#pragma unroll
+          for (int i = 0; i < O; ++i) lvq[i] = buf_a[y * SP + fwd_out<S>(q, i)];
+        } else {
+#pragma unroll
+          for (int i = 0; i < O; ++i) {
+            const int c = round_shift(out[i], LOG2S + 6);
+            const int mag = c < 0 ? -c : c;
+            int lv = (mag * q_scale + q_offset) >> q_bits;
+            lv = lv > 32767 ? 32767 : lv;
+            lvq[i] = c < 0 ? -lv : lv;
+          }
+        }
 #pragma unroll
         for (int i = 0; i < O; ++i) {
           const int l = fwd_out<S>(q, i);
-          const int lv = buf_a[y * SP + l];
-          lv_row[l] = (int16_t)lv;
+          lv_row[l] = (int16_t)lvq[i];
           buf_a[y * SP + l] = clamp_int(
-              (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+              (lvq[i] * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
               -32768, 32767);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < O; ++i) {
-          const int l = fwd_out<S>(q, i);
-          const int c = round_shift(out[i], LOG2S + 6);
-          const int mag = c < 0 ? -c : c;
-          int lv = (mag * q_scale + q_offset) >> q_bits;
-          lv = lv > 32767 ? 32767 : lv;
-          lv = c < 0 ? -lv : lv;
-          lv_row[l] = (int16_t)lv;
-          buf_a[y * SP + l] = clamp_int(
-              (lv * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
-              -32768, 32767);
-        }
-      }
+      };
+      quantize_lane();
       // Inverse stage 1 (columns): E[n][m] = sum_k T[k][n] D[k][m],
       // clipped, lane (m, q) computing n = q*M.. and their mirrors.
       group_sync();
       int lo[M], hi[M];
 #pragma unroll
       for (int k = 0; k < S; ++k) v[k] = buf_a[k * SP + y];
-      inv_part<S>(v, ci, lo, hi);
+      if constexpr (NXN)
+        dst_inv_part(v, q, lo, hi);
+      else
+        inv_part<S>(v, ci, lo, hi);
 #pragma unroll
       for (int i = 0; i < M; ++i) {
         buf_b[(q * M + i) * SP + y] =
@@ -978,7 +1057,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       group_sync();
 #pragma unroll
       for (int m = 0; m < S; ++m) v[m] = buf_b[y * SP + m];
-      inv_part<S>(v, ci, lo, hi);
+      if constexpr (NXN)
+        dst_inv_part(v, q, lo, hi);
+      else
+        inv_part<S>(v, ci, lo, hi);
       constexpr int shift2 = 20 - D::BITS;
 #pragma unroll
       for (int i = 0; i < M; ++i) {
@@ -987,6 +1069,77 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
         px[M + i] = clamp_int(
             pred[M + i] + clamp_int(round_shift(hi[i], shift2), -32768, 32767),
             0, kMaxV);
+      }
+      if constexpr (NXN) {
+        if (p.tskip) {
+          // Transform skip (8.6.4.2): the coefficients are the residual
+          // << (15 - bitdepth - 2), through the same quantizer (out[]
+          // carries them << 8, which round_shift(., 8) undoes exactly),
+          // the reconstruction ((dq << 7) + rnd) >> (20 - bitdepth).
+          // The cheaper candidate by ssd + lambda * bits stays, ties to
+          // the transform, each cost rounded as the plain version's
+          // (encoder/intra_recon.tskip_cost).
+          int lvt[O], pxt[O];
+#pragma unroll
+          for (int i = 0; i < O; ++i) {
+            lvt[i] = lvq[i];
+            pxt[i] = px[i];
+            out[i] = rs[i] << (21 - D::BITS);
+          }
+          group_sync();
+          quantize_lane();
+          group_sync();
+          constexpr int sh_i = 20 - D::BITS;
+#pragma unroll
+          for (int i = 0; i < O; ++i)
+            px[i] = clamp_int(
+                pred[i] + (((buf_a[y * SP + owned_col<S>(q, i)] << 7) +
+                            (1 << (sh_i - 1))) >> sh_i),
+                0, kMaxV);
+          // Per lane: both candidates' SSD over its own columns, and the
+          // rate terms of its levels (row y, columns q and q + 2).
+          int ssd_t = 0, ssd_s = 0;
+          float bt[O], bs[O];
+#pragma unroll
+          for (int i = 0; i < O; ++i) {
+            const int o = staged<S, HBD>(src, pl.orig_bytes, y,
+                                         owned_col<S>(q, i));
+            ssd_t += (pxt[i] - o) * (pxt[i] - o);
+            ssd_s += (px[i] - o) * (px[i] - o);
+            bt[i] = __ldg(p.tskip_bits + (lvt[i] < 0 ? -lvt[i] : lvt[i]));
+            bs[i] = __ldg(p.tskip_bits + (lvq[i] < 0 ? -lvq[i] : lvq[i]));
+          }
+#pragma unroll
+          for (int off = 4; off > 0; off >>= 1) {
+            ssd_t += __shfl_xor_sync(mask, ssd_t, off, 8);
+            ssd_s += __shfl_xor_sync(mask, ssd_s, off, 8);
+          }
+          // Bits in the plain version's order: each row left to right
+          // (the partner lane, q ^ 1, holds columns 1 and 3), then (row 0
+          // + row 2) + (row 1 + row 3), plus 1.
+          auto bits = [&](const float* b) -> float {
+            const float c1 = __shfl_xor_sync(mask, b[0], 4, 8);
+            const float c3 = __shfl_xor_sync(mask, b[1], 4, 8);
+            float r = __fadd_rn(__fadd_rn(__fadd_rn(b[0], c1), b[1]), c3);
+            r = __fadd_rn(r, __shfl_xor_sync(mask, r, 2, 8));
+            r = __fadd_rn(r, __shfl_xor_sync(mask, r, 1, 8));
+            return __fadd_rn(__shfl_sync(mask, r, 0, 8), 1.0f);
+          };
+          const float cost_t =
+              fma_like(__int2float_rn(ssd_t), p.lam, bits(bt));
+          const float cost_s =
+              fma_like(__int2float_rn(ssd_s), p.lam, bits(bs));
+          const bool skip = cost_s < cost_t;
+          if (!skip) {
+#pragma unroll
+            for (int i = 0; i < O; ++i) {
+              lv_row[fwd_out<S>(q, i)] = (int16_t)lvt[i];
+              px[i] = pxt[i];
+            }
+          }
+          if (lane == 0)
+            p.skip_out[(size_t)item * p.nblk + bid] = skip ? 1 : 0;
+        }
       }
     }
     Pix* rec_row = rec + (size_t)(y0 + y) * w + x0;
@@ -1070,9 +1223,10 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
 
 // Thread block bound of the kernel of CU size cu: 16 groups of 32 lanes
 // at cu 16 and 8 groups of 64 at cu 32 (128 registers a thread), 32
-// groups at cu 8 (whose S=8 and S=4 paths need fewer registers).
+// groups at cu 8 (whose S=8 and S=4 paths need fewer registers) and 128
+// groups of 8 lanes at cu 4.
 __host__ __device__ constexpr int max_threads(int cu) {
-  return cu == 8 ? 1024 : 512;
+  return cu <= 8 ? 1024 : 512;
 }
 
 // Ints of the coefficient tables of block size S (fill_coefs).
@@ -1096,16 +1250,18 @@ struct Layout {
 
 template <int CU, bool HBD>
 Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
-  constexpr int L = Shape<CU>::L, LC = Shape<CU / 2>::L, SB = Depth<HBD>::SB;
+  // CL: the chroma block size (the cu 4 instances run luma alone).
+  constexpr int CL = CU == 4 ? 4 : CU / 2;
+  constexpr int L = Shape<CU>::L, LC = Shape<CL>::L, SB = Depth<HBD>::SB;
   Layout l{};
   const int groups =
       n_slots < max_threads(CU) / L ? n_slots : max_threads(CU) / L;
   l.threads = (groups * L + 31) / 32 * 32;
   const int g_lo = n_slots < l.threads / LC ? n_slots : l.threads / LC;
   const long long buffers =
-      4LL * (groups * group_words<CU>(SB) > g_lo * group_words<CU / 2>(SB)
+      4LL * (groups * group_words<CU>(SB) > g_lo * group_words<CL>(SB)
                  ? groups * group_words<CU>(SB)
-                 : g_lo * group_words<CU / 2>(SB));
+                 : g_lo * group_words<CL>(SB));
   const long long off_ring = align16(4LL * (n_steps + 1));
   const long long off_coef =
       off_ring + align16(2LL * ring * ring_w *
@@ -1124,21 +1280,22 @@ Layout layout_of(int n_steps, int n_slots, int ring, int ring_w) {
 }
 
 template <bool HBD>
-Layout layout_at(int s_max, int n_steps, int n_slots, int ring, int ring_w) {
-  return s_max == 32 ? layout_of<32, HBD>(n_steps, n_slots, ring, ring_w)
-         : s_max == 16
-             ? layout_of<16, HBD>(n_steps, n_slots, ring, ring_w)
-             : layout_of<8, HBD>(n_steps, n_slots, ring, ring_w);
+Layout layout_at(int cu, int n_steps, int n_slots, int ring, int ring_w) {
+  return cu == 32   ? layout_of<32, HBD>(n_steps, n_slots, ring, ring_w)
+         : cu == 16 ? layout_of<16, HBD>(n_steps, n_slots, ring, ring_w)
+         : cu == 8  ? layout_of<8, HBD>(n_steps, n_slots, ring, ring_w)
+                    : layout_of<4, HBD>(n_steps, n_slots, ring, ring_w);
 }
 
-Layout layout_for(int s_max, bool hbd, int n_steps, int n_slots, int ring,
+Layout layout_for(int cu, bool hbd, int n_steps, int n_slots, int ring,
                   int ring_w) {
-  return hbd ? layout_at<true>(s_max, n_steps, n_slots, ring, ring_w)
-             : layout_at<false>(s_max, n_steps, n_slots, ring, ring_w);
+  return hbd ? layout_at<true>(cu, n_steps, n_slots, ring, ring_w)
+             : layout_at<false>(cu, n_steps, n_slots, ring, ring_w);
 }
 
 // Kernel of the plans of CU size CU: planes of block size CU (luma) and
-// CU / 2 (chroma); QP: the planes carry per-block QP maps; HBD: 10-bit
+// CU / 2 (chroma), or at CU 4 (the intra-NxN point) luma alone at S = 4
+// with the DST-VII; QP: the planes carry per-block QP maps; HBD: 10-bit
 // samples; LL: lossless (transquant bypass, never with QP maps); TILED:
 // a tiled plan, a thread block per (item, tile) (never with QP maps, which
 // the configuration refuses under tiles; a separate instance, so that the
@@ -1190,17 +1347,22 @@ __global__ void __launch_bounds__(max_threads(CU))
   for (int i = threadIdx.x; i <= p.n_steps; i += blockDim.x)
     steps[i] = p.step_start[t * (p.n_steps + 1) + i];
   int* coef = reinterpret_cast<int*>(smem + p.off_coef);
-  if (pl.s == CU)
-    fill_coefs<CU>(coef);
-  else
-    fill_coefs<CU / 2>(coef);
+  if constexpr (CU > 4) {
+    if (pl.s == CU)
+      fill_coefs<CU>(coef);
+    else
+      fill_coefs<CU / 2>(coef);
+  }
   __syncthreads();
 
-  if (pl.s == CU)
-    run_plane<CU, QP, HBD, LL, TILED, TQ>(p, pl, item, ta.x * CU, smem);
+  if constexpr (CU == 4)
+    run_plane<4, false, HBD, LL, false, TQ, true>(p, pl, item, 0, smem);
+  else if (pl.s == CU)
+    run_plane<CU, QP, HBD, LL, TILED, TQ, false>(p, pl, item, ta.x * CU,
+                                                 smem);
   else
-    run_plane<CU / 2, QP, HBD, LL, TILED, TQ>(p, pl, item,
-                                              ta.x * (CU / 2), smem);
+    run_plane<CU / 2, QP, HBD, LL, TILED, TQ, false>(p, pl, item,
+                                                     ta.x * (CU / 2), smem);
 }
 
 // The kernel instance of CU size cu (32, 16 or 8) at 8 or 10 bits: with
@@ -1227,6 +1389,13 @@ KernelFn kernel_of(bool qp, bool ll, bool tq) {
 
 template <bool HBD, bool TILED>
 KernelFn kernel_at(int cu, bool qp, bool ll, bool tq) {
+  // cu 4 (untiled, without QP maps): plain, TQ or lossless, each with
+  // the transform-skip flag of its lossy instances.
+  if constexpr (!TILED)
+    if (cu == 4)
+      return ll   ? wavefront_kernel<4, false, HBD, true, false, false>
+             : tq ? wavefront_kernel<4, false, HBD, false, false, true>
+                  : wavefront_kernel<4, false, HBD, false, false, false>;
   return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll, tq)
          : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll, tq)
                     : kernel_of<8, HBD, TILED>(qp, ll, tq);
@@ -1242,19 +1411,20 @@ KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled,
 
 }  // namespace
 
-// Threads and dynamic shared memory (bytes) of a launch whose largest
-// block size is s_max (32, 16, 8 or 4) at bitdepth 8 or 10, on a plan of
-// n_steps steps of at most n_slots blocks with an edge ring of `ring`
-// rows of ring_w samples.  Returns a cudaError_t.
-extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
+// Threads and dynamic shared memory (bytes) of a launch of the kernel of
+// CU size cu (32, 16, 8 or 4: the plan's; a chroma-only launch on a cu 8
+// plan runs the cu 8 kernel) at bitdepth 8 or 10, on a plan of n_steps
+// steps of at most n_slots blocks with an edge ring of `ring` rows of
+// ring_w samples.  Returns a cudaError_t.
+extern "C" int ktt_wavefront_layout(int cu, int bitdepth, int n_steps,
                                     int n_slots, int ring, int ring_w,
                                     int* threads, int* smem_bytes) {
-  if ((s_max != 4 && s_max != 8 && s_max != 16 && s_max != 32) ||
+  if ((cu != 4 && cu != 8 && cu != 16 && cu != 32) ||
       (bitdepth != 8 && bitdepth != 10) || n_steps < 1 || n_slots < 1 ||
       ring < 1 || ring_w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout l =
-      layout_for(s_max, bitdepth == 10, n_steps, n_slots, ring, ring_w);
+      layout_for(cu, bitdepth == 10, n_steps, n_slots, ring, ring_w);
   *threads = l.threads;
   *smem_bytes = l.bytes;
   return l.bytes < 0 ? static_cast<int>(cudaErrorInvalidValue) : 0;
@@ -1267,7 +1437,9 @@ extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
 // n_slots are the most steps and slots of any tile, step_start has
 // n_steps + 1 entries per tile.  Block sizes: the largest s is 32 (the
 // others 32 or 16), 16 (the others 16 or 8) or at most 8 (the others 8
-// or 4).  inter and every
+// or 4: a chroma-only launch of 4x4 blocks runs the cu 8 kernel), or one
+// luma plane at s = 4 (the intra-NxN point: the cu 4 kernel, untiled,
+// intra, without qp).  inter and every
 // plane's mc are all null (intra variant) or all set (inter); so are the
 // planes' qp, which hold values in 0..51.  lossless (transquant bypass)
 // takes no qp; rdpcm (implicit RDPCM) needs lossless.  entries
@@ -1279,8 +1451,11 @@ extern "C" int ktt_wavefront_layout(int s_max, int bitdepth, int n_steps,
 // planes' modes, or null for the luma modes.  rdoq and signhide (never
 // with lossless) select the TQ instance; rdoq needs rem_bits (32768
 // floats on the device), lam (float32) and zero_cost = float32(lam *
-// 0.15f).  Returns a cudaError_t; a layout the device cannot give is
-// refused by cudaFuncSetAttribute.
+// 0.15f).  tskip (a cu 4 launch, neither lossless nor rdoq) decides
+// transform skip per block into skip_out ((items, nblk) int32), with the
+// rate terms tskip_bits (32768 floats on the device).  Returns a
+// cudaError_t; a layout the device cannot give is refused by
+// cudaFuncSetAttribute.
 extern "C" int ktt_wavefront_recon(
     const KttPlane* planes, int n_planes, int bitdepth,
     const uint32_t* blk_info, const int32_t* step_start,
@@ -1289,7 +1464,7 @@ extern "C" int ktt_wavefront_recon(
     int lossless, int rdpcm, const int4* tile_info, int n_tiles,
     int tile_bw, int tile_blocks, const int32_t* cmodes, int rdoq,
     int signhide, float lam, float zero_cost, const float* rem_bits,
-    void* stream) {
+    int tskip, int32_t* skip_out, const float* tskip_bits, void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
       tile_info == nullptr || n_tiles < 1 || n_tiles > nblk ||
@@ -1320,11 +1495,16 @@ extern "C" int ktt_wavefront_recon(
     items += pl.nb;
     p.item_end[i] = items;
   }
-  const int cu = s_max > 8 ? s_max : 8;
+  const bool nxn = s_max == 4 && planes[0].luma;
+  const int cu = nxn ? 4 : (s_max > 8 ? s_max : 8);
   for (int i = 0; i < n_planes; ++i)
     if (planes[i].s != cu && planes[i].s != cu / 2)
       return static_cast<int>(cudaErrorInvalidValue);
-  const Layout l = layout_for(s_max, hbd, n_steps, n_slots, ring, ring_w);
+  if ((nxn && (n_planes != 1 || qp || n_tiles > 1 || inter != nullptr)) ||
+      (tskip && (!nxn || lossless || rdoq || skip_out == nullptr ||
+                 tskip_bits == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout l = layout_for(cu, hbd, n_steps, n_slots, ring, ring_w);
   if (l.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (items == 0) return 0;
   if ((long long)items * n_tiles > 0x7fffffffLL)
@@ -1355,6 +1535,9 @@ extern "C" int ktt_wavefront_recon(
   p.zero_cost = zero_cost;
   p.rdoq = rdoq != 0;
   p.signhide = signhide != 0;
+  p.tskip = tskip != 0;
+  p.skip_out = skip_out;
+  p.tskip_bits = tskip_bits;
   const KernelFn kernel =
       kernel_for(cu, qp, hbd, lossless != 0, n_tiles > 1,
                  rdoq || signhide || (cmodes != nullptr && !lossless));

@@ -79,8 +79,8 @@ from kvazaar_tpu_torch.encoder.inter_cands import (
 from kvazaar_tpu_torch.encoder.inter_search import (
     bi_check, bi_mc_planes, bi_mc_planes_cells, mc_planes, mc_planes_cells,
     merge_satd_maps_b, merge_satd_maps_p, search_inter_frame)
-from kvazaar_tpu_torch.encoder.intra_recon import (blocks_to_plane,
-                                                   reconstruct_frames)
+from kvazaar_tpu_torch.encoder.intra_recon import (
+    blocks_to_plane, reconstruct_chroma_frames, reconstruct_frames)
 from kvazaar_tpu_torch.encoder.intra_search import (_f32,
                                                    search_chroma_modes,
                                                    search_frame_modes)
@@ -179,19 +179,16 @@ def unsupported(cfg: Config) -> list:
     """Names of the config features the port does not cover yet."""
     out = []
     p_frames = cfg.intra_period != 1
-    if not var_tree(cfg) and cfg.intra_max_cu not in (8, 16, 32):
-        out.append(f"fixed CU size {cfg.intra_max_cu} (8, 16 and 32 are "
-                   "ported; 64 inside a variable tree)")
+    if not var_tree(cfg) and cfg.intra_max_cu not in (4, 8, 16, 32):
+        out.append(f"fixed CU size {cfg.intra_max_cu} (4, 8, 16 and 32 "
+                   "are ported; 64 inside a variable tree)")
     # The JAX package's --rd 3 can give a 64 CU's quadrants different
     # chroma modes while its stream codes one: its decoded picture then
     # differs from its reconstruction (ROADMAP §3, F3).
     if (var_tree(cfg) and cfg.intra_max_cu == 64 and cfg.rd >= 3
             and cfg.chroma_format == 420):
         out.append("--rd 3 with 64x64 intra CUs")
-    for name, on in (("transform skip", cfg.transform_skip),
-                     ("scaling lists", cfg.scaling_list != "off"),
-                     ("intra TU split (--tr-depth-intra)",
-                      cfg.tr_depth_intra > 0),
+    for name, on in (("scaling lists", cfg.scaling_list != "off"),
                      ("mesh sharding", cfg.mesh_tiles > 1),
                      ("selective encryption", cfg.crypto is not None),
                      ("field (interlaced) sources",
@@ -590,13 +587,17 @@ class PFrameMixin:
         return fd
 
     def _native_cabac(self) -> bool:
-        """The native CABAC codes the slice data: where its library
-        builds, and not for lossless streams, tiles or --slices, which the
-        JAX package codes with the Python serializer (the native library
-        has no tile mode, and its bypass mode is not bound)."""
+        """The native CABAC codes the slice data where its library
+        builds, and where the JAX package's guards send the slice to it:
+        not for lossless streams (its bypass mode is not bound), tiles or
+        --slices (it has no tile mode), --tr-depth-intra streams (their
+        I, P and B slices code split_transform_flag, which it does not)
+        or the intra-NxN point's I slices (part_mode NxN, four modes per
+        CU and transform_skip_flag); those go to the Python serializer."""
         return (native.available() and not self.params.transquant_bypass
                 and self.params.slices == "none"
-                and not self.params.tiles_enabled)
+                and not self.params.tiles_enabled
+                and self.params.max_tr_depth_intra == 0 and self.cu != 4)
 
     def _python_slice_data(self, fd, slice_type: int, qp: int,
                            nref: int = 1):
@@ -936,17 +937,30 @@ class IntraFrameEncoder(PFrameMixin):
         # The working grid: a variable tree schedules its own per-size
         # plans and reconstructs 64x64 CUs as 32x32 TBs, so it pads to
         # 32 at most; the fixed grid's plan is the CU grid, which also
-        # carries the P frames of a variable-tree config.
+        # carries the P frames of a variable-tree config.  cu 4 is the
+        # intra-NxN point: 8x8 CUs coded PART_NxN, four 4x4 luma PUs /
+        # TBs (DST-VII) on a plan of 4x4 blocks, and one 4x4 TB per
+        # chroma plane on the cu 8 plan (plan_c); the frame pads to 8.
         self.cu = min(cfg.intra_max_cu, 32)
         self.bitdepth = cfg.input_bitdepth
         self.pix = pix_dtype(self.bitdepth)
-        self.coded_w = -(-cfg.width // self.cu) * self.cu
-        self.coded_h = -(-cfg.height // self.cu) * self.cu
+        pad = max(self.cu, 8)
+        self.coded_w = -(-cfg.width // pad) * pad
+        self.coded_h = -(-cfg.height // pad) * pad
         # Tiles (uniform spacing) make the plan's decode order
         # tile-major and cut availability at tile boundaries.
         self.tiles = (cfg.tiles_x, cfg.tiles_y)
-        self.plan = make_intra_plan(self.coded_w, self.coded_h, self.cu,
-                                    self.chroma, tiles=self.tiles)
+        self.plan_c = None
+        if self.cu == 4:
+            self.plan = make_intra_plan(self.coded_w, self.coded_h, 4,
+                                        chroma=False)
+            if self.chroma:
+                self.plan_c = make_intra_plan(self.coded_w, self.coded_h,
+                                              8, True)
+        else:
+            self.plan = make_intra_plan(self.coded_w, self.coded_h,
+                                        self.cu, self.chroma,
+                                        tiles=self.tiles)
         if cfg.lossless:
             # Deblocking would change the bypassed samples; as in the JAX
             # package (and the reference's --lossless), the encoder turns
@@ -961,6 +975,8 @@ class IntraFrameEncoder(PFrameMixin):
             sao_enabled=cfg.sao,
             transquant_bypass=cfg.lossless,
             implicit_rdpcm=cfg.implicit_rdpcm,
+            transform_skip=cfg.transform_skip,
+            max_tr_depth_intra=cfg.tr_depth_intra,
             source_scan_type=cfg.source_scan_type,
             sign_hiding=cfg.signhide and not cfg.lossless,
             wpp=cfg.wpp,
@@ -1017,7 +1033,10 @@ class IntraFrameEncoder(PFrameMixin):
         search stays at the config's QP, the reconstruction takes each
         block's QP and deblocking the effective map.  --rd 2 re-ranks
         the modes by a roundtrip at the config's QP; --rd 3 adds the
-        chroma-mode search (cmodes (B, By, Bx) uint8, else None)."""
+        chroma-mode search (cmodes (B, By, Bx) uint8, else None).  At
+        the intra-NxN point (cu 4) luma and chroma reconstruct apart and,
+        with transform skip, the last entry holds each 4x4 TB's decision
+        ((B, By, Bx) uint8, else None)."""
         cfg = self.cfg
         lam = qp_to_lambda(cfg.qp)
         modes = torch.stack([
@@ -1025,6 +1044,8 @@ class IntraFrameEncoder(PFrameMixin):
                                self.bitdepth, cfg.rd >= 1,
                                rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=lam)[0]
             for y in ys])
+        if self.cu == 4:
+            return self._encode_nxn(ys, cbs, crs, modes)
         cmodes = None
         if cfg.rd >= 3 and cbs is not None:
             cmodes = torch.stack([
@@ -1044,7 +1065,33 @@ class IntraFrameEncoder(PFrameMixin):
         if self.cfg.sao:
             recs, sao = self._sao_stage((ys, cbs, crs), recs)
         return (modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao,
-                None if cmodes is None else cmodes.to(torch.uint8))
+                None if cmodes is None else cmodes.to(torch.uint8), None)
+
+    def _encode_nxn(self, ys, cbs, crs, modes):
+        """The rest of ``_encode_from_planes`` at the intra-NxN point:
+        luma on the plan of 4x4 blocks (DST-VII, and the transform-skip
+        decision per TB with --transform-skip), chroma on the cu 8 plan
+        with each CU's first PU's mode (DM), deblocking on the 8x8 CU
+        grid (the 4x4 TB edges are off the 8x8 edge grid, 8.7.2)."""
+        tools = self._recon_tools()
+        out = reconstruct_frames(ys, None, None, modes, self.plan,
+                                 self.cfg.qp, self.qp_c, self.bitdepth,
+                                 tskip=self.cfg.transform_skip, **tools)
+        rec_y, lv_y = out[:2]
+        ts = out[6].reshape(modes.shape).to(torch.uint8) \
+            if self.cfg.transform_skip else None
+        rec_cb = lv_cb = rec_cr = lv_cr = None
+        if cbs is not None:
+            rec_cb, lv_cb, rec_cr, lv_cr = reconstruct_chroma_frames(
+                cbs, crs, modes[:, ::2, ::2].contiguous(), self.plan_c,
+                self.qp_c, self.bitdepth, **tools)
+        recs, sses = self._deblock_sse((ys, cbs, crs),
+                                       (rec_y, rec_cb, rec_cr))
+        sao = None
+        if self.cfg.sao:
+            recs, sao = self._sao_stage((ys, cbs, crs), recs)
+        return (modes.to(torch.uint8), (lv_y, lv_cb, lv_cr), recs, sses, sao,
+                None, ts)
 
     def _sao_stage(self, srcs, recs, lam=None):
         """SAO of a (B, H, W) batch on the device: per-CTU statistics of
@@ -1129,7 +1176,7 @@ class IntraFrameEncoder(PFrameMixin):
             # wavefront.
             bs_v, bs_h = (None, None) if bs is None else bs
             dy, dcb, dcr = deblock_frame(rec_y, rec_cb, rec_cr,
-                                         self.cfg.qp, self.cu,
+                                         self.cfg.qp, max(self.cu, 8),
                                          self.bitdepth, bs_v=bs_v,
                                          bs_h=bs_h, qp_map=qp_map)
             rec_y = dy.to(self.pix)
@@ -1153,7 +1200,7 @@ class IntraFrameEncoder(PFrameMixin):
     def host_pack_sources(self, frames):
         """(y, cb, cr) list -> padded (B, H, W) host planes: uint8 at
         8-bit, uint16 above."""
-        s = self.cu
+        s = max(self.cu, 8)
         sdt = np.uint8 if self.bitdepth <= 8 else np.uint16
         if self.bitdepth <= 8 and any(
                 np.asarray(p).dtype == np.uint16 for f in frames
@@ -1196,7 +1243,7 @@ class IntraFrameEncoder(PFrameMixin):
     def download_frames(self, handle, need_recon: bool = True):
         """The device->host copies of a submitted batch (one per
         tensor); safe to call from a worker thread."""
-        nframes, (modes, levels, recs, sses, sao, cmodes) = handle
+        nframes, (modes, levels, recs, sses, sao, cmodes, ts) = handle
 
         def host(t):
             return None if t is None else t.cpu().numpy()
@@ -1205,13 +1252,13 @@ class IntraFrameEncoder(PFrameMixin):
         return (nframes, host(modes), [host(lv) for lv in levels],
                 [host_pixels(r) for r in recs] if want_pixels
                 else [None, None, None], sses.host(), host(sao),
-                host(cmodes))
+                host(cmodes), host(ts))
 
     def finalize_downloaded(self, downloaded) -> list[FrameResult]:
         """Host CABAC + NAL framing of a downloaded batch, one frame per
         pool task (the native CABAC releases the GIL)."""
         nframes, modes, (lv_y, lv_cb, lv_cr), (rec_y, rec_cb, rec_cr), \
-            sses, sao, cmodes = downloaded
+            sses, sao, cmodes, ts = downloaded
         if self._host_pool is None:
             self._host_pool = cf.ThreadPoolExecutor(
                 max_workers=self.cfg.threads or 8)
@@ -1222,7 +1269,8 @@ class IntraFrameEncoder(PFrameMixin):
         futs = [self._host_pool.submit(
             self._host_finalize, modes[i], lv_y[i], pick(lv_cb, i),
             pick(lv_cr, i), pick(rec_y, i), pick(rec_cb, i),
-            pick(rec_cr, i), pick(sao, i), cmodes=pick(cmodes, i))
+            pick(rec_cr, i), pick(sao, i), cmodes=pick(cmodes, i),
+            ts_y=pick(ts, i))
             for i in range(nframes)]
         out = [f.result() for f in futs]
         for i, r in enumerate(out):
@@ -1231,7 +1279,7 @@ class IntraFrameEncoder(PFrameMixin):
 
     def _host_finalize(self, modes, lv_y, lv_cb, lv_cr, rec_y, rec_cb,
                        rec_cr, sao=None, qp_ctu=None,
-                       cmodes=None) -> FrameResult:
+                       cmodes=None, ts_y=None) -> FrameResult:
         s = self.cu
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
         if qp_ctu is not None:
@@ -1240,15 +1288,22 @@ class IntraFrameEncoder(PFrameMixin):
             # --rd 3 explicit chroma modes, CU grid -> 8x8 cell grid.
             fd.cmode4[:] = np.kron(cmodes.astype(np.uint8),
                                    np.ones((s // 8, s // 8), np.uint8))
-        fd.depth8[:] = 6 - int(math.log2(s))
-        fd.mode4[:] = np.kron(modes, np.ones((s // 4, s // 4), np.uint8))
+        # The intra-NxN point: 8x8 CUs coded PART_NxN (a mode and a
+        # transform-skip flag per 4x4 PU / TB), chroma from the cu 8 plan.
+        plan_c, sc = (self.plan_c, 4) if s == 4 else (self.plan, s // 2)
+        fd.depth8[:] = 3 if s == 4 else 6 - int(math.log2(s))
+        if s == 4:
+            fd.nxn8[:] = 1
+            if ts_y is not None:
+                fd.tskip4[:] = ts_y
+        fd.mode4[:] = np.kron(modes, np.ones((max(s // 4, 1),) * 2, np.uint8))
         fd.coeff_y[:] = blocks_to_plane(lv_y, self.plan, s, self.coded_w,
                                         self.coded_h)
         if self.chroma:
-            fd.coeff_cb[:] = blocks_to_plane(lv_cb, self.plan, s // 2,
+            fd.coeff_cb[:] = blocks_to_plane(lv_cb, plan_c, sc,
                                              self.coded_w // 2,
                                              self.coded_h // 2)
-            fd.coeff_cr[:] = blocks_to_plane(lv_cr, self.plan, s // 2,
+            fd.coeff_cr[:] = blocks_to_plane(lv_cr, plan_c, sc,
                                              self.coded_w // 2,
                                              self.coded_h // 2)
         _set_sao(fd, sao)
@@ -1292,15 +1347,16 @@ class IntraFrameEncoder(PFrameMixin):
 
     def var_search(self, yp: torch.Tensor):
         """Device search at every candidate CU size of the (H, W) int32
-        source luma: (costs, modes) dicts size -> grids, on the
-        device."""
+        source luma: (costs, modes) dicts size -> grids, on the device,
+        and with --tr-depth-intra the TU-split costs (tucosts) third."""
         cfg = self.cfg
         return search_quadtree(
             yp, self.coded_w, self.coded_h, self.lambda_satd, self.bitdepth,
             cfg.intra_min_cu, cfg.intra_max_cu, cfg.rd >= 1,
-            rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp))
+            rdo=cfg.rd >= 2, qp=cfg.qp, lam_rd=qp_to_lambda(cfg.qp),
+            tu_split=cfg.tr_depth_intra > 0)
 
-    def var_tree_plan(self, costs, modes, chroma_planes=None):
+    def var_tree_plan(self, costs, modes, tucosts=None, chroma_planes=None):
         """Host stage: the tree argmin and its wavefront plan.  Returns
         (size8 (H/8, W/8) true CU sizes, sched_size8 (64 CUs as four
         32 entries), mode_maps size -> (H/s, W/s) numpy modes, VarPlan,
@@ -1308,20 +1364,41 @@ class IntraFrameEncoder(PFrameMixin):
         planes on the device, from which --rd 3 searches the chroma
         modes that schedule the chroma classes (cmode_maps, size -> grid,
         ``var_chroma_modes``; None below rd 3, without chroma or without
-        chroma_planes)."""
+        chroma_planes).  tucosts (--tr-depth-intra, from ``var_search``):
+        each 16 / 32 CU also competes as four half-size TBs; a split CU
+        is scheduled as those TBs, carrying its luma (and chroma) mode
+        into the half size's map, and sched_size8 holds the TB sizes
+        (the deblocking's TU edges).  The sixth entry is then trsplit8
+        (H/8, W/8) uint8, the split flags of the CUs."""
         costs = {k: v.cpu().numpy() for k, v in costs.items()}
         mode_maps = {k: v.cpu().numpy() for k, v in modes.items()}
-        size8 = choose_tree(costs, self.coded_w, self.coded_h,
-                            qp_to_lambda(self.cfg.qp), percu_bits=0.0,
-                            split_bits=SPLIT_FLAG_BINS)
+        chosen = choose_tree(
+            costs, self.coded_w, self.coded_h, qp_to_lambda(self.cfg.qp),
+            percu_bits=0.0, split_bits=SPLIT_FLAG_BINS,
+            tucosts=None if tucosts is None else {
+                k: v.cpu().numpy() for k, v in tucosts.items()})
+        size8, trsplit8 = chosen if tucosts is not None else (chosen, None)
         sched_size8, mode_maps = _sched_sizes(size8, mode_maps)
+        splits = []
+        if trsplit8 is not None and trsplit8.any():
+            tmask = trsplit8.astype(bool)
+            sched_size8 = np.where(tmask, sched_size8 // 2,
+                                   sched_size8).astype(size8.dtype)
+            splits = [(s, (size8 == s) & tmask) for s in (32, 16)
+                      if ((size8 == s) & tmask).any()]
+            for s, msk in splits:
+                mode_maps = _patch_children(mode_maps, msk, s)
         cmode_maps = None
         if chroma_planes is not None and self.cfg.rd >= 3 and self.chroma:
             cmode_maps = self.var_chroma_modes(mode_maps, *chroma_planes)
+            for s, msk in splits:
+                if s in cmode_maps and s // 2 in cmode_maps:
+                    cmode_maps = _patch_children(cmode_maps, msk, s)
         vp = build_var_plan(sched_size8, mode_maps, self.coded_w,
                             self.coded_h, self.chroma,
                             cmode_maps=cmode_maps)
-        return size8, sched_size8, mode_maps, vp, cmode_maps
+        out = (size8, sched_size8, mode_maps, vp, cmode_maps)
+        return out if tucosts is None else out + (trsplit8,)
 
     def var_chroma_modes(self, mode_maps, cbp, crp) -> dict:
         """--rd 3 on a variable tree: ``search_chroma_modes`` on each
@@ -1452,8 +1529,9 @@ class IntraFrameEncoder(PFrameMixin):
         deblocking, host CABAC."""
         planes = tuple(None if a is None else a[0] for a in self._upload(
             self.host_pack_sources([(y, cb, cr)])))
-        size8, sched_size8, mode_maps, vp, cmode_maps = self.var_tree_plan(
-            *self.var_search(planes[0]), chroma_planes=planes[1:])
+        size8, sched_size8, mode_maps, vp, cmode_maps, *trsplit8 = \
+            self.var_tree_plan(*self.var_search(planes[0]),
+                               chroma_planes=planes[1:])
         recs, levels = self.var_recon(self.var_sched_arrays(vp, planes,
                                                             sched_size8))
         sao = None
@@ -1467,6 +1545,8 @@ class IntraFrameEncoder(PFrameMixin):
         rec_np = [host_pixels(r) for r in recs]
         fd = self.var_frame_data(size8, sched_size8, mode_maps,
                                  [host(lv) for lv in levels], cmode_maps)
+        if trsplit8:
+            fd.trsplit8[:] = trsplit8[0]
         _set_sao(fd, host(sao))
         return self._serialize_i(fd, *rec_np)
 
@@ -1879,8 +1959,9 @@ class IntraFrameEncoder(PFrameMixin):
         block's QP, deblocking at the effective QPs and SAO at the
         config's lambda, then CABAC with cu_qp_delta."""
         ys, cbs, crs = self._upload(self.host_pack_sources([(y, cb, cr)]))
-        modes, levels, recs, _sses, sao, cmodes = self._encode_from_planes(
-            ys, cbs, crs, self._upload_qp(qp_ctu)[None])
+        modes, levels, recs, _sses, sao, cmodes, _ts = \
+            self._encode_from_planes(ys, cbs, crs,
+                                     self._upload_qp(qp_ctu)[None])
         self._dpb = tuple(None if r is None else r[0] for r in recs)
 
         def host(t):
@@ -1914,6 +1995,23 @@ def _sched_sizes(size8: np.ndarray, mode_maps: dict):
         mode_maps = dict(mode_maps)
         mode_maps[32] = m32
     return sched_size8, mode_maps
+
+
+def _patch_children(maps: dict, msk8: np.ndarray, s: int) -> dict:
+    """The mode maps with each TU-split CU of size s (msk8: its 8x8
+    cells) carrying its mode into the half size's map, where its four
+    TBs are scheduled (the JAX package's ``_patch_children``)."""
+    h = s // 2
+    pm = maps[s]
+    up = np.kron(pm, np.ones((2, 2), pm.dtype))
+    mch = msk8[::h // 8, ::h // 8]
+    child = maps[h].copy()
+    region = child[:up.shape[0], :up.shape[1]]
+    child[:up.shape[0], :up.shape[1]] = np.where(
+        mch[:up.shape[0], :up.shape[1]], up, region)
+    out = dict(maps)
+    out[h] = child
+    return out
 
 
 def _mvd_bits_np(v: np.ndarray) -> np.ndarray:

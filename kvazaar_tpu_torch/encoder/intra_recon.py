@@ -7,7 +7,9 @@ maps it to), with RDOQ and sign-data hiding where the config sets them,
 with explicit chroma modes (--rd 3) or DM, or lossless (transquant
 bypass: the levels are the residual, or with implicit RDPCM its DPCM
 along a horizontal or vertical intra mode, and the reconstruction is
-the source), without scaling lists or transform skip.  On P frames
+the source), without scaling lists; at the intra-NxN point (luma on a
+plan of 4x4 blocks with the DST-VII and the transform-skip decision,
+chroma on a cu 8 plan) all-intra.  On P frames
 an inter block takes its motion-compensated
 prediction (computed for the whole frame beforehand: it has no
 wavefront dependency) and the inter quantizer rounding 85/512, and
@@ -35,7 +37,8 @@ import torch
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
 from kvazaar_tpu_torch.ops.intra import predict_modes
-from kvazaar_tpu_torch.ops.quant import (dequantize, quantize,
+from kvazaar_tpu_torch.ops.quant import (_fma_f32, _group_sum, _tskip_bits,
+                                         dequantize, quantize,
                                          quantize_rdoq, sign_hide)
 from kvazaar_tpu_torch.ops.transform import (forward_transform,
                                              inverse_transform)
@@ -79,18 +82,25 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
 
 
 def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
-                  rdoq=False, lam=0.0, lossless=False, rdpcm_modes=None):
-    """Flat TU roundtrip: (levels int16, reconstruction int32).  qp: an
-    int or a per-block int tensor (N,); intra: bool, or a per-block bool
-    tensor (N,); scan_sel: the (N,) scanIdx
-    of each block when sign hiding is on, else None; rdoq: RDOQ at
-    lambda lam instead of the scalar quantizer.  lossless: transquant
-    bypass, the residual is the level array and the reconstruction the
-    source; rdpcm_modes: (N,) modes under implicit RDPCM, where a block
-    of mode 10 codes its residual's horizontal differences and one of
-    mode 26 its vertical ones (-1 for blocks without DPCM)."""
+                  rdoq=False, lam=0.0, lossless=False, rdpcm_modes=None,
+                  program="var", dst=False, tskip=False):
+    """Flat TU roundtrip: (levels int16, reconstruction int32), and with
+    tskip a third entry.  qp: an int or a per-block int tensor (N,);
+    intra: bool, or a per-block bool tensor (N,); scan_sel: the (N,)
+    scanIdx of each block when sign hiding is on, else None; rdoq: RDOQ
+    at lambda lam instead of the scalar quantizer, its float32 costs in
+    the order of the JAX package's ``program`` (ops.quant.quantize_rdoq:
+    "grid" for the fixed grid's wavefront, "var" for the variable
+    trees').  lossless: transquant bypass, the residual is the level
+    array and the reconstruction the source; rdpcm_modes: (N,) modes
+    under implicit RDPCM, where a block of mode 10 codes its residual's
+    horizontal differences and one of mode 26 its vertical ones (-1 for
+    blocks without DPCM).  dst: the 4x4 DST-VII (intra luma 4x4 TBs).
+    tskip: also code every block with transform skip and keep, per
+    block, the cheaper by ``tskip_cost`` (ties keep the transform); the
+    third entry is then the (N,) int32 skip decisions."""
+    resid = orig.to(torch.int32) - pred
     if lossless:
-        resid = orig.to(torch.int32) - pred
         levels = resid
         if rdpcm_modes is not None:
             dx = torch.cat([resid[..., :, :1],
@@ -101,17 +111,50 @@ def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
             levels = torch.where(m == 10, dx, torch.where(m == 26, dy,
                                                           resid))
         return levels.to(torch.int16), orig.to(torch.int32)
-    coeff = forward_transform(orig - pred, s, bitdepth)
-    if rdoq:
-        levels = quantize_rdoq(coeff, qp, s, bitdepth, intra=intra, lam=lam)
-    else:
-        levels = quantize(coeff, qp, s, bitdepth, intra=intra)
-    if scan_sel is not None:
-        levels = sign_hide(levels, scan_sel)
-    dq = dequantize(levels, qp, s, bitdepth)
-    rec = torch.clamp(pred + inverse_transform(dq, s, bitdepth), 0,
-                      (1 << bitdepth) - 1)
-    return levels.to(torch.int16), rec
+
+    def roundtrip(coeff, inverse):
+        if rdoq:
+            levels = quantize_rdoq(coeff, qp, s, bitdepth, intra=intra,
+                                   lam=lam, program=program)
+        else:
+            levels = quantize(coeff, qp, s, bitdepth, intra=intra)
+        if scan_sel is not None:
+            levels = sign_hide(levels, scan_sel)
+        dq = dequantize(levels, qp, s, bitdepth)
+        rec = torch.clamp(pred + inverse(dq), 0, (1 << bitdepth) - 1)
+        return levels, rec
+
+    levels, rec = roundtrip(
+        forward_transform(resid, s, bitdepth, dst),
+        lambda dq: inverse_transform(dq, s, bitdepth, dst))
+    if not tskip:
+        return levels.to(torch.int16), rec
+    # Transform skip (8.6.4.2): coefficients resid << (15 - bd - log2 S),
+    # reconstruction ((dq << 7) + rnd) >> (20 - bd).
+    sh_f = 15 - bitdepth - (s.bit_length() - 1)
+    sh_i = 20 - bitdepth
+    lv_s, rec_s = roundtrip(resid << sh_f,
+                            lambda dq: ((dq << 7) + (1 << (sh_i - 1))) >> sh_i)
+    sel = (tskip_cost(lv_s, rec_s, orig, lam)
+           < tskip_cost(levels, rec, orig, lam))
+    levels = torch.where(sel[:, None, None], lv_s, levels)
+    rec = torch.where(sel[:, None, None], rec_s, rec)
+    return levels.to(torch.int16), rec, sel.to(torch.int32)
+
+
+def tskip_cost(levels, rec, orig, lam):
+    """(N,) float32 cost ``ssd + lam * bits`` of N 4x4 TBs in the JAX
+    package's transform-skip decision, rounded as its CPU program rounds
+    it: the SSD exactly (16 x 1023^2 < 2^24), bits = the 16 per-level
+    terms ``2 + 2 log2(|l| + 1)`` (0 for l = 0, ops.quant.tskip_bits_np)
+    summed in XLA's order, plus 1, and the cost as one fused
+    multiply-add."""
+    d = (rec - orig.to(torch.int32)).to(torch.int64)
+    ssd = torch.sum(d * d, dim=(-2, -1)).to(torch.float32)
+    a = torch.abs(levels.to(torch.int32)).long()
+    terms = _tskip_bits(levels.device)[a]
+    bits = _group_sum(terms.reshape(-1, 1, 4, 1, 4))[:, 0, 0] + 1.0
+    return _fma_f32(ssd, lam, bits)
 
 
 def _scan_sel(modes: torch.Tensor, s: int, luma: bool,
@@ -133,13 +176,15 @@ def _scan_sel(modes: torch.Tensor, s: int, luma: bool,
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
                 bitdepth, luma, inter_items=None, mc_flat=None,
                 qp_items=None, lossless=False, rdpcm=False, rdoq=False,
-                lam=0.0, signhide=False):
+                lam=0.0, signhide=False, tskip=False):
     """One wavefront step for every slot of every item (qp_items: the
     items' per-block QPs, else every block at qp; lossless / rdpcm:
     transquant bypass, with implicit RDPCM on the intra blocks, which
     also turns the luma boundary fixups off; rdoq: RDOQ at lambda lam;
-    signhide: sign-data hiding by each block's scanIdx).  Returns the
-    step's (levels (NB, slots, S, S), rec (NB, slots, S*S))."""
+    signhide: sign-data hiding by each block's scanIdx; luma S=4 blocks
+    are intra NxN TBs and take the DST, and tskip their transform-skip
+    decision).  Returns the step's (levels (NB, slots, S, S), rec (NB,
+    slots, S*S), skip decisions (NB, slots) int32 or None)."""
     gidx, noref, sidx, bids = tables
     nb = rec_flat.shape[0]
     refs = build_refs(rec_flat, gidx[step], noref[step], bitdepth)
@@ -161,10 +206,13 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
     if qp_items is not None:
         qp = qp_items[:, bids[step]].reshape(-1)          # (NB*slots,)
     scan_sel = _scan_sel(modes, s, luma, inter) if signhide else None
-    levels, rec = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra,
-                                scan_sel=scan_sel, rdoq=rdoq, lam=lam,
-                                lossless=lossless, rdpcm_modes=rdpcm_modes)
-    return levels.reshape(nb, k, s, s), rec.reshape(nb, k, s * s)
+    nxn = luma and s == 4 and inter is None
+    out = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra,
+                        scan_sel=scan_sel, rdoq=rdoq, lam=lam,
+                        lossless=lossless, rdpcm_modes=rdpcm_modes,
+                        program="grid", dst=nxn, tskip=tskip and nxn)
+    ts = out[2].reshape(nb, k) if len(out) == 3 else None
+    return out[0].reshape(nb, k, s, s), out[1].reshape(nb, k, s * s), ts
 
 
 def _items(a: torch.Tensor, nb: int, nblk: int) -> torch.Tensor:
@@ -188,9 +236,10 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           qp: int, bitdepth: int = 8, is_inter=None,
                           mc=None, qp_map=None, lossless=False,
                           rdpcm=False, rdoq=False, lam=0.0,
-                          signhide=False):
+                          signhide=False, tskip=False):
     """Plain PyTorch version of the wavefront kernel, on any device;
-    same contract as ops.wavefront.wavefront_recon."""
+    same contract as ops.wavefront.wavefront_recon (with tskip, a third
+    output: the (NB, N_blocks) int32 transform-skip decisions)."""
     nb, h, w = orig.shape
     dev = orig.device
     nblk = plan.blocks_y * plan.blocks_x
@@ -206,22 +255,26 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
     rec_flat = torch.zeros((nb, h * w + 1), dtype=torch.int32, device=dev)
     levels = torch.zeros((nb, nblk + 1, s, s), dtype=torch.int16,
                          device=dev)
+    skip = torch.zeros((nb, nblk + 1), dtype=torch.int32, device=dev)
     for step in range(plan.n_steps):
-        lv, rec = _plane_pass(rec_flat, orig_flat, modes_items, tables,
-                              step, s, qp, bitdepth, luma, inter_items,
-                              mc_flat, qp_items, lossless, rdpcm, rdoq,
-                              lam, signhide)
+        lv, rec, ts = _plane_pass(rec_flat, orig_flat, modes_items, tables,
+                                  step, s, qp, bitdepth, luma, inter_items,
+                                  mc_flat, qp_items, lossless, rdpcm, rdoq,
+                                  lam, signhide, tskip)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
-    return (rec_flat[:, :h * w].reshape(nb, h, w).to(pix_dtype(bitdepth)),
-            levels[:, :nblk])
+        if ts is not None:
+            skip[:, bids[step]] = ts
+    out = (rec_flat[:, :h * w].reshape(nb, h, w).to(pix_dtype(bitdepth)),
+           levels[:, :nblk])
+    return out + (skip[:, :nblk],) if tskip else out
 
 
 def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                        qp_c: int, bitdepth: int = 8, is_inter=None,
                        mc_y=None, mc_cb=None, mc_cr=None, qp_map=None,
                        lossless=False, rdpcm=False, signhide=False,
-                       rdoq=False, lam=0.0, cmodes=None):
+                       rdoq=False, lam=0.0, cmodes=None, tskip=False):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
@@ -234,12 +287,30 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
     signhide: sign-data hiding; rdoq: RDOQ at lambda lam (every block,
     whatever its QP); cmodes: (B, By, Bx) int32 explicit chroma
     prediction modes (--rd 3), else chroma takes the luma modes (DM).
-    Returns
+    A plan of 4x4 blocks (the intra-NxN point) reconstructs luma alone
+    (cbs None; chroma: ``reconstruct_chroma_frames``) with the DST-VII;
+    tskip adds each block's transform-skip decision.  Returns
     (recon_y, levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon
     (B, H, W) uint8 at 8-bit, int16 above (``pix_dtype``), levels (B,
-    N_blocks, S, S) int16 in raster block order."""
+    N_blocks, S, S) int16 in raster block order; with tskip a seventh
+    entry, the (B, N_blocks) int32 skip decisions."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
     return wavefront_recon_planes(ys, cbs, crs, modes, plan, qp, qp_c,
                                   bitdepth, is_inter, mc_y, mc_cb, mc_cr,
                                   qp_map, lossless, rdpcm, rdoq=rdoq,
-                                  signhide=signhide, lam=lam, cmodes=cmodes)
+                                  signhide=signhide, lam=lam, cmodes=cmodes,
+                                  tskip=tskip)
+
+
+def reconstruct_chroma_frames(cbs, crs, dm_modes, plan: IntraFramePlan,
+                              qp_c: int, bitdepth: int = 8, lossless=False,
+                              signhide=False, rdoq=False, lam=0.0):
+    """Chroma of the intra-NxN point over a cu 8 plan: each 8x8 CU keeps
+    one 4x4 TB per chroma plane, predicted with the DM mode of its first
+    PU (the JAX package's ``reconstruct_chroma_frames``).  cbs/crs (B,
+    H/2, W/2); dm_modes (B, By8, Bx8) int32.  Returns (rec_cb, lv_cb,
+    rec_cr, lv_cr), levels in raster block order."""
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_chroma
+    return wavefront_recon_chroma(cbs, crs, dm_modes, plan, qp_c, bitdepth,
+                                  lossless=lossless, rdoq=rdoq,
+                                  signhide=signhide, lam=lam)

@@ -70,6 +70,9 @@ OVERHEAD_BINS_INTRA = 4.5
 OVERHEAD_BINS_INTER = 4.0
 INTRA_MODE_BINS = 2.5      # MPM-weighted average of mpm_idx/rem coding
 SPLIT_FLAG_BINS = 1.0
+# Extra structure bins a one-level TU split (--tr-depth-intra) pays over
+# a single TB: 3 extra cbf_luma + ~2 chroma-cbf re-codings.
+TU_SPLIT_EXTRA_BINS = 5.0
 
 
 def _plus_bins(cost: torch.Tensor, lam_rd: float, bins: float):
@@ -90,8 +93,9 @@ def intra_rd_recost(y, plan, modes_grid, qp, lam_rd, bitdepth,
 
 
 def _sum4_64(cg: torch.Tensor, by64: int, bx64: int) -> torch.Tensor:
-    """float32 sum of each 64 CU's four 32-grid entries, left to right
-    in z order, over the full 64 CUs of a 32 grid."""
+    """float32 sum of each CU's four half-size grid entries, left to
+    right in z order, over the (by64, bx64) CUs (the full 64 CUs of a 32
+    grid, or the 16 / 32 CUs of a TU split)."""
     return (cg[0::2, 0::2][:by64, :bx64] + cg[0::2, 1::2][:by64, :bx64]
             + cg[1::2, 0::2][:by64, :bx64] + cg[1::2, 1::2][:by64, :bx64])
 
@@ -116,7 +120,8 @@ def _intra64_cost(y, width, height, modes64, qp, lam_rd, bitdepth,
 def search_quadtree(y, width: int, height: int, lambda_satd: float,
                     bitdepth: int = 8, min_cu: int = 8, max_cu: int = 32,
                     two_pass: bool = True, rdo: bool = False,
-                    qp: int = 30, lam_rd: float | None = None):
+                    qp: int = 30, lam_rd: float | None = None,
+                    tu_split: bool = False):
     """Open-loop mode search at every candidate CU size (device part).
 
     y: (H, W) int32 coded-size luma.  Returns (costs, modes): dicts
@@ -124,7 +129,11 @@ def search_quadtree(y, width: int, height: int, lambda_satd: float,
     RD units (SATD-searched modes re-costed by a roundtrip at rd <= 1;
     the rd 2 search's roundtrip costs as they are).  The 64 level (full
     CTUs only) is the best single mode over the four 32x32 TBs' SATDs,
-    costed by roundtripping those TBs with it."""
+    costed by roundtripping those TBs with it.  tu_split
+    (--tr-depth-intra 1) adds a third dict, tucosts: each 16 and 32 CU
+    (whose half size is in the tree) costed as four half-size TBs that
+    share its mode, on the half size's plan, plus the CU's bins and
+    TU_SPLIT_EXTRA_BINS (the JAX package's ``search_quadtree``)."""
     if lam_rd is None:
         lam_rd = lambda_satd * lambda_satd
     costs, modes = {}, {}
@@ -149,7 +158,23 @@ def search_quadtree(y, width: int, height: int, lambda_satd: float,
             costs[s] = _plus_bins(c, lam_rd, OVERHEAD_BINS_INTRA)
         else:
             costs[s] = intra_rd_recost(y, plan, m, qp, lam_rd, bitdepth)
-    return costs, modes
+    if not tu_split:
+        return costs, modes
+    tucosts = {}
+    for s in (16, 32):
+        if s not in modes or s // 2 < min_cu:
+            continue
+        plan_h = make_intra_plan(width, height, s // 2, chroma=False)
+        by, bx = modes[s].shape
+        pad = torch.zeros((plan_h.blocks_y, plan_h.blocks_x),
+                          dtype=torch.int32, device=y.device)
+        pad[:2 * by, :2 * bx] = torch.repeat_interleave(
+            torch.repeat_interleave(modes[s], 2, dim=0), 2, dim=1)
+        cg = rd_cost_given_modes(y, plan_h, pad, qp, lam_rd, bitdepth)
+        tucosts[s] = _plus_bins(_sum4_64(cg, by, bx), lam_rd,
+                                INTRA_MODE_BINS + OVERHEAD_BINS_INTRA
+                                + TU_SPLIT_EXTRA_BINS)
+    return costs, modes, tucosts
 
 
 def choose_tree(costs: dict, width: int, height: int,

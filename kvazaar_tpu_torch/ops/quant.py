@@ -23,6 +23,21 @@ tolerance 0 by tests/test_torch_rdoq.py):
   for the all-zero candidate, whose rate XLA folds to a constant, it
   adds the scalar product ``lam * 0.15`` rounded on its own;
 - the 4x4 group sums add the 16 costs in XLA's order (``_group_sum``).
+
+Inside the JAX package's encoder programs two of these differ (read
+from the optimized LLVM IR of its fixed-grid I, P and B programs, tiled
+or not, and of its variable-tree programs; F2 in ROADMAP.md), and
+``quantize_rdoq(program=)`` follows each:
+
+- there the forward transform feeds RDOQ, and LLVM vectorizes the kept
+  costs' group sums over each group's columns, adding row after row
+  (``_group_sum_rows``); the zeroed distortions keep ``_group_sum``'s
+  order (``program`` "grid" and "var");
+- in the fixed-grid programs lambda is a compile-time constant, and LLVM
+  moves the product by it inside the select between a level's rate and
+  0.15, so ``lam * rate`` is rounded before the add, with no fused
+  multiply-add (``program="grid"``); the variable-tree programs take
+  lambda at run time and keep the fused multiply-add (``"var"``).
 """
 
 from __future__ import annotations
@@ -179,6 +194,25 @@ def _rem_bits(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rem_bits_np()).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def tskip_bits_np() -> np.ndarray:
+    """(32768,) float32 rate term of the transform-skip decision per
+    level magnitude a: ``2 + 2 * log2(a + 1)`` for a > 0, else 0, as one
+    fused multiply-add of XLA's float32 log of a + 1 with 2 * float32(1 /
+    ln 2) (XLA's log is correctly rounded at 32767 and 32768)."""
+    lg = np.concatenate([log_table_np(),
+                         np.log(np.float64([32768])).astype(np.float32)])
+    t = (lg[1:].astype(np.float64) * (2.0 * np.float64(_INV_LN2)) + 2.0
+         ).astype(np.float32)
+    t[0] = 0.0
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _tskip_bits(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(tskip_bits_np()).to(device)
+
+
 def _f32(x: float) -> float:
     """A Python float rounded to float32, as JAX rounds a weak-typed
     scalar against a float32 array."""
@@ -195,16 +229,30 @@ def _fma_f32(a: torch.Tensor, lam: float, b: torch.Tensor) -> torch.Tensor:
 
 def _group_sum(g: torch.Tensor) -> torch.Tensor:
     """float32 sums of 4x4 groups (..., nsb, 4, nsb, 4) -> (..., nsb,
-    nsb) in the order of the JAX package's CPU program: each of the
+    nsb) in the order of the JAX package's jitted op: each of the
     group's rows left to right, then (row 0 + row 2) + (row 1 + row 3)."""
     g = g.transpose(-3, -2)                   # (..., nsb, nsb, row, col)
     r = ((g[..., 0] + g[..., 1]) + g[..., 2]) + g[..., 3]
     return (r[..., 0] + r[..., 2]) + (r[..., 1] + r[..., 3])
 
 
+def _group_sum_rows(g: torch.Tensor) -> torch.Tensor:
+    """float32 sums of 4x4 groups (..., nsb, 4, nsb, 4) -> (..., nsb,
+    nsb) in the order of the JAX package's encoder programs: the sum
+    so far plus each row as a vector of its 4 columns, reduced as
+    ((sum + c0) + c2) + (c1 + c3), row after row."""
+    g = g.transpose(-3, -2)                   # (..., nsb, nsb, row, col)
+    acc = None
+    for r in range(4):
+        c = g[..., r, :]
+        a = c[..., 0] if acc is None else acc + c[..., 0]
+        acc = (a + c[..., 2]) + (c[..., 1] + c[..., 3])
+    return acc
+
+
 def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
-                  bitdepth: int = 8, intra=True,
-                  lam: float = 1.0) -> torch.Tensor:
+                  bitdepth: int = 8, intra=True, lam: float = 1.0,
+                  program: str = "op") -> torch.Tensor:
     """Rate-distortion optimized quantization (the JAX package's
     vectorized form of the reference's RDOQ, flat scaling list; qp an
     int, or one QP per block over the leading axes as in ``quantize``,
@@ -213,8 +261,10 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     round-half level) by pixel-domain distortion + lam * a static rate
     model, then whole 4x4 groups whose coded cost exceeds their zeroed
     distortion are dropped.  ``intra`` enters only through the JAX
-    signature: both roundings use the half offset.  Returns int32
-    levels."""
+    signature: both roundings use the half offset.  program: whose float32
+    order to follow (module docstring): "op" the JAX package's jitted
+    ``quantize_rdoq`` alone, "grid" its fixed-grid encoder programs,
+    "var" its variable-tree programs.  Returns int32 levels."""
     del intra
     log2n = size.bit_length() - 1
     inv_shift = bitdepth + log2n - 5
@@ -238,7 +288,10 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     dist = e * e * (1.0 / float(4 ** (15 - bitdepth - log2n)))
     rate = torch.where(cands > 0, (3.0 + (cands > 1).to(torch.float32))
                        + _rem_bits(c.device)[cands.long()], _f32(0.15))
-    costs = _fma_f32(dist, lam, rate)
+    if program == "grid":
+        costs = dist + rate * _f32(lam)
+    else:
+        costs = _fma_f32(dist, lam, rate)
     costs[0] = dist[0] + _f32(_f32(lam) * _f32(0.15))
     best, sel = torch.amin(costs, dim=0), torch.argmin(costs, dim=0)
     lvl = torch.gather(cands, 0, sel[None])[0]
@@ -247,8 +300,9 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     # distortion (the coded_sub_block_flag trade).
     lead = lvl.shape[:-2]
     nsb = size // 4
-    keep, zero = _group_sum(torch.stack([best, dist[0]]).reshape(
-        2, *lead, nsb, 4, nsb, 4))
+    keep = (_group_sum if program == "op" else _group_sum_rows)(
+        best.reshape(*lead, nsb, 4, nsb, 4))
+    zero = _group_sum(dist[0].reshape(*lead, nsb, 4, nsb, 4))
     kill = (zero < keep + _f32(lam))[..., :, None, :, None]
     lvl = torch.where(kill, 0, lvl.reshape(*lead, nsb, 4, nsb, 4))
     lvl = lvl.reshape(*lead, size, size)

@@ -1,10 +1,11 @@
-"""Exact-integer HEVC DCT (H.265 8.6.4.2), batched over (..., N, N).
+"""Exact-integer HEVC transforms (H.265 8.6.4.2), batched over (..., N, N).
 
-Counterpart of kvazaar_tpu/ops/transform.py (DCT only; the 4x4 DST
-waits for the intra-NxN path).  The transform matrices are the
-standard's integer tables, generated from the odd-row magnitudes plus
-the DCT-II even/odd recursion exactly as the JAX package does
-(``dct_matrix_np`` is a copy; a test pins it against the original).
+Counterpart of kvazaar_tpu/ops/transform.py: the DCT at every size and
+the 4x4 DST-VII of intra luma TBs (the intra-NxN operating point).  The
+DCT matrices are the standard's integer tables, generated from the
+odd-row magnitudes plus the DCT-II even/odd recursion exactly as the JAX
+package does (``dct_matrix_np`` is a copy; a test pins it and the DST
+table against the originals).
 """
 
 from __future__ import annotations
@@ -51,6 +52,18 @@ def dct_matrix_np(n: int) -> np.ndarray:
     return t.astype(np.int32)
 
 
+_DST4 = np.array([[29, 55, 74, 84],
+                  [74, 74, 0, -74],
+                  [84, -29, -74, 55],
+                  [55, -84, 74, -29]], dtype=np.int32)
+
+
+def dst4_matrix_np() -> np.ndarray:
+    """The 4x4 integer DST-VII table of H.265 (8.6.4.2, rows =
+    frequencies)."""
+    return _DST4.copy()
+
+
 def _round_shift(x, shift):
     return (x + (1 << (shift - 1))) >> shift
 
@@ -60,26 +73,30 @@ def _clip16(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _matrix(size: int, device: torch.device) -> torch.Tensor:
-    """The DCT table on ``device`` in float64 (matmul_exact's dtype)."""
-    return torch.from_numpy(dct_matrix_np(size)).to(device, torch.float64)
+def _matrix(size: int, device: torch.device, dst: bool = False
+            ) -> torch.Tensor:
+    """The DCT (or, dst, the 4x4 DST-VII) table on ``device`` in float64
+    (matmul_exact's dtype)."""
+    t = dst4_matrix_np() if dst else dct_matrix_np(size)
+    return torch.from_numpy(t).to(device, torch.float64)
 
 
-def forward_transform(resid: torch.Tensor, size: int,
-                      bitdepth: int = 8) -> torch.Tensor:
+def forward_transform(resid: torch.Tensor, size: int, bitdepth: int = 8,
+                      dst: bool = False) -> torch.Tensor:
     """resid: (..., size, size) integer residual -> int32 coefficients.
     Stage 1 transforms columns (T @ X), stage 2 rows (. @ T^T), with
-    shift1 = log2N + bd - 9 and shift2 = log2N + 6."""
+    shift1 = log2N + bd - 9 and shift2 = log2N + 6; dst: the DST-VII
+    table (size 4)."""
     log2n = size.bit_length() - 1
-    t = _matrix(size, resid.device)
+    t = _matrix(size, resid.device, dst)
     e = _round_shift(matmul_exact(t, resid), log2n + bitdepth - 9)
     return _round_shift(matmul_exact(e, t.mT), log2n + 6)
 
 
-def inverse_transform(coeff: torch.Tensor, size: int,
-                      bitdepth: int = 8) -> torch.Tensor:
-    """Inverse 2D DCT; both stages clipped to int16 (shift1 = 7,
-    shift2 = 20 - bitdepth)."""
-    t = _matrix(size, coeff.device)
+def inverse_transform(coeff: torch.Tensor, size: int, bitdepth: int = 8,
+                      dst: bool = False) -> torch.Tensor:
+    """Inverse 2D DCT (dst: DST-VII); both stages clipped to int16
+    (shift1 = 7, shift2 = 20 - bitdepth)."""
+    t = _matrix(size, coeff.device, dst)
     e = _clip16(_round_shift(matmul_exact(t.mT, coeff), 7))
     return _clip16(_round_shift(matmul_exact(e, t), 20 - bitdepth))

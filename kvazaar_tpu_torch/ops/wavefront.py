@@ -6,7 +6,11 @@ frames, at one QP or with a per-block QP map, or lossless (transquant
 bypass, with or without implicit RDPCM), with RDOQ and sign-data hiding
 where asked (the kernel's TQ instances), with explicit chroma modes
 (--rd 3) or DM, at 8 or 10 bits (the kernel's 10-bit instance takes
-int16 planes and writes int16 recon);
+int16 planes and writes int16 recon); on a plan of 4x4 blocks (the
+intra-NxN point) it reconstructs luma alone, with the DST-VII and, where
+asked, the transform-skip decision (the kernel's cu 4 instances), and
+``wavefront_recon_chroma`` that point's chroma, one 4x4 TB per 8x8 CU,
+on the cu 8 plan (a chroma-only launch of the cu 8 instances);
 ``wavefront_recon`` reconstructs one plane kind.  For CUDA
 tensors both launch the hand-written kernel once (or raise); for CPU
 tensors they run the kernel's plain PyTorch version, the per-step loop
@@ -28,7 +32,10 @@ kernel launches of this process, intra and inter variants apart,
 ``LAUNCHES_10BIT`` those of the 10-bit instances, ``BYPASS_LAUNCHES``
 those of the lossless (transquant bypass) instances, ``TILE_LAUNCHES``
 those on a tiled plan, ``TOOL_LAUNCHES`` those of the RDOQ / sign-hiding
-instances and ``CMODE_LAUNCHES`` those with explicit chroma modes.
+instances, ``CMODE_LAUNCHES`` those with explicit chroma modes,
+``CU4_LAUNCHES`` those of the cu 4 (intra NxN, DST-VII) instances and of
+the chroma-only launches beside them, and ``TSKIP_LAUNCHES`` the cu 4
+launches that took the transform-skip decision.
 """
 
 from __future__ import annotations
@@ -48,8 +55,8 @@ import torch
 from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
-from kvazaar_tpu_torch.ops.quant import (_f32, _rem_bits, int32_table,
-                                         quant_params)
+from kvazaar_tpu_torch.ops.quant import (_f32, _rem_bits, _tskip_bits,
+                                         int32_table, quant_params)
 
 # Kernel launches made by this module (only here, after a launch), per
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
@@ -68,6 +75,15 @@ TILE_LAUNCHES = {"intra": 0, "inter": 0}
 TOOL_LAUNCHES = {"intra": 0, "inter": 0, "rdoq": 0, "signhide": 0,
                  "qp_map": 0, "10bit": 0, "tiled": 0}
 CMODE_LAUNCHES = {"intra": 0, "inter": 0}
+# The intra-NxN point's launches: "luma" those of the cu 4 instances,
+# "chroma" the chroma-only launches on its cu 8 plan; "10bit", "tq",
+# "lossless": the cu 4 launches at 10-bit, with RDOQ or sign hiding,
+# lossless.  TSKIP_LAUNCHES counts the cu 4 launches with the
+# transform-skip decision ("10bit", "signhide": those at 10-bit, with
+# sign hiding).
+CU4_LAUNCHES = {"luma": 0, "chroma": 0, "10bit": 0, "tq": 0,
+                "lossless": 0}
+TSKIP_LAUNCHES = {"luma": 0, "10bit": 0, "signhide": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -152,7 +168,8 @@ def _library():
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
     lib.ktt_wavefront_layout.restype = ctypes.c_int
     lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
@@ -306,11 +323,13 @@ def launch_layout(plan: IntraFramePlan, s_max: int, width: int,
     whose largest block size is s_max on a plan whose widest plane is
     ``width`` samples at ``bitdepth``, the layout as the kernel's
     library computes it for the plan's largest tile (its ring is as
-    wide as the widest tile)."""
+    wide as the widest tile).  The kernel instance is the plan's CU
+    size: a chroma-only launch (s_max 4) on a cu 8 plan runs the cu 8
+    instances, a plan of 4x4 blocks the cu 4 ones."""
     n_steps, n_slots, ring, tile_bw, _ = tile_shape(plan)
     threads, nbytes = ctypes.c_int(0), ctypes.c_int(0)
     err = _library().ktt_wavefront_layout(
-        s_max, bitdepth, n_steps, n_slots, ring,
+        max(s_max, plan.cu_size), bitdepth, n_steps, n_slots, ring,
         width // plan.blocks_x * tile_bw, ctypes.byref(threads),
         ctypes.byref(nbytes))
     if err != 0:
@@ -368,9 +387,12 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                            is_inter=None, mc_y=None, mc_cb=None,
                            mc_cr=None, qp_map=None, lossless=False,
                            rdpcm=False, rdoq=False, signhide=False,
-                           lam=0.0, cmodes=None):
+                           lam=0.0, cmodes=None, tskip=False):
     """Reconstruct the luma and (where cbs is given) chroma planes of a
-    batch of frames in one launch.
+    batch of frames in one launch.  On a plan of 4x4 blocks (the intra
+    NxN point: cbs None, chroma through ``wavefront_recon_chroma``) luma
+    takes the DST-VII, and tskip the transform-skip decision per block,
+    whose (B, N_blocks) int32 flags come as a seventh entry.
 
     ys (B, H, W), cbs/crs (B, H/2, W/2) or None, uint8 or int32 at
     8-bit, int16 or int32 at 10-bit (int32 planes are narrowed to int16
@@ -387,6 +409,15 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     the chroma entries None without chroma."""
     tools = dict(rdoq=rdoq, lam=lam, signhide=signhide)
     s = plan.cu_size
+    if tskip and s != 4:
+        raise ValueError("wavefront: transform skip needs a plan of 4x4 "
+                         "blocks")
+    if s == 4 and cbs is not None:
+        raise ValueError("wavefront: a plan of 4x4 blocks takes luma alone "
+                         "(chroma: wavefront_recon_chroma)")
+    if tskip and (rdoq or lossless):
+        raise ValueError("wavefront: transform skip takes neither RDOQ nor "
+                         "lossless (the configuration refuses both)")
     qp_y = qp_c_map = None
     if qp_map is not None:
         qp_y = torch.clamp(qp_map.to(torch.int32), 0, 51)
@@ -396,11 +427,12 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     if ys.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
-        rec_y, lv_y = wavefront_recon_plain(ys, modes, plan, s, True, qp,
-                                            bitdepth, is_inter, mc_y, qp_y,
-                                            lossless, rdpcm, **tools)
+        out = wavefront_recon_plain(ys, modes, plan, s, True, qp, bitdepth,
+                                    is_inter, mc_y, qp_y, lossless, rdpcm,
+                                    tskip=tskip, **tools)
+        rec_y, lv_y = out[:2]
         if cbs is None:
-            return rec_y, lv_y, None, None, None, None
+            return (rec_y, lv_y, None, None, None, None) + out[2:]
         # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
         b = ys.shape[0]
         mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
@@ -425,18 +457,59 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                luma, bitdepth, is_inter, mc, qm, lossless, rdpcm,
                rdoq or signhide)
     out = _launch(planes, modes, plan, is_inter, bitdepth, lossless, rdpcm,
-                  cmodes=None if cbs is None else cmodes, **tools)
+                  cmodes=None if cbs is None else cmodes, tskip=tskip,
+                  **tools)
     if cbs is None:
-        return (*out, None, None, None, None)
+        return (*out[:2], None, None, None, None) + out[2:]
     return out
+
+
+def wavefront_recon_chroma(cbs, crs, modes, plan: IntraFramePlan, qp_c: int,
+                           bitdepth: int = 8, lossless=False, rdoq=False,
+                           signhide=False, lam=0.0):
+    """The chroma of the intra-NxN point (the JAX package's
+    ``reconstruct_chroma_frames``): one 4x4 TB per 8x8 CU of each of Cb
+    and Cr, predicted with the CU's first PU's mode (DM), over a cu 8
+    plan without luma.  cbs/crs (B, H/2, W/2); modes (Bm, By8, Bx8)
+    int32; lossless / rdoq / lam / signhide as in wavefront_recon.  On
+    CUDA tensors one chroma-only launch of the cu 8 instances.  Returns
+    (rec_cb, lv_cb, rec_cr, lv_cr)."""
+    tools = dict(rdoq=rdoq, lam=lam, signhide=signhide)
+    b = cbs.shape[0]
+    if cbs.device.type == "cpu":
+        from kvazaar_tpu_torch.encoder.intra_recon import \
+            wavefront_recon_plain
+        rec_c, lv_c = wavefront_recon_plain(
+            torch.cat([cbs, crs]), modes, plan, plan.cu_size // 2, False,
+            qp_c, bitdepth, lossless=lossless, **tools)
+        return rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
+    if cbs.device.type != "cuda":
+        raise ValueError(f"wavefront_recon_chroma: unsupported device "
+                         f"{cbs.device}")
+    if plan.cu_size != 8:
+        raise ValueError("wavefront_recon_chroma: the intra-NxN chroma "
+                         "runs on a cu 8 plan")
+    if bitdepth > 8:
+        cbs, crs = (t if t.dtype != torch.int32 else t.to(torch.int16)
+                    for t in (cbs, crs))
+    planes = [(cbs, None, 4, False, qp_c, None),
+              (crs, None, 4, False, qp_c, None)]
+    for orig, *_ in planes:
+        _check(orig, modes, plan, 4, False, bitdepth, lossless=lossless,
+               tools=rdoq or signhide)
+    rec_cb, lv_cb, rec_cr, lv_cr = _launch(planes, modes, plan, None,
+                                           bitdepth, lossless, **tools)
+    CU4_LAUNCHES["chroma"] += 1
+    return rec_cb, lv_cb, rec_cr, lv_cr
 
 
 def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             lossless=False, rdpcm=False, rdoq=False, lam=0.0,
-            signhide=False, cmodes=None):
+            signhide=False, cmodes=None, tskip=False):
     """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
     plane kinds (cmodes: the chroma planes' modes, or None for modes);
-    returns (rec, levels) per kind, flattened."""
+    returns (rec, levels) per kind, flattened, then with tskip (a cu 4
+    launch) the (NB, N_blocks) int32 transform-skip flags."""
     lib = _library()
     dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
@@ -456,6 +529,12 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
     if is_inter is not None:
         is_inter = is_inter.contiguous()
     rem_bits = _rem_bits(dev) if rdoq else None
+    nxn = plan.cu_size == 4
+    skip = ts_bits = None
+    if tskip:
+        skip = torch.empty((planes[0][0].shape[0], nblk), dtype=torch.int32,
+                           device=dev)
+        ts_bits = _tskip_bits(dev)
     structs = (_Plane * len(planes))()
     outs = []
     # The kernel packs each (item, tile)'s schedule words here.
@@ -493,7 +572,9 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             tile_info.shape[0], tile_bw, tile_blocks,
             None if cmodes is None else cmodes.data_ptr(), int(rdoq),
             int(signhide), _f32(lam), _f32(_f32(lam) * _f32(0.15)),
-            None if rem_bits is None else rem_bits.data_ptr(), stream)
+            None if rem_bits is None else rem_bits.data_ptr(), int(tskip),
+            None if skip is None else skip.data_ptr(),
+            None if ts_bits is None else ts_bits.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
@@ -519,6 +600,16 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
         TOOL_LAUNCHES["tiled"] += tile_info.shape[0] > 1
     if cmodes is not None:
         CMODE_LAUNCHES[variant] += 1
+    if nxn:
+        CU4_LAUNCHES["luma"] += 1
+        CU4_LAUNCHES["10bit"] += bitdepth == 10
+        CU4_LAUNCHES["tq"] += bool(rdoq or signhide)
+        CU4_LAUNCHES["lossless"] += bool(lossless)
+    if tskip:
+        TSKIP_LAUNCHES["luma"] += 1
+        TSKIP_LAUNCHES["10bit"] += bitdepth == 10
+        TSKIP_LAUNCHES["signhide"] += bool(signhide)
+        outs.append(skip)
     return tuple(outs)
 
 
@@ -539,6 +630,11 @@ def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
                          "map")
     if qp_map is not None and plan.tiles != (1, 1):
         raise ValueError("wavefront kernel: a tiled launch takes no QP map")
+    if plan.cu_size == 4 and (not luma or is_inter is not None
+                              or qp_map is not None or rdpcm
+                              or plan.tiles != (1, 1)):
+        raise ValueError("wavefront kernel: a plan of 4x4 blocks takes "
+                         "intra luma alone, without QP maps, RDPCM or tiles")
     sample_dtypes = ((torch.uint8, torch.int32) if bitdepth == 8
                      else (torch.int16,))
     names = " or ".join(str(d).replace("torch.", "") for d in sample_dtypes)

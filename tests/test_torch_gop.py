@@ -503,7 +503,10 @@ def test_preset_default_encodes(preset):
     (dict(intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
           inter_max_cu=16, sao=False, rdoq=False, crypto="k"),
      "selective encryption"),
-    (dict(tr_depth_intra=1), "tr-depth-intra"),
+    pytest.param(dict(intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
+                      inter_max_cu=16, sao=False, rdoq=False,
+                      scaling_list="default"), "scaling lists",
+                 id="change2-tr-depth-intra"),
     (dict(scaling_list="default"), "scaling lists")])
 def test_what_stays_unported_on_a_gop_raises(change, match):
     cfg = config_from_preset("medium", width=64, height=64)

@@ -8,8 +8,10 @@ kernel's RDOQ / sign-hiding instances and its explicit chroma modes are
 held against it on the card by ``chip_smoke.py``) with RDOQ, sign hiding,
 both, a per-block QP map and explicit chroma modes, against the JAX
 package's XLA scan (``reconstruct_frames``) at 64x48, cu 8/16/32, intra
-and inter (inter blocks scan diagonally), one case at 10 bits; (c)
-``search_chroma_modes``.
+and inter (inter blocks scan diagonally), one case at 10 bits, and on
+blocks whose RDOQ decision flips between the float32 orders of JAX's
+jitted ``quantize_rdoq`` and of its encoder programs (F2), intra and
+inter, tiled or not; (c) ``search_chroma_modes``.
 
 Streams, one test per JAX reference stream: kvazaar_tpu_torch's
 ``Encoder`` on CPU tensors against kvazaar_tpu's on its CPU backend,
@@ -19,8 +21,8 @@ cu 8 all-intra with rd 3, RDOQ and sign hiding; (d2) ``slower --gop
 lp-g4d4t1`` (an IDR and 4 P frames); (d3) ``medium --gop 0 --ref
 2``; (d4) a fixed-grid GOP 4 with RDOQ and sign hiding; (d5) RDOQ with
 ``--bitrate`` on one-reference IPPP (per-CTU QP); (d6) tiles 2x2 with
-RDOQ and sign hiding, an I and a P picture (the P picture pins F2,
-ROADMAP §3: one Cb level of JAX's differs); (d7) ``medium --period 1
+RDOQ and sign hiding, an I and a P picture (the P picture holds F2's
+near-tie group, ROADMAP §3, repaired); (d7) ``medium --period 1
 --rd 3`` (variable trees, SAO on, at 96x96: the JAX SAO program is
 the one ``test_torch_sao.share_sao_program`` compiles once per
 process).  --rd 3 with 64x64 intra CUs stays refused (F3).
@@ -47,6 +49,7 @@ from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
 from kvazaar_tpu_torch.encoder.intra_recon import reconstruct_frames
 from kvazaar_tpu_torch.encoder.intra_search import search_chroma_modes
 from kvazaar_tpu_torch.ops import quant as tquant
+from kvazaar_tpu_torch.ops.transform import forward_transform
 from test_torch_rate_control import _same_streams
 from test_torch_sao import share_sao_program
 from test_torch_slice import _clip, _jit_whole, oracle_decode
@@ -139,6 +142,76 @@ def test_wavefront_plain_tools_match_jax_scan(name):
     for key, g, wnt in zip(("rec_y", "lv_y", "rec_cb", "lv_cb", "rec_cr",
                             "lv_cr"), got, want):
         _eq(g, wnt, key)
+
+
+def _rdoq_tie_blocks(s, qp, lam, n, seed):
+    """n seeded residual blocks (S x S, small amplitudes) whose RDOQ
+    levels differ between the float32 orders of the JAX package's jitted
+    ``quantize_rdoq`` and of its encoder programs (``program`` "op" and
+    "grid" in ops.quant: the kept-cost group sums and the rate product's
+    rounding), with the two level arrays."""
+    rng = np.random.default_rng(seed)
+    found = []
+    for _ in range(40):
+        if len(found) >= n:
+            break
+        amp = rng.choice([2, 3, 4, 6], size=(2048, 1, 1))
+        r = rng.integers(-8, 9, (2048, s, s)) * (
+            rng.random((2048, s, s)) < rng.uniform(0.05, 0.6, (2048, 1, 1)))
+        r = np.clip(r, -amp, amp).astype(np.int32)
+        c = forward_transform(_t(r), s, 8)
+        op, grid = (tquant.quantize_rdoq(c, qp, s, 8, True, lam,
+                                         program=pg).numpy()
+                    for pg in ("op", "grid"))
+        for i in np.flatnonzero((op != grid).reshape(len(r), -1).any(1)):
+            found.append((r[i], op[i], grid[i]))
+    assert len(found) >= n
+    return found[:n]
+
+
+@pytest.mark.parametrize("kind", ["intra", "intra-tiled", "inter",
+                                  "inter-tiled"])
+def test_rdoq_near_ties_in_recon_programs_match_jax(kind):
+    """F2 (ROADMAP §3): blocks whose RDOQ decision differs between the
+    float32 orders of JAX's jitted ``quantize_rdoq`` and of its encoder
+    programs, reconstructed by JAX's scan (jitted with a constant
+    lambda, as its fixed-grid I, P and B programs run it; B frames take
+    the inter variant with their bi-predicted MC planes) and by the
+    port's plain twin, on a cu 16 plan, tiled 2x2 or not.  Intra: each
+    crafted block is the first of its tile (no neighbours, DC predicts
+    mid-grey); inter: every block is inter with a flat MC plane."""
+    w = h = 128
+    qp, lam, cu = 27, 0.57 * 2.0 ** ((27 - 12) / 3.0), 16
+    tiled, inter = kind.endswith("tiled"), kind.startswith("inter")
+    plan = make_intra_plan(w, h, cu, chroma=False,
+                           tiles=(2, 2) if tiled else (1, 1))
+    firsts = ([(0, 0), (0, 4), (4, 0), (4, 4)] if tiled else [(0, 0)])
+    nb = 2 if inter else 3
+    spots = ([(f, by, bx) for f in range(nb) for by in (1, 3, 6)
+              for bx in (0, 2, 5)] if inter else
+             [(f, by, bx) for f in range(nb) for by, bx in firsts])
+    ties = _rdoq_tie_blocks(cu, qp, lam, len(spots), seed=len(kind))
+    ys = np.full((nb, h, w), 128, np.int32)
+    for (f, by, bx), (r, _op, _grid) in zip(spots, ties):
+        ys[f, by * cu:(by + 1) * cu, bx * cu:(bx + 1) * cu] += r
+    shape = (nb, plan.blocks_y, plan.blocks_x)
+    modes = np.ones(shape, np.int32)                     # DC
+    kw = dict(rdoq=True, lam=lam)
+    if inter:
+        kw.update(is_inter=np.ones(shape, bool),
+                  mc_y=np.full((nb, h, w), 128, np.int32))
+    want = _JAX_RECON(ys, None, None, modes, plan, qp, 29, 8, **kw)
+    got = reconstruct_frames(
+        _t(ys), None, None, _t(modes), plan, qp, 29, 8,
+        **{k: _t(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()})
+    _eq(got[0], want[0], "rec")
+    _eq(got[1], want[1], "levels")
+    lv = np.asarray(want[1])
+    for (f, by, bx), (_r, op, grid) in zip(spots, ties):
+        _eq(lv[f, by * plan.blocks_x + bx], grid, f"block {f, by, bx}")
+    assert any((lv[f, by * plan.blocks_x + bx] != op).any()
+               for (f, by, bx), (_r, op, _g) in zip(spots, ties))
 
 
 # ---- (c) the chroma-mode search ----
@@ -270,26 +343,14 @@ def test_rdoq_bitrate_per_ctu_qp_stream():
 def test_tiles_rdoq_stream():
     """(d6) Tiles 2x2 with RDOQ and sign hiding, an I and a P picture
     (the tiled plans of the kernel's tools instances; the Python tile
-    CABAC).  The I picture equals JAX's.  The P picture pins F2 (ROADMAP
-    §3): JAX's fused tiled P program decides one near-tie 4x4 group of Cb
-    otherwise than its own jitted ``quantize_rdoq``, which the port
-    follows, so exactly one level differs, Cb (16, 53): 0 in the port,
-    -1 in JAX.  Both streams decode; the port's to its recon.  When F2
-    is repaired, this test fails and becomes ``_stream``."""
+    CABAC), equal to JAX's.  The P picture holds F2's near-tie 4x4 group
+    (ROADMAP §3, repaired): Cb (16, 53) is -1, as JAX's tiled P program
+    decides it, where the order of JAX's jitted ``quantize_rdoq`` gives
+    0."""
     cfg, jcfg = _both(width=128, height=128, qp=27, tiles_x=2, tiles_y=2,
                       rdoq=True, signhide=True, intra_period=2)
-    frames = _clip(2, 128, 128, seed=16)
-    enc, got, want = _encode_both(cfg, jcfg, frames)
-    _same_streams(got[:1], want[:1])
-    fds = _decodes_to_recon(enc, got, frames)
-    jfds = [fd for _r, fd in _decoded(b"".join(r[0] for r in want), enc,
-                                      len(frames))]
-    assert got[1][0] != want[1][0]
-    diffs = {f: np.argwhere(getattr(fds[1], f) != getattr(jfds[1], f))
-             for f in ("coeff_y", "coeff_cb", "coeff_cr")}
-    assert {f: d.tolist() for f, d in diffs.items()} == {
-        "coeff_y": [], "coeff_cb": [[16, 53]], "coeff_cr": []}
-    assert (fds[1].coeff_cb[16, 53], jfds[1].coeff_cb[16, 53]) == (0, -1)
+    _got, fds = _stream(cfg, jcfg, _clip(2, 128, 128, seed=16))
+    assert fds[1].coeff_cb[16, 53] == -1
 
 
 def test_medium_rd3_variable_trees_stream():

@@ -7,8 +7,9 @@
   preset's variable P trees at --gop 0 with a set_base_qp /
   reset_stream step, a fixed-grid GOP-4 B pyramid, rate control:
   --bitrate on Config()'s IPPP and ROI + AQ, and lossless all-intra
-  with implicit RDPCM and lossless IPPP, and Config()'s IPPP on a 2x1
-  tile grid with WPP) never imports jax
+  with implicit RDPCM and lossless IPPP, Config()'s IPPP on a 2x1
+  tile grid with WPP, the intra-NxN point (cu 4) with transform skip and
+  --tr-depth-intra on a variable intra tree) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -117,6 +118,16 @@ enc = Encoder(Config(width=128, height=64, qp=27, tiles_x=2, tiles_y=1),
 out = list(enc.encode_stream(tiled))
 assert [o[1].slice_type for o in out] == [2, 1, 1]
 assert enc._intra.plan.tiles == (2, 1) and enc._intra.params.tiles_enabled
+# The intra-NxN point with transform skip (DST-VII, Python CABAC), and
+# --tr-depth-intra on a variable intra tree.
+for cfg in (Config(width=48, height=32, qp=27, intra_min_cu=4,
+                   intra_max_cu=4, intra_period=1, transform_skip=True),
+            Config(width=48, height=32, qp=27, intra_min_cu=8,
+                   intra_max_cu=32, intra_period=1, tr_depth_intra=1)):
+    enc = Encoder(cfg, device="cpu")
+    out = list(enc.encode_stream(frames))
+    assert [o[1].slice_type for o in out] == [2, 2, 2]
+    assert not enc._intra._native_cabac()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
@@ -170,7 +181,7 @@ def test_port_sources_import_no_kvazaar_tpu():
 
 @pytest.mark.parametrize("module", [
     "constants", "ops.scan", "ops.inter", "ops.rate", "ops.quant",
-    "ops.sao", "bitstream.contexts",
+    "ops.sao", "ops.transform", "bitstream.contexts",
     "bitstream.headers", "bitstream.syntax", "encoder.inter_cands",
     "encoder.quadtree", "encoder.rate_control", "encoder.var_schedule"])
 def test_copied_constants_equal_jax(module):

@@ -18,7 +18,8 @@ backend, jitted) on the same seeded frames, every comparison exact
   RDOQ, sign hiding, SAO) presets at 96x96 QP22, and the JAX oracle
   decoder turning each port stream into the port's recon (post-SAO);
 - ``Encoder.encode_stream`` == ``encode`` and the CLI on a var config;
-  scaling lists, --tr-depth-intra, cu 4 and TMVP still raise.
+  scaling lists (also at cu 4), field sources, selective encryption and
+  TMVP still raise.
 
 Each JAX reference encoder is built and run once per case (cached), so
 each config compiles once; the SAO cases share one compiled JAX SAO
@@ -299,10 +300,12 @@ def test_cli_medium_all_intra(tmp_path):
 
 @pytest.mark.parametrize("change,match", [
     (dict(scaling_list="default"), "scaling lists"),
-    (dict(tr_depth_intra=1), "tr-depth-intra"),
+    pytest.param(dict(source_scan_type=1), "field",
+                 id="change1-tr-depth-intra"),
     (dict(intra_period=0, gop_len=8, crypto="k"), "selective encryption"),
-    (dict(intra_min_cu=4, intra_max_cu=4, rdoq=False),
-     "fixed CU size 4"),
+    pytest.param(dict(intra_min_cu=4, intra_max_cu=4, rdoq=False,
+                      scaling_list="default"), "scaling lists",
+                 id="change3-fixed CU size 4"),
     (dict(intra_period=0, tmvp=True), "TMVP")])
 def test_unported_var_options_raise(change, match):
     kw = _kw("8-32")

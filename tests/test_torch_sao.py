@@ -285,7 +285,9 @@ def test_every_preset_all_intra_is_ported(preset):
 
 @pytest.mark.parametrize("change,match", [
     (dict(scaling_list="default"), "scaling lists"),
-    (dict(intra_min_cu=4, intra_max_cu=4), "fixed CU size 4"),
+    pytest.param(dict(intra_min_cu=4, intra_max_cu=4,
+                      scaling_list="default"), "scaling lists",
+                 id="change1-fixed CU size 4"),
     (dict(sao=True, intra_period=0, lp_gop=None, gop_len=8,
           crypto="k"), "selective encryption")])
 def test_unported_rdoq_sao_raise(change, match):

@@ -212,7 +212,8 @@ def test_encode_stream_matches_frame_encoder(name):
     dict(gop_len=8, intra_period=0, crypto="k"),
     dict(intra_min_cu=8, intra_period=0, crypto="k"),
     dict(inter_min_cu=8, intra_period=0, gop_len=8, scaling_list="default"),
-    dict(scaling_list="default"), dict(intra_min_cu=4, intra_max_cu=4)])
+    dict(scaling_list="default"),
+    dict(intra_min_cu=4, intra_max_cu=4, crypto="k")])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
     for k, v in change.items():
@@ -224,13 +225,13 @@ def test_unported_configs_raise(change):
 def test_unported_structures_raise():
     """Low-delay P frames and B pyramids are ported (one or more
     references on the fixed grid, variable trees with one per list), and
-    so are tiles and slices; scaling lists and the intra TU split on a B
-    pyramid (fixed grid, variable trees), SMP, TMVP and selective
-    encryption still raise."""
+    so are tiles and slices; scaling lists on a B pyramid (fixed grid),
+    selective encryption on one of variable trees, SMP, TMVP and
+    selective encryption still raise."""
     for change, match in ((dict(gop_len=8, scaling_list="default"),
                            "scaling lists"),
                           (dict(intra_min_cu=8, inter_min_cu=8, gop_len=8,
-                                tr_depth_intra=1), "intra TU split"),
+                                crypto="k"), "selective encryption"),
                           (dict(smp=True), "SMP"),
                           (dict(tmvp=True), "TMVP"),
                           (dict(crypto="k"), "selective encryption")):
@@ -262,7 +263,7 @@ def test_cli_writes_the_api_stream(tmp_path):
 @pytest.mark.parametrize("flags", [["--preset", "medium", "--crypto",
                                     "k"],
                                    ["--preset", "medium", "--period",
-                                    "1", "--tr-depth-intra", "1"],
+                                    "1", "--source-scan-type", "tff"],
                                    ["--period", "1", "--scaling-list",
                                     "default"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):

@@ -558,7 +558,8 @@ def test_one_reference_var_p_passes_the_gates(name):
 
 @pytest.mark.parametrize("change,match", [
     (dict(gop_len=8, crypto="k"), "selective encryption"),
-    (dict(gop_len=8, tr_depth_intra=1), "tr-depth-intra"),
+    pytest.param(dict(gop_len=8, scaling_list="default"), "scaling lists",
+                 id="change1-tr-depth-intra"),
     (dict(tmvp=True), "TMVP"),
     (dict(smp=True, intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
           inter_max_cu=16), "SMP"),
@@ -571,5 +572,5 @@ def test_what_stays_unported_raises(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")
     if "gop_len" in change:         # the B pyramid itself is ported
-        cfg.crypto, cfg.tr_depth_intra = None, 0
+        cfg.crypto, cfg.scaling_list = None, "off"
         assert tfe.unsupported(cfg) == _unsupported_structure(cfg) == []
