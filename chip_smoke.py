@@ -21,7 +21,8 @@ tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
 1920x1080), RDOQ, sign hiding and --rd 2 / 3 on the fixed grid
 (``--preset slower --gop lp-g4d4t1``, all-intra at rd 3), and the
 intra-NxN point (fixed CU 4) with transform skip and ``--preset medium
---tr-depth-intra 1``.
+--tr-depth-intra 1``, and scaling lists (``--scaling-list default``,
+``--cqmfile``).
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -90,7 +91,7 @@ Any failed phase raises, so the script exits nonzero:
    (coarse motion search, each size's candidates, tree and plan, merge
    RD, direct pass, var recon with its ATen-op count, deblocking, SAO,
    downloads, merge/AMVP + skip, CABAC); card == CPU bytes and recon at
-   416x240 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
+   256x128 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
    a set_base_qp + reset_stream ladder (QP 22 -> 27 -> 22) on the card
    against fresh encoders;
 12. B pyramids (``run_gop``): the inter variant on a real fixed-grid B
@@ -104,8 +105,8 @@ Any failed phase raises, so the script exits nonzero:
    the same way with one timed GOP (line ``gop8-medium encode_stream:``
    plus the CU-size histogram and inter share per frame) and a stage
    split of one B frame; card == CPU bytes and recon for the fixed-grid
-   GOP 8 (9 frames) at 416x240, medium's GOP 8 (9 frames and a 2-frame
-   tail) at 256x128, and an open GOP with CRA anchors and RASL B
+   GOP 8 (9 frames) and medium's GOP 8 (9 frames and a 2-frame tail) at
+   256x128, and an open GOP with CRA anchors and RASL B
    pictures (GOP 4, period 4, variable trees) at 256x128; and a
    set_base_qp +
    reset_stream ladder (QP 22 -> 27 -> 22) on a GOP-8 medium encoder
@@ -173,9 +174,9 @@ Any failed phase raises, so the script exits nonzero:
    (``wavefront.TILE_LAUNCHES``) and a stage split with the Python
    CABAC's share (``cabac_python_ms``); and card == CPU bytes and recon
    at 416x240 for tiles 3x3 + WPP IPPP (Config()), --slices tiles
-   all-intra, --slices wpp on the medium preset at --gop 0, superfast
-   at --period 1 with tiles 2x2 (the host SAO decision) and a
-   fixed-grid GOP 4 with tiles 2x2;
+   all-intra and superfast at --period 1 with tiles 2x2 (the host SAO
+   decision), and at 256x128 for --slices wpp on the medium preset at
+   --gop 0 and a fixed-grid GOP 4 with tiles 2x2;
 17. RDOQ, sign hiding, --rd 2 and --rd 3 on the fixed grid
    (``run_tools``): the kernel's RDOQ / sign-hiding instances and its
    explicit chroma modes == plain, max abs error 0 (line ``tools kernel
@@ -193,10 +194,10 @@ Any failed phase raises, so the script exits nonzero:
    cu 32 grid with RDOQ and sign hiding), each with its tool launches
    (``wavefront.TOOL_LAUNCHES``, ``CMODE_LAUNCHES``) and a stage split;
    and card == CPU bytes and recon at 416x240 for medium --gop
-   lp-g4d4t1, medium --gop 0 --ref 2, placebo --gop 0 --ref 3,
-   Config(rdoq=True) with --bitrate, Config() with RDOQ, sign hiding and
-   tiles 2x2, a 10-bit fixed-grid GOP 8 with RDOQ and sign hiding, and
-   medium --period 1 --rd 3;
+   lp-g4d4t1, medium --gop 0 --ref 2, Config(rdoq=True) with --bitrate,
+   Config() with RDOQ, sign hiding and tiles 2x2 and medium --period 1
+   --rd 3, and at 256x128 for placebo --gop 0 --ref 3 and a 10-bit
+   fixed-grid GOP 8 with RDOQ and sign hiding;
 18. the intra-NxN point (fixed CU 4, DST-VII), transform skip and
    --tr-depth-intra (``run_nxn``): the kernel's cu 4 instances (luma on
    the plan of 4x4 blocks, transform skip a run-time flag) and the NxN
@@ -217,7 +218,24 @@ Any failed phase raises, so the script exits nonzero:
    for cu 4 with WPP and sign hiding, with transform skip, 10-bit 4:0:0,
    with RDOQ and lossless, --tr-depth-intra all-intra, IPPP and a medium
    GOP 4, and the 128x128 tiled I + P stream with RDOQ and sign hiding
-   that holds F2 (ROADMAP §3).
+   that holds F2 (ROADMAP §3);
+19. scaling lists (``run_scaling``): the kernel's scaling-list (SL)
+   instances == plain, max abs error 0 (line ``sl kernel vs plain``:
+   a custom cqm written by the script and the default lists; 832x480
+   intra cu 8 / 16 / 32 with random modes over all 35, inter on a real
+   cu 32 P frame and a random cu 8 one, QP 22 and QP 37 (the
+   dequantizer's clip-then-shift branch), RDOQ with sign hiding, 10-bit,
+   1920x1088 3x3 tiles, cu 4 with its cu 8 chroma launch, and 3840x2176
+   cu 32 10-bit compare-only with its shared memory; each timed against
+   the same launch without the lists, ``ms_flat``); the cells
+   ``intra-scaling-default-832x480-qp22`` (the headline configuration
+   with the default lists, timed as phase 6) and
+   ``ld-slower-cqm-832x480-qp22`` (``--preset slower --gop lp-g4d4t1
+   --cqmfile``, timed as ``ld-slower-832x480-qp22``), each with its SL
+   launches (``wavefront.SL_LAUNCHES``) and a stage split; and card ==
+   CPU bytes and recon at 128x64 for default-list IPPP, custom-list cu
+   4, a custom-list medium GOP 4, 10-bit custom cu 16, and tiles 2x2
+   with RDOQ and sign hiding (128x128).
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -1371,7 +1389,7 @@ def run_var_p(torch, wavefront, clip46, dev):
     preset's IPPP point at 832x480 through Encoder.encode_stream (IDR +
     1 P warm-up, then VAR_P_TIMED timed P frames of the 46-frame motion
     clip), with its CU-size histogram and inter share and a stage split
-    of one P frame; card == CPU bytes and recon at 416x240 (IDR + 2 P)
+    of one P frame; card == CPU bytes and recon at 256x128 (IDR + 2 P)
     for medium, slower and ultrafast at --gop 0 (ultrafast's fixed-grid
     I frame launching the CUDA kernel); and a set_base_qp +
     reset_stream ladder (QP 22 -> 27) on the card against fresh
@@ -1418,7 +1436,8 @@ def run_var_p(torch, wavefront, clip46, dev):
         var_p_stage_split(torch, enc._intra, clip46[:2])))
     enc.close()
 
-    w, h = 416, 240
+    # At 256x128 (at 416x240 the CPU's var-tree encodes took 9 s each).
+    w, h = 256, 128
     small = synth_clip_natural(3, w, h, seed=0)
     for name in ("medium", "slower", "ultrafast"):
         if name == "ultrafast":
@@ -1781,12 +1800,11 @@ def run_gop(torch, wavefront, clip46, dev):
         var_b_stage_split(torch, ife, clip46[:3])))
     ife.close()
 
-    w, h = 416, 240
+    # At 256x128 (at 416x240 the CPU's encode of the fixed grid took 12 s,
+    # and its var-tree encodes most of the phase).
+    w, h = 256, 128
     card_equals_cpu(f"gop8-fixed16 {w}x{h}", gop_fixed_config(w, h),
                     synth_clip_natural(9, w, h, seed=0), dev)
-    # The variable B trees' checks at 256x128: at 416x240 the CPU's
-    # var-tree encodes took most of the phase.
-    w, h = 256, 128
     small = synth_clip_natural(11, w, h, seed=0)
     card = card_equals_cpu(f"gop8-medium {w}x{h}", gop_medium_config(w, h),
                            small, dev)
@@ -2872,11 +2890,11 @@ def compare_kernel_tiles(torch, dev):
 def tiles_streams_card_equals_cpu(wavefront, dev):
     """Phase 16 (ii): card == CPU bytes and recon at 416x240 for tiles
     3x3 + WPP IPPP (Config(), cu 32), --slices tiles all-intra (tiles
-    2x2, WPP off), --slices wpp on the medium preset at --gop 0 (a
-    variable-tree I frame and a variable P frame), the superfast preset
-    at --period 1 with tiles 2x2 (SAO's host decision; inter CUs fixed
-    at 16, as tiles need) and a fixed-grid GOP 4 with tiles 2x2; the
-    tiled launches counted around the card runs."""
+    2x2, WPP off) and the superfast preset at --period 1 with tiles 2x2
+    (SAO's host decision; inter CUs fixed at 16, as tiles need), and at
+    256x128 for --slices wpp on the medium preset at --gop 0 (a
+    variable-tree I frame and a variable P frame) and a fixed-grid GOP 4
+    with tiles 2x2; the tiled launches counted around the card runs."""
     from kvazaar_tpu_torch import Config
     from kvazaar_tpu_torch.config import config_from_preset
     w, h = 416, 240
@@ -2889,19 +2907,23 @@ def tiles_streams_card_equals_cpu(wavefront, dev):
     card_equals_cpu(f"--slices tiles all-intra tiles 2x2 {w}x{h}",
                     tiles_config(w, h, tiles_x=2, tiles_y=2, wpp=False,
                                  slices="tiles"), small[:2], dev)
-    card_equals_cpu(f"--slices wpp medium --gop 0 {w}x{h}",
-                    config_from_preset("medium", width=w, height=h, qp=QP,
+    # The variable-tree and GOP streams at 256x128 (at 416x240 their CPU
+    # encodes took 9-13 s).
+    sw, sh = 256, 128
+    small2 = synth_clip_natural(5, sw, sh, seed=0)
+    card_equals_cpu(f"--slices wpp medium --gop 0 {sw}x{sh}",
+                    config_from_preset("medium", width=sw, height=sh, qp=QP,
                                        intra_period=0, gop_len=1,
                                        ref_frames=1, slices="wpp"),
-                    small[:2], dev)
+                    small2[:2], dev)
     card_equals_cpu(f"superfast --period 1 tiles 2x2 {w}x{h}",
                     config_from_preset("superfast", width=w, height=h,
                                        qp=QP, intra_period=1, tiles_x=2,
                                        tiles_y=2, inter_min_cu=16),
                     small[:2], dev)
-    card_equals_cpu(f"fixed GOP 4 tiles 2x2 {w}x{h}",
-                    tiles_config(w, h, tiles_x=2, tiles_y=2, gop_len=4,
-                                 intra_period=0), small, dev)
+    card_equals_cpu(f"fixed GOP 4 tiles 2x2 {sw}x{sh}",
+                    tiles_config(sw, sh, tiles_x=2, tiles_y=2, gop_len=4,
+                                 intra_period=0), small2, dev)
     if min(wavefront.TILE_LAUNCHES.values()) == 0:
         raise RuntimeError(f"tiled streams: no tiled launch of a variant "
                            f"({wavefront.TILE_LAUNCHES})")
@@ -3168,12 +3190,12 @@ def bound_ms_tools(tensors, work, rdoq, signhide):
 
 def tools_streams_card_equals_cpu(wavefront, dev):
     """Phase 17 (iii): card == CPU bytes and recon at 416x240 for
-    ``medium --gop lp-g4d4t1``, ``medium --gop 0 --ref 2``, ``placebo
-    --gop 0 --ref 3``, Config(rdoq=True) with --bitrate (per-CTU QP),
-    Config() with RDOQ, sign hiding and tiles 2x2, a 10-bit fixed-grid
-    GOP 8 with RDOQ and sign hiding, and ``medium --period 1 --rd 3``
-    (variable trees with chroma modes); the RDOQ / sign-hiding launches
-    counted around the card runs."""
+    ``medium --gop lp-g4d4t1``, ``medium --gop 0 --ref 2``,
+    Config(rdoq=True) with --bitrate (per-CTU QP), Config() with RDOQ,
+    sign hiding and tiles 2x2 and ``medium --period 1 --rd 3`` (variable
+    trees with chroma modes), and at 256x128 for ``placebo --gop 0 --ref
+    3`` and a 10-bit fixed-grid GOP 8 with RDOQ and sign hiding; the RDOQ
+    / sign-hiding launches counted around the card runs."""
     from kvazaar_tpu_torch import Config
     from kvazaar_tpu_torch.config import config_from_preset
     w, h = 416, 240
@@ -3190,9 +3212,11 @@ def tools_streams_card_equals_cpu(wavefront, dev):
     card_equals_cpu(f"medium --gop 0 --ref 2 {w}x{h}",
                     preset("medium", gop_len=0, ref_frames=2), small[:3],
                     dev)
-    card_equals_cpu(f"placebo --gop 0 --ref 3 {w}x{h}",
-                    preset("placebo", gop_len=0, ref_frames=3), small[:3],
-                    dev)
+    # At 256x128 (at 416x240 the CPU's encode took 10 s).
+    card_equals_cpu("placebo --gop 0 --ref 3 256x128",
+                    config_from_preset("placebo", width=256, height=128,
+                                       qp=QP, gop_len=0, ref_frames=3),
+                    synth_clip_natural(3, 256, 128, seed=0), dev)
     card_equals_cpu(f"Config(rdoq) --bitrate 1000000 {w}x{h}",
                     Config(width=w, height=h, qp=QP, rdoq=True,
                            bitrate=1_000_000, intra_period=0), small[:3],
@@ -3201,11 +3225,13 @@ def tools_streams_card_equals_cpu(wavefront, dev):
                     Config(width=w, height=h, qp=QP, rdoq=True,
                            signhide=True, tiles_x=2, tiles_y=2), small[:3],
                     dev)
-    card_equals_cpu(f"10-bit fixed GOP 8 RDOQ + sign hiding {w}x{h}",
-                    Config(width=w, height=h, qp=QP, input_bitdepth=10,
+    # At 256x128 (at 416x240 the CPU's encode took 14 s).
+    card_equals_cpu("10-bit fixed GOP 8 RDOQ + sign hiding 256x128",
+                    Config(width=256, height=128, qp=QP, input_bitdepth=10,
                            gop_len=8, intra_period=0, rdoq=True,
                            signhide=True),
-                    to_10bit(small, 172), dev)
+                    to_10bit(synth_clip_natural(9, 256, 128, seed=0), 172),
+                    dev)
     card_equals_cpu(f"medium --period 1 --rd 3 {w}x{h}",
                     preset("medium", intra_period=1, rd=3), small[:2], dev)
     t = dict(wavefront.TOOL_LAUNCHES)
@@ -3642,6 +3668,388 @@ def run_nxn(torch, wavefront, clip46, dev):
     return rows, launches
 
 
+SL_FRAMES = 8                         # phase 19: the intra cu 16 rows
+SL_TILES = (1920, 1088)               # ... the tiled rows' frame
+SL_BIG = (3840, 2176)                 # ... its compare-only 4K frame
+SL_SMALL = (128, 64)                  # ... the card == CPU streams
+SL_QP_HIGH = 37                       # ... the clip-then-shift rows' QP
+_CQM_NAMES = (
+    "INTRA4X4_LUMA", "INTRA4X4_CHROMAU", "INTRA4X4_CHROMAV",
+    "INTER4X4_LUMA", "INTER4X4_CHROMAU", "INTER4X4_CHROMAV",
+    "INTRA8X8_LUMA", "INTRA8X8_CHROMAU", "INTRA8X8_CHROMAV",
+    "INTER8X8_LUMA", "INTER8X8_CHROMAU", "INTER8X8_CHROMAV",
+    "INTRA16X16_LUMA", "INTRA16X16_CHROMAU", "INTRA16X16_CHROMAV",
+    "INTER16X16_LUMA", "INTER16X16_CHROMAU", "INTER16X16_CHROMAV",
+    "INTRA32X32_LUMA", "INTER32X32_LUMA")
+
+
+def write_cqm(path, seed=7, nxn=False):
+    """A cqmfile whose matrices all differ (intra / inter, Y / Cb / Cr,
+    each size), entries in 8..80 rising away from DC, DC entries in
+    12..30 (tests/test_torch_scaling.py writes the same); nxn: the intra
+    4x4 Cr matrix equals the Cb one, as the intra-NxN point requires (F4
+    in ROADMAP §3)."""
+    rng = np.random.default_rng(seed)
+    text, mats = [], {}
+    for name in _CQM_NAMES:
+        n = 4 if "4X4" in name else 8
+        yy, xx = np.mgrid[0:n, 0:n]
+        m = 12 + 5 * (yy + xx) * 8 // n + rng.integers(-4, 5, (n, n))
+        if nxn and name == "INTRA4X4_CHROMAV":
+            m = mats["INTRA4X4_CHROMAU"]
+        mats[name] = m
+        text.append(name + "\n" + ",".join(
+            str(v) for v in np.clip(m, 8, 80).ravel()) + "\n")
+        if n == 8 and "8X8" not in name:
+            text.append(f"{name}_DC\n{int(rng.integers(12, 31))}\n")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("".join(text))
+    return path
+
+
+def sl_paths():
+    """The phase's cqm files under build/ (the full one and the intra-NxN
+    one), written once."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    return (write_cqm(os.path.join(root, "phase19.cqm")),
+            write_cqm(os.path.join(root, "phase19-nxn.cqm"), nxn=True))
+
+
+def compare_kernel_sl(torch, clip46, dev):
+    """Phase 19 (i): the kernel's scaling-list instances == the plain
+    version on the card, max abs error 0, every plane with its own
+    tables (the script's custom cqm, whose matrices all differ, or the
+    default lists): 832x480 intra cu 16 over 8 frames (the intra cell's
+    batch) and cu 32 over one at QP 22, cu 8 over one at QP 37; inter on
+    a real cu 32 P frame (the ld-slower-cqm cell's grid) and a random cu 8
+    one at QP 37; RDOQ with sign hiding; 10-bit intra cu 16; 1920x1088 3x3
+    tiled intra cu 16 and inter cu 32; cu 4 with its chroma launch of the
+    cu 8 instances (the NxN cqm); and 3840x2176 cu 32 10-bit intra
+    compare-only with its layout.  Each row is timed against the same
+    launch without the lists (``ms_flat``).  Returns the rows by name."""
+    from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.ops.quant import scaling_tables
+    from kvazaar_tpu_torch.ops.scaling import ScalingLists, parse_cqmfile
+    from kvazaar_tpu_torch.ops.wavefront import (launch_layout,
+                                                 wavefront_recon_chroma,
+                                                 wavefront_recon_planes)
+
+    cqm, cqm_nxn = sl_paths()
+    lists = {"custom": parse_cqmfile(cqm), "default": ScalingLists("default"),
+             "nxn": parse_cqmfile(cqm_nxn)}
+    rng = np.random.default_rng(19)
+    rows = {}
+
+    def rand_modes(plan, n):
+        return torch.from_numpy(rng.integers(
+            0, 35, (n, plan.blocks_y, plan.blocks_x)).astype(np.int32)).to(
+                dev)
+
+    def row_of(name, plan, planes, modes, bd, qp, variants, inter=None,
+               timed=True):
+        kw0 = {} if inter is None else dict(
+            zip(("is_inter", "mc_y", "mc_cb", "mc_cr"), inter))
+        cu = plan.cu_size
+        qp_c = int(CHROMA_QP_TAB[qp])
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+        for var in variants:
+            sl = lists[var.split("+")[0]]
+            kw = dict(kw0, rdoq="rdoq" in var, signhide="sh" in var,
+                      lam=lam)
+
+            def launch(scaling=sl, kw=kw):
+                return wavefront_recon_planes(*planes, modes, plan, qp, qp_c,
+                                              bd, scaling=scaling, **kw)
+
+            got = launch()
+            want = []
+
+            def plain():
+                for orig, mc, s, luma, pq, comp in (
+                        (planes[0], kw.get("mc_y"), cu, True, qp, 0),
+                        (planes[1], kw.get("mc_cb"), cu // 2, False, qp_c,
+                         1),
+                        (planes[2], kw.get("mc_cr"), cu // 2, False, qp_c,
+                         2)):
+                    want.extend(wavefront_recon_plain(
+                        orig, modes, plan, s, luma, pq, bd,
+                        kw.get("is_inter"), mc, rdoq=kw["rdoq"], lam=lam,
+                        signhide=kw["signhide"],
+                        scaling_tab=scaling_tables(sl, s, comp, pq, dev)))
+
+            plain_ms = cuda_ms(torch, plain, 1)
+            err = max_err(torch, got, want)
+            if err != 0:
+                raise RuntimeError(f"sl kernel != plain at {name} {var}")
+            ring, threads, smem = launch_layout(plan, cu, planes[0].shape[2],
+                                                bd)
+            row = dict(shape=name, variant=var, cu=cu, bitdepth=bd, qp=qp,
+                       kind="intra" if inter is None else "inter",
+                       items=planes[0].shape[0], tiles=list(plan.tiles),
+                       max_abs_err=err, plain_ms=plain_ms,
+                       n_steps=plan.n_steps, ring=ring, threads=threads,
+                       smem_bytes=smem)
+            if timed:
+                row["ms"] = cuda_ms(torch, launch, 20)
+                row["ms_flat"] = cuda_ms(torch, lambda: launch(None), 20)
+                row["ratio"] = row["ms"] / row["ms_flat"]
+            tabs = [4 * 4 * s * s for s in (cu, cu // 2, cu // 2)]
+            ins = [*planes, modes, *kw0.values(), *got]
+            work = [(planes[0].numel(), cu), (2 * planes[1].numel(),
+                                               cu // 2)]
+            if kw["rdoq"] or kw["signhide"]:
+                b, by = bound_ms_tools(ins, work, kw["rdoq"], kw["signhide"])
+            else:
+                b, by = bound_ms(ins, work)
+            # The tables: read once per launch, (4, S, S) int32 a plane.
+            row["bound_ms"] = b + 1e3 * sum(tabs) / PEAK_BYTES_S
+            row["bound_by"] = by
+            log("sl kernel vs plain:", json.dumps(row))
+            rows[f"{name} {var}"] = row
+
+    clip = clip46[:SL_FRAMES + 1]
+    for cu in (8, 16, 32):
+        ife = IntraFrameEncoder(headline_config(W, H, cu), device=dev)
+        up = ife._upload(ife.host_pack_sources(clip))
+        n = SL_FRAMES if cu == 16 else 1
+        planes = tuple(p[:n] for p in up)
+        if cu != 8:
+            row_of(f"intra cu{cu} {W}x{H} {n} frames", ife.plan, planes,
+                   rand_modes(ife.plan, n), 8, QP,
+                   ("default", "custom+rdoq+sh") if cu == 16
+                   else ("custom",))
+        else:
+            row_of(f"intra cu8 {W}x{H} 1 frames qp{SL_QP_HIGH}", ife.plan,
+                   planes, rand_modes(ife.plan, 1), 8, SL_QP_HIGH,
+                   ("custom",))
+            inter_map = torch.from_numpy(rng.random(
+                (1, ife.plan.blocks_y, ife.plan.blocks_x)) < 0.5).to(dev)
+            row_of(f"inter cu8 {W}x{H} random qp{SL_QP_HIGH}", ife.plan,
+                   tuple(p[:1] for p in up), rand_modes(ife.plan, 1), 8,
+                   SL_QP_HIGH, ("custom+rdoq+sh",),
+                   (inter_map, *(p[1:2] for p in up)))
+        ife.close()
+    pife, (ys, cbs, crs), modes, inter_map, mcs = p_frame_inputs(
+        torch, clip46, 32, dev)
+    row_of(f"inter cu32 {W}x{H} P frame", pife.plan, (ys, cbs, crs),
+           modes[None], 8, QP, ("custom", "custom+rdoq+sh"),
+           (inter_map[None], *(m[None] for m in mcs)))
+    pife.close()
+
+    clip10 = to_10bit(clip[:1], 190)
+    plan = make_intra_plan(W, H, 16, True)
+    up = tuple(torch.from_numpy(np.stack([f[k] for f in clip10]).astype(
+        np.int16)).to(dev) for k in range(3))
+    row_of(f"intra cu16 {W}x{H} 10-bit", plan, up, rand_modes(plan, 1), 10,
+           QP, ("custom+rdoq+sh",))
+
+    (tw, th), big = SL_TILES, synth_clip_natural(2, *SL_TILES, seed=19)
+    for cu, kind in ((16, "intra"), (32, "inter")):
+        plan = make_intra_plan(tw, th, cu, True, tiles=TILES)
+        up = [torch.from_numpy(np.stack([f[k] for f in big])).to(dev)
+              for k in range(3)]
+        inter = None if kind == "intra" else (
+            torch.from_numpy(rng.random((1, plan.blocks_y,
+                                         plan.blocks_x)) < 0.5).to(dev),
+            *(p[1:] for p in up))
+        row_of(f"{kind} cu{cu} {tw}x{th} 3x3", plan,
+               tuple(p[:1] for p in up), rand_modes(plan, 1), 8, QP,
+               ("custom+rdoq+sh" if kind == "inter" else "custom",), inter)
+
+    # cu 4: luma on the plan of 4x4 blocks, chroma on the cu 8 plan.
+    ife = IntraFrameEncoder(nxn_config(W, H, transform_skip=False),
+                            device=dev)
+    ys, cbs, crs = (p[:2] for p in ife._upload(ife.host_pack_sources(
+        clip[:2])))
+    modes = rand_modes(ife.plan, 2)
+    dm = modes[:, ::2, ::2].contiguous()
+    sl = lists["nxn"]
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    for var in ("nxn", "nxn+rdoq+sh"):
+        tools = dict(rdoq="rdoq" in var, signhide="sh" in var, lam=lam)
+
+        def luma(scaling=sl, tools=tools):
+            return wavefront_recon_planes(ys, None, None, modes, ife.plan,
+                                          QP, ife.qp_c, scaling=scaling,
+                                          **tools)[:2]
+
+        def chroma(scaling=sl, tools=tools):
+            return wavefront_recon_chroma(cbs, crs, dm, ife.plan_c,
+                                          ife.qp_c, scaling=scaling, **tools)
+
+        got = [*luma(), *chroma()]
+        want = []
+
+        def plain(tools=tools):
+            want.extend(wavefront_recon_plain(
+                ys, modes, ife.plan, 4, True, QP, 8,
+                scaling_tab=scaling_tables(sl, 4, 0, QP, dev), **tools))
+            for orig, comp in ((cbs, 1), (crs, 2)):
+                want.extend(wavefront_recon_plain(
+                    orig, dm, ife.plan_c, 4, False, ife.qp_c, 8,
+                    scaling_tab=scaling_tables(sl, 4, comp, ife.qp_c, dev),
+                    **tools))
+
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = max_err(torch, got, want)
+        if err != 0:
+            raise RuntimeError(f"sl cu 4 kernel != plain at {var}")
+        ms = cuda_ms(torch, luma, 10) + cuda_ms(torch, chroma, 10)
+        ms_flat = (cuda_ms(torch, lambda: luma(None), 10)
+                   + cuda_ms(torch, lambda: chroma(None), 10))
+        ins, work = [ys, cbs, crs, modes, dm, *got], [(ys.numel(), 4),
+                                                      (2 * cbs.numel(), 4)]
+        b, by = (bound_ms_tools(ins, work, True, True) if tools["rdoq"]
+                 else bound_ms(ins, work))
+        row = dict(shape=f"cu4 {W}x{H} 2 frames + chroma", variant=var,
+                   cu=4, bitdepth=8, qp=QP, kind="intra", items=2,
+                   tiles=[1, 1], max_abs_err=err, plain_ms=plain_ms,
+                   n_steps=ife.plan.n_steps, ms=ms, ms_flat=ms_flat,
+                   ratio=ms / ms_flat, bound_ms=b, bound_by=by)
+        log("sl kernel vs plain:", json.dumps(row))
+        rows[f"{row['shape']} {var}"] = row
+    ife.close()
+
+    bw, bh = SL_BIG
+    plan = make_intra_plan(bw, bh, 32, True)
+    big10 = to_10bit(synth_clip_natural(1, bw, bh, seed=20), 191)
+    planes = [torch.from_numpy(np.stack([f[k] for f in big10]).astype(
+        np.int16)).to(dev) for k in range(3)]
+    row_of(f"compare-only intra cu32 {bw}x{bh} 10-bit", plan, planes,
+           rand_modes(plan, 1), 10, QP, ("custom+rdoq+sh",), timed=False)
+    return rows
+
+
+def sl_config(width, height, **kw):
+    """The headline configuration with the spec's default scaling
+    lists."""
+    cfg = headline_config(width, height)
+    cfg.scaling_list = "default"
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def sl_streams_card_equals_cpu(wavefront, dev):
+    """Phase 19 (iii): card == CPU bytes and recon at SL_SMALL for
+    default-list IPPP, custom-list cu 4 (the NxN cqm), a custom-list
+    medium GOP 4 (variable B trees, a frame encoder per layer QP),
+    10-bit custom cu 16 and, at 128x128, tiles 2x2 with RDOQ, sign
+    hiding and the custom cqm; the SL launches counted around the card
+    runs.  Returns them."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+    cqm, cqm_nxn = sl_paths()
+    w, h = SL_SMALL
+    small = synth_clip_natural(5, w, h, seed=8)
+    for k in wavefront.SL_LAUNCHES:
+        wavefront.SL_LAUNCHES[k] = 0
+    card_equals_cpu(f"default lists IPPP {w}x{h}",
+                    Config(width=w, height=h, qp=QP, intra_period=0,
+                           scaling_list="default"), small[:3], dev)
+    card_equals_cpu(f"cqm cu 4 {w}x{h}",
+                    Config(width=w, height=h, qp=QP, intra_min_cu=4,
+                           intra_max_cu=4, intra_period=1, cqmfile=cqm_nxn),
+                    small[:1], dev)
+    card_equals_cpu(f"medium --gop 4 --cqmfile {w}x{h}",
+                    config_from_preset("medium", width=w, height=h, qp=QP,
+                                       gop_len=4, intra_period=0,
+                                       cqmfile=cqm), small, dev)
+    card_equals_cpu(f"10-bit cu 16 --cqmfile {w}x{h}",
+                    Config(width=w, height=h, qp=QP, input_bitdepth=10,
+                           intra_min_cu=16, intra_max_cu=16, intra_period=0,
+                           cqmfile=cqm), to_10bit(small[:2], 192), dev)
+    card_equals_cpu("tiles 2x2 RDOQ + sign hiding --cqmfile 128x128",
+                    Config(width=128, height=128, qp=QP, tiles_x=2,
+                           tiles_y=2, rdoq=True, signhide=True,
+                           intra_period=0, cqmfile=cqm),
+                    synth_clip_natural(2, 128, 128, seed=9), dev)
+    c = dict(wavefront.SL_LAUNCHES)
+    if min(c.values()) == 0:
+        raise RuntimeError(f"sl streams: an instance was not launched ({c})")
+    return c
+
+
+def run_scaling(torch, wavefront, clip46, dev):
+    """Phase 19: scaling lists.  The kernel's SL instances == plain
+    (``compare_kernel_sl``); the cells
+    ``intra-scaling-default-832x480-qp22`` (``sl_config``; batches and
+    timing as the headline) and ``ld-slower-cqm-832x480-qp22``
+    (``--preset slower --gop lp-g4d4t1 --cqmfile``: a variable-tree I
+    frame, then fixed cu 32 P frames with RDOQ and sign hiding through
+    the TQ SL instance, a frame encoder per position QP; timed as
+    ld-slower), each with its SL launches and a stage split; and card ==
+    CPU for five streams (``sl_streams_card_equals_cpu``).  Returns
+    (kernel rows, launches per record)."""
+    from kvazaar_tpu_torch.api import Encoder
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    rows = compare_kernel_sl(torch, clip46, dev)
+    launches = {}
+    frames = clip46[:FRAMES]
+    enc = Encoder(sl_config(W, H), device=dev)
+    list(enc.encode_stream(frames[:BATCH]))                 # warm-up
+    torch.cuda.synchronize()
+    for k in wavefront.SL_LAUNCHES:
+        wavefront.SL_LAUNCHES[k] = 0
+    wavefront.LAUNCHES["intra"] = 0
+    t0 = time.perf_counter()
+    results = list(enc.encode_stream(frames * TIMED_BATCHES))
+    dt = time.perf_counter() - t0
+    launches["cell_intra"] = wavefront.SL_LAUNCHES["intra"]
+    if launches["cell_intra"] == 0 or \
+            launches["cell_intra"] != wavefront.LAUNCHES["intra"]:
+        raise RuntimeError(f"intra-scaling: expected SL launches only, got "
+                           f"{wavefront.SL_LAUNCHES} / {wavefront.LAUNCHES}")
+    bits, psnr_y = check_output(results, "intra-scaling")
+    log("intra-scaling-default-832x480-qp22 encode_stream:", json.dumps(dict(
+        frames=len(results), batch=BATCH, fps=len(results) / dt,
+        bits_per_frame=bits, psnr_y=psnr_y,
+        sl_launches=launches["cell_intra"],
+        native_cabac=enc._intra._native_cabac(), stage_wall_s=enc.stats)))
+    log("intra-scaling stage split (ms/frame, one batch of 8):",
+        json.dumps(stage_split(torch, enc._intra, frames[:BATCH])))
+    enc.close()
+
+    cqm, _ = sl_paths()
+    cfg = config_from_preset("slower", width=W, height=H, qp=QP,
+                             lp_gop=(4, 4, 1), gop_len=0, cqmfile=cqm)
+    clip8 = synth_clip_natural(8, W, H, seed=4)
+    enc = Encoder(cfg, device=dev)
+    results = []
+    for res in enc.encode_stream(clip8 * 2):
+        results.append(res)
+        if len(results) == len(clip8):
+            torch.cuda.synchronize()
+            for k in wavefront.SL_LAUNCHES:
+                wavefront.SL_LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+    dt = time.perf_counter() - t0
+    launches["cell_inter"] = wavefront.SL_LAUNCHES["inter"]
+    timed = results[len(clip8):]
+    if (launches["cell_inter"] != len(timed)
+            or wavefront.SL_LAUNCHES["tq"] != len(timed)
+            or any(r[1].slice_type != 1 for r in timed)):
+        raise RuntimeError(f"ld-slower-cqm: expected one TQ SL P launch a "
+                           f"P frame, got {wavefront.SL_LAUNCHES}")
+    bits, psnr_y = check_output(timed, "ld-slower-cqm")
+    log("ld-slower-cqm-832x480-qp22 encode_stream:", json.dumps(dict(
+        frames=len(results), timed=len(timed), fps=len(timed) / dt,
+        bits_per_frame=bits, idr_bits=results[0][1].bits, psnr_y=psnr_y,
+        qps=sorted({r[1].qp for r in results}),
+        sl_launches=launches["cell_inter"])))
+    enc.close()
+    log("ld-slower-cqm stage split (ms, one P frame, 1 reference):",
+        json.dumps(ld_p_split(torch, cfg, clip8, dev, nref=1)))
+
+    launches.update(sl_streams_card_equals_cpu(wavefront, dev))
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3741,6 +4149,8 @@ def main() -> int:
                                clip46, dev)
     rows_n, launches_n = timed("phase 18", run_nxn, torch, wavefront,
                                clip46, dev)
+    rows_s, launches_s = timed("phase 19", run_scaling, torch, wavefront,
+                               clip46, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -3823,6 +4233,19 @@ def main() -> int:
                 "ms": row[f"ms_{part}"], "plain_ms": row[f"plain_ms_{part}"],
                 "bound_ms": row[f"bound_ms_{part}"],
                 "bound_by": row[f"bound_by_{part}"], "library_ms": None}
+
+    def sl_record(name, replaces, n, row):
+        """A scaling-list instance at the shape of the path that runs it;
+        the error over every phase 19 row (all are 0 or the phase
+        failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_s.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
 
     nxn_rows = f"{W}x{H} {NXN_FRAMES} frames searched"
     big_t = f"{TILE_SHAPES[0][0]}x{TILE_SHAPES[0][1]} 3x3"
@@ -3910,7 +4333,24 @@ def main() -> int:
         nxn_record("wavefront_recon_nxn_bypass", launches_n["cu4_lossless"],
                    rows_n[f"{nxn_rows} lossless"]),
         nxn_record("wavefront_recon_nxn_10bit", launches_n["cu4_10bit"],
-                   rows_n[f"{W}x{H} 10-bit 2 frames tskip"])]}))
+                   rows_n[f"{W}x{H} 10-bit 2 frames tskip"]),
+        *(sl_record(name, replaces, launches_s[key], rows_s[shape])
+          for name, replaces, key, shape in (
+              ("wavefront_recon_sl", "kvazaar_tpu/ops/wavefront_pallas.py"
+               ":149", "cell_intra",
+               f"intra cu16 {W}x{H} {SL_FRAMES} frames default"),
+              ("wavefront_recon_inter_sl_rdoq_sh_cu32",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "cell_inter",
+               f"inter cu32 {W}x{H} P frame custom+rdoq+sh"),
+              ("wavefront_recon_sl_10bit",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "10bit",
+               f"intra cu16 {W}x{H} 10-bit custom+rdoq+sh"),
+              ("wavefront_recon_sl_tiles",
+               "kvazaar_tpu/ops/wavefront_pallas.py:283", "tiled",
+               f"inter cu32 {SL_TILES[0]}x{SL_TILES[1]} 3x3 custom+rdoq+sh"),
+              ("wavefront_recon_sl_nxn",
+               "kvazaar_tpu/ops/wavefront_pallas.py:149", "cu4",
+               f"cu4 {W}x{H} 2 frames + chroma nxn")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

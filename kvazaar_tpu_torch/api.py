@@ -30,9 +30,13 @@ config makes per-CTU QP active (the fixed grid, all-intra or IPPP with
 one reference) the frame's QP rides a per-CTU map, allocated over the
 CTUs by the previous frame's complexity and coded with cu_qp_delta, and
 elsewhere a frame encoder per QP codes it.  ROI maps and variance AQ
-add to that map.  Every other structure raises NotImplementedError:
-field pictures, selective encryption, TMVP, SMP/AMP, RDOQ and sign
-hiding on the fixed grid.
+add to that map.  Scaling lists run on every structure their config
+accepts; with them, GOP layer QPs, lp-GOP positions and rate-controlled
+pictures of variable trees take a frame encoder per QP (the JAX
+package's scaling-list programs bake QP and lambda in), and
+``set_base_qp`` raises.  Every other structure raises
+NotImplementedError: field pictures, selective encryption, TMVP and
+SMP/AMP.
 """
 
 from __future__ import annotations
@@ -185,7 +189,9 @@ class Encoder:
         are dropped and made again at first use.  With reset_stream(),
         one encoder runs a BD-rate ladder: each QP's stream equals a
         fresh Encoder's at that QP on the variable-tree operating
-        points."""
+        points.  With a scaling list it raises (ROADMAP §3, F5)."""
+        if self._intra.scaling is not None:
+            self._intra.set_base_qp(qp)     # raises NotImplementedError
         self.cfg = dataclasses.replace(self.cfg, qp=qp).validate()
         for enc in self._encoders.values():
             if enc is not self._intra:
@@ -399,7 +405,10 @@ class Encoder:
         self._pending.append((y, cb, cr))
         if len(self._pending) < self._gop:
             return []
-        out = (self._flush_gop_var() if var_inter(self.cfg)
+        # Variable trees with a scaling list take the per-QP path (the JAX
+        # package's scaling-list programs bake QP and lambda in).
+        out = (self._flush_gop_var()
+               if var_inter(self.cfg) and self._intra.scaling is None
                else self._flush_gop_fixed())
         self._base_poc += self._gop
         # Keep only the pictures the next GOP can reference.
@@ -483,12 +492,13 @@ class Encoder:
         return out
 
     def _flush_gop_fixed(self):
-        """A GOP on the fixed grid: each picture on the frame encoder of
-        its layer's QP, or under rate control of its allocated QP (the
-        lambda factor is unused there, and periodic intra adds no CRA, as
-        in the JAX package)."""
+        """A GOP on the fixed grid, or of variable trees with a scaling
+        list: each picture on the frame encoder of its layer's QP, or
+        under rate control of its allocated QP, with its layer's lambda
+        factor (which only variable trees take), and periodic intra adds
+        no CRA, as in the JAX package."""
         out = []
-        for poc, src, l0, l1, qp_off, _fac, lam, rc_qp in \
+        for poc, src, l0, l1, qp_off, fac, lam, rc_qp in \
                 self._gop_entries():
             ife = self._intra
             if lam is not None:
@@ -498,12 +508,13 @@ class Encoder:
                     min(max(self.cfg.qp + qp_off, 0), 51))
             if l1 is None:
                 ife._dpb = self._dpb_map[poc - l0]
-                res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - l0)
+                res = ife.encode_p_frame(*src, poc=poc, ref_poc=poc - l0,
+                                         qp_factor=fac)
                 self._dpb_map[poc] = ife._dpb
             else:
                 res, self._dpb_map[poc] = ife.encode_b_frame(
                     *src, poc=poc, ref0=(poc - l0, self._dpb_map[poc - l0]),
-                    ref1=(poc + l1, self._dpb_map[poc + l1]))
+                    ref1=(poc + l1, self._dpb_map[poc + l1]), qp_factor=fac)
             self._rc_update(res, lam)
             out.append(self._emit_gop(res, poc, src, ife.cfg.qp))
         return out

@@ -213,8 +213,10 @@ def write_sps(p: StreamParams) -> bytes:
         w.u(1, 1)           # scaling_list_enabled_flag
         if p.scaling_list_mode == 1:
             w.u(1, 1)       # sps_scaling_list_data_present_flag
-            raise NotImplementedError("custom scaling lists are not "
-                                      "ported")
+            from kvazaar_tpu_torch.ops.scaling import (ScalingLists,
+                                                       write_scaling_list_data)
+            write_scaling_list_data(w, ScalingLists(
+                "custom", p.scaling_custom[0], p.scaling_custom[1]))
         else:
             w.u(0, 1)       # default lists
     else:

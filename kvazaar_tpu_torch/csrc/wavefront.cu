@@ -140,6 +140,26 @@
 //   table summed by shuffles in its order, one multiply-add in double),
 //   writing its decision per block.  Its chroma, one 4x4 TB per 8x8 CU, is
 //   a chroma-only launch of the cu 8 instances on the cu 8 plan.
+// - Scaling lists (--scaling-list default, --cqmfile; the TPU kernel has
+//   none and the JAX package reconstructs such frames with its XLA scan)
+//   are instances of their own (SL) at every CU size, sample depth, tile
+//   plan and TQ or not, never with QP maps or lossless, which the
+//   configuration refuses with them, so that the flat instances keep
+//   their code and registers.  Each plane of a launch brings its (4, S,
+//   S) int32 tables at its QP % 6: the quantizer scale (QUANT_SCALES << 4)
+//   / m and the dequantizer multiplier INV_QUANT_SCALES * m of its intra
+//   and its inter blocks (the block's inter bit picks one), each stored
+//   transposed (column x, row y at x * S + y), so that the lanes of a
+//   group, one coefficient row each, read consecutive words (read row by
+//   row, one load of a warp touched S cache lines and the S = 32 launch
+//   ran 1.5-1.7x the flat one).  They are read-only global loads (16 KiB
+//   a plane at S = 32, which the 8-bit cu 32 launch at 832x480, at 219632
+//   of 232448 bytes, cannot add to its shared memory), in place of the
+//   flat scale and multiplier of the quantizer, RDOQ and the
+//   dequantizer.  The quantizer keeps its shift and rounding offsets; the
+//   dequantizer follows the reference's scaling-list schedule with sh =
+//   bitdepth + log2 S - 5 - QP / 6: (l m + 2^(sh-1)) >> sh when sh > 0,
+//   else the product clipped to int16 and shifted up by -sh.
 //
 // Plain C interface (ktt_wavefront_recon, ktt_wavefront_layout); the
 // PyTorch wrapper in kvazaar_tpu_torch/ops/wavefront.py derives the
@@ -337,6 +357,12 @@ struct Params {
   int tskip;
   int32_t* skip_out;
   const float* tskip_bits;
+  // Scaling lists (the SL instances only): per plane, its (4, S, S) int32
+  // tables (quantizer scale intra, inter, dequantizer multiplier intra,
+  // inter; each transposed, position (y, x) at x * S + y) and its
+  // dequantizer shift bitdepth + log2 S - 5 - QP / 6.
+  const int32_t* sl_tab[3];
+  int sl_shift[3];
 };
 
 // Words of one S x S block of staged samples of sb bytes each.
@@ -593,55 +619,88 @@ __device__ __forceinline__ float fma_like(float a, float lam, float b) {
       __dadd_rn((double)a, __dmul_rn((double)lam, (double)b)));
 }
 
+// The reference's scaling-list dequantization of level lv by the
+// per-position multiplier m at shift sh (Params::sl_shift), clipped to
+// int16.
+__device__ __forceinline__ int dequant_sl(int lv, int m, int sh) {
+  const int d = sh > 0 ? (lv * m + (1 << (sh - 1))) >> sh
+                       : clamp_int(lv * m, -32768, 32767) << -sh;
+  return clamp_int(d, -32768, 32767);
+}
+
 // RDOQ or the flat quantizer, then sign hiding, of a lane's coefficients
 // out[] (row y, columns fwd_out(q, i)) in a TQ instance: leaves the final
 // levels in la (row stride S + 1).  best_c (the block's staged source,
 // consumed by the residual; at least S * S words) takes each
 // coefficient's best cost and lb (stride S + 1) its zeroed cost; one lane
 // per 4x4 group then zeroes groups (RDOQ) and fixes parities (sign
-// hiding).  sync is the group's barrier.
-template <int S, bool HBD, typename Sync>
+// hiding).  sync is the group's barrier.  SL: the scale and multiplier
+// come per position from the block's scaling-list tables slt (its intra
+// or inter half) and dequantize at shift sl_sh (dequant_sl).
+template <int S, bool HBD, bool SL, typename Sync>
 __device__ __forceinline__ void quantize_tools(
     const Params& p, int dq_shift, int* la, int* lb, float* best_c,
     const int* out, int y, int q, int lane, bool luma, bool inter, int mode,
-    int q_scale, int q_bits, int q_offset, int dq_mult, Sync sync) {
+    int q_scale, int q_bits, int q_offset, int dq_mult,
+    [[maybe_unused]] const int32_t* slt, [[maybe_unused]] int sl_sh,
+    Sync sync) {
   using Sh = Shape<S>;
   constexpr int O = Sh::O, L = Sh::L, LOG2S = Sh::LOG2, SP = S + 1;
   float* zero_c = reinterpret_cast<float*>(lb);
   constexpr float kInvGain =
       1.0f / (float)(1 << (2 * (15 - Depth<HBD>::BITS - LOG2S)));
-  auto dist = [&](int lv, int mag) -> float {
-    const int d = clamp_int(
-        (lv * dq_mult + (1 << (dq_shift - 1))) >> dq_shift, -32768, 32767);
+  auto dist = [&](int lv, int mag, int dm) -> float {
+    int d;
+    if constexpr (SL)
+      d = dequant_sl(lv, dm, sl_sh);
+    else
+      d = clamp_int((lv * dm + (1 << (dq_shift - 1))) >> dq_shift, -32768,
+                    32767);
     const float e = __int2float_rn(d - mag);
     return __fmul_rn(__fmul_rn(e, e), kInvGain);
   };
   auto rate = [&](int lv) -> float {
     return lv > 0 ? __fadd_rn(lv > 1 ? 4.0f : 3.0f, p.rem_bits[lv]) : 0.15f;
   };
+  // SL: the lane's scales and multipliers, loaded together before use.
+  [[maybe_unused]] int qsv[O], dmv[O];
+  if constexpr (SL) {
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const int l = fwd_out<S>(q, i);
+      qsv[i] = __ldg(slt + l * S + y);
+      dmv[i] = __ldg(slt + 2 * S * S + l * S + y);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < O; ++i) {
     const int l = fwd_out<S>(q, i);
     const int c = round_shift(out[i], LOG2S + 6);
     const int mag = c < 0 ? -c : c;
+    int qs = q_scale, dm = dq_mult;
+    if constexpr (SL) {
+      qs = qsv[i];
+      dm = dmv[i];
+    }
     int lv;
     if (p.rdoq) {
       // Candidates 0, max(l1 - 1, 0) and l1, l1 the round-half level;
       // the first of the cheapest.
-      const int l1 =
-          min((mag * q_scale + (1 << (q_bits - 1))) >> q_bits, 32767);
+      const int l1 = min((mag * qs + (1 << (q_bits - 1))) >> q_bits, 32767);
       const int l0 = l1 > 0 ? l1 - 1 : 0;
-      const float d0 = dist(0, mag);
+      const float d0 = dist(0, mag, dm);
       float best = __fadd_rn(d0, p.zero_cost);
       lv = 0;
       // lambda * rate rounded on its own, then added (the JAX
       // package's fixed-grid programs: F2 in ROADMAP.md).
-      const float c1 = __fadd_rn(dist(l0, mag), __fmul_rn(rate(l0), p.lam));
+      const float c1 =
+          __fadd_rn(dist(l0, mag, dm), __fmul_rn(rate(l0), p.lam));
       if (c1 < best) {
         best = c1;
         lv = l0;
       }
-      const float c2 = __fadd_rn(dist(l1, mag), __fmul_rn(rate(l1), p.lam));
+      const float c2 =
+          __fadd_rn(dist(l1, mag, dm), __fmul_rn(rate(l1), p.lam));
       if (c2 < best) {
         best = c2;
         lv = l1;
@@ -649,7 +708,7 @@ __device__ __forceinline__ void quantize_tools(
       best_c[y * S + l] = best;
       zero_c[y * SP + l] = d0;
     } else {
-      lv = min((mag * q_scale + q_offset) >> q_bits, 32767);
+      lv = min((mag * qs + q_offset) >> q_bits, 32767);
     }
     la[y * SP + l] = c < 0 ? -lv : lv;
   }
@@ -724,11 +783,17 @@ __device__ __forceinline__ void quantize_tools(
 // edge ring holds the tile's own columns (ring column x -
 // tile_x0, tile_x0 the tile's first sample column) of K block rows (ring
 // row by mod K; K is the tile's depth, which only differences of rows
-// decide).
-template <int S, bool QP, bool HBD, bool LL, bool TILED, bool TQ, bool NXN>
+// decide).  SL: the plane's scaling-list tables sl_tab ((4, S, S), see
+// Params::sl_tab) and dequantizer shift sl_sh replace the flat scale and
+// multiplier (never with QP or LL).
+template <int S, bool QP, bool HBD, bool LL, bool TILED, bool TQ, bool NXN,
+          bool SL>
 __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
-                          int tile_x0, unsigned char* smem) {
+                          int tile_x0, unsigned char* smem,
+                          [[maybe_unused]] const int32_t* sl_tab,
+                          [[maybe_unused]] int sl_sh) {
   static_assert(!NXN || (S == 4 && !QP && !TILED), "NxN: S = 4 alone");
+  static_assert(!SL || (!QP && !LL), "SL: neither QP maps nor lossless");
   using Sh = Shape<S>;
   using D = Depth<HBD>;
   using Pix = typename D::Pix;
@@ -820,6 +885,17 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
     // the forward transform.
     int q_scale = pl.q_scale, q_bits = pl.q_bits, dq_mult = pl.dq_mult;
     int q_offset = inter ? pl.q_offset_inter : pl.q_offset;
+    if constexpr (SL) {
+      // The block's scaling-list table lines into L1 ahead of the
+      // quantization, behind the prediction and the forward transform.
+      const int32_t* t = sl_tab + (inter ? S * S : 0);
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const int32_t* at = t + fwd_out<S>(q, i) * S + y;
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(at));
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(at + 2 * S * S));
+      }
+    }
     if constexpr (QP) {
       const int qp = qp_row[bid], per = qp / 6, rem = qp - 6 * per;
       q_scale = kQuantScale[rem];
@@ -1002,19 +1078,46 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
       else
         fwd_part<S>(v, cf, sgn, out);
       int16_t* lv_row = levels + ((size_t)bid * S + y) * S;
+      // The block's scaling-list tables: its intra or inter half.
+      [[maybe_unused]] const int32_t* slt = nullptr;
+      if constexpr (SL) slt = sl_tab + (inter ? S * S : 0);
       // Quantization of the lane's coefficients out[] (round_shift(out,
       // log2 S + 6) each) into lvq[], their dequantized values into
       // buf_a, and the levels into lv_row.
       int lvq[O];
       auto quantize_lane = [&]() {
         if constexpr (TQ) {
-          quantize_tools<S, HBD>(
+          quantize_tools<S, HBD, SL>(
               p, pl.dq_shift, buf_a, buf_b,
               reinterpret_cast<float*>(const_cast<int*>(src)), out, y, q,
               lane, luma, inter, mode, q_scale, q_bits, q_offset, dq_mult,
-              group_sync);
+              slt, sl_sh, group_sync);
 #pragma unroll
           for (int i = 0; i < O; ++i) lvq[i] = buf_a[y * SP + fwd_out<S>(q, i)];
+        } else if constexpr (SL) {
+          // The lane's scales, then its multipliers, each loaded together
+          // (a load between global stores waited for them).
+          int tv[O];
+#pragma unroll
+          for (int i = 0; i < O; ++i)
+            tv[i] = __ldg(slt + fwd_out<S>(q, i) * S + y);
+#pragma unroll
+          for (int i = 0; i < O; ++i) {
+            const int c = round_shift(out[i], LOG2S + 6);
+            const int mag = c < 0 ? -c : c;
+            const int lv = min((mag * tv[i] + q_offset) >> q_bits, 32767);
+            lvq[i] = c < 0 ? -lv : lv;
+          }
+#pragma unroll
+          for (int i = 0; i < O; ++i)
+            tv[i] = __ldg(slt + 2 * S * S + fwd_out<S>(q, i) * S + y);
+#pragma unroll
+          for (int i = 0; i < O; ++i) {
+            const int l = fwd_out<S>(q, i);
+            lv_row[l] = (int16_t)lvq[i];
+            buf_a[y * SP + l] = dequant_sl(lvq[i], tv[i], sl_sh);
+          }
+          return;
         } else {
 #pragma unroll
           for (int i = 0; i < O; ++i) {
@@ -1029,9 +1132,13 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
         for (int i = 0; i < O; ++i) {
           const int l = fwd_out<S>(q, i);
           lv_row[l] = (int16_t)lvq[i];
-          buf_a[y * SP + l] = clamp_int(
-              (lvq[i] * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
-              -32768, 32767);
+          if constexpr (SL)
+            buf_a[y * SP + l] = dequant_sl(
+                lvq[i], __ldg(slt + 2 * S * S + l * S + y), sl_sh);
+          else
+            buf_a[y * SP + l] = clamp_int(
+                (lvq[i] * dq_mult + (1 << (pl.dq_shift - 1))) >> pl.dq_shift,
+                -32768, 32767);
         }
       };
       quantize_lane();
@@ -1070,7 +1177,7 @@ __device__ void run_plane(const Params& p, const KttPlane& pl, int item,
             pred[M + i] + clamp_int(round_shift(hi[i], shift2), -32768, 32767),
             0, kMaxV);
       }
-      if constexpr (NXN) {
+      if constexpr (NXN && !SL) {
         if (p.tskip) {
           // Transform skip (8.6.4.2): the coefficients are the residual
           // << (15 - bitdepth - 2), through the same quantizer (out[]
@@ -1301,7 +1408,7 @@ Layout layout_for(int cu, bool hbd, int n_steps, int n_slots, int ring,
 // the configuration refuses under tiles; a separate instance, so that the
 // untiled ones keep their registers: in them the tile code made ptxas
 // spill).
-template <int CU, bool QP, bool HBD, bool LL, bool TILED, bool TQ>
+template <int CU, bool QP, bool HBD, bool LL, bool TILED, bool TQ, bool SL>
 __global__ void __launch_bounds__(max_threads(CU))
     wavefront_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1355,58 +1462,70 @@ __global__ void __launch_bounds__(max_threads(CU))
   }
   __syncthreads();
 
+  const int32_t* sl_tab = SL ? p.sl_tab[k] : nullptr;
+  const int sl_sh = SL ? p.sl_shift[k] : 0;
   if constexpr (CU == 4)
-    run_plane<4, false, HBD, LL, false, TQ, true>(p, pl, item, 0, smem);
+    run_plane<4, false, HBD, LL, false, TQ, true, SL>(p, pl, item, 0, smem,
+                                                      sl_tab, sl_sh);
   else if (pl.s == CU)
-    run_plane<CU, QP, HBD, LL, TILED, TQ, false>(p, pl, item, ta.x * CU,
-                                                 smem);
+    run_plane<CU, QP, HBD, LL, TILED, TQ, false, SL>(
+        p, pl, item, ta.x * CU, smem, sl_tab, sl_sh);
   else
-    run_plane<CU / 2, QP, HBD, LL, TILED, TQ, false>(p, pl, item,
-                                                     ta.x * (CU / 2), smem);
+    run_plane<CU / 2, QP, HBD, LL, TILED, TQ, false, SL>(
+        p, pl, item, ta.x * (CU / 2), smem, sl_tab, sl_sh);
 }
 
 // The kernel instance of CU size cu (32, 16 or 8) at 8 or 10 bits: with
 // or without QP maps, or lossless; untiled or, without QP maps, tiled;
-// with RDOQ / sign hiding (tq) or not, never lossless.  These are the
+// with RDOQ / sign hiding (tq) or not, never lossless; with a scaling list
+// (sl) or not, never with QP maps or lossless.  These are the
 // combinations the configuration accepts.
 using KernelFn = void (*)(const Params);
 
 template <int CU, bool HBD, bool TILED, bool TQ>
-KernelFn kernel_tq(bool qp) {
+KernelFn kernel_tq(bool qp, bool sl) {
+  if (sl) return wavefront_kernel<CU, false, HBD, false, TILED, TQ, true>;
   if constexpr (TILED)
-    return wavefront_kernel<CU, false, HBD, false, true, TQ>;
+    return wavefront_kernel<CU, false, HBD, false, true, TQ, false>;
   else
-    return qp ? wavefront_kernel<CU, true, HBD, false, false, TQ>
-              : wavefront_kernel<CU, false, HBD, false, false, TQ>;
+    return qp ? wavefront_kernel<CU, true, HBD, false, false, TQ, false>
+              : wavefront_kernel<CU, false, HBD, false, false, TQ, false>;
 }
 
 template <int CU, bool HBD, bool TILED>
-KernelFn kernel_of(bool qp, bool ll, bool tq) {
-  if (ll) return wavefront_kernel<CU, false, HBD, true, TILED, false>;
-  return tq ? kernel_tq<CU, HBD, TILED, true>(qp)
-            : kernel_tq<CU, HBD, TILED, false>(qp);
+KernelFn kernel_of(bool qp, bool ll, bool tq, bool sl) {
+  if (ll) return wavefront_kernel<CU, false, HBD, true, TILED, false, false>;
+  return tq ? kernel_tq<CU, HBD, TILED, true>(qp, sl)
+            : kernel_tq<CU, HBD, TILED, false>(qp, sl);
+}
+
+template <bool HBD, bool TQ>
+KernelFn kernel_cu4(bool ll, bool sl) {
+  if (ll) return wavefront_kernel<4, false, HBD, true, false, false, false>;
+  return sl ? wavefront_kernel<4, false, HBD, false, false, TQ, true>
+            : wavefront_kernel<4, false, HBD, false, false, TQ, false>;
 }
 
 template <bool HBD, bool TILED>
-KernelFn kernel_at(int cu, bool qp, bool ll, bool tq) {
-  // cu 4 (untiled, without QP maps): plain, TQ or lossless, each with
-  // the transform-skip flag of its lossy instances.
+KernelFn kernel_at(int cu, bool qp, bool ll, bool tq, bool sl) {
+  // cu 4 (untiled, without QP maps): plain, TQ or lossless, with or
+  // without a scaling list, each with the transform-skip flag of its
+  // lossy flat instances.
   if constexpr (!TILED)
     if (cu == 4)
-      return ll   ? wavefront_kernel<4, false, HBD, true, false, false>
-             : tq ? wavefront_kernel<4, false, HBD, false, false, true>
-                  : wavefront_kernel<4, false, HBD, false, false, false>;
-  return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll, tq)
-         : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll, tq)
-                    : kernel_of<8, HBD, TILED>(qp, ll, tq);
+      return tq ? kernel_cu4<HBD, true>(ll, sl)
+                : kernel_cu4<HBD, false>(ll, sl);
+  return cu == 32   ? kernel_of<32, HBD, TILED>(qp, ll, tq, sl)
+         : cu == 16 ? kernel_of<16, HBD, TILED>(qp, ll, tq, sl)
+                    : kernel_of<8, HBD, TILED>(qp, ll, tq, sl);
 }
 
-KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled,
-                    bool tq) {
-  return tiled ? (hbd ? kernel_at<true, true>(cu, qp, ll, tq)
-                      : kernel_at<false, true>(cu, qp, ll, tq))
-               : (hbd ? kernel_at<true, false>(cu, qp, ll, tq)
-                      : kernel_at<false, false>(cu, qp, ll, tq));
+KernelFn kernel_for(int cu, bool qp, bool hbd, bool ll, bool tiled, bool tq,
+                    bool sl) {
+  return tiled ? (hbd ? kernel_at<true, true>(cu, qp, ll, tq, sl)
+                      : kernel_at<false, true>(cu, qp, ll, tq, sl))
+               : (hbd ? kernel_at<true, false>(cu, qp, ll, tq, sl)
+                      : kernel_at<false, false>(cu, qp, ll, tq, sl));
 }
 
 }  // namespace
@@ -1453,7 +1572,13 @@ extern "C" int ktt_wavefront_layout(int cu, int bitdepth, int n_steps,
 // floats on the device), lam (float32) and zero_cost = float32(lam *
 // 0.15f).  tskip (a cu 4 launch, neither lossless nor rdoq) decides
 // transform skip per block into skip_out ((items, nblk) int32), with the
-// rate terms tskip_bits (32768 floats on the device).  Returns a
+// rate terms tskip_bits (32768 floats on the device).  sl_tabs, where
+// not null (a host array of n_planes pointers), selects the scaling-list
+// instance: each plane's (4, S, S) int32 device tables (quantizer scale
+// intra, inter, dequantizer multiplier intra, inter, each transposed:
+// position (y, x) at x * S + y) at its QP % 6, with
+// its dequantizer shift bitdepth + log2 S - 5 - QP / 6 in sl_shift (a
+// host array); never with qp, lossless or tskip.  Returns a
 // cudaError_t; a layout the device cannot give is refused by
 // cudaFuncSetAttribute.
 extern "C" int ktt_wavefront_recon(
@@ -1464,7 +1589,8 @@ extern "C" int ktt_wavefront_recon(
     int lossless, int rdpcm, const int4* tile_info, int n_tiles,
     int tile_bw, int tile_blocks, const int32_t* cmodes, int rdoq,
     int signhide, float lam, float zero_cost, const float* rem_bits,
-    int tskip, int32_t* skip_out, const float* tskip_bits, void* stream) {
+    int tskip, int32_t* skip_out, const float* tskip_bits,
+    const int32_t* const* sl_tabs, const int* sl_shift, void* stream) {
   if (n_planes < 1 || n_planes > 3 || nblk < 1 || nblk > kMaxBlocks ||
       blocks_x < 1 || (long long)nblk * blocks_x >= (1LL << 32) ||
       tile_info == nullptr || n_tiles < 1 || n_tiles > nblk ||
@@ -1474,7 +1600,9 @@ extern "C" int ktt_wavefront_recon(
       bm < 1 || n_steps < 1 || n_slots < 1 || ring < 1 || ring_w < 1 ||
       (bitdepth != 8 && bitdepth != 10) || (rdpcm && !lossless) ||
       (lossless && planes[0].qp != nullptr) ||
-      (lossless && (rdoq || signhide)) || (rdoq && rem_bits == nullptr))
+      (lossless && (rdoq || signhide)) || (rdoq && rem_bits == nullptr) ||
+      (sl_tabs != nullptr &&
+       (lossless || tskip || planes[0].qp != nullptr || sl_shift == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool hbd = bitdepth == 10;
   Params p{};
@@ -1491,6 +1619,12 @@ extern "C" int ktt_wavefront_recon(
         qp != (pl.qp != nullptr) || !bytes_ok)
       return static_cast<int>(cudaErrorInvalidValue);
     s_max = pl.s > s_max ? pl.s : s_max;
+    if (sl_tabs != nullptr) {
+      if (sl_tabs[i] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      p.sl_tab[i] = sl_tabs[i];
+      p.sl_shift[i] = sl_shift[i];
+    }
     p.plane[i] = pl;
     items += pl.nb;
     p.item_end[i] = items;
@@ -1540,7 +1674,8 @@ extern "C" int ktt_wavefront_recon(
   p.tskip_bits = tskip_bits;
   const KernelFn kernel =
       kernel_for(cu, qp, hbd, lossless != 0, n_tiles > 1,
-                 rdoq || signhide || (cmodes != nullptr && !lossless));
+                 rdoq || signhide || (cmodes != nullptr && !lossless),
+                 sl_tabs != nullptr);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);

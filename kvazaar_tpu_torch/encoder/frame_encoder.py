@@ -38,6 +38,14 @@ and MVs and float32 SSEs come back with one ``.cpu()`` per tensor (no
 packed upload or nibble level pack).  The reference picture of the next
 P frame (the DPB) stays on the device as the deblocked reconstruction.
 
+A scaling list (``--scaling-list default`` or ``--cqmfile``,
+``self.scaling``) reaches every reconstruction (``_recon_tools`` on the
+fixed grid, the kernel's SL instances on a card; the variable trees'
+TB passes) but no search, as in the JAX package; there the variable P
+and B trees' RDOQ takes the frame encoder's QP and plain lambda
+(``_var_recon_inter``) and a per-frame QP override raises, so a GOP layer
+QP takes a frame encoder of its own (api.py).
+
 Fixed-grid I frames and one-reference P frames also take a per-CTU QP
 map (LCU rate control, ROI and AQ; ``encode_frame(qp_ctu=)``,
 ``encode_p_frame(qp_ctu=)``): the search stays at the config's QP, each
@@ -95,6 +103,7 @@ from kvazaar_tpu_torch.encoder.quadtree import (SPLIT_FLAG_BINS,
 from kvazaar_tpu_torch.encoder.var_schedule import build_var_plan
 from kvazaar_tpu_torch.ops.deblock import deblock_frame
 from kvazaar_tpu_torch.ops.quant import int32_table
+from kvazaar_tpu_torch.ops.scaling import ScalingLists, parse_cqmfile
 from kvazaar_tpu_torch.ops.sao import (apply_sao_plane, sao_decide_frame,
                                        sao_decide_frame_device, sao_stats)
 from kvazaar_tpu_torch.ops.sse import FrameSse, PlaneSse
@@ -188,8 +197,17 @@ def unsupported(cfg: Config) -> list:
     if (var_tree(cfg) and cfg.intra_max_cu == 64 and cfg.rd >= 3
             and cfg.chroma_format == 420):
         out.append("--rd 3 with 64x64 intra CUs")
-    for name, on in (("scaling lists", cfg.scaling_list != "off"),
-                     ("mesh sharding", cfg.mesh_tiles > 1),
+    # The JAX package's intra-NxN chroma quantizes Cr with the Cb tables
+    # while its oracle (and a spec decoder) takes Cr's: with a cqmfile
+    # whose intra 4x4 Cb and Cr matrices differ its Cr decodes to another
+    # picture than its reconstruction (ROADMAP §3, F4).
+    if (not var_tree(cfg) and cfg.intra_max_cu == 4 and cfg.cqmfile
+            and cfg.chroma_format == 420):
+        sl = parse_cqmfile(cfg.cqmfile)
+        if not np.array_equal(sl.custom[(0, 1)], sl.custom[(0, 2)]):
+            out.append("cu 4 with different intra 4x4 Cb and Cr scaling "
+                       "lists")
+    for name, on in (("mesh sharding", cfg.mesh_tiles > 1),
                      ("selective encryption", cfg.crypto is not None),
                      ("field (interlaced) sources",
                       cfg.source_scan_type != 0)):
@@ -333,11 +351,12 @@ class PFrameMixin:
         """The coding tools of a fixed-grid reconstruction: lossless, or
         RDOQ and sign hiding where the config sets them, at the lambda of
         the frame encoder's QP (also under a per-CTU QP map, as the JAX
-        package quantizes)."""
+        package quantizes), and its scaling list."""
         cfg = self.cfg
         return dict(lossless=cfg.lossless,
                     signhide=cfg.signhide and not cfg.lossless,
-                    rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp))
+                    rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp),
+                    scaling=self.scaling)
 
     def _p_predict(self, yp, refs):
         """Search and decision of one P frame: (H, W) int32 source luma
@@ -966,6 +985,16 @@ class IntraFrameEncoder(PFrameMixin):
             # package (and the reference's --lossless), the encoder turns
             # it off in the config it was given.
             cfg.deblock = False
+        # Scaling lists: the spec's defaults (the SPS signals them) or a
+        # cqmfile's (coded in the SPS's scaling_list_data()).
+        self.scaling = None
+        sl_mode, sl_custom = 0, None
+        if cfg.scaling_list == "custom":
+            self.scaling = parse_cqmfile(cfg.cqmfile)
+            sl_mode, sl_custom = 1, (self.scaling.custom, self.scaling.dc)
+        elif cfg.scaling_list == "default":
+            self.scaling = ScalingLists("default")
+            sl_mode = 2
         self.params = StreamParams(
             width=self.coded_w, height=self.coded_h,
             bitdepth=self.bitdepth,
@@ -982,6 +1011,8 @@ class IntraFrameEncoder(PFrameMixin):
             wpp=cfg.wpp,
             conf_win=(0, self.coded_w - cfg.width, 0,
                       self.coded_h - cfg.height),
+            scaling_list_mode=sl_mode,
+            scaling_custom=sl_custom,
             tmvp_enabled=cfg.tmvp,
             amp=cfg.amp,
             tiles=self.tiles,
@@ -1019,7 +1050,14 @@ class IntraFrameEncoder(PFrameMixin):
         takes QP and lambdas per call, so no cached table depends on
         them).  As in the JAX package, the fixed grid's P-frame motion
         lambda keeps its value from construction: the call serves the
-        variable-tree operating points of a BD-rate ladder."""
+        variable-tree operating points of a BD-rate ladder.  With a
+        scaling list it raises: the JAX package's scaling-list programs
+        keep the QP they were compiled at, so its stream then decodes to
+        another picture than its recon (ROADMAP §3, F5)."""
+        if self.scaling is not None:
+            raise NotImplementedError(
+                "set_base_qp with scaling lists (the JAX package's streams "
+                "do not decode to their recon there, ROADMAP F5)")
         self.cfg = dataclasses.replace(self.cfg, qp=qp)
         self.params.qp = qp
         self.qp_c = chroma_qp(qp)
@@ -1467,7 +1505,8 @@ class IntraFrameEncoder(PFrameMixin):
         recs, levels = reconstruct_frame_var(
             sched, cfg.qp, self.qp_c, self.coded_w, self.coded_h,
             self.chroma, self.bitdepth, signhide=cfg.signhide,
-            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp), lossless=cfg.lossless)
+            rdoq=cfg.rdoq, lam=qp_to_lambda(cfg.qp), lossless=cfg.lossless,
+            scaling=self.scaling)
         return self.var_deblock(sched, recs), levels
 
     def var_deblock(self, sched, recs):
@@ -1561,6 +1600,10 @@ class IntraFrameEncoder(PFrameMixin):
         if qp is None and qp_factor is None:
             return self.cfg.qp, qp_to_lambda(self.cfg.qp), self.lambda_satd
         frame_qp = self.cfg.qp if qp is None else int(qp)
+        if self.scaling is not None and frame_qp != self.cfg.qp:
+            # As in the JAX package, whose scaling-list programs bake the
+            # QP in: a layer QP takes a frame encoder of its own.
+            raise ValueError("per-frame qp override requires scaling=None")
         lam = frame_lambda(frame_qp, slice_type, gop_len=self.cfg.gop_len,
                            intra_period=self.cfg.intra_period,
                            qp_factor=qp_factor, keyframe=False)
@@ -1694,13 +1737,19 @@ class IntraFrameEncoder(PFrameMixin):
         inter pass, then the intra wavefront) at ql's frame QP (its
         chroma QP from Table 8-10) and RDOQ lambda lam_rd, and its
         deblocking at the frame QP with the tree's bS (the B form where
-        the schedule carries mv1_cells and dirs8)."""
+        the schedule carries mv1_cells and dirs8).  With a scaling list
+        RDOQ takes the I-frame lambda of the frame encoder's QP, whatever
+        the layer's lambda factor (the JAX package's scaling-list
+        programs bake QP and lambda in; ROADMAP §3)."""
         cfg = self.cfg
         qp, lam_rd, _ = ql or self._var_frame_qp_lam()
+        if self.scaling is not None:
+            lam_rd = qp_to_lambda(cfg.qp)
         recs, levels, cbf8 = reconstruct_frame_var(
             sched, qp, chroma_qp(qp), self.coded_w, self.coded_h,
             self.chroma, self.bitdepth, signhide=cfg.signhide,
-            rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs, lossless=cfg.lossless)
+            rdoq=cfg.rdoq, lam=lam_rd, mc_planes=mcs, lossless=cfg.lossless,
+            scaling=self.scaling)
         ry, rcb, rcr = recs
         if cfg.deblock:
             bs_v, bs_h = var_bs_maps(sched["inter8"], cbf8,

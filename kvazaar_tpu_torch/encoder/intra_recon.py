@@ -7,7 +7,9 @@ maps it to), with RDOQ and sign-data hiding where the config sets them,
 with explicit chroma modes (--rd 3) or DM, or lossless (transquant
 bypass: the levels are the residual, or with implicit RDPCM its DPCM
 along a horizontal or vertical intra mode, and the reconstruction is
-the source), without scaling lists; at the intra-NxN point (luma on a
+the source), with or without a scaling list (per-position quantizer
+tables per block size, component, intra / inter and QP % 6, at one QP);
+at the intra-NxN point (luma on a
 plan of 4x4 blocks with the DST-VII and the transform-skip decision,
 chroma on a cu 8 plan) all-intra.  On P frames
 an inter block takes its motion-compensated
@@ -83,7 +85,7 @@ def build_refs(rec_flat: torch.Tensor, gidx: torch.Tensor,
 
 def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
                   rdoq=False, lam=0.0, lossless=False, rdpcm_modes=None,
-                  program="var", dst=False, tskip=False):
+                  program="var", dst=False, tskip=False, scaling_tab=None):
     """Flat TU roundtrip: (levels int16, reconstruction int32), and with
     tskip a third entry.  qp: an int or a per-block int tensor (N,);
     intra: bool, or a per-block bool tensor (N,); scan_sel: the (N,)
@@ -98,8 +100,14 @@ def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
     blocks without DPCM).  dst: the 4x4 DST-VII (intra luma 4x4 TBs).
     tskip: also code every block with transform skip and keep, per
     block, the cheaper by ``tskip_cost`` (ties keep the transform); the
-    third entry is then the (N,) int32 skip decisions."""
+    third entry is then the (N,) int32 skip decisions.  scaling_tab: a
+    scaling list's (qc_intra, qc_inter, dqc_intra, dqc_inter) tables,
+    each (S, S) or one per block (N, S, S), selected per block by
+    ``intra`` (ops.quant.scaling_tables; an int qp only)."""
     resid = orig.to(torch.int32) - pred
+    qc = dqc = None
+    if scaling_tab is not None:
+        qc, dqc = tuple(scaling_tab[:2]), tuple(scaling_tab[2:])
     if lossless:
         levels = resid
         if rdpcm_modes is not None:
@@ -115,12 +123,12 @@ def _tu_roundtrip(orig, pred, s, qp, bitdepth, intra=True, scan_sel=None,
     def roundtrip(coeff, inverse):
         if rdoq:
             levels = quantize_rdoq(coeff, qp, s, bitdepth, intra=intra,
-                                   lam=lam, program=program)
+                                   lam=lam, program=program, qc=qc, dqc=dqc)
         else:
-            levels = quantize(coeff, qp, s, bitdepth, intra=intra)
+            levels = quantize(coeff, qp, s, bitdepth, intra=intra, qc=qc)
         if scan_sel is not None:
             levels = sign_hide(levels, scan_sel)
-        dq = dequantize(levels, qp, s, bitdepth)
+        dq = dequantize(levels, qp, s, bitdepth, dqc=dqc, intra=intra)
         rec = torch.clamp(pred + inverse(dq), 0, (1 << bitdepth) - 1)
         return levels, rec
 
@@ -176,15 +184,17 @@ def _scan_sel(modes: torch.Tensor, s: int, luma: bool,
 def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
                 bitdepth, luma, inter_items=None, mc_flat=None,
                 qp_items=None, lossless=False, rdpcm=False, rdoq=False,
-                lam=0.0, signhide=False, tskip=False):
+                lam=0.0, signhide=False, tskip=False, scaling_tab=None):
     """One wavefront step for every slot of every item (qp_items: the
     items' per-block QPs, else every block at qp; lossless / rdpcm:
     transquant bypass, with implicit RDPCM on the intra blocks, which
     also turns the luma boundary fixups off; rdoq: RDOQ at lambda lam;
     signhide: sign-data hiding by each block's scanIdx; luma S=4 blocks
     are intra NxN TBs and take the DST, and tskip their transform-skip
-    decision).  Returns the step's (levels (NB, slots, S, S), rec (NB,
-    slots, S*S), skip decisions (NB, slots) int32 or None)."""
+    decision; scaling_tab: a scaling list's tables of the plane, as
+    ``_tu_roundtrip`` takes them).  Returns the step's (levels (NB,
+    slots, S, S), rec (NB, slots, S*S), skip decisions (NB, slots) int32
+    or None)."""
     gidx, noref, sidx, bids = tables
     nb = rec_flat.shape[0]
     refs = build_refs(rec_flat, gidx[step], noref[step], bitdepth)
@@ -210,7 +220,8 @@ def _plane_pass(rec_flat, orig_flat, modes_items, tables, step, s, qp,
     out = _tu_roundtrip(orig, pred, s, qp, bitdepth, intra,
                         scan_sel=scan_sel, rdoq=rdoq, lam=lam,
                         lossless=lossless, rdpcm_modes=rdpcm_modes,
-                        program="grid", dst=nxn, tskip=tskip and nxn)
+                        program="grid", dst=nxn, tskip=tskip and nxn,
+                        scaling_tab=scaling_tab)
     ts = out[2].reshape(nb, k) if len(out) == 3 else None
     return out[0].reshape(nb, k, s, s), out[1].reshape(nb, k, s * s), ts
 
@@ -236,10 +247,12 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
                           qp: int, bitdepth: int = 8, is_inter=None,
                           mc=None, qp_map=None, lossless=False,
                           rdpcm=False, rdoq=False, lam=0.0,
-                          signhide=False, tskip=False):
+                          signhide=False, tskip=False, scaling_tab=None):
     """Plain PyTorch version of the wavefront kernel, on any device;
     same contract as ops.wavefront.wavefront_recon (with tskip, a third
-    output: the (NB, N_blocks) int32 transform-skip decisions)."""
+    output: the (NB, N_blocks) int32 transform-skip decisions;
+    scaling_tab: the plane kind's scaling-list tables at qp,
+    ops.quant.scaling_tables)."""
     nb, h, w = orig.shape
     dev = orig.device
     nblk = plan.blocks_y * plan.blocks_x
@@ -260,7 +273,7 @@ def wavefront_recon_plain(orig: torch.Tensor, modes: torch.Tensor,
         lv, rec, ts = _plane_pass(rec_flat, orig_flat, modes_items, tables,
                                   step, s, qp, bitdepth, luma, inter_items,
                                   mc_flat, qp_items, lossless, rdpcm, rdoq,
-                                  lam, signhide, tskip)
+                                  lam, signhide, tskip, scaling_tab)
         rec_flat[:, sidx[step]] = rec        # pads land on the trash slot
         levels[:, bids[step]] = lv
         if ts is not None:
@@ -274,7 +287,8 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                        qp_c: int, bitdepth: int = 8, is_inter=None,
                        mc_y=None, mc_cb=None, mc_cr=None, qp_map=None,
                        lossless=False, rdpcm=False, signhide=False,
-                       rdoq=False, lam=0.0, cmodes=None, tskip=False):
+                       rdoq=False, lam=0.0, cmodes=None, tskip=False,
+                       scaling=None):
     """Batched wavefront over all planes.
 
     ys: (B, H, W) integer; cbs/crs: (B, H/2, W/2) or None; modes:
@@ -289,7 +303,9 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
     prediction modes (--rd 3), else chroma takes the luma modes (DM).
     A plan of 4x4 blocks (the intra-NxN point) reconstructs luma alone
     (cbs None; chroma: ``reconstruct_chroma_frames``) with the DST-VII;
-    tskip adds each block's transform-skip decision.  Returns
+    tskip adds each block's transform-skip decision.  scaling: a
+    scaling list (ops.scaling.ScalingLists; no qp_map, lossless or
+    tskip), its tables at qp for luma and qp_c for Cb and Cr.  Returns
     (recon_y, levels_y, recon_cb, levels_cb, recon_cr, levels_cr): recon
     (B, H, W) uint8 at 8-bit, int16 above (``pix_dtype``), levels (B,
     N_blocks, S, S) int16 in raster block order; with tskip a seventh
@@ -299,18 +315,20 @@ def reconstruct_frames(ys, cbs, crs, modes, plan: IntraFramePlan, qp: int,
                                   bitdepth, is_inter, mc_y, mc_cb, mc_cr,
                                   qp_map, lossless, rdpcm, rdoq=rdoq,
                                   signhide=signhide, lam=lam, cmodes=cmodes,
-                                  tskip=tskip)
+                                  tskip=tskip, scaling=scaling)
 
 
 def reconstruct_chroma_frames(cbs, crs, dm_modes, plan: IntraFramePlan,
                               qp_c: int, bitdepth: int = 8, lossless=False,
-                              signhide=False, rdoq=False, lam=0.0):
+                              signhide=False, rdoq=False, lam=0.0,
+                              scaling=None):
     """Chroma of the intra-NxN point over a cu 8 plan: each 8x8 CU keeps
     one 4x4 TB per chroma plane, predicted with the DM mode of its first
     PU (the JAX package's ``reconstruct_chroma_frames``).  cbs/crs (B,
-    H/2, W/2); dm_modes (B, By8, Bx8) int32.  Returns (rec_cb, lv_cb,
-    rec_cr, lv_cr), levels in raster block order."""
+    H/2, W/2); dm_modes (B, By8, Bx8) int32; scaling: a scaling list, its
+    4x4 Cb and Cr tables at qp_c.  Returns (rec_cb, lv_cb, rec_cr,
+    lv_cr), levels in raster block order."""
     from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_chroma
     return wavefront_recon_chroma(cbs, crs, dm_modes, plan, qp_c, bitdepth,
                                   lossless=lossless, rdoq=rdoq,
-                                  signhide=signhide, lam=lam)
+                                  signhide=signhide, lam=lam, scaling=scaling)

@@ -25,15 +25,14 @@ for chroma.  Here the h and v buffers of a component share one flat
 tensor with a trailing mid-grey sample, so each slot's 4S+1 reference
 samples (8.4.4.2.2 substitution and the no-neighbour case resolved into
 the indices once per frame) are one gather; Cb and Cr ride one merged
-class pass per size, as in the JAX package.  A step runs only the
+class pass per size, as in the JAX package (which runs them apart under a
+scaling list; here each block then takes its component's tables, with
+the same result).  A step runs only the
 classes and slots it holds, so padded schedule slots cost nothing.  In
 a P tree the inter CUs take no wavefront step: they reconstruct first,
 in one batch per size (the direct pass), and fill the edge buffers the
 intra CUs read; a B tree's prediction planes carry each cell's L0, L1
 or bi-averaged MC.
-
-Left out (they raise in the frame encoder): the TU-split costs of
---tr-depth-intra, scaling lists.
 """
 
 from __future__ import annotations
@@ -55,7 +54,8 @@ from kvazaar_tpu_torch.encoder.intra_search import (_f32, _ssd_f32,
                                                     search_frame_modes)
 from kvazaar_tpu_torch.ops.inter import coarse_mv_grids, mc_luma, uni_round
 from kvazaar_tpu_torch.ops.intra import predict_modes
-from kvazaar_tpu_torch.ops.quant import _fma_f32, dequantize, quantize
+from kvazaar_tpu_torch.ops.quant import (_fma_f32, dequantize, quantize,
+                                         scaling_tables)
 from kvazaar_tpu_torch.ops.rate import tb_rate_bits
 from kvazaar_tpu_torch.ops.transform import (forward_transform,
                                              inverse_transform)
@@ -696,19 +696,24 @@ def _edge_positions(s: int, dev) -> torch.Tensor:
 
 
 def _class_pass(d, t, n, s, bitdepth, luma, signhide=False, rdoq=False,
-                lam=0.0, lossless=False):
+                lam=0.0, lossless=False, program="var"):
     """One wavefront step of one CU-size class: its first n slots (the
     plan fills a step's slots from 0).  Writes the slots' edges into the
     class's edge buffer and returns (levels (n*comps, S, S) int16, rec
-    (n*comps, S*S) int32); lossless: transquant bypass."""
+    (n*comps, S*S) int32); lossless: transquant bypass; d["sl"]: the
+    class's scaling-list tables per component ((comps, S, S) each) or
+    None; program: RDOQ's float32 order (ops.quant.quantize_rdoq)."""
     comps = d["ref"].shape[2]
     refs = d["ebuf"][d["ref"][t, :n]].reshape(n * comps, -1)
     modes = d["modes"][t, :n * comps]
     pred = predict_modes(refs, modes, s, luma=luma, bitdepth=bitdepth)
+    tab = (None if d["sl"] is None
+           else tuple(x.repeat(n, 1, 1) for x in d["sl"]))
     levels, rec = _tu_roundtrip(
         d["origs"][t, :n].reshape(n * comps, s, s), pred, s, d["qp"],
         bitdepth, scan_sel=_scan_sel(modes, s, luma) if signhide else None,
-        rdoq=rdoq, lam=lam, lossless=lossless)
+        rdoq=rdoq, lam=lam, lossless=lossless, program=program,
+        scaling_tab=tab)
     rec = rec.reshape(n * comps, s * s)
     d["ebuf"][d["wr"][t, :n].reshape(-1)] = rec[:, d["edge"]].reshape(-1)
     return levels, rec
@@ -736,13 +741,16 @@ def _mark_cells(cbf8, x0, y0, s: int, cbf):
 
 def _direct_pass(batches, planes, mcs, pw: int, ph: int, qp: int,
                  bitdepth: int, signhide: bool, rdoq: bool, lam: float,
-                 rec, lv, cbf8=None, lossless: bool = False):
+                 rec, lv, cbf8=None, lossless: bool = False, sl=None,
+                 program: str = "var"):
     """Reconstruct the inter CUs of a variable P tree outside the
     wavefront: their prediction is motion-compensated, so each size's
     CUs (batches: size -> (x0, y0) on this plane) run one batched TU
     roundtrip with the inter quantizer.  Writes the flat recon and level
     outputs (components plane after plane) and, for luma (cbf8 given),
-    the TBs' coded flags.  lossless: transquant bypass."""
+    the TBs' coded flags.  lossless: transquant bypass; sl: size ->
+    the scaling-list tables per component ((comps, S, S) each) or None;
+    program: RDOQ's float32 order."""
     comps = len(planes)
     for s, (x0, y0) in sorted(batches.items()):
         n = x0.numel()
@@ -755,10 +763,13 @@ def _direct_pass(batches, planes, mcs, pw: int, ph: int, qp: int,
         pred = torch.cat([m.reshape(-1)[pix] for m in mcs])
         scan_sel = (torch.zeros(comps * n, dtype=torch.int32,
                                 device=pix.device) if signhide else None)
+        tab = (None if sl is None
+               else tuple(x.repeat_interleave(n, dim=0) for x in sl[s]))
         levels, r = _tu_roundtrip(origs.reshape(comps * n, s, s),
                                   pred.reshape(comps * n, s, s), s, qp,
                                   bitdepth, intra=False, scan_sel=scan_sel,
-                                  rdoq=rdoq, lam=lam, lossless=lossless)
+                                  rdoq=rdoq, lam=lam, lossless=lossless,
+                                  program=program, scaling_tab=tab)
         rec[out] = r.reshape(-1)
         lv[out] = levels.reshape(-1)
         if cbf8 is not None:
@@ -783,7 +794,7 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
                           height: int, chroma: bool, bitdepth: int = 8,
                           signhide: bool = False, rdoq: bool = False,
                           lam: float = 0.0, mc_planes=None,
-                          lossless: bool = False):
+                          lossless: bool = False, scaling=None):
     """sched: the frame's schedule on the device (see the frame
     encoder's ``var_sched_arrays``): 'luma' / 'chroma': size -> {x0,
     y0, avail, corner_h, modes} (T, K[, R]) over the real steps,
@@ -793,7 +804,12 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
     (the same lambda for luma and chroma, as the JAX package passes);
     lossless: transquant bypass (the levels are the residual and the
     reconstruction the source; the trees code no implicit RDPCM, which
-    the config refuses with them).
+    the config refuses with them).  scaling: a scaling list
+    (ops.scaling.ScalingLists), each TB quantized with the tables of its
+    size, component and intra / inter at its plane's QP; the JAX
+    package's variable-tree programs then bake QP and lambda in as
+    constants, which gives RDOQ the fixed grid's float32 order
+    (``program="grid"``; ROADMAP §3).
 
     P trees (mc_planes: the (H, W) MC prediction planes (y, cb, cr) of
     the frame's motion field) add 'iluma' / 'ichroma': size -> (x0, y0)
@@ -823,9 +839,19 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
                            sched.get("ichroma"))
     cbf8 = (torch.zeros((height // 8, width // 8), dtype=torch.bool,
                         device=dev) if inter else None)
+    program = "var" if scaling is None else "grid"
     outs, classes = {}, []
     for kind, (pw, ph, gran, comps, kqp, planes, mcs,
                direct) in kinds.items():
+        sizes = set(sched[kind]) | set(direct or ())
+        # size -> the kind's scaling-list tables, stacked over its
+        # components: (qc_intra, qc_inter, dqc_intra, dqc_inter), each
+        # (comps, S, S).
+        sl = None if scaling is None else {
+            s: tuple(torch.stack(t) for t in zip(*(
+                scaling_tables(scaling, s, c, kqp, dev)
+                for c in ((0,) if comps == 1 else (1, 2)))))
+            for s in sizes}
         ebuf, base = _edge_buffers(pw, ph, gran, comps, grey, dev)
         rec = torch.zeros(comps * pw * ph, dtype=torch.int32, device=dev)
         lv = torch.zeros(comps * pw * ph, dtype=torch.int16, device=dev)
@@ -833,12 +859,14 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
         if inter:
             _direct_pass(direct, planes, mcs, pw, ph, kqp, bitdepth,
                          signhide, rdoq, lam, rec, lv,
-                         cbf8 if kind == "luma" else None, lossless)
+                         cbf8 if kind == "luma" else None, lossless, sl,
+                         program)
             _prefill_edges(ebuf, base, rec, comps, pw, ph, gran)
         for s in sorted(sched[kind]):
             cs = sched[kind][s]
             d = _derive(cs, s, pw, ph, gran, base, comps)
             d.update(ebuf=ebuf, qp=kqp, edge=_edge_positions(s, dev),
+                     sl=None if sl is None else sl[s],
                      out=(d["pix"][:, :, None, :] + torch.arange(
                          comps, device=dev)[:, None] * (pw * ph)),
                      # (T, K * comps): each slot's mode per component.
@@ -854,7 +882,7 @@ def reconstruct_frame_var(sched: dict, qp: int, qp_c: int, width: int,
             if n == 0:
                 continue
             lv, rec = _class_pass(d, t, n, s, bitdepth, luma, signhide,
-                                  rdoq, lam, lossless)
+                                  rdoq, lam, lossless, program)
             out = d["out"][t, :n].reshape(-1)
             rec_out[out] = rec.reshape(-1)
             lv_out[out] = lv.reshape(-1)

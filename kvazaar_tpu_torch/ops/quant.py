@@ -1,11 +1,13 @@
-"""Flat-list HEVC quantization / dequantization (H.265 8.6.3), RDOQ and
-sign-data hiding, batched.
+"""HEVC quantization / dequantization (H.265 8.6.3), RDOQ and sign-data
+hiding, batched.
 
-Counterpart of kvazaar_tpu/ops/quant.py without scaling lists: the
-scalar quantizer and RDOQ take a frame-level QP or one QP per block
-(LCU rate control, ROI and AQ).  int32 arithmetic exactly
-as the JAX package forms it; the scale tables are copies pinned by a
-test.
+Counterpart of kvazaar_tpu/ops/quant.py: the scalar quantizer and RDOQ
+take a frame-level QP or one QP per block (LCU rate control, ROI and
+AQ), and at a frame-level QP the per-position tables of a scaling list
+(``qc`` / ``dqc``, ops/scaling.py, an (intra, inter) pair selected per
+block like the rounding offset; dequantization then follows the
+reference's scaling-list schedule).  int32 arithmetic exactly as the
+JAX package forms it; the scale tables are copies pinned by a test.
 
 RDOQ's costs are float32 and decide levels at near-ties, so they are
 formed as the JAX package's CPU backend forms them (pinned with
@@ -86,19 +88,65 @@ def int32_table(data: bytes, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(data, np.int32).copy()).to(device)
 
 
+def scaling_tables(scaling, size: int, comp: int, qp: int,
+                   device: torch.device) -> tuple:
+    """(qc_intra, qc_inter, dqc_intra, dqc_inter): the (S, S) int32
+    per-position tables of a scaling list (ops.scaling.ScalingLists) for
+    one block size, component (0 Y, 1 Cb, 2 Cr) and QP, on ``device``
+    (uploaded once per content)."""
+    rem = qp % 6
+    return tuple(
+        int32_table(np.ascontiguousarray(t[rem], np.int32).tobytes(),
+                    device).reshape(size, size)
+        for t in (scaling.qc(size, True, comp), scaling.qc(size, False, comp),
+                  scaling.dqc(size, True, comp),
+                  scaling.dqc(size, False, comp)))
+
+
+def _select(tab, intra):
+    """A scaling list's per-position table of each block: ``tab`` is one
+    (S, S) table or an (intra, inter) pair, picked by ``intra`` (a bool,
+    or a bool tensor over the blocks' leading axes)."""
+    if not isinstance(tab, tuple):
+        return tab
+    if intra is None or isinstance(intra, bool):
+        return tab[0] if intra is None or intra else tab[1]
+    return torch.where(intra[..., None, None], tab[0], tab[1])
+
+
+def _no_qp_map(qp, tab):
+    if tab is not None and isinstance(qp, torch.Tensor):
+        raise NotImplementedError("scaling lists with per-block QP")
+
+
+def _dequant_sl(l: torch.Tensor, m, sh: int) -> torch.Tensor:
+    """The reference's scaling-list dequantization of levels l by
+    per-position multipliers m at shift sh = bitdepth + log2 S - 5 -
+    QP / 6: rounded down-shift, or below 1 the product clipped to int16
+    and shifted up (clipped again by the caller)."""
+    if sh > 0:
+        return (l * m + (1 << (sh - 1))) >> sh
+    return torch.clamp(l * m, -32768, 32767) << (-sh)
+
+
 def quantize(coeff: torch.Tensor, qp, size: int, bitdepth: int = 8,
-             intra=True) -> torch.Tensor:
+             intra=True, qc=None) -> torch.Tensor:
     """Scalar quantization with the 171/512 (intra) or 85/512 (inter)
     rounding offset.  ``intra`` is a bool, or a bool tensor over the
     leading (block) axes of coeff for mixed P-frame batches.  qp is an
-    int, or an int tensor of one QP per block over those axes.
-    int32-safe: |coeff| fits int16."""
+    int, or an int tensor of one QP per block over those axes.  qc: a
+    scaling list's per-position scale (S, S), or its (intra, inter)
+    pair selected by ``intra`` (an int qp only).  int32-safe: |coeff|
+    fits int16 (and m >= 8 bounds qc)."""
+    _no_qp_map(qp, qc)
     log2n = size.bit_length() - 1
     if isinstance(qp, torch.Tensor):
         scale, qbits, _ = _quant_params_arr(qp, log2n, bitdepth)
         scale, qbits = scale[..., None, None], qbits[..., None, None]
     else:
         scale, qbits, _, _ = quant_params(qp, log2n, bitdepth)
+        if qc is not None:
+            scale = _select(qc, intra)
     if isinstance(intra, bool):
         offset = (171 if intra else 85) << (qbits - 9)
     else:
@@ -108,12 +156,21 @@ def quantize(coeff: torch.Tensor, qp, size: int, bitdepth: int = 8,
     return torch.where(c < 0, -level, level)
 
 
-def dequantize(level: torch.Tensor, qp, size: int,
-               bitdepth: int = 8) -> torch.Tensor:
+def dequantize(level: torch.Tensor, qp, size: int, bitdepth: int = 8,
+               dqc=None, intra=None) -> torch.Tensor:
     """Spec scaling with the *16 folded into the shift (int32-safe:
-    |level| * levScale << 8 < 2^31); qp as in ``quantize``."""
+    |level| * levScale << 8 < 2^31); qp as in ``quantize``.  dqc: a
+    scaling list's per-position multipliers inv_scale * m (S, S) or
+    their (intra, inter) pair selected by ``intra`` (None: intra), with
+    the reference's scaling-list schedule (``_dequant_sl``; dqc <= 72 *
+    255 keeps |level| * dqc < 2^31)."""
+    _no_qp_map(qp, dqc)
     log2n = size.bit_length() - 1
     shift = bitdepth + log2n - 5
+    if dqc is not None:
+        d = _dequant_sl(level.to(torch.int32), _select(dqc, intra),
+                        shift - qp // 6)
+        return torch.clamp(d, -32768, 32767)
     if isinstance(qp, torch.Tensor):
         _, _, inv_scale = _quant_params_arr(qp, log2n, bitdepth)
         mult = (inv_scale << torch.div(qp.to(torch.int32), 6,
@@ -252,7 +309,7 @@ def _group_sum_rows(g: torch.Tensor) -> torch.Tensor:
 
 def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
                   bitdepth: int = 8, intra=True, lam: float = 1.0,
-                  program: str = "op") -> torch.Tensor:
+                  program: str = "op", qc=None, dqc=None) -> torch.Tensor:
     """Rate-distortion optimized quantization (the JAX package's
     vectorized form of the reference's RDOQ, flat scaling list; qp an
     int, or one QP per block over the leading axes as in ``quantize``,
@@ -264,8 +321,11 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     signature: both roundings use the half offset.  program: whose float32
     order to follow (module docstring): "op" the JAX package's jitted
     ``quantize_rdoq`` alone, "grid" its fixed-grid encoder programs,
-    "var" its variable-tree programs.  Returns int32 levels."""
-    del intra
+    "var" its variable-tree programs.  qc / dqc: a scaling list's
+    per-position scale and dequantization multipliers (tables or
+    (intra, inter) pairs selected by ``intra``, as in ``quantize`` and
+    ``dequantize``; an int qp only).  Returns int32 levels."""
+    _no_qp_map(qp, qc)
     log2n = size.bit_length() - 1
     inv_shift = bitdepth + log2n - 5
     if isinstance(qp, torch.Tensor):
@@ -277,13 +337,19 @@ def quantize_rdoq(coeff: torch.Tensor, qp: int, size: int,
     else:
         scale, qbits, inv_scale, _ = quant_params(qp, log2n, bitdepth)
         inv_m = inv_scale << (qp // 6)
+        if qc is not None:
+            scale, inv_m = _select(qc, intra), _select(dqc, intra)
     c = coeff.to(torch.int32)
     ac = torch.abs(c)
     l1 = torch.clamp((ac * scale + (1 << (qbits - 1))) >> qbits, 0, 32767)
     cands = torch.stack([torch.zeros_like(l1), torch.clamp(l1 - 1, min=0),
                          l1])
-    d = torch.clamp((cands * inv_m + (1 << (inv_shift - 5)))
-                    >> (inv_shift - 4), -32768, 32767)
+    if qc is not None:
+        d = torch.clamp(_dequant_sl(cands, inv_m, inv_shift - qp // 6),
+                        -32768, 32767)
+    else:
+        d = torch.clamp((cands * inv_m + (1 << (inv_shift - 5)))
+                        >> (inv_shift - 4), -32768, 32767)
     e = (d - ac).to(torch.float32)
     dist = e * e * (1.0 / float(4 ** (15 - bitdepth - log2n)))
     rate = torch.where(cands > 0, (3.0 + (cands > 1).to(torch.float32))

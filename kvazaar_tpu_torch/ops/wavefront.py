@@ -4,8 +4,9 @@
 batch of frames, all-intra or, given an inter mask and MC planes, as P
 frames, at one QP or with a per-block QP map, or lossless (transquant
 bypass, with or without implicit RDPCM), with RDOQ and sign-data hiding
-where asked (the kernel's TQ instances), with explicit chroma modes
-(--rd 3) or DM, at 8 or 10 bits (the kernel's 10-bit instance takes
+where asked (the kernel's TQ instances), with a scaling list's per-position
+quantizer tables where asked (the kernel's SL instances), with explicit
+chroma modes (--rd 3) or DM, at 8 or 10 bits (the kernel's 10-bit instance takes
 int16 planes and writes int16 recon); on a plan of 4x4 blocks (the
 intra-NxN point) it reconstructs luma alone, with the DST-VII and, where
 asked, the transform-skip decision (the kernel's cu 4 instances), and
@@ -34,8 +35,9 @@ those of the lossless (transquant bypass) instances, ``TILE_LAUNCHES``
 those on a tiled plan, ``TOOL_LAUNCHES`` those of the RDOQ / sign-hiding
 instances, ``CMODE_LAUNCHES`` those with explicit chroma modes,
 ``CU4_LAUNCHES`` those of the cu 4 (intra NxN, DST-VII) instances and of
-the chroma-only launches beside them, and ``TSKIP_LAUNCHES`` the cu 4
-launches that took the transform-skip decision.
+the chroma-only launches beside them, ``TSKIP_LAUNCHES`` the cu 4
+launches that took the transform-skip decision, and ``SL_LAUNCHES``
+those of the scaling-list instances.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ from kvazaar_tpu_torch.constants import CHROMA_QP_TAB
 from kvazaar_tpu_torch.encoder.geometry import IntraFramePlan
 from kvazaar_tpu_torch.encoder import pix_dtype, plan_cached
 from kvazaar_tpu_torch.ops.quant import (_f32, _rem_bits, _tskip_bits,
-                                         int32_table, quant_params)
+                                         int32_table, quant_params,
+                                         scaling_tables)
 
 # Kernel launches made by this module (only here, after a launch), per
 # variant; QP_MAP_LAUNCHES counts the launches with a per-block QP map
@@ -84,6 +87,11 @@ CMODE_LAUNCHES = {"intra": 0, "inter": 0}
 CU4_LAUNCHES = {"luma": 0, "chroma": 0, "10bit": 0, "tq": 0,
                 "lossless": 0}
 TSKIP_LAUNCHES = {"luma": 0, "10bit": 0, "signhide": 0}
+# The scaling-list instances' launches ("10bit", "tq", "tiled", "cu4":
+# those at 10-bit, with RDOQ or sign hiding, on a tiled plan, of the cu 4
+# instances or the chroma-only launches beside them).
+SL_LAUNCHES = {"intra": 0, "inter": 0, "10bit": 0, "tq": 0, "tiled": 0,
+               "cu4": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "wavefront.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -169,7 +177,7 @@ def _library():
                    + [ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 5)
     lib.ktt_wavefront_layout.restype = ctypes.c_int
     lib.ktt_wavefront_layout.argtypes = ([ctypes.c_int] * 6
                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
@@ -378,8 +386,39 @@ def wavefront_recon(orig: torch.Tensor, modes: torch.Tensor,
                          f"{orig.device}")
     _check(orig, modes, plan, s, luma, bitdepth, is_inter, mc, qp_map,
            lossless, rdpcm, rdoq or signhide)
-    return _launch([(orig, mc, s, luma, qp, qp_map)], modes, plan,
+    return _launch([(orig, mc, s, luma, qp, qp_map, None)], modes, plan,
                    is_inter, bitdepth, lossless, rdpcm, rdoq, lam, signhide)
+
+
+def _sl_stack(tab):
+    """A plane's scaling-list tables as the kernel reads them: one
+    contiguous (4, S, S) int32 tensor (qc intra, qc inter, dqc intra,
+    dqc inter), each transposed (position (y, x) at x * S + y: a group's
+    lanes, one row each, read consecutive words), or None without a
+    list."""
+    return (None if tab is None
+            else torch.stack(tab).transpose(1, 2).contiguous())
+
+
+def _plain_chroma(cbs, crs, modes, plan, s, qp_c, bitdepth, tabs, **kw):
+    """The plain version of the Cb and Cr planes: one 2B batch (they
+    share geometry, modes, inter map and QP) or, with a scaling list,
+    whose tables differ by component, one batch each.  Returns (rec_cb,
+    lv_cb, rec_cr, lv_cr)."""
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    b = cbs.shape[0]
+    mc_cb, mc_cr = kw.pop("mc_cb"), kw.pop("mc_cr")
+    if tabs is None:
+        mc = None if mc_cb is None else torch.cat([mc_cb, mc_cr])
+        rec, lv = wavefront_recon_plain(torch.cat([cbs, crs]), modes, plan,
+                                        s, False, qp_c, bitdepth, mc=mc,
+                                        **kw)
+        return rec[:b], lv[:b], rec[b:], lv[b:]
+    return tuple(t for orig, mc, tab in ((cbs, mc_cb, tabs[0]),
+                                          (crs, mc_cr, tabs[1]))
+                 for t in wavefront_recon_plain(
+                     orig, modes, plan, s, False, qp_c, bitdepth, mc=mc,
+                     scaling_tab=tab, **kw))
 
 
 def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
@@ -387,7 +426,7 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
                            is_inter=None, mc_y=None, mc_cb=None,
                            mc_cr=None, qp_map=None, lossless=False,
                            rdpcm=False, rdoq=False, signhide=False,
-                           lam=0.0, cmodes=None, tskip=False):
+                           lam=0.0, cmodes=None, tskip=False, scaling=None):
     """Reconstruct the luma and (where cbs is given) chroma planes of a
     batch of frames in one launch.  On a plan of 4x4 blocks (the intra
     NxN point: cbs None, chroma through ``wavefront_recon_chroma``) luma
@@ -405,7 +444,10 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     rdpcm / rdoq / lam / signhide: as in wavefront_recon (Cb and Cr take
     the DPCM and the scan of their mode).  cmodes: (Bm, By, Bx) int32
     explicit chroma modes shared like modes (--rd 3), else Cb and Cr
-    take modes.  Returns (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr),
+    take modes.  scaling: a scaling list (ops.scaling.ScalingLists;
+    neither qp_map, lossless nor tskip), each plane quantized with its
+    own tables, luma at qp and Cb / Cr at qp_c (the kernel's SL
+    instances).  Returns (rec_y, lv_y, rec_cb, lv_cb, rec_cr, lv_cr),
     the chroma entries None without chroma."""
     tools = dict(rdoq=rdoq, lam=lam, signhide=signhide)
     s = plan.cu_size
@@ -418,29 +460,36 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
     if tskip and (rdoq or lossless):
         raise ValueError("wavefront: transform skip takes neither RDOQ nor "
                          "lossless (the configuration refuses both)")
+    if scaling is not None and (qp_map is not None or lossless or tskip):
+        raise ValueError("wavefront: a scaling list takes no QP map, "
+                         "lossless or transform skip (the configuration "
+                         "refuses them)")
     qp_y = qp_c_map = None
     if qp_map is not None:
         qp_y = torch.clamp(qp_map.to(torch.int32), 0, 51)
         qp_c_map = int32_table(CHROMA_QP_TAB.astype(np.int32).tobytes(),
                           qp_y.device)[qp_y.long()].contiguous()
         qp_y = qp_y.contiguous()
+    tab_y = tabs_c = None
+    if scaling is not None:
+        tab_y = scaling_tables(scaling, s, 0, qp, ys.device)
+        if cbs is not None:
+            tabs_c = tuple(scaling_tables(scaling, s // 2, c, qp_c,
+                                          ys.device) for c in (1, 2))
     if ys.device.type == "cpu":
         from kvazaar_tpu_torch.encoder.intra_recon import \
             wavefront_recon_plain
         out = wavefront_recon_plain(ys, modes, plan, s, True, qp, bitdepth,
                                     is_inter, mc_y, qp_y, lossless, rdpcm,
-                                    tskip=tskip, **tools)
+                                    tskip=tskip, scaling_tab=tab_y, **tools)
         rec_y, lv_y = out[:2]
         if cbs is None:
             return (rec_y, lv_y, None, None, None, None) + out[2:]
-        # Cb and Cr share geometry, modes, inter map and QP: one 2B batch.
-        b = ys.shape[0]
-        mc_c = None if is_inter is None else torch.cat([mc_cb, mc_cr])
-        rec_c, lv_c = wavefront_recon_plain(
-            torch.cat([cbs, crs]), modes if cmodes is None else cmodes,
-            plan, s // 2, False, qp_c, bitdepth, is_inter, mc_c, qp_c_map,
-            lossless, rdpcm, **tools)
-        return rec_y, lv_y, rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
+        return (rec_y, lv_y) + _plain_chroma(
+            cbs, crs, modes if cmodes is None else cmodes, plan, s // 2,
+            qp_c, bitdepth, tabs_c, is_inter=is_inter, mc_cb=mc_cb,
+            mc_cr=mc_cr, qp_map=qp_c_map, lossless=lossless, rdpcm=rdpcm,
+            **tools)
     if ys.device.type != "cuda":
         raise ValueError(f"wavefront_recon_planes: unsupported device "
                          f"{ys.device}")
@@ -448,14 +497,16 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
         ys, cbs, crs, mc_y, mc_cb, mc_cr = (
             t if t is None or t.dtype != torch.int32 else t.to(torch.int16)
             for t in (ys, cbs, crs, mc_y, mc_cb, mc_cr))
-    planes = [(ys, mc_y, s, True, qp, qp_y)]
+    planes = [(ys, mc_y, s, True, qp, qp_y, _sl_stack(tab_y))]
     if cbs is not None:
-        planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map),
-                   (crs, mc_cr, s // 2, False, qp_c, qp_c_map)]
-    for orig, mc, ps, luma, _, qm in planes:
+        planes += [(cbs, mc_cb, s // 2, False, qp_c, qp_c_map,
+                    None if tabs_c is None else _sl_stack(tabs_c[0])),
+                   (crs, mc_cr, s // 2, False, qp_c, qp_c_map,
+                    None if tabs_c is None else _sl_stack(tabs_c[1]))]
+    for orig, mc, ps, luma, _, qm, _sl in planes:
         _check(orig, modes if luma or cmodes is None else cmodes, plan, ps,
                luma, bitdepth, is_inter, mc, qm, lossless, rdpcm,
-               rdoq or signhide)
+               rdoq or signhide, scaling is not None)
     out = _launch(planes, modes, plan, is_inter, bitdepth, lossless, rdpcm,
                   cmodes=None if cbs is None else cmodes, tskip=tskip,
                   **tools)
@@ -466,23 +517,25 @@ def wavefront_recon_planes(ys, cbs, crs, modes, plan: IntraFramePlan,
 
 def wavefront_recon_chroma(cbs, crs, modes, plan: IntraFramePlan, qp_c: int,
                            bitdepth: int = 8, lossless=False, rdoq=False,
-                           signhide=False, lam=0.0):
+                           signhide=False, lam=0.0, scaling=None):
     """The chroma of the intra-NxN point (the JAX package's
     ``reconstruct_chroma_frames``): one 4x4 TB per 8x8 CU of each of Cb
     and Cr, predicted with the CU's first PU's mode (DM), over a cu 8
     plan without luma.  cbs/crs (B, H/2, W/2); modes (Bm, By8, Bx8)
-    int32; lossless / rdoq / lam / signhide as in wavefront_recon.  On
-    CUDA tensors one chroma-only launch of the cu 8 instances.  Returns
-    (rec_cb, lv_cb, rec_cr, lv_cr)."""
+    int32; lossless / rdoq / lam / signhide as in wavefront_recon;
+    scaling: a scaling list, the 4x4 Cb and Cr tables at qp_c (not
+    lossless).  On CUDA tensors one chroma-only launch of the cu 8
+    instances.  Returns (rec_cb, lv_cb, rec_cr, lv_cr)."""
     tools = dict(rdoq=rdoq, lam=lam, signhide=signhide)
-    b = cbs.shape[0]
+    if scaling is not None and lossless:
+        raise ValueError("wavefront: a scaling list takes no lossless "
+                         "launch")
+    tabs = None if scaling is None else tuple(
+        scaling_tables(scaling, 4, c, qp_c, cbs.device) for c in (1, 2))
     if cbs.device.type == "cpu":
-        from kvazaar_tpu_torch.encoder.intra_recon import \
-            wavefront_recon_plain
-        rec_c, lv_c = wavefront_recon_plain(
-            torch.cat([cbs, crs]), modes, plan, plan.cu_size // 2, False,
-            qp_c, bitdepth, lossless=lossless, **tools)
-        return rec_c[:b], lv_c[:b], rec_c[b:], lv_c[b:]
+        return _plain_chroma(cbs, crs, modes, plan, plan.cu_size // 2, qp_c,
+                             bitdepth, tabs, mc_cb=None, mc_cr=None,
+                             lossless=lossless, **tools)
     if cbs.device.type != "cuda":
         raise ValueError(f"wavefront_recon_chroma: unsupported device "
                          f"{cbs.device}")
@@ -492,24 +545,30 @@ def wavefront_recon_chroma(cbs, crs, modes, plan: IntraFramePlan, qp_c: int,
     if bitdepth > 8:
         cbs, crs = (t if t.dtype != torch.int32 else t.to(torch.int16)
                     for t in (cbs, crs))
-    planes = [(cbs, None, 4, False, qp_c, None),
-              (crs, None, 4, False, qp_c, None)]
+    planes = [(cbs, None, 4, False, qp_c, None,
+               None if tabs is None else _sl_stack(tabs[0])),
+              (crs, None, 4, False, qp_c, None,
+               None if tabs is None else _sl_stack(tabs[1]))]
     for orig, *_ in planes:
         _check(orig, modes, plan, 4, False, bitdepth, lossless=lossless,
-               tools=rdoq or signhide)
+               tools=rdoq or signhide, scaling=scaling is not None)
     rec_cb, lv_cb, rec_cr, lv_cr = _launch(planes, modes, plan, None,
                                            bitdepth, lossless, **tools)
     CU4_LAUNCHES["chroma"] += 1
+    if scaling is not None:
+        SL_LAUNCHES["cu4"] += 1
     return rec_cb, lv_cb, rec_cr, lv_cr
 
 
 def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             lossless=False, rdpcm=False, rdoq=False, lam=0.0,
             signhide=False, cmodes=None, tskip=False):
-    """One kernel launch over checked (orig, mc, s, luma, qp, qp_map)
-    plane kinds (cmodes: the chroma planes' modes, or None for modes);
-    returns (rec, levels) per kind, flattened, then with tskip (a cu 4
-    launch) the (NB, N_blocks) int32 transform-skip flags."""
+    """One kernel launch over checked (orig, mc, s, luma, qp, qp_map, sl)
+    plane kinds (sl: the plane's (4, S, S) scaling-list tables or None,
+    the same for every kind; cmodes: the chroma planes' modes, or None
+    for modes); returns (rec, levels) per kind, flattened, then with
+    tskip (a cu 4 launch) the (NB, N_blocks) int32 transform-skip
+    flags."""
     lib = _library()
     dev = planes[0][0].device
     nblk = plan.blocks_y * plan.blocks_x
@@ -536,12 +595,19 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
                            device=dev)
         ts_bits = _tskip_bits(dev)
     structs = (_Plane * len(planes))()
+    scaled = planes[0][6] is not None
+    if any((p[6] is not None) != scaled for p in planes):
+        raise ValueError("wavefront kernel: every plane of a launch takes a "
+                         "scaling list, or none does")
+    sl_tabs = (ctypes.c_void_p * 3)()
+    sl_shift = (ctypes.c_int * 3)()
     outs = []
     # The kernel packs each (item, tile)'s schedule words here.
     entries = torch.empty(sum(p[0].shape[0] for p in planes)
                           * tile_info.shape[0] * tile_blocks,
                           dtype=torch.int32, device=dev)
-    for st, (orig, mc, s, luma, qp, qp_map) in zip(structs, planes):
+    for i, (st, (orig, mc, s, luma, qp, qp_map, sl)) in enumerate(
+            zip(structs, planes)):
         nb, h, w = orig.shape
         rec = torch.empty((nb, h, w), dtype=pix_dtype(bitdepth), device=dev)
         levels = torch.empty((nb, nblk, s, s), dtype=torch.int16,
@@ -559,6 +625,9 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
         st.q_offset, st.q_offset_inter = 171 << (qbits - 9), 85 << (qbits
                                                                     - 9)
         st.dq_mult, st.dq_shift = inv_scale << (qp // 6), inv_shift - 4
+        if sl is not None:
+            sl_tabs[i] = sl.data_ptr()
+            sl_shift[i] = inv_shift - qp // 6
         outs += [rec, levels]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -574,7 +643,9 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
             int(signhide), _f32(lam), _f32(_f32(lam) * _f32(0.15)),
             None if rem_bits is None else rem_bits.data_ptr(), int(tskip),
             None if skip is None else skip.data_ptr(),
-            None if ts_bits is None else ts_bits.data_ptr(), stream)
+            None if ts_bits is None else ts_bits.data_ptr(),
+            ctypes.cast(sl_tabs, ctypes.c_void_p) if scaled else None,
+            ctypes.cast(sl_shift, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
@@ -605,6 +676,12 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
         CU4_LAUNCHES["10bit"] += bitdepth == 10
         CU4_LAUNCHES["tq"] += bool(rdoq or signhide)
         CU4_LAUNCHES["lossless"] += bool(lossless)
+    if scaled:
+        SL_LAUNCHES[variant] += 1
+        SL_LAUNCHES["10bit"] += bitdepth == 10
+        SL_LAUNCHES["tq"] += bool(rdoq or signhide)
+        SL_LAUNCHES["tiled"] += tile_info.shape[0] > 1
+        SL_LAUNCHES["cu4"] += nxn
     if tskip:
         TSKIP_LAUNCHES["luma"] += 1
         TSKIP_LAUNCHES["10bit"] += bitdepth == 10
@@ -614,9 +691,13 @@ def _launch(planes, modes, plan: IntraFramePlan, is_inter, bitdepth=8,
 
 
 def _check(orig, modes, plan, s, luma, bitdepth, is_inter=None, mc=None,
-           qp_map=None, lossless=False, rdpcm=False, tools=False):
-    """Validate what the kernel takes (tools: RDOQ or sign hiding);
-    returns (NB, H, W)."""
+           qp_map=None, lossless=False, rdpcm=False, tools=False,
+           scaling=False):
+    """Validate what the kernel takes (tools: RDOQ or sign hiding;
+    scaling: a scaling list's tables); returns (NB, H, W)."""
+    if scaling and (lossless or qp_map is not None):
+        raise ValueError("wavefront kernel: a scaling list takes neither "
+                         "lossless nor a QP map")
     if bitdepth not in _BITDEPTHS:
         raise ValueError(f"wavefront kernel: bit depth {bitdepth} (8 and "
                          "10 are built)")

@@ -504,10 +504,11 @@ def test_preset_default_encodes(preset):
           inter_max_cu=16, sao=False, rdoq=False, crypto="k"),
      "selective encryption"),
     pytest.param(dict(intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
-                      inter_max_cu=16, sao=False, rdoq=False,
-                      scaling_list="default"), "scaling lists",
+                      inter_max_cu=16, sao=False, rdoq=False, gop_len=4,
+                      crypto="k"), "selective encryption",
                  id="change2-tr-depth-intra"),
-    (dict(scaling_list="default"), "scaling lists")])
+    pytest.param(dict(gop_len=4, crypto="k"), "selective encryption",
+                 id="change3-scaling lists")])
 def test_what_stays_unported_on_a_gop_raises(change, match):
     cfg = config_from_preset("medium", width=64, height=64)
     for k, v in change.items():

@@ -9,7 +9,8 @@
   --bitrate on Config()'s IPPP and ROI + AQ, and lossless all-intra
   with implicit RDPCM and lossless IPPP, Config()'s IPPP on a 2x1
   tile grid with WPP, the intra-NxN point (cu 4) with transform skip and
-  --tr-depth-intra on a variable intra tree) never imports jax
+  --tr-depth-intra on a variable intra tree, a custom-cqm scaling-list
+  stream) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -128,6 +129,24 @@ for cfg in (Config(width=48, height=32, qp=27, intra_min_cu=4,
     out = list(enc.encode_stream(frames))
     assert [o[1].slice_type for o in out] == [2, 2, 2]
     assert not enc._intra._native_cabac()
+# Scaling lists from a cqmfile (coded in the SPS) on Config()'s IPPP.
+with tempfile.TemporaryDirectory() as tmp:
+    cqm = os.path.join(tmp, "m.cqm")
+    names = [f"{k}{n}X{n}_{c}" for n in (4, 8, 16) for k in ("INTRA", "INTER")
+             for c in ("LUMA", "CHROMAU", "CHROMAV")]
+    names += ["INTRA32X32_LUMA", "INTER32X32_LUMA"]
+    with open(cqm, "w") as f:
+        for i, name in enumerate(names):
+            n = 16 if name.startswith(("INTRA4X4", "INTER4X4")) else 64
+            f.write(name + "\n" + ",".join(str(16 + (i + j) % 9)
+                                           for j in range(n)) + "\n")
+            if n == 64 and "8X8" not in name:
+                f.write(f"{name}_DC\n{17 + i % 5}\n")
+    enc = Encoder(Config(width=48, height=32, qp=27, cqmfile=cqm),
+                  device="cpu")
+    out = list(enc.encode_stream(frames))
+assert [o[1].slice_type for o in out] == [2, 1, 1]
+assert enc._intra.params.scaling_list_mode == 1
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked
@@ -183,7 +202,8 @@ def test_port_sources_import_no_kvazaar_tpu():
     "constants", "ops.scan", "ops.inter", "ops.rate", "ops.quant",
     "ops.sao", "ops.transform", "bitstream.contexts",
     "bitstream.headers", "bitstream.syntax", "encoder.inter_cands",
-    "encoder.quadtree", "encoder.rate_control", "encoder.var_schedule"])
+    "encoder.quadtree", "encoder.rate_control", "encoder.var_schedule",
+    "ops.scaling"])
 def test_copied_constants_equal_jax(module):
     """Every upper-case constant of a copied module equals the JAX
     package's constant of the same name."""

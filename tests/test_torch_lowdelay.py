@@ -352,14 +352,13 @@ def test_low_delay_defaults_pass_the_gates(name):
 @pytest.mark.parametrize("name,match", [
     pytest.param("medium", "selective encryption",
                  id="medium-GOP structures"),
-    pytest.param("ultrafast --gop 0", "scaling lists",
+    pytest.param("ultrafast --gop 0", "selective encryption",
                  id="ultrafast --gop 0-variable P/B CU trees"),
     ("tmvp", "TMVP")])
 def test_what_stays_unported_raises(name, match):
     """On the B pyramids that are ported (the medium default; the
     ultrafast preset's trees with --gop 0 and a GOP of 8), selective
-    encryption and scaling lists still raise, and so does TMVP on a
-    low-delay stream."""
+    encryption still raises, and so does TMVP on a low-delay stream."""
     if name == "medium":
         cfg = config_from_preset("medium", width=64, height=64,
                                  crypto="k")
@@ -369,6 +368,6 @@ def test_what_stays_unported_raises(name, match):
     else:
         cfg = config_from_preset("ultrafast", width=64, height=64,
                                  lp_gop=None, gop_len=8, intra_period=0,
-                                 scaling_list="default")
+                                 crypto="k")
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")

@@ -18,8 +18,8 @@ backend, jitted) on the same seeded frames, every comparison exact
   RDOQ, sign hiding, SAO) presets at 96x96 QP22, and the JAX oracle
   decoder turning each port stream into the port's recon (post-SAO);
 - ``Encoder.encode_stream`` == ``encode`` and the CLI on a var config;
-  scaling lists (also at cu 4), field sources, selective encryption and
-  TMVP still raise.
+  field sources, selective encryption (also at cu 4) and TMVP still
+  raise.
 
 Each JAX reference encoder is built and run once per case (cached), so
 each config compiles once; the SAO cases share one compiled JAX SAO
@@ -299,12 +299,13 @@ def test_cli_medium_all_intra(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(scaling_list="default"), "scaling lists"),
+    pytest.param(dict(crypto="k"), "selective encryption",
+                 id="change0-scaling lists"),
     pytest.param(dict(source_scan_type=1), "field",
                  id="change1-tr-depth-intra"),
     (dict(intra_period=0, gop_len=8, crypto="k"), "selective encryption"),
     pytest.param(dict(intra_min_cu=4, intra_max_cu=4, rdoq=False,
-                      scaling_list="default"), "scaling lists",
+                      crypto="k"), "selective encryption",
                  id="change3-fixed CU size 4"),
     (dict(intra_period=0, tmvp=True), "TMVP")])
 def test_unported_var_options_raise(change, match):

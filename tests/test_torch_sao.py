@@ -16,7 +16,8 @@ its CPU backend, jitted:
   JAX encoder's, and the JAX oracle decoder turning the stream back
   into exactly the port's post-SAO reconstruction;
 - every preset's all-intra operating point passes the port's gates, and
-  what stays unported (scaling lists, cu 4, selective encryption)
+  what stays unported (field sources, selective encryption, also at
+  cu 4)
   still raises.
 
 The JAX SAO program takes about a minute to compile on the CPU (most of
@@ -284,10 +285,10 @@ def test_every_preset_all_intra_is_ported(preset):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(scaling_list="default"), "scaling lists"),
-    pytest.param(dict(intra_min_cu=4, intra_max_cu=4,
-                      scaling_list="default"), "scaling lists",
-                 id="change1-fixed CU size 4"),
+    pytest.param(dict(source_scan_type=1), "field",
+                 id="change0-scaling lists"),
+    pytest.param(dict(intra_min_cu=4, intra_max_cu=4, crypto="k"),
+                 "selective encryption", id="change1-fixed CU size 4"),
     (dict(sao=True, intra_period=0, lp_gop=None, gop_len=8,
           crypto="k"), "selective encryption")])
 def test_unported_rdoq_sao_raise(change, match):

@@ -211,8 +211,8 @@ def test_encode_stream_matches_frame_encoder(name):
     dict(tmvp=True, intra_period=0),
     dict(gop_len=8, intra_period=0, crypto="k"),
     dict(intra_min_cu=8, intra_period=0, crypto="k"),
-    dict(inter_min_cu=8, intra_period=0, gop_len=8, scaling_list="default"),
-    dict(scaling_list="default"),
+    dict(inter_min_cu=8, intra_period=0, gop_len=8, crypto="k"),
+    dict(source_scan_type=2),
     dict(intra_min_cu=4, intra_max_cu=4, crypto="k")])
 def test_unported_configs_raise(change):
     cfg = _cfg(64, 48, 16, 22)
@@ -225,11 +225,11 @@ def test_unported_configs_raise(change):
 def test_unported_structures_raise():
     """Low-delay P frames and B pyramids are ported (one or more
     references on the fixed grid, variable trees with one per list), and
-    so are tiles and slices; scaling lists on a B pyramid (fixed grid),
-    selective encryption on one of variable trees, SMP, TMVP and
+    so are tiles and slices, and scaling lists; selective encryption on
+    a B pyramid (fixed grid) and on one of variable trees, SMP, TMVP and
     selective encryption still raise."""
-    for change, match in ((dict(gop_len=8, scaling_list="default"),
-                           "scaling lists"),
+    for change, match in ((dict(gop_len=8, crypto="k"),
+                           "selective encryption"),
                           (dict(intra_min_cu=8, inter_min_cu=8, gop_len=8,
                                 crypto="k"), "selective encryption"),
                           (dict(smp=True), "SMP"),
@@ -264,8 +264,7 @@ def test_cli_writes_the_api_stream(tmp_path):
                                     "k"],
                                    ["--preset", "medium", "--period",
                                     "1", "--source-scan-type", "tff"],
-                                   ["--period", "1", "--scaling-list",
-                                    "default"]])
+                                   ["--period", "1", "--crypto", "k"]])
 def test_cli_rejects_unported_configs(tmp_path, flags):
     from kvazaar_tpu_torch import cli
     src = tmp_path / "in.yuv"

@@ -558,7 +558,7 @@ def test_one_reference_var_p_passes_the_gates(name):
 
 @pytest.mark.parametrize("change,match", [
     (dict(gop_len=8, crypto="k"), "selective encryption"),
-    pytest.param(dict(gop_len=8, scaling_list="default"), "scaling lists",
+    pytest.param(dict(gop_len=4, crypto="k"), "selective encryption",
                  id="change1-tr-depth-intra"),
     (dict(tmvp=True), "TMVP"),
     (dict(smp=True, intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
@@ -572,5 +572,5 @@ def test_what_stays_unported_raises(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")
     if "gop_len" in change:         # the B pyramid itself is ported
-        cfg.crypto, cfg.scaling_list = None, "off"
+        cfg.crypto = None
         assert tfe.unsupported(cfg) == _unsupported_structure(cfg) == []
