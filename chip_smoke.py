@@ -21,8 +21,9 @@ tiles and slices up to BASELINE config #4 (3x3 tiles with WPP at
 1920x1080), RDOQ, sign hiding and --rd 2 / 3 on the fixed grid
 (``--preset slower --gop lp-g4d4t1``, all-intra at rd 3), and the
 intra-NxN point (fixed CU 4) with transform skip and ``--preset medium
---tr-depth-intra 1``, and scaling lists (``--scaling-list default``,
-``--cqmfile``).
+--tr-depth-intra 1``, scaling lists (``--scaling-list default``,
+``--cqmfile``), and SMP/AMP inter partitions and TMVP on fixed-grid P
+frames.
 Any failed phase raises, so the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi);
@@ -61,7 +62,7 @@ Any failed phase raises, so the script exits nonzero:
    (fixed 16x16 grid, rd 0, SAO) timed as phase 6 (line ``superfast
    encode_stream:``, stage split with ``sao_ms``, 2 frames card == CPU
    bytes); the ``medium`` preset (intra 8..32, rd 1, RDOQ, SAO), 1
-   warm-up and 2 timed frames (line ``medium encode_stream:``, var
+   warm-up and 1 timed frame (line ``medium encode_stream:``, var
    stage split with ``sao_ms``, 1 frame card == CPU bytes); one frame
    of ``slower`` (8..64, rd 2, RDOQ, sign hiding, SAO) card == CPU
    bytes; and RDOQ, sign hiding (S = 4..32, every scan index) and the
@@ -79,19 +80,19 @@ Any failed phase raises, so the script exits nonzero:
    46-frame clip; its launch counts are the cu 32 rows') and the
    veryfast preset (SAO on the I frame), each with a stage split of one
    P frame against 2 references; and card == CPU bytes and recon at
-   416x240 for ultrafast, superfast, veryfast, faster and fast at their
+   256x128 for ultrafast, superfast, veryfast, faster and fast at their
    defaults, Config() and 3 references at cu 16 (IDR + 3 P frames; fast
    IDR + 2 P);
 11. variable P trees with one reference (``run_var_p``): the medium
    preset's IPPP point (--gop 0, intra CUs 8..32, inter CUs 8..64,
    RDOQ, SAO) at 832x480 through Encoder.encode_stream, IDR + 1 P
-   warm-up then 3 timed P frames of the 46-frame clip (line
+   warm-up then 2 timed P frames of the 46-frame clip (line
    ``ippp-medium encode_stream:`` with fps, IDR and P bits, PSNR-Y,
    CU-size histogram, inter share), a stage split of one P frame
    (coarse motion search, each size's candidates, tree and plan, merge
    RD, direct pass, var recon with its ATen-op count, deblocking, SAO,
    downloads, merge/AMVP + skip, CABAC); card == CPU bytes and recon at
-   256x128 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
+   128x64 for medium, slower and ultrafast at --gop 0 (IDR + 2 P); and
    a set_base_qp + reset_stream ladder (QP 22 -> 27 -> 22) on the card
    against fresh encoders;
 12. B pyramids (``run_gop``): the inter variant on a real fixed-grid B
@@ -106,9 +107,8 @@ Any failed phase raises, so the script exits nonzero:
    plus the CU-size histogram and inter share per frame) and a stage
    split of one B frame; card == CPU bytes and recon for the fixed-grid
    GOP 8 (9 frames) and medium's GOP 8 (9 frames and a 2-frame tail) at
-   256x128, and an open GOP with CRA anchors and RASL B
-   pictures (GOP 4, period 4, variable trees) at 256x128; and a
-   set_base_qp +
+   128x64, and an open GOP with CRA anchors and RASL B pictures (GOP 4,
+   period 4, variable trees) at 128x64; and a set_base_qp +
    reset_stream ladder (QP 22 -> 27 -> 22) on a GOP-8 medium encoder
    against fresh encoders;
 13. rate control and per-CTU QP (``run_rate_control``): the joint launch
@@ -123,10 +123,10 @@ Any failed phase raises, so the script exits nonzero:
    (fps, achieved kbit/s against 2000, slice, frame and CTU QP range;
    exactly one QP-map launch per frame) and a stage split of one of its
    P frames (``rc-ippp stage split``); and card == CPU bytes and
-   recon for ROI + AQ all-intra (416x240), the medium preset with
-   --bitrate 400000 (256x128; GOP 8, variable B trees, the GOP
+   recon for ROI + AQ all-intra (256x128), the medium preset with
+   --bitrate 100000 (128x64; GOP 8, variable B trees, the GOP
    allocation and a 2-frame tail) and the ultrafast preset with
-   --bitrate 1000000 (416x240);
+   --bitrate 330000 (256x128);
 14. 10-bit (``run_tenbit``): the kernel's 10-bit instances == plain
    (line ``10-bit kernel vs plain``, timed against the 8-bit launch at
    the same shape): intra cu 16 over the intra cell's 8 frames, inter
@@ -139,9 +139,9 @@ Any failed phase raises, so the script exits nonzero:
    GOP 8, --bitrate 15000000, fixed cu 32; the IDR and one GOP warm,
    one GOP timed: fps, kbit/s against 15000, the QP range, PSNR-Y at
    peak 1023 and the peak device memory); and card == CPU bytes and
-   recon at 416x240 for 10-bit superfast --period 1, ultrafast and
+   recon at 256x128 for 10-bit superfast --period 1, ultrafast and
    Config() with --bitrate (a per-CTU QP map), and medium (GOP 8,
-   variable B trees) at 256x128;
+   variable B trees) at 128x64;
 15. lossless (``run_lossless``): the kernel's transquant-bypass
    instances == plain, max abs error 0, with the recon equal to the
    source (line ``bypass kernel vs plain``, each timed against the
@@ -152,7 +152,7 @@ Any failed phase raises, so the script exits nonzero:
    26; 10-bit intra cu 16 and inter cu 32 at 832x480; 3840x2160 10-bit
    cu 32, intra and inter, timed; the cell ``lossless-832x480`` (the headline
    configuration with lossless=True, which turns deblocking off; a
-   2-frame warm-up batch, then one timed batch of 4 through
+   1-frame warm-up batch, then one timed batch of 2 through
    Encoder.encode_stream: fps, bits a frame, recon == source, the
    bypass launches, and a stage split with the Python CABAC's share);
    the pipelined FrameInfo of 128x128 noise at QP 51 (SSEs above 2^24)
@@ -168,7 +168,7 @@ Any failed phase raises, so the script exits nonzero:
    with the tile's steps, ring, threads and shared memory and the
    bound); the cells ``tiles3x3-ippp-1920x1080-qp22`` (BASELINE config
    #4 on the package defaults: Config() with tiles 3x3; IDR + 1 P warm,
-   4 timed P frames) and ``tiles3x3-intra-1920x1080-qp22`` (the
+   2 timed P frames) and ``tiles3x3-intra-1920x1080-qp22`` (the
    headline configuration on a 3x3 grid, pipelined; a 1-frame warm-up
    batch, one timed batch of 2), each with its tiled launches counted
    (``wavefront.TILE_LAUNCHES``) and a stage split with the Python
@@ -193,11 +193,11 @@ Any failed phase raises, so the script exits nonzero:
    warm pass over the 8-frame clip, then 8 timed P frames on the fixed
    cu 32 grid with RDOQ and sign hiding), each with its tool launches
    (``wavefront.TOOL_LAUNCHES``, ``CMODE_LAUNCHES``) and a stage split;
-   and card == CPU bytes and recon at 416x240 for medium --gop
+   and card == CPU bytes and recon at 256x128 for medium --gop
    lp-g4d4t1, medium --gop 0 --ref 2, Config(rdoq=True) with --bitrate,
-   Config() with RDOQ, sign hiding and tiles 2x2 and medium --period 1
-   --rd 3, and at 256x128 for placebo --gop 0 --ref 3 and a 10-bit
-   fixed-grid GOP 8 with RDOQ and sign hiding;
+   Config() with RDOQ, sign hiding and tiles 2x2, medium --period 1
+   --rd 3, placebo --gop 0 --ref 3 and a 10-bit fixed-grid GOP 8 with
+   RDOQ and sign hiding;
 18. the intra-NxN point (fixed CU 4, DST-VII), transform skip and
    --tr-depth-intra (``run_nxn``): the kernel's cu 4 instances (luma on
    the plan of 4x4 blocks, transform skip a run-time flag) and the NxN
@@ -208,8 +208,8 @@ Any failed phase raises, so the script exits nonzero:
    compare-only frame; each timed against the cu 8 joint launch on the
    same frames, with its threads, shared memory, steps and bounds); the
    cells ``intra-nxn-tskip-832x480-qp22`` (the headline configuration at
-   cu 4 with transform skip; a 2-frame warm-up batch, one timed batch of
-   4; the cu 4 and transform-skip launches, ``wavefront.CU4_LAUNCHES``
+   cu 4 with transform skip; a 1-frame warm-up batch, one timed batch of
+   2; the cu 4 and transform-skip launches, ``wavefront.CU4_LAUNCHES``
    and ``TSKIP_LAUNCHES``; a stage split with the Python CABAC,
    ``cabac_python_ms``) and ``intra-medium-trdepth-832x480-qp22``
    (``--preset medium --period 1 --tr-depth-intra 1``: 1 warm-up and 1
@@ -235,7 +235,19 @@ Any failed phase raises, so the script exits nonzero:
    launches (``wavefront.SL_LAUNCHES``) and a stage split; and card ==
    CPU bytes and recon at 128x64 for default-list IPPP, custom-list cu
    4, a custom-list medium GOP 4, 10-bit custom cu 16, and tiles 2x2
-   with RDOQ and sign hiding (128x128).
+   with RDOQ and sign hiding (128x128);
+20. SMP/AMP inter partitions and TMVP (``run_smp``): the inter variant
+   == plain, max abs error 0, on real SMP / AMP P frames at 832x480
+   (the MC planes of the PUs' motion): SMP cu 16, AMP cu 32 and AMP
+   cu 32 with RDOQ and sign hiding (line ``smp kernel vs plain``, timed
+   against the plain version, with the bound); the cells
+   ``ippp-amp-832x480-qp22`` (cu 32 IPPP with SMP and AMP, pipelined;
+   IDR + 1 P warm, 8 timed P frames of the 46-frame clip) and
+   ``ld-ultrafast-tmvp-832x480-qp22`` (the ultrafast preset with TMVP,
+   timed as ``ultrafast``), each with its launches; and card == CPU
+   bytes and recon at 128x64 for SMP cu 16, AMP cu 32 with RDOQ and
+   sign hiding, SMP with --bitrate, TMVP IPPP, ultrafast with TMVP and
+   TMVP with an IDR every 3 frames.
 
 The kernels' JSON record and the card's name and power limit come just
 before the last line, ``{"ok": true, "device": {...}}``.  Without a
@@ -256,9 +268,9 @@ import numpy as np
 
 W, H, QP, FRAMES, BATCH, TIMED_BATCHES = 832, 480, 22, 8, 8, 4
 IPPP_WARM, IPPP_TIMED = 6, 40
-VAR_TIMED = 2                         # phase 8: frames after 1 warm-up
-MEDIUM_TIMED = 2                      # phase 9: frames after 1 warm-up
-VAR_P_TIMED = 3                       # phase 11: P frames after IDR + P
+VAR_TIMED = 1                         # phase 8: frames after 1 warm-up
+MEDIUM_TIMED = 1                      # phase 9: frames after 1 warm-up
+VAR_P_TIMED = 2                       # phase 11: P frames after IDR + P
 GOP = 8                               # phase 12: GOP length
 BIG = ((1920, 1088), (3840, 2160))    # the compare-only frames of phase 5
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the
@@ -1147,7 +1159,7 @@ def ld_p_split(torch, cfg, frames, dev, nref=2):
     t0 = time.perf_counter()
     dl = ife.download_p(handle, need_recon=True)
     out["d2h_ms"] = 1000 * (time.perf_counter() - t0)
-    (_lv, _modes, inter_h, ref_h, mv_h, _sses), _rec, _recs = dl
+    (_lv, _modes, inter_h, ref_h, mv_h, *_rest), _rec, _recs = dl
     t0 = time.perf_counter()
     ife._merge_amvp_multi(inter_h, ref_h, mv_h, nref, nref, ref_pocs)
     out["merge_amvp_multi_ms"] = 1000 * (time.perf_counter() - t0)
@@ -1202,7 +1214,7 @@ def run_low_delay(torch, wavefront, clip46, dev):
     Config() (fixed cu 32 IPPP, pipelined) and the veryfast preset (SAO
     on the I frames) timed through Encoder.encode_stream, each with a
     stage split of one P frame against 2 references; and card == CPU
-    bytes and recon for the seven low-delay configs at 416x240.
+    bytes and recon for the seven low-delay configs at 256x128.
     Returns (cu 32 rows: intra, inter, joint; launches of the Config()
     run)."""
     from kvazaar_tpu_torch import Config
@@ -1234,7 +1246,7 @@ def run_low_delay(torch, wavefront, clip46, dev):
         log(f"{name} stage split (ms, one P frame, 2 references):",
             json.dumps(ld_p_split(torch, cfg, clip8, dev)))
 
-    w, h = 416, 240
+    w, h = 256, 128
     small = synth_clip_natural(4, w, h, seed=0)
     checks = [(p, config_from_preset(p, width=w, height=h, qp=QP))
               for p in ("ultrafast", "superfast", "veryfast", "faster",
@@ -1436,8 +1448,8 @@ def run_var_p(torch, wavefront, clip46, dev):
         var_p_stage_split(torch, enc._intra, clip46[:2])))
     enc.close()
 
-    # At 256x128 (at 416x240 the CPU's var-tree encodes took 9 s each).
-    w, h = 256, 128
+    # At 128x64 (at 416x240 the CPU's var-tree encodes took 9 s each).
+    w, h = 128, 64
     small = synth_clip_natural(3, w, h, seed=0)
     for name in ("medium", "slower", "ultrafast"):
         if name == "ultrafast":
@@ -1800,17 +1812,17 @@ def run_gop(torch, wavefront, clip46, dev):
         var_b_stage_split(torch, ife, clip46[:3])))
     ife.close()
 
-    # At 256x128 (at 416x240 the CPU's encode of the fixed grid took 12 s,
+    # At 128x64 (at 416x240 the CPU's encode of the fixed grid took 12 s,
     # and its var-tree encodes most of the phase).
-    w, h = 256, 128
+    w, h = 128, 64
     card_equals_cpu(f"gop8-fixed16 {w}x{h}", gop_fixed_config(w, h),
                     synth_clip_natural(9, w, h, seed=0), dev)
     small = synth_clip_natural(11, w, h, seed=0)
     card = card_equals_cpu(f"gop8-medium {w}x{h}", gop_medium_config(w, h),
                            small, dev)
-    cra = card_equals_cpu("open-gop4-medium 256x128", gop_medium_config(
-        256, 128, gop_len=4, intra_period=4), synth_clip_natural(
-        9, 256, 128, seed=3), dev)
+    cra = card_equals_cpu(f"open-gop4-medium {w}x{h}", gop_medium_config(
+        w, h, gop_len=4, intra_period=4), synth_clip_natural(
+        9, w, h, seed=3), dev)
     if [r[1].nal_type for r in cra].count(NAL_CRA_NUT) != 2:
         raise RuntimeError("open GOP: expected two CRA pictures")
 
@@ -2017,9 +2029,9 @@ def run_rate_control(torch, wavefront, clip46, dev):
     cu_qp_delta, fixed cu 32, one reference) through Encoder.encode_stream,
     IDR + 5 P frames warm and 40 P frames timed, one kernel launch with a
     QP map per P frame; card == CPU bytes and recon for ROI + AQ
-    all-intra (416x240), the medium preset with --bitrate (256x128; GOP
+    all-intra (256x128), the medium preset with --bitrate (128x64; GOP
     8, variable B trees, the GOP allocation; a GOP and a 2-frame tail)
-    and the ultrafast preset with --bitrate (416x240; low-delay GOP,
+    and the ultrafast preset with --bitrate (256x128; low-delay GOP,
     frame-level rate control).  Returns (kernel rows, the cell's QP-map launches)."""
     from kvazaar_tpu_torch.api import Encoder
     from kvazaar_tpu_torch.config import config_from_preset
@@ -2094,7 +2106,7 @@ def run_rate_control(torch, wavefront, clip46, dev):
         rc_p_split(torch, enc, *clip46[-1], len(clip46) - 1)))
     enc.close()
 
-    w, h = 416, 240
+    w, h = 256, 128
     small = synth_clip_natural(11, w, h, seed=0)
     roi = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "roi_phase13.txt")
@@ -2103,14 +2115,14 @@ def run_rate_control(torch, wavefront, clip46, dev):
         f.write("3 2\n-4 2 0\n3 -2 1\n")
     card_equals_cpu(f"roi-aq all-intra {w}x{h}", rc_config(
         w, h, bitrate=0, intra_period=1, roi=roi, aq=1.0), small[:3], dev)
-    # At 256x128: at 416x240 the CPU's var-tree encode took half the
+    # At 128x64: at 416x240 the CPU's var-tree encode took half the
     # phase.
-    card_equals_cpu("medium --bitrate 400000 256x128", config_from_preset(
-        "medium", width=256, height=128, qp=QP, bitrate=400_000),
-        synth_clip_natural(11, 256, 128, seed=0), dev)
-    card_equals_cpu(f"ultrafast --bitrate 1000000 {w}x{h}",
+    card_equals_cpu("medium --bitrate 100000 128x64", config_from_preset(
+        "medium", width=128, height=64, qp=QP, bitrate=100_000),
+        synth_clip_natural(11, 128, 64, seed=0), dev)
+    card_equals_cpu(f"ultrafast --bitrate 330000 {w}x{h}",
                     config_from_preset("ultrafast", width=w, height=h,
-                                       qp=QP, bitrate=1_000_000),
+                                       qp=QP, bitrate=330_000),
                     small[:6], dev)
     return rows, qp_launches
 
@@ -2392,7 +2404,7 @@ def run_tenbit(torch, wavefront, dev):
     intra = run_tenbit_intra_cell(torch, wavefront, frames10, dev)
     big = run_tenbit_4k_cell(torch, wavefront, big10, dev)
 
-    w, h = 416, 240
+    w, h = 256, 128
     small = to_10bit(synth_clip_natural(GOP + 1, w, h, seed=0), 143)
     card_equals_cpu(f"10-bit superfast --period 1 {w}x{h}", config_from_preset(
         "superfast", width=w, height=h, qp=QP, intra_period=1,
@@ -2400,13 +2412,13 @@ def run_tenbit(torch, wavefront, dev):
     card_equals_cpu(f"10-bit ultrafast {w}x{h}", config_from_preset(
         "ultrafast", width=w, height=h, qp=QP, input_bitdepth=10),
         small[:4], dev)
-    card_equals_cpu("10-bit medium 256x128", config_from_preset(
-        "medium", width=256, height=128, qp=QP, input_bitdepth=10),
-        to_10bit(synth_clip_natural(GOP + 1, 256, 128, seed=0), 143), dev)
+    card_equals_cpu("10-bit medium 128x64", config_from_preset(
+        "medium", width=128, height=64, qp=QP, input_bitdepth=10),
+        to_10bit(synth_clip_natural(GOP + 1, 128, 64, seed=0), 143), dev)
     for k in wavefront.LAUNCHES_10BIT:
         wavefront.LAUNCHES_10BIT[k] = 0
-    card_equals_cpu(f"10-bit Config() --bitrate 1000000 {w}x{h}",
-                    rc_config(w, h, bitrate=1_000_000, input_bitdepth=10),
+    card_equals_cpu(f"10-bit Config() --bitrate 330000 {w}x{h}",
+                    rc_config(w, h, bitrate=330_000, input_bitdepth=10),
                     small[:4], dev)
     qp_map_launches = wavefront.LAUNCHES_10BIT["qp_map"]
     if qp_map_launches == 0:
@@ -2419,8 +2431,8 @@ def run_tenbit(torch, wavefront, dev):
     return rows, launches
 
 
-LOSSLESS_TIMED = 4                    # phase 15's cell: one timed batch
-LOSSLESS_WARM = 2                     # ... after a warm-up batch of 2
+LOSSLESS_TIMED = 2                    # phase 15's cell: one timed batch
+LOSSLESS_WARM = 1                     # ... after a warm-up batch of 1
 
 
 def lossless_config(width, height, cu=16, **kw):
@@ -2748,8 +2760,9 @@ def run_lossless(torch, wavefront, dev):
             (f"lossless RDPCM IPPP cu 16 {w}x{h}",
              lossless_config(w, h, implicit_rdpcm=True, intra_period=0),
              small[:3]),
-            (f"lossless fixed GOP 4 {w}x{h}",
-             lossless_config(w, h, gop_len=4, intra_period=0), small))
+            ("lossless fixed GOP 4 128x64",
+             lossless_config(128, 64, gop_len=4, intra_period=0),
+             synth_clip_natural(5, 128, 64, seed=0)))
     streams("10bit",
             (f"10-bit lossless RDPCM --period 1 {w}x{h}",
              lossless_config(w, h, implicit_rdpcm=True, input_bitdepth=10),
@@ -2772,7 +2785,7 @@ TILES = (3, 3)                        # phase 16: the tile grid of BASELINE #4
 TILE_SHAPES = ((1920, 1088), (3840, 2176))   # ... its kernel rows' frames
 TILE_W, TILE_H = 1920, 1080           # ... and its cells' frames
 TILE_INTRA_WARM, TILE_INTRA_TIMED = 1, 2     # ... all-intra batches
-TILE_P_TIMED = 4                      # ... P frames after IDR + 1 P
+TILE_P_TIMED = 2                      # ... P frames after IDR + 1 P
 
 
 def tiles_config(width, height, cu=16, **kw):
@@ -3189,16 +3202,16 @@ def bound_ms_tools(tensors, work, rdoq, signhide):
 
 
 def tools_streams_card_equals_cpu(wavefront, dev):
-    """Phase 17 (iii): card == CPU bytes and recon at 416x240 for
+    """Phase 17 (iii): card == CPU bytes and recon at 256x128 for
     ``medium --gop lp-g4d4t1``, ``medium --gop 0 --ref 2``,
     Config(rdoq=True) with --bitrate (per-CTU QP), Config() with RDOQ,
-    sign hiding and tiles 2x2 and ``medium --period 1 --rd 3`` (variable
-    trees with chroma modes), and at 256x128 for ``placebo --gop 0 --ref
-    3`` and a 10-bit fixed-grid GOP 8 with RDOQ and sign hiding; the RDOQ
-    / sign-hiding launches counted around the card runs."""
+    sign hiding and tiles 2x2, ``medium --period 1 --rd 3`` (variable
+    trees with chroma modes), ``placebo --gop 0 --ref 3`` and a 10-bit
+    fixed-grid GOP 8 with RDOQ and sign hiding; the RDOQ / sign-hiding
+    launches counted around the card runs."""
     from kvazaar_tpu_torch import Config
     from kvazaar_tpu_torch.config import config_from_preset
-    w, h = 416, 240
+    w, h = 256, 128
     small = synth_clip_natural(9, w, h, seed=0)
     for k in wavefront.TOOL_LAUNCHES:
         wavefront.TOOL_LAUNCHES[k] = 0
@@ -3217,9 +3230,9 @@ def tools_streams_card_equals_cpu(wavefront, dev):
                     config_from_preset("placebo", width=256, height=128,
                                        qp=QP, gop_len=0, ref_frames=3),
                     synth_clip_natural(3, 256, 128, seed=0), dev)
-    card_equals_cpu(f"Config(rdoq) --bitrate 1000000 {w}x{h}",
+    card_equals_cpu(f"Config(rdoq) --bitrate 330000 {w}x{h}",
                     Config(width=w, height=h, qp=QP, rdoq=True,
-                           bitrate=1_000_000, intra_period=0), small[:3],
+                           bitrate=330_000, intra_period=0), small[:3],
                     dev)
     card_equals_cpu(f"Config(rdoq, signhide) tiles 2x2 {w}x{h}",
                     Config(width=w, height=h, qp=QP, rdoq=True,
@@ -3252,7 +3265,7 @@ def run_tools(torch, wavefront, clip46, dev):
     variable-tree I frame, then fixed cu 32 P frames with RDOQ and sign
     hiding at a QP per position; one warm pass over the 8-frame clip,
     then 8 timed P frames), each with its tool launches counted and a
-    stage split; and card == CPU for seven streams at 416x240.  Returns
+    stage split; and card == CPU for seven streams at 256x128.  Returns
     (kernel rows, launches per record)."""
     from kvazaar_tpu_torch.api import Encoder
     from kvazaar_tpu_torch.config import config_from_preset
@@ -3321,7 +3334,7 @@ def run_tools(torch, wavefront, clip46, dev):
 
 NXN_FRAMES = 8                        # phase 18: the kernel rows' batch
 NXN_BIG = (1920, 1088)                # ... its compare-only frame
-NXN_WARM, NXN_TIMED = 2, 4            # ... the NxN cell's batches
+NXN_WARM, NXN_TIMED = 1, 2            # ... the NxN cell's batches
 NXN_SMALL = (128, 64)                 # ... the card == CPU streams
 
 
@@ -4050,6 +4063,164 @@ def run_scaling(torch, wavefront, clip46, dev):
     return rows, launches
 
 
+SMP_WARM, SMP_TIMED = 2, 8            # phase 20: IDR + 1 P, then 8 P
+SMP_SMALL = (128, 64)                  # ... the card == CPU streams
+
+
+def smp_config(width, height, cu=16, **kw):
+    """IPPP with SMP inter partitions (2NxN, Nx2N; AMP's four asymmetric
+    splits with amp=True at cu 32) on the fixed cu grid, QP 22, one
+    reference, deblocking, WPP."""
+    from kvazaar_tpu_torch import Config
+    return Config(width=width, height=height, qp=QP, intra_period=0,
+                  intra_min_cu=cu, intra_max_cu=cu, smp=True, **kw)
+
+
+def compare_kernel_smp(torch, clip46, dev):
+    """Phase 20 (i): the inter variant == plain on the card, max abs
+    error 0, on real SMP / AMP P frames at 832x480 (frame 1 searched
+    against frame 0's deblocked recon through the SMP branch of the P
+    program: its modes, inter map and the MC planes of the PUs' 8x8-cell
+    motion field): SMP cu 16, AMP cu 32, and AMP cu 32 with RDOQ and sign
+    hiding (the TQ instance), each as the encoder launches it (the joint
+    luma + Cb + Cr launch with the frame encoder's tools), timed against
+    its plain version, with its bound.  Returns the rows by name."""
+    from kvazaar_tpu_torch.encoder.frame_encoder import IntraFrameEncoder
+    from kvazaar_tpu_torch.encoder.intra_recon import wavefront_recon_plain
+    from kvazaar_tpu_torch.ops.wavefront import wavefront_recon_planes
+
+    rows = {}
+    for name, cu, kw in (("smp cu16", 16, {}),
+                         ("amp cu32", 32, dict(amp=True)),
+                         ("amp cu32 rdoq+sh", 32,
+                          dict(amp=True, rdoq=True, signhide=True))):
+        ife = IntraFrameEncoder(smp_config(W, H, cu, **kw), device=dev)
+        ife.submit_frames([clip46[0]])       # DPB: frame 0, deblocked
+        ys, cbs, crs = ife._upload(ife.host_pack_sources([clip46[1]]))
+        modes, inter_map, part, _mv_pu, _mv_cells, mcs = \
+            ife._p_predict_smp(ys[0], ife._dpb)
+        tools = {k: v for k, v in ife._recon_tools().items()
+                 if k in ("rdoq", "signhide", "lam")}
+        inter = dict(is_inter=inter_map[None], mc_y=mcs[0][None],
+                     mc_cb=mcs[1][None], mc_cr=mcs[2][None])
+
+        def launch():
+            return wavefront_recon_planes(ys, cbs, crs, modes[None],
+                                          ife.plan, QP, ife.qp_c, 8,
+                                          **inter, **tools)
+
+        def plain():
+            out = []
+            for orig, mc, s, luma, qp in (
+                    (ys, inter["mc_y"], cu, True, QP),
+                    (cbs, inter["mc_cb"], cu // 2, False, ife.qp_c),
+                    (crs, inter["mc_cr"], cu // 2, False, ife.qp_c)):
+                out.extend(wavefront_recon_plain(
+                    orig, modes[None], ife.plan, s, luma, qp, 8,
+                    inter["is_inter"], mc, **tools))
+            return out
+
+        got = launch()
+        err = max_err(torch, got, plain())
+        if err != 0:
+            raise RuntimeError(f"smp kernel != plain at {name}")
+        ins = [ys, cbs, crs, modes, inter_map, *mcs, *got]
+        work = [(ys.numel(), cu), (cbs.numel() + crs.numel(), cu // 2)]
+        row = dict(shape=f"{name} {W}x{H} P frame", cu=cu,
+                   inter_share=inter_map.float().mean().item(),
+                   smp_share=(part > 0).float().mean().item(),
+                   amp_share=(part >= 4).float().mean().item(),
+                   max_abs_err=err, ms=cuda_ms(torch, launch, 20),
+                   plain_ms=cuda_ms(torch, plain, 1),
+                   n_steps=ife.plan.n_steps)
+        if tools.get("rdoq") or tools.get("signhide"):
+            row["bound_ms"], row["bound_by"] = bound_ms_tools(
+                ins, work, tools["rdoq"], tools["signhide"])
+        else:
+            row["bound_ms"], row["bound_by"] = bound_ms(ins, work)
+        log("smp kernel vs plain:", json.dumps(row))
+        rows[name] = row
+        ife.close()
+    return rows
+
+
+def smp_streams_card_equals_cpu(wavefront, dev):
+    """Phase 20 (ii): card == CPU bytes and recon at 128x64 for SMP cu 16,
+    AMP cu 32 with RDOQ and sign hiding, SMP cu 32 with --bitrate (a
+    frame encoder per QP: SMP turns per-CTU QP off), TMVP IPPP at cu 16,
+    the ultrafast preset with TMVP (lp-g4d4t1) and TMVP with an IDR
+    every 3 frames (the collocated motion resets there); the inter
+    launches of the SMP cu 16 card run and the TQ inter launches of the
+    AMP one counted."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+    w, h = SMP_SMALL
+    small = synth_clip_natural(5, w, h, seed=20)
+    launches = {}
+
+    def counted(name, cfg, clip, table, key):
+        for k in table:
+            table[k] = 0
+        card_equals_cpu(name, cfg, clip, dev)
+        launches[name] = table[key]
+        if table[key] == 0:
+            raise RuntimeError(f"{name}: no {key} launch ({table})")
+
+    counted(f"smp cu16 {w}x{h}", smp_config(w, h), small[:4],
+            wavefront.LAUNCHES, "inter")
+    counted(f"amp cu32 rdoq+sh {w}x{h}",
+            smp_config(w, h, 32, amp=True, rdoq=True, signhide=True),
+            small[:4], wavefront.TOOL_LAUNCHES, "inter")
+    card_equals_cpu(f"smp cu32 --bitrate 300000 {w}x{h}",
+                    smp_config(w, h, 32, bitrate=300_000), small[:4], dev)
+    card_equals_cpu(f"tmvp cu16 {w}x{h}",
+                    Config(width=w, height=h, qp=QP, intra_period=0,
+                           intra_min_cu=16, intra_max_cu=16, tmvp=True),
+                    small[:4], dev)
+    card_equals_cpu(f"ultrafast tmvp {w}x{h}",
+                    config_from_preset("ultrafast", width=w, height=h,
+                                       qp=QP, tmvp=True), small, dev)
+    card_equals_cpu(f"tmvp --period 3 {w}x{h}",
+                    Config(width=w, height=h, qp=QP, intra_period=3,
+                           tmvp=True), small, dev)
+    return launches
+
+
+def run_smp(torch, wavefront, clip46, dev):
+    """Phase 20: SMP/AMP inter partitions and TMVP on fixed-grid P
+    frames.  The inter variant == plain on real SMP / AMP P frames
+    (``compare_kernel_smp``); the cells ``ippp-amp-832x480-qp22`` (cu 32
+    IPPP with SMP and AMP, pipelined: IDR + 1 P warm, 8 timed P frames
+    of the 46-frame clip) and ``ld-ultrafast-tmvp-832x480-qp22`` (the
+    ultrafast preset with TMVP: one warm pass over the 8-frame clip, then
+    8 timed P frames), each with its inter launches; and card == CPU
+    for six streams (``smp_streams_card_equals_cpu``).  Returns (kernel
+    rows, launches per record)."""
+    from kvazaar_tpu_torch import Config
+    from kvazaar_tpu_torch.config import config_from_preset
+
+    rows = compare_kernel_smp(torch, clip46, dev)
+    _res, amp = timed_stream(
+        torch, wavefront, "ippp-amp-832x480-qp22",
+        Config(width=W, height=H, qp=22, intra_period=0, intra_min_cu=32,
+               intra_max_cu=32, smp=True, amp=True),
+        clip46[:SMP_WARM + SMP_TIMED], SMP_WARM, dev)
+    if not amp["pipelined"]:
+        raise RuntimeError("ippp-amp: expected the pipelined path")
+    clip8 = synth_clip_natural(8, W, H, seed=4)
+    _res, tmvp = timed_stream(
+        torch, wavefront, "ld-ultrafast-tmvp-832x480-qp22",
+        config_from_preset("ultrafast", width=W, height=H, qp=QP,
+                           tmvp=True), clip8 * 2, len(clip8), dev)
+    launches = smp_streams_card_equals_cpu(wavefront, dev)
+    return rows, {"smp_cu16": launches[f"smp cu16 {SMP_SMALL[0]}x"
+                                       f"{SMP_SMALL[1]}"],
+                  "amp_cu32": amp["kernel_launches"]["inter"],
+                  "amp_tq": launches[f"amp cu32 rdoq+sh {SMP_SMALL[0]}x"
+                                     f"{SMP_SMALL[1]}"],
+                  "tmvp": tmvp["kernel_launches"]["inter"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4151,6 +4322,8 @@ def main() -> int:
                                clip46, dev)
     rows_s, launches_s = timed("phase 19", run_scaling, torch, wavefront,
                                clip46, dev)
+    rows_p, launches_p = timed("phase 20", run_smp, torch, wavefront,
+                               clip46, dev)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     # The cell's shape: a P frame at cu 32 with a per-CTU QP map.
@@ -4243,6 +4416,20 @@ def main() -> int:
                 "replaces": replaces, "launches": n,
                 "max_abs_err": max(r["max_abs_err"]
                                    for r in rows_s.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None}
+
+    def smp_record(name, n, row):
+        """The inter variant on a real SMP / AMP P frame at the shape of
+        the path that runs it; the error over every phase 20 row (all are
+        0 or the phase failed)."""
+        return {"name": name, "route": "cuda",
+                "source": "kvazaar_tpu_torch/csrc/wavefront.cu",
+                "replaces": "kvazaar_tpu/ops/wavefront_pallas.py:283",
+                "launches": n,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in rows_p.values()),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None}
@@ -4350,7 +4537,13 @@ def main() -> int:
                f"inter cu32 {SL_TILES[0]}x{SL_TILES[1]} 3x3 custom+rdoq+sh"),
               ("wavefront_recon_sl_nxn",
                "kvazaar_tpu/ops/wavefront_pallas.py:149", "cu4",
-               f"cu4 {W}x{H} 2 frames + chroma nxn")))]}))
+               f"cu4 {W}x{H} 2 frames + chroma nxn"))),
+        *(smp_record(name, launches_p[key], rows_p[shape])
+          for name, key, shape in (
+              ("wavefront_recon_inter_smp_cu16", "smp_cu16", "smp cu16"),
+              ("wavefront_recon_inter_amp_cu32", "amp_cu32", "amp cu32"),
+              ("wavefront_recon_inter_amp_rdoq_sh_cu32", "amp_tq",
+               "amp cu32 rdoq+sh")))]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,9 +34,12 @@ add to that map.  Scaling lists run on every structure their config
 accepts; with them, GOP layer QPs, lp-GOP positions and rate-controlled
 pictures of variable trees take a frame encoder per QP (the JAX
 package's scaling-list programs bake QP and lambda in), and
-``set_base_qp`` raises.  Every other structure raises
-NotImplementedError: field pictures, selective encryption, TMVP and
-SMP/AMP.
+``set_base_qp`` raises.  SMP/AMP partitions encode on one-reference
+fixed-grid IPPP (pipelined where plain IPPP is), and TMVP in the
+multi-reference stream shape, each P picture's temporal candidates
+taken from the motion of its first reference (reset at every IDR).
+Every other structure raises NotImplementedError: field pictures and
+selective encryption.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import time
 
 import numpy as np
 
+from kvazaar_tpu_torch.bitstream.decoder import _motion_of
 from kvazaar_tpu_torch.checkpoint import Checkpointer
 from kvazaar_tpu_torch.config import Config, lp_gop_table
 from kvazaar_tpu_torch.constants import NAL_CRA_NUT, NAL_IDR_W_RADL, \
@@ -115,13 +119,17 @@ class Encoder:
         # One frame encoder per QP (QP is fixed in an encoder's tables);
         # the low-delay GOP positions' QP offsets pick theirs.
         self._encoders = {cfg.qp: self._intra}
-        # Low-delay GOP structures and --ref N code the multi-reference
-        # stream shape, with a POC-keyed DPB of device planes (relative
-        # POC -> (y, cb, cr)).
-        self._multi = cfg.lp_gop is not None or cfg.ref_frames > 1
+        # Low-delay GOP structures, --ref N and TMVP code the
+        # multi-reference stream shape, with a POC-keyed DPB of device
+        # planes (relative POC -> (y, cb, cr)) and, under TMVP, of each
+        # picture's collocated motion (relative POC -> _motion_of's grids,
+        # None for the IDR).
+        self._multi = (cfg.lp_gop is not None or cfg.ref_frames > 1
+                       or cfg.tmvp)
         self._lp_table = (None if cfg.lp_gop is None
                           else lp_gop_table(*cfg.lp_gop, cfg.ref_frames))
         self._dpb_ld = {}
+        self._motion_ld = {}
         # B pyramids: the display-order sources of the GOP being
         # buffered, the POC-keyed DPB (POC -> device planes) and the POC
         # of the GOP's previous anchor.
@@ -215,6 +223,7 @@ class Encoder:
         self._wrote_headers = False
         self._irap_count = 0
         self._dpb_ld = {}
+        self._motion_ld = {}
         self._intra._dpb = None
         self._ld_enc = self._intra
 
@@ -266,6 +275,7 @@ class Encoder:
             self._last_idr = self._poc
             if self._multi:
                 self._dpb_ld = {0: enc._dpb}
+                self._motion_ld = {0: None}
         elif self._multi:
             res, enc = self._encode_p_multi(enc, y, cb, cr,
                                             self._poc - self._last_idr)
@@ -347,8 +357,10 @@ class Encoder:
         ref_frames of them), the retained pictures that a frame within
         one structure period still needs, and the DPB pruned to those
         pictures; on enc or, without rate control, on the frame encoder
-        of the position's QP.  Returns (FrameResult, the frame encoder
-        that coded it)."""
+        of the position's QP.  Under TMVP the first reference's motion is
+        the collocated one, and each coded picture's motion is kept while
+        its picture is.  Returns (FrameResult, the frame encoder that
+        coded it)."""
         pat = self._lp_pattern(rel)
         deltas = []
         for d in pat["ref_neg"]:
@@ -367,11 +379,18 @@ class Encoder:
         refs = [(rel - d, self._dpb_ld[rel - d]) for d in deltas]
         if pat["qp_offset"] and self._rc is None:
             enc = self._encoder_for_qp(self.cfg.qp + pat["qp_offset"])
+        tctx = (self._motion_ld.get(rel - deltas[0]) if self.cfg.tmvp
+                else None)
         res, recs = enc.encode_p_frame_multi(y, cb, cr, poc=rel, refs=refs,
-                                             retained=retained)
+                                             retained=retained, tctx=tctx)
         self._dpb_ld[rel] = recs
         self._dpb_ld = {p: v for p, v in self._dpb_ld.items()
                         if p == rel or p in needed}
+        if self.cfg.tmvp:
+            self._motion_ld[rel] = _motion_of(res.frame_data, enc.params,
+                                              rel, deltas)
+            self._motion_ld = {p: v for p, v in self._motion_ld.items()
+                               if p == rel or p in needed}
         return res, enc
 
     def flush(self):
@@ -585,8 +604,9 @@ class Encoder:
         take the pipelined path (the JAX package's rule); variable trees
         plan each frame on the host, rate control and per-CTU QP maps
         decide each frame's QP from the frames before it, and B
-        pyramids, multi-reference and SAO streams with P frames run per
-        frame."""
+        pyramids, multi-reference streams (TMVP among them) and SAO
+        streams with P frames run per frame; SMP/AMP IPPP pipelines as
+        plain IPPP does."""
         if self.cfg.cu_qp_delta_active or self._rc is not None:
             return False
         if self.cfg.intra_period == 1:

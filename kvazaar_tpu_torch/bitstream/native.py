@@ -219,6 +219,8 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
     ref8 = (np.ascontiguousarray(fd.ref8, np.uint8) if nref_l0 > 1
             else None)
     qpc = _qp_ctu_arr(params, fd)
+    part8 = (None if fd.part8 is None
+             else np.ascontiguousarray(fd.part8, np.uint8))
     n = get_lib().ktpu_encode_slice_data_p(
         params.width, params.height, chroma, qp, 1 if wpp else 0,
         slice_type, params.log2_ctu, params.log2_min_cu, params.log2_max_tu,
@@ -228,7 +230,7 @@ def encode_slice_data_native_p(params, fd, qp: int, wpp: bool,
         dir8.ctypes.data, mvp8_l1.ctypes.data, mvd8_l1.ctypes.data,
         out.ctypes.data, cap, sizes.ctypes.data, nss.ctypes.data,
         (1 if params.sign_hiding else 0) | (int(nthreads) << 8),
-        _ptr(sao), _ptr(ref8), int(nref_l0), None,
+        _ptr(sao), _ptr(ref8), int(nref_l0), _ptr(part8),
         1 if params.amp else 0, _ptr(qpc), _ptr(cmode4))
     if n < 0:
         raise RuntimeError("native slice buffer overflow")

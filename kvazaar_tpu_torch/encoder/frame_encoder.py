@@ -10,8 +10,13 @@ for variable CU trees on I frames (``encode_frame_var``: CUs 8..32 or
 more than one reference run on the fixed grid of min(intra_max_cu,
 32).  The fixed grid's frames take RDOQ and sign hiding where the config
 sets them (at the lambda of the frame encoder's QP), its I frames rd 2's
-roundtrip re-rank and rd 3's chroma-mode search.  The P and B frames of
-a B pyramid take their GOP layer's QP and lambda (``frame_lambda``).  The device program (intra mode search; for
+roundtrip re-rank and rd 3's chroma-mode search.  Its one-reference P
+frames take SMP/AMP partitions where the config sets them
+(``_p_predict_smp``: the MC planes of the PUs' 8x8-cell motion field,
+PU edges deblocked on the 8 grid, merge/AMVP per PU in decode order),
+and its multi-reference P frames TMVP's temporal candidates.  The P and B
+frames of a B pyramid take their GOP layer's QP and lambda
+(``frame_lambda``).  The device program (intra mode search; for
 P/B frames motion search, the intra/inter decision and motion
 compensation (bi-averaged for BI blocks); wavefront
 reconstruction, deblocking, per-frame SSE; SAO) is plain tensor code on
@@ -77,16 +82,19 @@ from kvazaar_tpu_torch.constants import (CHROMA_QP_TAB, NAL_IDR_W_RADL,
                                          NAL_TRAIL_R, SLICE_B, SLICE_I,
                                          SLICE_P)
 from kvazaar_tpu_torch.encoder import host_pixels, pix_dtype
-from kvazaar_tpu_torch.encoder.geometry import make_intra_plan
+from kvazaar_tpu_torch.encoder.geometry import (make_intra_plan,
+                                                z_order_index)
 from kvazaar_tpu_torch.bitstream import native
 from kvazaar_tpu_torch.encoder.inter_cands import (
     _integral, amvp_candidates, amvp_pair_b_at, amvp_pair_p_multiref_at,
-    merge_amvp_var_b_vec, merge_amvp_var_vec, merge_candidates,
-    merge_list_b_at, merge_list_p_multiref_at, var_b_derive,
-    var_origin_maps, var_p_derive, var_skip8_vec)
+    amvp_pair_pu_at, merge_amvp_var_b_vec, merge_amvp_var_vec,
+    merge_candidates, merge_list_b_at, merge_list_p_multiref_at,
+    merge_list_pu_at, pu_cell_rects, var_b_derive, var_origin_maps,
+    var_p_derive, var_skip8_vec)
 from kvazaar_tpu_torch.encoder.inter_search import (
     bi_check, bi_mc_planes, bi_mc_planes_cells, mc_planes, mc_planes_cells,
-    merge_satd_maps_b, merge_satd_maps_p, search_inter_frame)
+    merge_satd_maps_b, merge_satd_maps_p, search_inter_frame,
+    search_inter_frame_smp)
 from kvazaar_tpu_torch.encoder.intra_recon import (
     blocks_to_plane, reconstruct_chroma_frames, reconstruct_frames)
 from kvazaar_tpu_torch.encoder.intra_search import (_f32,
@@ -175,7 +183,10 @@ def var_inter(cfg: Config) -> bool:
     the inter size differs from the fixed working grid, on structures
     with one reference per list (IPPP with one reference, B pyramids).
     Low-delay GOP structures, more than one reference, TMVP and SMP keep
-    the fixed grid."""
+    the fixed grid: SMP/AMP P frames take its SMP branch
+    (``_p_predict_smp``; one reference, per frame or pipelined), TMVP
+    streams the multi-reference stream shape
+    (``encode_p_frame_multi(tctx=)``)."""
     fixed_cu = min(max(cfg.intra_max_cu, 8), 32)
     return ((cfg.intra_min_cu != cfg.intra_max_cu
              or cfg.inter_min_cu != cfg.inter_max_cu
@@ -185,9 +196,12 @@ def var_inter(cfg: Config) -> bool:
 
 
 def unsupported(cfg: Config) -> list:
-    """Names of the config features the port does not cover yet."""
+    """Names of the config features the port does not cover yet: fixed
+    CU 64, the configs whose JAX streams do not decode to their recon
+    (ROADMAP §3: F3, F4), mesh sharding, selective encryption and field
+    sources.  SMP/AMP and TMVP encode wherever the config accepts them
+    (``var_inter`` says which path)."""
     out = []
-    p_frames = cfg.intra_period != 1
     if not var_tree(cfg) and cfg.intra_max_cu not in (4, 8, 16, 32):
         out.append(f"fixed CU size {cfg.intra_max_cu} (4, 8, 16 and 32 "
                    "are ported; 64 inside a variable tree)")
@@ -213,12 +227,6 @@ def unsupported(cfg: Config) -> list:
                       cfg.source_scan_type != 0)):
         if on:
             out.append(name)
-    if p_frames:
-        for name, on in (
-                ("SMP/AMP inter partitions", cfg.smp or cfg.amp),
-                ("TMVP", cfg.tmvp)):
-            if on:
-                out.append(name)
     return out
 
 
@@ -274,11 +282,77 @@ def compute_bs_maps(is_inter, cbf_luma_blk, mv, ref=None):
     return bs_v, bs_h
 
 
+def compute_bs_maps_smp(inter8, cbf8, mv_cells, cu: int, part8):
+    """Boundary strengths on the 8 grid of an SMP P frame (8.7.2.4): the
+    full rules on CU edges (every cu-multiple), the MV-difference rule on
+    the PU edges inside inter CUs, 0 elsewhere.  inter8 / cbf8: (h8, w8)
+    bool, CU-filled; mv_cells: (h8, w8, 2) quarter-pel; part8: (h8, w8)
+    int32 CU-filled part mode.  Returns (bs_v, bs_h) int32 (h8, w8)."""
+    cells = cu // 8
+    h8, w8 = inter8.shape
+    dev = inter8.device
+    intra8 = ~inter8
+    col = (torch.arange(w8, device=dev) % cells)[None, :]
+    row = (torch.arange(h8, device=dev) % cells)[:, None]
+
+    def edge(sl_a, sl_b, is_cu_edge, is_pu_edge):
+        cbf = cbf8[sl_a] | cbf8[sl_b]
+        mvd = torch.any(torch.abs(mv_cells[sl_a] - mv_cells[sl_b]) >= 4,
+                        dim=-1)
+        bs = torch.where(intra8[sl_a] | intra8[sl_b], 2,
+                         torch.where(cbf | mvd, 1, 0))
+        return torch.where(is_cu_edge, bs,
+                           torch.where(is_pu_edge & mvd, 1, 0)).to(
+                               torch.int32)
+
+    pu_v = torch.zeros((h8, w8), dtype=torch.bool, device=dev)
+    pu_h = torch.zeros_like(pu_v)
+    if cells > 1:
+        half = cells // 2
+        quarter = max(cells // 4, 1)
+        pu_v = (((part8 == 2) & (col == half))
+                | ((part8 == 6) & (col == quarter))
+                | ((part8 == 7) & (col == cells - quarter))) & inter8
+        pu_h = (((part8 == 1) & (row == half))
+                | ((part8 == 4) & (row == quarter))
+                | ((part8 == 5) & (row == cells - quarter))) & inter8
+    all_ = slice(None)
+    bs_v = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
+    bs_h = torch.zeros((h8, w8), dtype=torch.int32, device=dev)
+    bs_v[:, 1:] = edge((all_, slice(0, w8 - 1)), (all_, slice(1, w8)),
+                       (col == 0)[:, 1:], pu_v[:, 1:])
+    bs_h[1:, :] = edge((slice(0, h8 - 1), all_), (slice(1, h8), all_),
+                       (row == 0)[1:, :], pu_h[1:, :])
+    return bs_v, bs_h
+
+
+def _up(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Each entry of a (By, Bx, ...) grid repeated over k x k cells."""
+    return torch.repeat_interleave(torch.repeat_interleave(a, k, dim=0), k,
+                                   dim=1)
+
+
+def _pu1_cells(part_cells, row_in, col_in, cells: int):
+    """The cells of each CU's second PU under its part mode (HEVC
+    PartMode 1 2NxN, 2 Nx2N, 4 2NxnU, 5 2NxnD, 6 nLx2N, 7 nRx2N); row_in
+    / col_in: each cell's row / column inside its CU.  Works on torch
+    tensors and numpy arrays alike."""
+    half = cells // 2
+    quarter = max(cells // 4, 1)
+    return (((part_cells == 1) & (row_in >= half))
+            | ((part_cells == 2) & (col_in >= half))
+            | ((part_cells == 4) & (row_in >= quarter))
+            | ((part_cells == 5) & (row_in >= cells - quarter))
+            | ((part_cells == 6) & (col_in >= quarter))
+            | ((part_cells == 7) & (col_in >= cells - quarter)))
+
+
 class PFrameMixin:
     """P frames of the fixed grid with one or more L0 references (the
-    non-SMP branch of the JAX package's PFrameMixin, without TMVP), at
-    the config's QP or, with one reference, a per-CTU QP map; and the
-    per-CTU QP machinery that fixed-grid I frames share."""
+    JAX package's PFrameMixin, TMVP's temporal candidates included), at
+    the config's QP or, with one reference, a per-CTU QP map; SMP/AMP
+    partitions with one reference; and the per-CTU QP machinery that
+    fixed-grid I frames share."""
 
     # ---- Per-CTU QP (LCU rate control, ROI, AQ): each block quantizes
     # at its CTU's QP; deblocking takes the effective map, the QP a
@@ -396,16 +470,56 @@ class PFrameMixin:
                         self.bitdepth, ref_grid=ref_sel)
         return modes, inter_map, ref_sel, mv, mcs
 
+    def _p_predict_smp(self, yp, ref):
+        """Search and decision of one SMP/AMP P frame against one
+        reference's (y, cb, cr) planes: the partition search, the
+        intra/inter decision with its 1.02 inter bias, and MC through the
+        8x8-cell motion field of the PUs.  Returns (modes, inter map,
+        part int32 (By, Bx), mv_pu int32 (By, Bx, 2, 2), mv_cells int32
+        (h8, w8, 2), MC planes (y, cb, cr) int32), part and motion zero
+        outside inter blocks."""
+        modes, intra_cost = search_frame_modes(
+            yp, self.plan, self.lambda_satd, self.bitdepth,
+            self.cfg.rd >= 1)
+        part, mv_pu, inter_cost = search_inter_frame_smp(
+            yp, ref[0], self.plan, self.lambda_me, self.cfg.me_range,
+            self.bitdepth, subpel=self.cfg.me_subpel, amp=self.cfg.amp)
+        inter_map = inter_cost <= intra_cost * _f32(1.02)
+        part = torch.where(inter_map, part, 0).to(torch.int32)
+        mv_pu = torch.where(inter_map[..., None, None], mv_pu,
+                            0).to(torch.int32)
+        cells = self.cu // 8
+        h8, w8 = self.coded_h // 8, self.coded_w // 8
+        dev = yp.device
+        pu1 = _pu1_cells(_up(part, cells),
+                         (torch.arange(h8, device=dev) % cells)[:, None],
+                         (torch.arange(w8, device=dev) % cells)[None, :],
+                         cells)
+        mv_cells = torch.where(pu1[..., None], _up(mv_pu[:, :, 1], cells),
+                               _up(mv_pu[:, :, 0], cells))
+        mcs = mc_planes_cells(*ref, mv_cells, self.bitdepth)
+        return modes, inter_map, part, mv_pu, mv_cells, mcs
+
     def _p_from_planes(self, yp, cbp, crp, refs, qp_ctu=None):
         """Device program of one P frame: (H, W) int32 source planes and
         the references' (y, cb, cr) planes; qp_ctu: (Cy, Cx) int32
         per-CTU QP on the device (the search stays at the config's QP).
         Returns (modes uint8, inter map bool, ref_sel int32, mv int32
         (By, Bx, 2), levels (y, cb, cr), deblocked recon uint8/int16 (y, cb,
-        cr), the one-frame batch's FrameSse), on the device."""
+        cr), the one-frame batch's FrameSse, part int32 (By, Bx) and
+        mv_pu int32 (By, Bx, 2, 2)), on the device; part and mv_pu are
+        None off SMP, and under SMP mv is each block's first PU's motion
+        and ref_sel zero (one reference)."""
         plan = self.plan
-        modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
-            self._p_predict(yp, refs)
+        part = mv_pu = None
+        if self.cfg.smp:
+            modes, inter_map, part, mv_pu, mv_cells, \
+                (mc_y, mc_cb, mc_cr) = self._p_predict_smp(yp, refs[0])
+            mv = mv_pu[:, :, 0]
+            ref_sel = torch.zeros_like(part)
+        else:
+            modes, inter_map, ref_sel, mv, (mc_y, mc_cb, mc_cr) = \
+                self._p_predict(yp, refs)
 
         def one(t):
             return None if t is None else t[None]
@@ -418,20 +532,30 @@ class PFrameMixin:
             qp_map=None if qp_ctu is None else self._qp_blk_of(qp_ctu),
             **self._recon_tools())
         bs = None
+        grid = None
         if self.cfg.deblock:
             cbf_blk = (lv_y[0] != 0).flatten(1).any(dim=1).reshape(
                 plan.blocks_y, plan.blocks_x)
-            bs = compute_bs_maps(inter_map, cbf_blk, mv, ref=ref_sel)
+            if part is not None:
+                # PU edges inside a CU lie on the 8 grid (SMP turns the
+                # per-CTU QP off, so there is no QP map).
+                cells = self.cu // 8
+                bs = compute_bs_maps_smp(
+                    _up(inter_map, cells), _up(cbf_blk, cells), mv_cells,
+                    self.cu, _up(part, cells))
+                grid = 8
+            else:
+                bs = compute_bs_maps(inter_map, cbf_blk, mv, ref=ref_sel)
         recs, sses = self._deblock_sse(
             (yp[None], one(cbp), one(crp)), (rec_y, rec_cb, rec_cr), bs,
-            self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)))
+            self._deblock_qp_map(qp_ctu, (lv_y, lv_cb, lv_cr)), grid=grid)
 
         def first(t):
             return None if t is None else t[0]
 
         return (modes.to(torch.uint8), inter_map, ref_sel, mv,
                 (lv_y[0], first(lv_cb), first(lv_cr)),
-                tuple(first(r) for r in recs), sses)
+                tuple(first(r) for r in recs), sses, part, mv_pu)
 
     def submit_p(self, y, cb, cr, refs, qp_ctu=None):
         """Upload one frame and queue its P program (asynchronous on a
@@ -454,19 +578,22 @@ class PFrameMixin:
         """The device->host copies of a submitted P frame; safe to call
         from a worker thread.  The device recon stays in the result as
         the next frame's reference."""
-        modes, inter_map, ref_sel, mv, levels, recs, sses = handle
+        modes, inter_map, ref_sel, mv, levels, recs, sses, part, mv_pu = \
+            handle
 
         def host(t):
             return None if t is None else t.cpu().numpy()
 
         want_pixels = need_recon or self.cfg.hash != "none"
         return ((tuple(host(lv) for lv in levels), host(modes),
-                 host(inter_map), host(ref_sel), host(mv), sses.host()[0]),
+                 host(inter_map), host(ref_sel), host(mv), sses.host()[0],
+                 host(part), host(mv_pu)),
                 tuple(host_pixels(r) for r in recs) if want_pixels
                 else (None, None, None), recs)
 
     def finalize_p_downloaded(self, downloaded, poc: int, ref_pocs,
-                              retained=(), need_recon: bool = True,
+                              retained=(), tctx=None,
+                              need_recon: bool = True,
                               multi: bool = True, qp_ctu=None):
         """Host stage: merge/AMVP signalling decisions + CABAC.
 
@@ -475,18 +602,29 @@ class PFrameMixin:
         contract) even with one active reference; False = the plain
         IPPP single-reference stream shape.  qp_ctu: the frame's
         intended per-CTU QP map, coded with cu_qp_delta (FrameData.qp_ctu
-        becomes the effective map).  Returns (FrameResult, the device
-        recon planes)."""
-        ((lv_y, lv_cb, lv_cr), modes, inter_map, ref_sel, mv, sses), \
-            rec_np, recs = downloaded
-        if multi:
-            merge_idx, mvp_idx, mvd = self._merge_amvp_multi(
-                inter_map, ref_sel, mv, len(ref_pocs), poc, ref_pocs)
+        becomes the effective map).  tctx: the collocated picture's motion
+        (``bitstream.decoder._motion_of``) for TMVP's temporal
+        candidates, or None.  Returns (FrameResult, the device recon
+        planes)."""
+        ((lv_y, lv_cb, lv_cr), modes, inter_map, ref_sel, mv, sses, part,
+         mv_pu), rec_np, recs = downloaded
+        if self.cfg.smp:
+            mv8, merge8, mvp8, mvd8 = self._merge_amvp_smp(
+                inter_map, part, mv_pu)
+            fd = self._assemble_p_frame_data_smp(
+                modes, inter_map, part, mv8, merge8, mvp8, mvd8, lv_y,
+                lv_cb, lv_cr)
         else:
-            merge_idx, mvp_idx, mvd = self._merge_amvp_fast(inter_map, mv)
-        fd = self._assemble_p_frame_data(
-            modes, inter_map, mv, merge_idx, mvp_idx, mvd, lv_y, lv_cb,
-            lv_cr, ref_sel=ref_sel if multi else None)
+            if multi:
+                merge_idx, mvp_idx, mvd = self._merge_amvp_multi(
+                    inter_map, ref_sel, mv, len(ref_pocs), poc, ref_pocs,
+                    tctx)
+            else:
+                merge_idx, mvp_idx, mvd = self._merge_amvp_fast(inter_map,
+                                                                mv)
+            fd = self._assemble_p_frame_data(
+                modes, inter_map, mv, merge_idx, mvp_idx, mvd, lv_y, lv_cb,
+                lv_cr, ref_sel=ref_sel if multi else None)
         if qp_ctu is not None:
             fd.qp_ctu = np.asarray(qp_ctu, np.int32).copy()
         deltas = [poc - rp for rp in ref_pocs]
@@ -519,11 +657,14 @@ class PFrameMixin:
         return merge_idx, mvp_idx, mvd
 
     def _merge_amvp_multi(self, inter_map, ref_sel, mv, nref, poc,
-                          ref_pocs):
+                          ref_pocs, tctx=None):
         """Scalar loop in decode order over the inter blocks for the
-        multi-reference candidate lists (the oracle decoder derives them
-        the same way)."""
+        multi-reference candidate lists, with TMVP's temporal candidate
+        where tctx holds the collocated motion (the oracle decoder
+        derives them the same way)."""
         s = self.cu
+        if tctx is not None:
+            tctx = dict(tctx, cur_poc=poc, w=self.coded_w, h=self.coded_h)
         by, bx = self.plan.blocks_y, self.plan.blocks_x
         merge_idx = np.full((by, bx), -1, np.int32)
         mvp_idx = np.zeros((by, bx), np.uint8)
@@ -538,13 +679,13 @@ class PFrameMixin:
                     (int(mv[yy, xx, 0]), int(mv[yy, xx, 1])))
             mlist = merge_list_p_multiref_at(
                 inter_map, ref_sel, mv, self.plan.avail, yy, xx, nref,
-                ref_pocs=ref_pocs, cu=s)
+                tctx=tctx, ref_pocs=ref_pocs, cu=s)
             if mine in mlist:
                 merge_idx[yy, xx] = mlist.index(mine)
                 continue
             pair = amvp_pair_p_multiref_at(
                 inter_map, ref_sel, mv, self.plan.avail, yy, xx,
-                int(ref_sel[yy, xx]), poc, ref_pocs, cu=s)
+                int(ref_sel[yy, xx]), poc, ref_pocs, tctx=tctx, cu=s)
             d0 = sum(abs(int(mv[yy, xx, k]) - pair[0][k])
                      for k in range(2))
             d1 = sum(abs(int(mv[yy, xx, k]) - pair[1][k])
@@ -555,9 +696,90 @@ class PFrameMixin:
                            mv[yy, xx, 1] - pair[idx][1])
         return merge_idx, mvp_idx, mvd
 
-    def _assemble_p_frame_data(self, modes, inter_map, mv, merge_idx,
-                               mvp_idx, mvd, lv_y, lv_cb, lv_cr,
-                               ref_sel=None):
+    def _cu_decode_order(self):
+        """The fixed grid's CUs in decode order: CTUs in raster order,
+        CUs in z-order inside each 64x64 CTU (6.5.1)."""
+        by, bx = self.plan.blocks_y, self.plan.blocks_x
+        per_ctu = max(64 // self.cu, 1)
+        zs = sorted((z_order_index(zx, zy), zy, zx)
+                    for zy in range(per_ctu) for zx in range(per_ctu))
+        order = []
+        for ty in range(-(-by // per_ctu)):
+            for tx in range(-(-bx // per_ctu)):
+                for _z, zy, zx in zs:
+                    cy, cx = ty * per_ctu + zy, tx * per_ctu + zx
+                    if cy < by and cx < bx:
+                        order.append((cy, cx))
+        return order
+
+    def _merge_amvp_smp(self, inter_map, part, mv_pu):
+        """Merge/AMVP signalling of each PU of an SMP frame: a scalar CU
+        loop in decode order over the 8-cell motion field, with the PU
+        candidate rules (inter_cands.merge_list_pu_at, 6.4.2).  Returns
+        (mv8 cell field, merge8, mvp8, mvd8), the last three at the PUs'
+        marker cells."""
+        cells = self.cu // 8
+        by, bx = inter_map.shape
+        h8, w8 = by * cells, bx * cells
+        inter8 = np.kron(inter_map, np.ones((cells, cells), bool))
+        # The final motion field (candidates read only cells before the
+        # PU in decode order, which _pu_nbr enforces).
+        pu1 = _pu1_cells(np.kron(part, np.ones((cells, cells), np.int32)),
+                         np.arange(h8)[:, None] % cells,
+                         np.arange(w8)[None, :] % cells, cells)
+        ones = np.ones((cells, cells, 1), np.int32)
+        up0 = np.kron(mv_pu[:, :, 0], ones).reshape(h8, w8, 2)
+        up1 = np.kron(mv_pu[:, :, 1], ones).reshape(h8, w8, 2)
+        mv8 = np.where(pu1[..., None], up1, up0)
+        mv8 = np.where(inter8[..., None], mv8, 0)
+        merge8 = np.full((h8, w8), -1, np.int32)
+        mvp8 = np.zeros((h8, w8), np.uint8)
+        mvd8 = np.zeros((h8, w8, 2), np.int32)
+        for (cy, cx) in self._cu_decode_order():
+            if not inter_map[cy, cx]:
+                continue
+            p = int(part[cy, cx])
+            by8, bx8 = cy * cells, cx * cells
+            for pu_idx, (ry, rx, rh, rw) in enumerate(
+                    pu_cell_rects(by8, bx8, cells, p)):
+                mine = (int(mv8[ry, rx, 0]), int(mv8[ry, rx, 1]))
+                mlist = merge_list_pu_at(inter8, mv8, ry, rx, rh, rw, p,
+                                         pu_idx, cells, cu_yx=(by8, bx8))
+                if mine in mlist:
+                    merge8[ry, rx] = mlist.index(mine)
+                    continue
+                pair = amvp_pair_pu_at(inter8, mv8, ry, rx, rh, rw, p,
+                                       pu_idx, cells, cu_yx=(by8, bx8))
+                d0 = abs(mine[0] - pair[0][0]) + abs(mine[1] - pair[0][1])
+                d1 = abs(mine[0] - pair[1][0]) + abs(mine[1] - pair[1][1])
+                i = 1 if d1 < d0 else 0
+                mvp8[ry, rx] = i
+                mvd8[ry, rx] = (mine[0] - pair[i][0], mine[1] - pair[i][1])
+        return mv8, merge8, mvp8, mvd8
+
+    def _assemble_p_frame_data_smp(self, modes, inter_map, part, mv8,
+                                   merge8, mvp8, mvd8, lv_y, lv_cb, lv_cr):
+        """FrameData of an SMP P frame: the part mode at each CU's marker
+        cell and the PUs' motion on the 8-cell grid; skip only for 2Nx2N
+        merge CUs without coefficients."""
+        s = self.cu
+        cells = s // 8
+        fd = self._p_frame_data_base(modes, inter_map, lv_y, lv_cb, lv_cr)
+        fd.mv8[:] = mv8
+        fd.part8[::cells, ::cells] = np.where(inter_map, part,
+                                              0).astype(np.uint8)
+        fd.merge8[:] = np.clip(merge8, -1, 4).astype(np.int8)
+        fd.mvp8[:] = mvp8
+        fd.mvd8[:] = mvd8
+        skip = (inter_map & (part == 0) & (merge8[::cells, ::cells] >= 0)
+                & self._coeff_free(fd, inter_map.shape))
+        fd.skip8[:] = np.kron(skip.astype(np.uint8),
+                              np.ones((cells, cells), np.uint8))
+        return fd
+
+    def _p_frame_data_base(self, modes, inter_map, lv_y, lv_cb, lv_cr):
+        """FrameData of a fixed-grid P frame with its depth, modes,
+        coefficients and inter map filled in."""
         s = self.cu
         c8 = s // 8
         fd = FrameData.empty(self.coded_w, self.coded_h, self.chroma)
@@ -573,25 +795,32 @@ class PFrameMixin:
             fd.coeff_cr[:] = blocks_to_plane(lv_cr, self.plan, s // 2,
                                              self.coded_w // 2,
                                              self.coded_h // 2)
+        fd.inter8[:] = np.kron(inter_map.astype(np.uint8),
+                               np.ones((c8, c8), np.uint8))
+        return fd
 
-        ones = np.ones((c8, c8), np.uint8)
-        fd.inter8[:] = np.kron(inter_map.astype(np.uint8), ones)
-        fd.mv8[:] = np.kron(mv, np.ones((c8, c8, 1), np.int32)) \
-            .reshape(fd.mv8.shape)
-
-        # Per-CU zero-coefficient detection → skip (merge CUs only).
-        by, bx = inter_map.shape
-        czero = np.ones((by, bx), bool)
-        ys = fd.coeff_y.reshape(by, s, bx, s)
-        czero &= ~np.any(ys, axis=(1, 3))
+    def _coeff_free(self, fd, shape):
+        """(By, Bx) bool: the CU codes no coefficient in any plane."""
+        s = self.cu
+        by, bx = shape
+        czero = ~np.any(fd.coeff_y.reshape(by, s, bx, s), axis=(1, 3))
         if self.chroma:
             s2 = s // 2
-            cbs = fd.coeff_cb.reshape(by, s2, bx, s2)
-            crs = fd.coeff_cr.reshape(by, s2, bx, s2)
-            czero &= ~np.any(cbs, axis=(1, 3))
-            czero &= ~np.any(crs, axis=(1, 3))
+            for c in (fd.coeff_cb, fd.coeff_cr):
+                czero &= ~np.any(c.reshape(by, s2, bx, s2), axis=(1, 3))
+        return czero
 
-        skip = inter_map & (merge_idx >= 0) & czero
+    def _assemble_p_frame_data(self, modes, inter_map, mv, merge_idx,
+                               mvp_idx, mvd, lv_y, lv_cb, lv_cr,
+                               ref_sel=None):
+        c8 = self.cu // 8
+        fd = self._p_frame_data_base(modes, inter_map, lv_y, lv_cb, lv_cr)
+        ones = np.ones((c8, c8), np.uint8)
+        fd.mv8[:] = np.kron(mv, np.ones((c8, c8, 1), np.int32)) \
+            .reshape(fd.mv8.shape)
+        # Skip: merge CUs without coefficients.
+        skip = (inter_map & (merge_idx >= 0)
+                & self._coeff_free(fd, inter_map.shape))
         fd.skip8[:] = np.kron(skip.astype(np.uint8), ones)
         # merge8/mvp8/mvd8 live at CU marker cells.
         fd.merge8[::c8, ::c8] = np.where(inter_map, merge_idx,
@@ -730,17 +959,18 @@ class PFrameMixin:
         return nal
 
     def encode_p_frame_multi(self, y, cb=None, cr=None, poc: int = 1,
-                             refs=None, retained=()):
+                             refs=None, retained=(), tctx=None):
         """P frame against one or more L0 references in the stream shape
-        of low-delay GOP structures and --ref N.  refs: [(ref_poc, (y,
-        cb, cr) device planes), ...] in L0 order (increasing POC delta);
-        retained: further POC deltas the DPB keeps for later pictures
-        (signalled in the RPS, unused here).  Returns (FrameResult, the
-        deblocked recon planes on the device)."""
+        of low-delay GOP structures, --ref N and TMVP.  refs: [(ref_poc,
+        (y, cb, cr) device planes), ...] in L0 order (increasing POC
+        delta); retained: further POC deltas the DPB keeps for later
+        pictures (signalled in the RPS, unused here); tctx: the
+        collocated picture's motion under TMVP, or None.  Returns
+        (FrameResult, the deblocked recon planes on the device)."""
         handle = self.submit_p(y, cb, cr, refs)
         return self.finalize_p_downloaded(
             self.download_p(handle), poc, [rp for rp, _pl in refs],
-            retained=retained)
+            retained=retained, tctx=tctx)
 
     def encode_p_frame(self, y, cb=None, cr=None, poc: int = 1,
                        ref_poc: int = 0, qp_ctu=None, qp=None,
@@ -1199,10 +1429,11 @@ class IntraFrameEncoder(PFrameMixin):
                     eo=packed[..., 3:5], bp=packed[..., 5:8],
                     off=packed[..., 8:20].unflatten(-1, (3, 4)))
 
-    def _deblock_sse(self, srcs, recs, bs=None, qp_map=None):
+    def _deblock_sse(self, srcs, recs, bs=None, qp_map=None, grid=None):
         """Deblock a (B, H, W) batch of reconstructions (bs: the (bs_v,
-        bs_h) maps of a P frame, None = all-intra; qp_map: a one-frame
-        batch's (By, Bx) per-block QP, None = the config's QP) and take
+        bs_h) maps of a P frame on the edge grid ``grid``, by default the
+        CU grid, None = all-intra; qp_map: a one-frame batch's (By, Bx)
+        per-block QP, None = the config's QP) and take
         each frame's SSE against its source.  Returns (recon uint8/int16 (y,
         cb, cr), the SSEs as an ops.sse.FrameSse, whose ``host()`` gives
         them as (B, 3) float32 in the JAX package's summation order)."""
@@ -1214,7 +1445,8 @@ class IntraFrameEncoder(PFrameMixin):
             # wavefront.
             bs_v, bs_h = (None, None) if bs is None else bs
             dy, dcb, dcr = deblock_frame(rec_y, rec_cb, rec_cr,
-                                         self.cfg.qp, max(self.cu, 8),
+                                         self.cfg.qp,
+                                         grid or max(self.cu, 8),
                                          self.bitdepth, bs_v=bs_v,
                                          bs_h=bs_h, qp_map=qp_map)
             rec_y = dy.to(self.pix)

@@ -4,6 +4,7 @@ and full-frame motion compensation of the final MVs.
 
 Counterpart of kvazaar_tpu/encoder/inter_search.py: search_inter_frame
 with its exhaustive search or the refinement of a hierarchical hint;
+the SMP/AMP partition search (search_inter_frame_smp);
 mc_planes for one reference or stacked references with a per-block
 reference index; the 8x8-cell MC of variable trees (mc_planes_cells)
 and the per-cell SATD maps of P merge hypotheses (merge_satd_maps_p);
@@ -116,26 +117,52 @@ def _hint_search(cur_blocks, ref, x0s, y0s, mv_hint, by: int, bx: int,
     return q[ar, torch.argmin(cost, dim=1)], pred.reshape(n, 2)
 
 
+def _surface_mv(idx, r: int) -> torch.Tensor:
+    """Quarter-pel MVs (N, 2) of flat indices into (2r+1)^2 surfaces."""
+    d = 2 * r + 1
+    return (torch.stack([idx % d - r, idx // d - r], dim=-1)
+            * 4).to(torch.int32)
+
+
+def _pass1_pred(sads, by: int, bx: int, r: int) -> torch.Tensor:
+    """(N, 2) median predictor of the field of each block's pure-SAD
+    winner on its (N, (2r+1)^2) surface (the rate reference)."""
+    mv1 = _surface_mv(torch.argmin(sads, dim=-1), r)
+    return _mv_pred_grid(mv1.reshape(by, bx, 2)).reshape(by * bx, 2)
+
+
+def _surface_bits(pred, r: int) -> torch.Tensor:
+    """(N, (2r+1)^2) float32 mv bits of every integer displacement
+    against each block's predictor, row-major over dy then dx."""
+    steps = torch.arange(-r, r + 1, device=pred.device) * 4
+    bits = (_mv_bits_est(steps[None, None, :] - pred[:, None, None, 0])
+            + _mv_bits_est(steps[None, :, None] - pred[:, None, None, 1]))
+    return bits.reshape(pred.shape[0], -1)
+
+
+def _qpel_pick(satd49, mv_int, pred, lam: float):
+    """Each block's quarter-pel winner among the 49 candidates around
+    its integer MV: SATD + lambda * mv bits against pred in float32,
+    the first index on ties.  Returns (mv (N, 2), cost (N,))."""
+    cands = mv_int[:, None, :] + device_table("QPEL_OFFSETS",
+                                              mv_int.device)
+    rate = (_mv_bits_est(cands[..., 0] - pred[:, None, 0])
+            + _mv_bits_est(cands[..., 1] - pred[:, None, 1]))
+    c = satd49.to(torch.float32) + rate * lam
+    k = torch.argmin(c, dim=-1)
+    return (cands[torch.arange(c.shape[0], device=c.device), k],
+            torch.min(c, dim=-1).values)
+
+
 def _full_search(cur, ref, by: int, bx: int, s: int, r: int,
                  bitdepth: int, lam: float):
     """Exhaustive +-r integer search: pass 1 the pure-SAD winner, pass 2
     the re-rank with the mv rate against the median predictor of the
     pass-1 field.  Returns (mv_int (N, 2), predictor (N, 2))."""
-    n = by * bx
-    d = 2 * r + 1
-    sads = sad_surfaces(cur, ref, r, s, bitdepth).reshape(n, d, d)
-    idx1 = torch.argmin(sads.reshape(n, -1), dim=-1)
-    mv1 = torch.stack([idx1 % d - r, idx1 // d - r], dim=-1)
-    mv1 = (mv1 * 4).reshape(by, bx, 2)
-    pred = _mv_pred_grid(mv1).reshape(n, 1, 1, 2)
-    steps = torch.arange(-r, r + 1, device=cur.device) * 4
-    bits = (_mv_bits_est(steps[None, None, :] - pred[..., 0])
-            + _mv_bits_est(steps[None, :, None] - pred[..., 1]))
-    cost = sads.to(torch.float32) + bits * lam
-    idx2 = torch.argmin(cost.reshape(n, -1), dim=-1)
-    mv_int = (torch.stack([idx2 % d - r, idx2 // d - r], dim=-1)
-              * 4).to(torch.int32)
-    return mv_int, pred.reshape(n, 2)
+    sads = sad_surfaces(cur, ref, r, s, bitdepth).reshape(by * bx, -1)
+    pred = _pass1_pred(sads, by, bx, r)
+    cost = sads.to(torch.float32) + _surface_bits(pred, r) * lam
+    return _surface_mv(torch.argmin(cost, dim=-1), r), pred
 
 
 def search_inter_frame(cur, ref, plan: IntraFramePlan, lambda_satd: float,
@@ -175,14 +202,129 @@ def search_inter_frame(cur, ref, plan: IntraFramePlan, lambda_satd: float,
 
     satd49 = refine_qpel_dense(cur_blocks, ref, x0s, y0s, mv_int, s,
                                bitdepth)                  # (N, 49)
-    cands = mv_int[:, None, :] + device_table("QPEL_OFFSETS", dev)
-    rate = (_mv_bits_est(cands[..., 0] - pred_n[:, None, 0])
-            + _mv_bits_est(cands[..., 1] - pred_n[:, None, 1]))
-    c = satd49.to(torch.float32) + rate * lam
-    k = torch.argmin(c, dim=-1)
-    mv_q = cands[torch.arange(n, device=dev), k]
-    cost_q = torch.min(c, dim=-1).values
+    mv_q, cost_q = _qpel_pick(satd49, mv_int, pred_n, lam)
     return mv_q.reshape(by, bx, 2).to(torch.int32), cost_q.reshape(by, bx)
+
+
+def search_inter_frame_smp(cur, ref, plan: IntraFramePlan,
+                           lambda_satd: float, me_range: int,
+                           bitdepth: int = 8, subpel: bool = True,
+                           amp: bool = False):
+    """Motion search and partition decision over {2Nx2N, 2NxN, Nx2N}
+    and, with ``amp`` (cu 32), the four asymmetric quarter splits: one
+    dense SAD surface at sub-block size s/2 (8 with AMP) summed per PU
+    shape, the pass-1 predictor of the full shape, an integer and a
+    quarter-pel winner per shape, and the first-index argmin over the
+    partitions, each non-square one paying ``lambda * 3`` (``* 4`` for
+    AMP) for its extra bins.
+
+    Returns (part (By, Bx) int32 HEVC PartMode, mv_pu (By, Bx, 2, 2)
+    int32 quarter-pel [PU0, PU1], cost (By, Bx) float32)."""
+    s = plan.cu_size
+    sub = 8 if amp else s // 2
+    g = s // sub
+    by, bx = plan.blocks_y, plan.blocks_x
+    n = by * bx
+    r = me_range
+    d = 2 * r + 1
+    dev = cur.device
+    lam = _f32(lambda_satd)
+    cur = cur.to(torch.int32)
+    ref = ref.to(torch.int32)
+    q = sad_surfaces(cur, ref, r, sub, bitdepth).reshape(by, g, bx, g, d, d)
+
+    def agg(axis, lo, hi):
+        sl = q[:, lo:hi] if axis == "r" else q[:, :, :, lo:hi]
+        return sl.sum(dim=(1, 3), dtype=torch.int32)
+
+    h = g // 2
+    qt = max(g // 4, 1)
+    spans = {"full": ("r", 0, g), "top": ("r", 0, h),
+             "bottom": ("r", h, g), "left": ("c", 0, h),
+             "right": ("c", h, g)}
+    pu_of_part = {1: ("top", "bottom"), 2: ("left", "right")}
+    with_amp = amp and g >= 4
+    if with_amp:
+        spans.update({
+            "u0": ("r", 0, qt), "u1": ("r", qt, g),
+            "d0": ("r", 0, g - qt), "d1": ("r", g - qt, g),
+            "l0": ("c", 0, qt), "l1": ("c", qt, g),
+            "r0": ("c", 0, g - qt), "r1": ("c", g - qt, g)})
+        pu_of_part.update({4: ("u0", "u1"), 5: ("d0", "d1"),
+                           6: ("l0", "l1"), 7: ("r0", "r1")})
+    surf = {k: agg(*v) for k, v in spans.items()}
+
+    # The full shape's pass-1 predictor is the rate reference of every
+    # shape.
+    pred = _pass1_pred(surf["full"].reshape(n, -1), by, bx, r)
+    bits_grid = _surface_bits(pred, r)
+
+    def int_cost(sads):
+        return sads.reshape(n, d * d).to(torch.float32) + bits_grid * lam
+
+    mv_int = {k: _surface_mv(torch.argmin(int_cost(v), dim=-1), r)
+              for k, v in surf.items()}
+
+    # Sub-blocks in raster order over the sub-block grid.
+    sby, sbx = by * g, bx * g
+    qys, qxs = np.mgrid[0:sby, 0:sbx]
+    qx0 = torch.from_numpy((qxs * sub).reshape(-1)).to(dev)
+    qy0 = torch.from_numpy((qys * sub).reshape(-1)).to(dev)
+    cq = cur.reshape(sby, sub, sbx, sub).permute(0, 2, 1, 3).reshape(
+        sby * sbx, sub, sub)
+    byi, bxi = np.mgrid[0:by, 0:bx]
+
+    def shape_sub_ids(name):
+        axis, lo, hi = spans[name]
+        rows = range(lo, hi) if axis == "r" else range(g)
+        cols = range(g) if axis == "r" else range(lo, hi)
+        ids = [((byi * g + rr) * sbx + bxi * g + cc)
+               for rr in rows for cc in cols]
+        return np.stack([a.reshape(-1) for a in ids], axis=-1)
+
+    def refine_shape(name):
+        mvc = mv_int[name]
+        sub_ids = shape_sub_ids(name)
+        k = sub_ids.shape[1]
+        qi = torch.from_numpy(sub_ids.reshape(-1)).to(dev)
+        satd = refine_qpel_dense(cq[qi], ref, qx0[qi], qy0[qi],
+                                 torch.repeat_interleave(mvc, k, dim=0),
+                                 sub, bitdepth)
+        return _qpel_pick(satd.reshape(n, k, 49).sum(dim=1,
+                                                     dtype=torch.int32),
+                          mvc, pred, lam)
+
+    if subpel:
+        res = {name: refine_shape(name) for name in surf}
+    else:
+        res = {name: (mv_int[name], torch.min(int_cost(surf[name]),
+                                              dim=-1).values)
+               for name in surf}
+
+    # Partition decision: a non-square partition pays its extra
+    # part_mode bins and second merge flag (its mv rate is in its PUs'
+    # costs).  The extra is the Python product rounded once, as JAX adds
+    # a constant.
+    parts = [0, 1, 2] + ([4, 5, 6, 7] if with_amp else [])
+    costs = [res["full"][1]]
+    for p_ in parts[1:]:
+        a, b = pu_of_part[p_]
+        extra = _f32(lambda_satd * (3.0 if p_ in (1, 2) else 4.0))
+        costs.append(res[a][1] + res[b][1] + extra)
+    costs = torch.stack(costs)                      # (P, N)
+    sel = torch.argmin(costs, dim=0)
+    best = torch.min(costs, dim=0).values
+    part = torch.tensor(parts, dtype=torch.int32, device=dev)[sel]
+    mv0 = res["full"][0]
+    mv1_ = res["full"][0]
+    for i, p_ in enumerate(parts[1:], start=1):
+        a, b = pu_of_part[p_]
+        m = (sel == i)[:, None]
+        mv0 = torch.where(m, res[a][0], mv0)
+        mv1_ = torch.where(m, res[b][0], mv1_)
+    mv_pu = torch.stack([mv0, mv1_], dim=1).reshape(by, bx, 2, 2)
+    return (part.reshape(by, bx), mv_pu.to(torch.int32),
+            best.reshape(by, bx))
 
 
 def _blocks_to_plane(blocks, by: int, bx: int, size: int):

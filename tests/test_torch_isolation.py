@@ -10,7 +10,8 @@
   with implicit RDPCM and lossless IPPP, Config()'s IPPP on a 2x1
   tile grid with WPP, the intra-NxN point (cu 4) with transform skip and
   --tr-depth-intra on a variable intra tree, a custom-cqm scaling-list
-  stream) never imports jax
+  stream, SMP/AMP IPPP and TMVP, whose collocated motion comes from
+  bitstream/decoder.py's copy of _motion_of) never imports jax
   or any kvazaar_tpu module (checked in a fresh interpreter), and no
   source of the port or chip_smoke.py imports kvazaar_tpu (checked on
   the syntax tree);
@@ -147,6 +148,15 @@ with tempfile.TemporaryDirectory() as tmp:
     out = list(enc.encode_stream(frames))
 assert [o[1].slice_type for o in out] == [2, 1, 1]
 assert enc._intra.params.scaling_list_mode == 1
+# SMP/AMP partitions on cu 32 IPPP, and TMVP (the collocated motion from
+# the port's copy of the JAX decoder's _motion_of).
+for kw in (dict(smp=True, amp=True), dict(tmvp=True)):
+    enc = Encoder(Config(width=48, height=32, qp=27, intra_period=0, **kw),
+                  device="cpu")
+    out = list(enc.encode_stream(frames))
+    assert [o[1].slice_type for o in out] == [2, 1, 1]
+assert "kvazaar_tpu_torch.bitstream.decoder" in sys.modules
+assert enc._motion_ld[2]["poc"] == 2
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kvazaar_tpu"))
 assert not leaked, leaked

@@ -21,8 +21,7 @@ backend, jitted) with tolerance 0:
   every IRAP, a frame size that is not a multiple of the CU, 4:0:0, WPP
   off), and the CLI with no structure flags (the ultrafast preset);
 - the gates: the low-delay presets' defaults, Config() and 3 references
-  pass them; B frames, variable trees on B frames and TMVP still
-  raise.
+  pass them, and TMVP on them; selective encryption still raises.
 
 Each JAX reference stream is encoded once per process (cached) and only
 by the tests that compare against it (the others take the port's
@@ -127,6 +126,36 @@ def _port_stream(base, option=None):
         port_cfg
 
 
+# The JAX Encoder of each base stream that ran in this process, and the
+# options that change host-side fields only (the hash SEI, AUD, VPS and
+# IDR periods, WPP): their frame encoders can run the base's compiled I
+# and P programs of the same QP.
+_JAX_BASE_ENCODERS = {}
+_HOST_SIDE_OPTIONS = ("md5", "aud-vps1-period2", "no-wpp")
+
+
+def _share_programs(jax_enc, donor):
+    """Point jax_enc's frame encoders (one per QP, made at first use) at
+    donor's compiled I and P programs of the same QP (a wrong share
+    would show as a byte mismatch)."""
+    def link(enc, qp):
+        if qp in donor._encoders:
+            enc._device_encode_batch = donor._encoders[qp]._device_encode_batch
+            enc._p_fused_cache = donor._encoders[qp]._p_fused_cache
+
+    link(jax_enc._intra, jax_enc.cfg.qp)
+    make = jax_enc._encoder_for_qp
+
+    def encoder_for_qp(qp):
+        fresh = qp not in jax_enc._encoders
+        enc = make(qp)
+        if fresh:
+            link(enc, qp)
+        return enc
+
+    jax_enc._encoder_for_qp = encoder_for_qp
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_stream(base, option=None):
     """The JAX Encoder's results of one case (the expensive part: its
@@ -136,6 +165,10 @@ def _jax_stream(base, option=None):
     jax_enc = JaxEncoder(jax_cfg)
     if jax_cfg.sao:
         share_sao_program(jax_enc._intra)
+    if option is None:
+        _JAX_BASE_ENCODERS[base] = jax_enc
+    elif option in _HOST_SIDE_OPTIONS and base in _JAX_BASE_ENCODERS:
+        _share_programs(jax_enc, _JAX_BASE_ENCODERS[base])
     return _encode(jax_enc, _frames(base, changes))
 
 
@@ -202,7 +235,8 @@ def test_multiref_p_decision_matches_jax():
     src = [torch.from_numpy(p.astype(np.int32)) for p in frames[2]]
     got = port._p_from_planes(*src, [tuple(torch.from_numpy(p) for p in r)
                                      for r in refs])
-    g_modes, g_inter, g_ref, g_mv, g_lv, g_recs, g_sses = got
+    g_modes, g_inter, g_ref, g_mv, g_lv, g_recs, g_sses, _part, _mv_pu = \
+        got
     assert 0 < ref_sel.sum() < inter_map.sum()   # both references used
     _eq(g_modes, modes, "modes")
     _eq(g_inter, inter_map, "inter map")
@@ -354,17 +388,18 @@ def test_low_delay_defaults_pass_the_gates(name):
                  id="medium-GOP structures"),
     pytest.param("ultrafast --gop 0", "selective encryption",
                  id="ultrafast --gop 0-variable P/B CU trees"),
-    ("tmvp", "TMVP")])
+    pytest.param("tmvp", "selective encryption", id="tmvp-TMVP")])
 def test_what_stays_unported_raises(name, match):
     """On the B pyramids that are ported (the medium default; the
-    ultrafast preset's trees with --gop 0 and a GOP of 8), selective
-    encryption still raises, and so does TMVP on a low-delay stream."""
+    ultrafast preset's trees with --gop 0 and a GOP of 8) and on the
+    ultrafast default with TMVP (ported), selective encryption still
+    raises."""
     if name == "medium":
         cfg = config_from_preset("medium", width=64, height=64,
                                  crypto="k")
     elif name == "tmvp":
         cfg = config_from_preset("ultrafast", width=64, height=64,
-                                 tmvp=True)
+                                 tmvp=True, crypto="k")
     else:
         cfg = config_from_preset("ultrafast", width=64, height=64,
                                  lp_gop=None, gop_len=8, intra_period=0,

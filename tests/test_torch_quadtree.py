@@ -18,8 +18,8 @@ backend, jitted) on the same seeded frames, every comparison exact
   RDOQ, sign hiding, SAO) presets at 96x96 QP22, and the JAX oracle
   decoder turning each port stream into the port's recon (post-SAO);
 - ``Encoder.encode_stream`` == ``encode`` and the CLI on a var config;
-  field sources, selective encryption (also at cu 4) and TMVP still
-  raise.
+  field sources and selective encryption (also at cu 4, and with TMVP)
+  still raise.
 
 Each JAX reference encoder is built and run once per case (cached), so
 each config compiles once; the SAO cases share one compiled JAX SAO
@@ -307,7 +307,8 @@ def test_cli_medium_all_intra(tmp_path):
     pytest.param(dict(intra_min_cu=4, intra_max_cu=4, rdoq=False,
                       crypto="k"), "selective encryption",
                  id="change3-fixed CU size 4"),
-    (dict(intra_period=0, tmvp=True), "TMVP")])
+    pytest.param(dict(intra_period=0, tmvp=True, crypto="k"),
+                 "selective encryption", id="change4-TMVP")])
 def test_unported_var_options_raise(change, match):
     kw = _kw("8-32")
     kw.update(change)

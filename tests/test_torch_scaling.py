@@ -402,7 +402,7 @@ def test_default_lists_intra_cu16_stream():
     stream."""
     kw = dict(width=64, height=64, qp=22, intra_min_cu=16, intra_max_cu=16,
               intra_period=1)
-    frames = _clip(2, 64, 64, seed=21)
+    frames = _clip(1, 64, 64, seed=21)
     enc, got = _stream(*_both(scaling_list="default", **kw), frames)
     assert enc._intra._native_cabac()
     flat = list(Encoder(Config(**kw), device="cpu").encode_stream(frames))
@@ -414,7 +414,7 @@ def test_custom_cqm_cu8_qp37_stream(cqm):
     TBs dequantize through the clip-then-shift branch."""
     _stream(*_both(width=64, height=48, qp=37, intra_min_cu=8,
                    intra_max_cu=8, intra_period=1, cqmfile=cqm),
-            _clip(2, 64, 48, seed=22))
+            _clip(1, 64, 48, seed=22))
 
 
 def test_default_lists_config_ippp_stream():
@@ -429,7 +429,7 @@ def test_custom_cqm_rdoq_signhide_cu16_stream(cqm):
     (the TQ SL instances)."""
     _stream(*_both(width=64, height=64, qp=27, intra_min_cu=16,
                    intra_max_cu=16, intra_period=0, rdoq=True,
-                   signhide=True, cqmfile=cqm), _clip(3, 64, 64, seed=24))
+                   signhide=True, cqmfile=cqm), _clip(2, 64, 64, seed=24))
 
 
 def test_medium_all_intra_default_lists_stream():
@@ -454,7 +454,7 @@ def test_medium_ippp_custom_cqm_var_p_stream(cqm):
     the SAO program)."""
     _stream(*_both("medium", width=64, height=64, qp=27, intra_period=0,
                    gop_len=0, lp_gop=None, ref_frames=1, sao=False,
-                   cqmfile=cqm), _clip(3, 64, 64, seed=26))
+                   cqmfile=cqm), _clip(2, 64, 64, seed=26))
 
 
 def test_tenbit_custom_cqm_cu16_stream(cqm):
@@ -475,7 +475,7 @@ def test_nxn_custom_cqm_rdoq_stream(cqm_nxn):
     cqm = cqm_nxn
     _stream(*_both(width=64, height=48, qp=30, intra_min_cu=4,
                    intra_max_cu=4, intra_period=1, rdoq=True, cqmfile=cqm),
-            _clip(2, 64, 48, seed=28))
+            _clip(1, 64, 48, seed=28))
 
 
 def test_tiles_default_lists_ippp_stream():

@@ -9,10 +9,11 @@ reconstruction.  One case also runs the public Encoder.encode_stream.
 
 ``oracle_decode`` (shared by the port's stream tests) runs the JAX
 oracle decoder with its tensor stages (reconstruction, motion
-compensation, bi-prediction, boundary strengths, deblocking, SAO) each
-jitted whole: the same integer functions, compiled once per shape
-instead of one XLA compile per primitive call, which made the decode of
-three 64x48 P frames take about 22 s.
+compensation per block and per 8x8 cell, bi-prediction, boundary
+strengths, deblocking, SAO) each jitted whole: the same integer
+functions, compiled once per shape instead of one XLA compile per
+primitive call, which made the decode of three 64x48 P frames take
+about 22 s (and the cell MC of two variable-tree P frames about 9 s).
 """
 
 import contextlib
@@ -113,9 +114,14 @@ def _jit_whole(fn):
 _ORACLE_STAGES = (("kvazaar_tpu.ops.deblock", "deblock_frame"),
                   ("kvazaar_tpu.encoder.inter_search", "mc_planes"),
                   ("kvazaar_tpu.encoder.inter_search", "bi_mc_planes"),
+                  ("kvazaar_tpu.encoder.inter_search", "mc_planes_cells"),
+                  ("kvazaar_tpu.encoder.inter_search",
+                   "bi_mc_planes_cells"),
                   ("kvazaar_tpu.encoder.frame_encoder", "compute_bs_maps"),
                   ("kvazaar_tpu.encoder.frame_encoder",
                    "compute_bs_maps_b"),
+                  ("kvazaar_tpu.encoder.frame_encoder",
+                   "compute_bs_maps_smp"),
                   ("kvazaar_tpu.ops.sao", "apply_sao_plane"),
                   ("kvazaar_tpu.bitstream.decoder", "_decode_recon_impl"))
 _JITTED = {}
@@ -208,7 +214,7 @@ def test_encode_stream_matches_frame_encoder(name):
 
 
 @pytest.mark.parametrize("change", [
-    dict(tmvp=True, intra_period=0),
+    dict(tmvp=True, intra_period=0, crypto="k"),
     dict(gop_len=8, intra_period=0, crypto="k"),
     dict(intra_min_cu=8, intra_period=0, crypto="k"),
     dict(inter_min_cu=8, intra_period=0, gop_len=8, crypto="k"),
@@ -225,15 +231,17 @@ def test_unported_configs_raise(change):
 def test_unported_structures_raise():
     """Low-delay P frames and B pyramids are ported (one or more
     references on the fixed grid, variable trees with one per list), and
-    so are tiles and slices, and scaling lists; selective encryption on
-    a B pyramid (fixed grid) and on one of variable trees, SMP, TMVP and
-    selective encryption still raise."""
+    so are tiles and slices, scaling lists, SMP and TMVP; selective
+    encryption on a B pyramid (fixed grid), on one of variable trees,
+    with SMP, with TMVP and on IPPP still raises."""
     for change, match in ((dict(gop_len=8, crypto="k"),
                            "selective encryption"),
                           (dict(intra_min_cu=8, inter_min_cu=8, gop_len=8,
                                 crypto="k"), "selective encryption"),
-                          (dict(smp=True), "SMP"),
-                          (dict(tmvp=True), "TMVP"),
+                          (dict(smp=True, crypto="k"),
+                           "selective encryption"),
+                          (dict(tmvp=True, crypto="k"),
+                           "selective encryption"),
                           (dict(crypto="k"), "selective encryption")):
         cfg = _cfg(64, 48, 16, 22)
         cfg.intra_period = 0

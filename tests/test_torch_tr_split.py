@@ -60,7 +60,7 @@ def _streams(name):
     """(frames, port Encoder, its results, JAX Encoder, its results,
     decoded FrameData) of one stream case, shared by its tests."""
     if name == "t1":
-        frames = _clip(2, 128, 64)
+        frames = _clip(1, 128, 64)
         cfg, jcfg = Config(**T1), JaxConfig(**T1)
     elif name == "t2":
         w, h = 96, 64
@@ -81,7 +81,7 @@ def _streams(name):
         cfg, jcfg = config_from_preset("medium", **kw), jax_preset("medium",
                                                                   **kw)
     else:
-        frames = _clip(5, 96, 96, seed=5)
+        frames = _clip(3, 96, 96, seed=5)
         kw = dict(width=96, height=96, qp=27, tr_depth_intra=1)
         cfg, jcfg = config_from_preset("faster", **kw), jax_preset("faster",
                                                                   **kw)
@@ -159,8 +159,8 @@ def test_tr_split_medium_rd3_stream():
 def test_tr_split_low_delay_gop_stream():
     """(t4) ``--preset faster --tr-depth-intra 1`` at its default
     low-delay GOP (lp-g4d4t1): a variable-tree IDR (8..16, SAO) whose 16
-    CUs may split, then fixed-grid P frames at a QP per position, every
-    slice through the Python serializer."""
+    CUs may split, then two fixed-grid P frames at the QPs of their
+    positions, every slice through the Python serializer."""
     _frames, enc, got, _jenc, want, _fds = _streams("t4")
     assert enc.cfg.lp_gop == (4, 4, 1)
     _same_streams(got, want)

@@ -560,9 +560,11 @@ def test_one_reference_var_p_passes_the_gates(name):
     (dict(gop_len=8, crypto="k"), "selective encryption"),
     pytest.param(dict(gop_len=4, crypto="k"), "selective encryption",
                  id="change1-tr-depth-intra"),
-    (dict(tmvp=True), "TMVP"),
-    (dict(smp=True, intra_min_cu=16, intra_max_cu=16, inter_min_cu=16,
-          inter_max_cu=16), "SMP"),
+    pytest.param(dict(tmvp=True, crypto="k"), "selective encryption",
+                 id="change2-TMVP"),
+    pytest.param(dict(smp=True, intra_min_cu=16, intra_max_cu=16,
+                      inter_min_cu=16, inter_max_cu=16, crypto="k"),
+                 "selective encryption", id="change3-SMP"),
     (dict(crypto="k"), "selective encryption")])
 def test_what_stays_unported_raises(change, match):
     cfg = Config(width=64, height=64, intra_min_cu=8, intra_max_cu=32,
@@ -571,6 +573,6 @@ def test_what_stays_unported_raises(change, match):
         setattr(cfg, k, v)
     with pytest.raises(NotImplementedError, match=match):
         Encoder(cfg, device="cpu")
-    if "gop_len" in change:         # the B pyramid itself is ported
+    if {"gop_len", "tmvp", "smp"} & set(change):   # itself ported
         cfg.crypto = None
         assert tfe.unsupported(cfg) == _unsupported_structure(cfg) == []
